@@ -1,0 +1,199 @@
+"""Weight bridge between the JAX package's flax parameter trees and the
+port's ``state_dict``.
+
+The port names its modules after the flax scopes, so a flax leaf path
+``backbone/body/layer1/block0/conv1/kernel`` maps to the port key
+``backbone.body.layer1.block0.conv1.weight``.  The leaf name and the type
+of the owning port module decide the layout change:
+
+* ``Conv`` kernel ``[kh, kw, in, out]`` -> ``Conv2d`` weight
+  ``[out, in, kh, kw]``;
+* ``ConvTranspose`` kernel ``[kh, kw, in, out]`` -> ``ConvTranspose2d``
+  weight ``[in, out, kh, kw]`` with both spatial axes flipped (torch's
+  transposed conv is the gradient of conv, flax reads the kernel
+  unflipped; the JAX checkpoint importer documents the same flip);
+* ``Dense`` kernel ``[in, out]`` -> ``Linear`` weight ``[out, in]``;
+* ``frozen_bn_{weight,bias,mean,var}`` -> the ``FrozenBatchNorm``
+  buffers ``weight``, ``bias``, ``running_mean``, ``running_var``;
+* anything else (``bias``, ``word_embeddings``, ``lambda_exemplar``)
+  as it is.
+
+Every flax leaf lands on exactly one port key and every port key is
+filled; an unmatched leaf, a missing key or a wrong shape raises.
+"""
+
+from typing import Any, Dict, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from .models.resnet import FrozenBatchNorm
+
+_BN_LEAVES = {
+    "frozen_bn_weight": "weight",
+    "frozen_bn_bias": "bias",
+    "frozen_bn_mean": "running_mean",
+    "frozen_bn_var": "running_var",
+}
+
+
+def _flatten(tree, path=()) -> Dict[Tuple[str, ...], Any]:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flatten(v, path + (k,)))
+        else:
+            out[path + (k,)] = v
+    return out
+
+
+def _unwrap(tree):
+    if set(tree) == {"params"}:
+        return tree["params"]
+    return tree
+
+
+def _port_key(modules: Dict[str, nn.Module], path: Tuple[str, ...]):
+    """(port key, layout change) for one flax leaf."""
+    owner_name = ".".join(path[:-1])
+    if owner_name not in modules:
+        raise KeyError(f"flax leaf {'/'.join(path)} has no port module {owner_name!r}")
+    owner = modules[owner_name]
+    leaf = path[-1]
+    prefix = owner_name + "." if owner_name else ""
+    if isinstance(owner, FrozenBatchNorm):
+        if leaf not in _BN_LEAVES:
+            raise KeyError(f"flax leaf {'/'.join(path)} is not a frozen-BN leaf")
+        return prefix + _BN_LEAVES[leaf], "plain"
+    if leaf == "kernel":
+        if isinstance(owner, nn.ConvTranspose2d):
+            return prefix + "weight", "conv_transpose"
+        if isinstance(owner, nn.Conv2d):
+            return prefix + "weight", "conv"
+        if isinstance(owner, nn.Linear):
+            return prefix + "weight", "dense"
+        raise KeyError(f"flax kernel {'/'.join(path)} on a {type(owner).__name__}")
+    return prefix + leaf, "plain"
+
+
+def _to_port(value: np.ndarray, kind: str) -> np.ndarray:
+    if kind == "conv":
+        return value.transpose(3, 2, 0, 1)
+    if kind == "conv_transpose":
+        return value.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
+    if kind == "dense":
+        return value.T
+    return value
+
+
+def _to_flax(value: np.ndarray, kind: str) -> np.ndarray:
+    if kind == "conv":
+        return value.transpose(2, 3, 1, 0)
+    if kind == "conv_transpose":
+        return value[:, :, ::-1, ::-1].transpose(2, 3, 0, 1)
+    if kind == "dense":
+        return value.T
+    return value
+
+
+def state_dict_from_flax(model: nn.Module, tree) -> Dict[str, torch.Tensor]:
+    """The port ``state_dict`` of a flax param tree (nested dict of
+    arrays, optionally under a top-level ``"params"`` key)."""
+    modules = dict(model.named_modules())
+    expected = model.state_dict()
+    out: Dict[str, torch.Tensor] = {}
+    for path, value in _flatten(_unwrap(tree)).items():
+        key, kind = _port_key(modules, path)
+        if key not in expected:
+            raise KeyError(f"flax leaf {'/'.join(path)} maps to unknown port key {key}")
+        if key in out:
+            raise KeyError(f"two flax leaves map to port key {key}")
+        arr = np.array(_to_port(np.asarray(value), kind), order="C")  # a writable copy
+        if tuple(arr.shape) != tuple(expected[key].shape):
+            raise ValueError(
+                f"{'/'.join(path)} {tuple(np.shape(value))} -> {key} {arr.shape}, "
+                f"port expects {tuple(expected[key].shape)}"
+            )
+        out[key] = torch.from_numpy(arr).to(expected[key].dtype)
+    missing = sorted(set(expected) - set(out))
+    if missing:
+        raise KeyError(f"flax tree leaves {len(missing)} port keys unset: {missing[:5]}")
+    return out
+
+
+def load_flax_params(model: nn.Module, tree) -> None:
+    """Loads a flax param tree into ``model`` (strict both ways)."""
+    model.load_state_dict(state_dict_from_flax(model, tree), strict=True)
+
+
+def flax_from_state_dict(model: nn.Module) -> Dict[str, Any]:
+    """The inverse of :func:`state_dict_from_flax`: ``model``'s
+    weights as a nested dict of float32 numpy arrays in the flax
+    layout."""
+    modules = dict(model.named_modules())
+    tree: Dict[str, Any] = {}
+    for key, value in model.state_dict().items():
+        owner_name, _, leaf = key.rpartition(".")
+        owner = modules[owner_name]
+        if isinstance(owner, FrozenBatchNorm):
+            flax_leaf = {v: k for k, v in _BN_LEAVES.items()}[leaf]
+        elif leaf == "weight" and isinstance(owner, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+            flax_leaf = "kernel"
+        else:
+            flax_leaf = leaf
+        path = tuple(owner_name.split(".")) + (flax_leaf,) if owner_name else (flax_leaf,)
+        _, kind = _port_key(modules, path)
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = np.ascontiguousarray(_to_flax(value.detach().cpu().numpy(), kind))
+    return tree
+
+
+def seeded_flax_params(model: nn.Module, seed: int, emb_pred_std: float = 0.01):
+    """A flax-layout param tree for ``model`` drawn with numpy from
+    ``seed`` (no pretrained weights ship with the repo).  Convs draw
+    He-normal kernels, heads the JAX initializers' scales (RPN 0.01, box
+    regression 0.001, ``emb_pred`` ``emb_pred_std``; the stem 1/64 of
+    He, as pixels enter at O(100)), frozen BN a near-identity affine,
+    biases small noise."""
+    rng = np.random.default_rng(seed)
+    tree = flax_from_state_dict(model)
+
+    def draw(path, shape):
+        leaf = path[-1]
+        name = "/".join(path)
+        if leaf == "kernel":
+            if "rpn_head" in path:
+                std = 0.01
+            elif "bbox_pred" in path:
+                std = 0.001
+            elif "emb_pred" in path:
+                std = emb_pred_std
+            else:
+                std = float(np.sqrt(2.0 / np.prod(shape[:-1])))
+                if "stem" in path:
+                    # pixels enter at O(100): keep the trunk's
+                    # activations O(1)
+                    std /= 64.0
+            return rng.standard_normal(shape, np.float32) * np.float32(std)
+        if leaf == "frozen_bn_weight":
+            return rng.uniform(0.5, 1.0, shape).astype(np.float32)
+        if leaf == "frozen_bn_var":
+            return rng.uniform(0.5, 1.5, shape).astype(np.float32)
+        if leaf in ("frozen_bn_bias", "frozen_bn_mean", "bias"):
+            return rng.standard_normal(shape, np.float32) * np.float32(0.1)
+        if leaf == "word_embeddings":
+            return rng.standard_normal(shape, np.float32) * np.float32(0.02)
+        if leaf == "lambda_exemplar":
+            return np.zeros(shape, np.float32)
+        raise KeyError(f"no draw rule for {name}")
+
+    def walk(node, path):
+        return {
+            k: walk(v, path + (k,)) if isinstance(v, dict) else draw(path + (k,), v.shape)
+            for k, v in node.items()
+        }
+
+    return walk(tree, ())

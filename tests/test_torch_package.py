@@ -1,0 +1,62 @@
+"""The port stands alone: it imports neither jax/flax nor the JAX
+package, and its kernel wrappers know how they were built."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import cvpr22_cross_modal_pseudo_labeling_torch as port
+from cvpr22_cross_modal_pseudo_labeling_torch.ops import kernels
+
+ROOT = pathlib.Path(port.__file__).resolve().parent
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "cvpr22_cross_modal_pseudo_labeling_tpu")
+
+
+def _modules():
+    for path in sorted(ROOT.rglob("*.py")):
+        rel = path.relative_to(ROOT.parent).with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        yield path, ".".join(parts)
+
+
+def test_sources_import_nothing_of_jax_or_the_jax_package():
+    for path, _ in _modules():
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                assert name.split(".")[0] not in FORBIDDEN, f"{path}: imports {name}"
+
+
+def test_every_module_imports_with_jax_blocked():
+    mods = [m for _, m in _modules()]
+    code = (
+        "import sys\n"
+        f"for name in {FORBIDDEN!r}:\n"
+        "    sys.modules[name] = None\n"
+        "import importlib\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print('ok', len(sys.modules))\n"
+    )
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT.parent, capture_output=True, text=True,
+        timeout=300,
+    )
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.startswith("ok")
+
+
+def test_each_kernel_has_its_source_and_a_launch_counter():
+    for k in kernels.ALL:
+        text = k.source.read_text()
+        assert "Replaces:" in text and "bounds it on the H100" in text
+        for fn in k.entry_points:
+            assert f'extern "C" int {fn}(' in text
+        assert k.launches >= 0 and k.library_path().name.startswith(f"lib{k.name}-")
+    assert "-gencode" in kernels.NVCC_FLAGS and "arch=compute_90a,code=sm_90a" in kernels.NVCC_FLAGS
