@@ -44,19 +44,21 @@ class RoIHeadsBundle(nn.Module):
             )
 
     def extract(self, feats, boxes):
-        """Pools ``[B, S, 4]`` boxes (features cast to float32 first, as
-        in the JAX bundle) and runs the C5 extractor.  Returns
-        ``[B*S, 7, 7, 2048]`` in the compute dtype."""
+        """Pools ``[B, S, 4]`` boxes and runs the C5 extractor.  Returns
+        ``[B*S, 7, 7, 2048]`` in the compute dtype.  The pooler reads the
+        compute-dtype features and writes their dtype with float32
+        arithmetic in between, which is the JAX bundle's float32 pooling
+        followed by its cast, without the two casting passes."""
         s = self.statics
         pooled = pool_rois(
-            [f.to(torch.float32) for f in feats],
+            feats,
             boxes,
             (s.pooler_resolution, s.pooler_resolution),
             s.pooler_scales,
             s.pooler_sampling_ratio,
             bin_stride=2 if s.pool_prestride else 1,
         )
-        return self.roi_extractor(pooled.to(compute_dtype(s)))
+        return self.roi_extractor(pooled)
 
     def box_outputs(self, x, class_embeddings):
         return self.box_predictor(x.mean(dim=(1, 2)), class_embeddings)

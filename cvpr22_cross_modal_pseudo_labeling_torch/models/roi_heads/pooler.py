@@ -22,7 +22,9 @@ def pool_rois(
     bin_stride: int = 1,
 ) -> torch.Tensor:
     """Pools ``[B, S, 4]`` boxes from one ``[B, H, W, C]`` level.
-    Returns ``[B*S, P', Q', C]`` with ``P' = ceil(P / bin_stride)``."""
+    Returns ``[B*S, P', Q', C]`` in the features' dtype with ``P' =
+    ceil(P / bin_stride)``; the arithmetic is float32 whatever the
+    dtype."""
     if len(features) != 1:
         raise NotImplementedError("multi-level (FPN) pooling is not ported yet")
     out = roi_align(

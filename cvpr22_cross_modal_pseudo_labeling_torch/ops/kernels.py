@@ -20,7 +20,7 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Callable, Dict, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
@@ -28,7 +28,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 
@@ -97,7 +97,24 @@ class Kernel:
             )
         # atomic publish: a concurrent builder of the same source wins
         # or loses the race with an identical file
+        self.log_path().write_text(log)
         os.replace(tmp, self.library_path())
+
+    def log_path(self) -> Path:
+        return self.library_path().with_suffix(".log")
+
+    def resource_usage(self) -> List[str]:
+        """What ``ptxas -v`` said of each kernel of the library: the
+        entry, its registers, shared memory and spills (empty when the
+        library was built without its log)."""
+        path = self.log_path()
+        if not path.exists():
+            return []
+        keys = ("Compiling entry", "registers", "spill")
+        return [
+            " ".join(line.split()) for line in path.read_text().splitlines()
+            if any(k in line for k in keys)
+        ]
 
     def lib(self):
         with self._lock:
@@ -124,24 +141,28 @@ class Kernel:
 
 VP = ctypes.c_void_p
 I32 = ctypes.c_int
+I64 = ctypes.c_longlong
 F32 = ctypes.c_float
 
 NMS = Kernel(
     "nms",
     {
-        # boxes, valid, labels, keep_pos, keep_count, mask,
-        # B, N, max_outputs, iou_threshold, stream
-        "nms_forward": (VP, VP, VP, VP, VP, VP, I32, I32, I32, F32, VP),
+        # boxes, valid, labels, label_bytes, order, scratch, scratch_words,
+        # stop_hint, out_idx, out_valid, B, N, max_outputs, iou_threshold,
+        # stream
+        "nms_forward": (
+            VP, VP, VP, I32, VP, VP, I64, VP, VP, VP, I32, I32, I32, F32, VP,
+        ),
     },
 )
 ROI_ALIGN = Kernel(
     "roi_align",
     {
         # features, rois, out, B, H, W, C, S, P, Q, spatial_scale,
-        # sampling_ratio, max_samples, bin_stride, stream
+        # sampling_ratio, max_samples, bin_stride, bf16, stream
         "roi_align_forward": (
             VP, VP, VP, I32, I32, I32, I32, I32, I32, I32, F32,
-            I32, I32, I32, VP,
+            I32, I32, I32, I32, VP,
         ),
     },
 )

@@ -14,16 +14,20 @@ share one contract:
   order plus a valid mask; padded slots hold index 0, also when
   ``max_outputs`` exceeds the number of boxes.
 
-The sort and the final gather stay torch ops around the kernel, as XLA
-ops sit around the Pallas call.  The kept set itself comes from
-``csrc/nms.cu`` for CUDA tensors and from :func:`_keep_plain` (the JAX
-package's tiled fixpoint formulation) for CPU tensors.
+The sort stays a torch op before the kernel, as XLA sorts around the
+Pallas call.  For CUDA tensors ``csrc/nms.cu`` takes the sort's indices,
+reads the boxes, labels and validity through them, and writes the final
+indices and valid mask itself: nothing is gathered or copied between the
+sort and the kernel, nor after it.  CPU tensors run :func:`nms_plain`:
+the sorted gathers, :func:`_keep_plain` (the JAX package's tiled
+fixpoint formulation) and the final gather.
 
 Every function takes an optional leading batch axis: ``boxes [B, N, 4]``
 runs B independent NMS problems (one kernel launch for all of them).
 """
 
-from typing import Optional, Tuple
+import threading
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -31,6 +35,21 @@ from ..core.boxes import box_iou
 from . import kernels
 
 _PLAIN_TILE = 256
+# (device index, N, max_outputs) -> pinned int32: how many 64-box column
+# blocks the last finished kernel call of that shape needed (csrc/nms.cu
+# sizes its first band from it and copies it back asynchronously, so a
+# word is kept for the life of the process).  It sets the band schedule,
+# never a result.
+_STOP_HINTS: Dict[Tuple[int, int, int], torch.Tensor] = {}
+_STOP_HINTS_LOCK = threading.Lock()
+
+
+def _stop_hint(device: torch.device, n: int, max_outputs: int) -> torch.Tensor:
+    with _STOP_HINTS_LOCK:
+        shape = (device.index, n, max_outputs)
+        if shape not in _STOP_HINTS:
+            _STOP_HINTS[shape] = torch.zeros((1,), dtype=torch.int32, pin_memory=True)
+        return _STOP_HINTS[shape]
 
 
 def _sorted_inputs(boxes, scores, valid, labels):
@@ -82,52 +101,40 @@ def _keep_plain(sboxes, svalid, slabels, iou_threshold, max_outputs):
     return keep_pos, count
 
 
-def _keep_cuda(sboxes, svalid, slabels, iou_threshold, max_outputs):
-    """The same kept positions and count from ``csrc/nms.cu``."""
-    b, n, _ = sboxes.shape
+def _nms_cuda(boxes, scores, valid, iou_threshold, max_outputs, labels):
+    """Indices and valid mask ``[B, max_outputs]`` from ``csrc/nms.cu``:
+    the key, the sort, and one call that launches the mask and the scan
+    kernels.  Takes contiguous float32 boxes (16-byte aligned) and
+    scores, bool valid and int32 or int64 labels (or None)."""
+    b, n, _ = boxes.shape
     if n < 1 or max_outputs < 1:
         raise ValueError(f"nms kernel needs N >= 1 and max_outputs >= 1, got {n}, {max_outputs}")
-    # the scan keeps one removed-word per 64 boxes in 48 KB of shared memory
-    if n > 64 * 6144:
-        raise ValueError(f"nms kernel takes at most {64 * 6144} boxes, got {n}")
-    col_blocks = (n + 63) // 64
-    dev = sboxes.device
-    boxes = sboxes.to(torch.float32).contiguous()
-    valid = svalid.to(torch.uint8).contiguous()
-    labels = slabels.to(torch.int32).contiguous()
-    mask = torch.empty((b, n, col_blocks), dtype=torch.int64, device=dev)
-    keep_pos = torch.empty((b, max_outputs), dtype=torch.int32, device=dev)
-    count = torch.empty((b,), dtype=torch.int32, device=dev)
+    # the scan lists the kept positions in shared memory
+    if n > 64 * 6144 or b > 65535 or min(n, max_outputs) > 49152:
+        raise ValueError(
+            f"nms kernel takes at most 65535 x {64 * 6144} boxes and keeps at most "
+            f"49152, got {b} x {n} -> {max_outputs}"
+        )
+    dev = boxes.device
+    key = torch.where(valid, scores, float("-inf"))
+    order = torch.sort(key, dim=-1, descending=True, stable=True).indices
+    cb = (n + 63) // 64
+    # the layout is the kernel's (csrc/nms.cu::nms_forward), which checks
+    # the size
+    words = b * cb * (64 * cb + 65) + 2 * (b + 1) + (b * min(n, max_outputs) + 1) // 2
+    scratch = torch.empty((words,), dtype=torch.int64, device=dev)
+    idx = torch.empty((b, max_outputs), dtype=torch.int32, device=dev)
+    out_valid = torch.empty((b, max_outputs), dtype=torch.bool, device=dev)
     kernels.NMS.call(
         "nms_forward",
-        boxes.data_ptr(), valid.data_ptr(), labels.data_ptr(),
-        keep_pos.data_ptr(), count.data_ptr(), mask.data_ptr(),
+        boxes.data_ptr(), valid.data_ptr(),
+        0 if labels is None else labels.data_ptr(),
+        0 if labels is None else labels.element_size(),
+        order.data_ptr(), scratch.data_ptr(), words, _stop_hint(dev, n, max_outputs).data_ptr(),
+        idx.data_ptr(), out_valid.data_ptr(),
         b, n, max_outputs, float(iou_threshold),
     )
     kernels.NMS.launches += 1
-    return keep_pos, count
-
-
-def _nms(boxes, scores, valid, iou_threshold, max_outputs, labels, keep_fn):
-    single = boxes.dim() == 2
-    if single:
-        boxes, scores, valid = boxes[None], scores[None], valid[None]
-        labels = None if labels is None else labels[None]
-    boxes = boxes.to(torch.float32)
-    scores = scores.to(torch.float32)
-    valid = valid.to(torch.bool)
-    if labels is None:
-        labels = torch.zeros(valid.shape, dtype=torch.int32, device=valid.device)
-    labels = labels.to(torch.int32)
-    order, sboxes, svalid, slabels = _sorted_inputs(boxes, scores, valid, labels)
-    keep_pos, count = keep_fn(sboxes, svalid, slabels, iou_threshold, max_outputs)
-    out_valid = (
-        torch.arange(max_outputs, device=boxes.device)[None, :] < count[:, None]
-    )
-    idx = torch.gather(order, 1, keep_pos.clamp(min=0).to(torch.int64))
-    idx = torch.where(out_valid, idx, 0).to(torch.int32)
-    if single:
-        return idx[0], out_valid[0]
     return idx, out_valid
 
 
@@ -140,7 +147,26 @@ def nms_plain(
     labels: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain PyTorch version of :func:`nms`, on any device."""
-    return _nms(boxes, scores, valid, iou_threshold, max_outputs, labels, _keep_plain)
+    single = boxes.dim() == 2
+    if single:
+        boxes, scores, valid = boxes[None], scores[None], valid[None]
+        labels = None if labels is None else labels[None]
+    boxes = boxes.to(torch.float32)
+    scores = scores.to(torch.float32)
+    valid = valid.to(torch.bool)
+    if labels is None:
+        labels = torch.zeros(valid.shape, dtype=torch.int32, device=valid.device)
+    labels = labels.to(torch.int32)
+    order, sboxes, svalid, slabels = _sorted_inputs(boxes, scores, valid, labels)
+    keep_pos, count = _keep_plain(sboxes, svalid, slabels, iou_threshold, max_outputs)
+    out_valid = (
+        torch.arange(max_outputs, device=boxes.device)[None, :] < count[:, None]
+    )
+    idx = torch.gather(order, 1, keep_pos.clamp(min=0).to(torch.int64))
+    idx = torch.where(out_valid, idx, 0).to(torch.int32)
+    if single:
+        return idx[0], out_valid[0]
+    return idx, out_valid
 
 
 def nms(
@@ -162,10 +188,28 @@ def nms(
         return nms_plain(boxes, scores, valid, iou_threshold, max_outputs, labels)
     if boxes.device.type != "cuda":
         raise ValueError(f"nms runs on cpu or cuda tensors, not {boxes.device}")
-    out = _nms(boxes, scores, valid, iou_threshold, max_outputs, labels, _keep_cuda)
+    inputs = (boxes, scores, valid, iou_threshold, max_outputs, labels)
+    single = boxes.dim() == 2
+    if single:
+        boxes, scores, valid = boxes[None], scores[None], valid[None]
+        labels = None if labels is None else labels[None]
+    if labels is not None and labels.dtype not in (torch.int32, torch.int64):
+        labels = labels.to(torch.int32)
+    boxes = boxes.to(torch.float32).contiguous()
+    if boxes.data_ptr() % 16 != 0:  # the kernels read a box as one float4
+        boxes = boxes.clone()
+    out = _nms_cuda(
+        boxes,
+        scores.to(torch.float32).contiguous(),
+        valid.to(torch.bool).contiguous(),
+        iou_threshold, max_outputs,
+        None if labels is None else labels.contiguous(),
+    )
+    if single:
+        out = (out[0][0], out[1][0])
     hook = kernels.NMS.on_launch
     if hook is not None:
-        hook((boxes, scores, valid, iou_threshold, max_outputs, labels), out)
+        hook(inputs, out)
     return out
 
 

@@ -20,8 +20,13 @@ Because each bilinear tap factorizes, the op is
 ``out[p, q, c] = sum_h sum_w A_y[p, h] A_x[q, w] F[h, w, c]`` with
 per-roi axis matrices ``A``.  :func:`roi_align_plain` builds the A
 matrices and contracts them with einsums, as the JAX function does; CUDA
-tensors go to ``csrc/roi_align.cu``, which builds the same A rows in
-shared memory and gathers only the taps they touch.
+tensors go to ``csrc/roi_align.cu``, which builds the same A rows as
+compact tap lists in shared memory and gathers only the taps they touch.
+
+Features may be float32 or bfloat16, and the result has their dtype;
+the arithmetic is float32 either way.  bfloat16 features give what the
+JAX bundle computes by pooling ``f.astype(float32)`` and casting the
+result with ``.astype(bfloat16)``.
 """
 
 from typing import Tuple
@@ -105,7 +110,11 @@ def roi_align_plain(
     max_samples: int = 8,
     bin_stride: int = 1,
 ) -> torch.Tensor:
-    """The plain PyTorch version of :func:`roi_align`, on any device."""
+    """The plain PyTorch version of :func:`roi_align`, on any device:
+    float32 arithmetic on the features cast to float32, the result cast
+    back to the features' dtype."""
+    out_dtype = features.dtype
+    features = features.to(torch.float32)
     P, Q = output_size
     B, H, W, C = features.shape
     S = rois_per_image.shape[1]
@@ -114,15 +123,13 @@ def roi_align_plain(
     )
     out_p = -(-P // bin_stride)
     out_q = -(-Q // bin_stride)
-    out = torch.empty((B, S, out_p, out_q, C), dtype=features.dtype, device=features.device)
+    out = torch.empty((B, S, out_p, out_q, C), dtype=out_dtype, device=features.device)
     for b in range(B):
         feat = features[b]
         for s0 in range(0, S, _PLAIN_ROI_CHUNK):
             s1 = min(s0 + _PLAIN_ROI_CHUNK, S)
             a_y = _axis_interp_matrix(sh[b, s0:s1], bh[b, s0:s1], gh[b, s0:s1], H, P, cap_h, bin_stride)
             a_x = _axis_interp_matrix(sw[b, s0:s1], bw[b, s0:s1], gw[b, s0:s1], W, Q, cap_w, bin_stride)
-            a_y = a_y.to(features.dtype)
-            a_x = a_x.to(features.dtype)
             # contraction order as in the JAX function: the smaller
             # intermediate ([s, Q, H, C] or [s, P, W, C]) is materialized
             if H * out_q <= out_p * W:
@@ -146,12 +153,13 @@ def roi_align(
 ) -> torch.Tensor:
     """RoIAlign forward (see the module docstring).
 
-    features ``[B, H, W, C]``; rois_per_image ``[B, S, 4]`` xyxy in
-    image pixels, roi s of image b pooling from ``features[b]``.  Returns
-    ``[B, S, ceil(P / bin_stride), ceil(Q / bin_stride), C]`` float32.
-    CPU tensors run the plain version; CUDA tensors launch
-    ``csrc/roi_align.cu``, which takes float32 features with C a
-    multiple of 4.
+    features ``[B, H, W, C]`` float32 or bfloat16; rois_per_image
+    ``[B, S, 4]`` xyxy in image pixels, roi s of image b pooling from
+    ``features[b]``.  Returns ``[B, S, ceil(P / bin_stride), ceil(Q /
+    bin_stride), C]`` in the features' dtype.  CPU
+    tensors run the plain version; CUDA tensors launch
+    ``csrc/roi_align.cu``, which reads 16 bytes of channels at a time:
+    C a multiple of 4 for float32 features, of 8 for bfloat16.
     """
     if features.device.type == "cpu":
         return roi_align_plain(
@@ -163,31 +171,38 @@ def roi_align(
     P, Q = output_size
     B, H, W, C = features.shape
     S = rois_per_image.shape[1]
-    if features.dtype != torch.float32:
-        raise ValueError(f"roi_align kernel takes float32 features, got {features.dtype}")
-    if C % 4 != 0:
-        raise ValueError(f"roi_align kernel needs C % 4 == 0, got C={C}")
+    if features.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"roi_align kernel takes float32 or bfloat16 features, got {features.dtype}")
+    vec = 16 // features.element_size()
+    if C % vec != 0:
+        raise ValueError(f"roi_align kernel needs C % {vec} == 0 for {features.dtype}, got C={C}")
     if rois_per_image.shape != (B, S, 4) or rois_per_image.device != features.device:
         raise ValueError(
             f"rois must be [B={B}, S, 4] on {features.device}, got "
             f"{tuple(rois_per_image.shape)} on {rois_per_image.device}"
         )
-    # grid.y and grid.z take at most 65535; one A_y row and one A_x row
-    # share the default 48 KB of shared memory
-    if not (0 < S <= 65535 and B <= 65535 and H + W <= 12288 and bin_stride >= 1):
-        raise ValueError(f"roi_align kernel cannot take B={B}, S={S}, H={H}, W={W}")
+    # one CTA per roi; the roi's tap lists share the default 48 KB of
+    # shared memory
+    if not (0 < B * S < 2**31 and H * W * C < 2**31 and 0 < max_samples <= 64
+            and sampling_ratio <= 64 and bin_stride >= 1):
+        raise ValueError(
+            f"roi_align kernel cannot take B={B}, S={S}, H={H}, W={W}, C={C}, "
+            f"sampling_ratio={sampling_ratio}, max_samples={max_samples}, "
+            f"bin_stride={bin_stride}"
+        )
     feats = features.contiguous()
     if feats.data_ptr() % 16 != 0:
-        raise ValueError("roi_align kernel reads float4: features must be 16-byte aligned")
+        raise ValueError("roi_align kernel reads 16 bytes at a time: features must be 16-byte aligned")
     rois = rois_per_image.to(torch.float32).contiguous()
     out_p = -(-P // bin_stride)
     out_q = -(-Q // bin_stride)
-    out = torch.empty((B, S, out_p, out_q, C), dtype=torch.float32, device=features.device)
+    out = torch.empty((B, S, out_p, out_q, C), dtype=feats.dtype, device=features.device)
     kernels.ROI_ALIGN.call(
         "roi_align_forward",
         feats.data_ptr(), rois.data_ptr(), out.data_ptr(),
         B, H, W, C, S, P, Q, float(spatial_scale),
         int(sampling_ratio), int(max_samples), int(bin_stride),
+        int(feats.dtype == torch.bfloat16),
     )
     kernels.ROI_ALIGN.launches += 1
     hook = kernels.ROI_ALIGN.on_launch

@@ -4,7 +4,10 @@ golden gather ``roi_align``, for bin_stride 1 and 2 and sampling_ratio 0
 and 2, with rois that straddle or leave the feature map.  float32,
 absolute tolerance 1e-5 on O(1) features: the A-matrix weights are
 computed with the same float32 operations and only the summation order
-of the contraction differs."""
+of the contraction differs.  bfloat16 features give a bfloat16 result,
+held against the JAX bundle's recipe (pool ``f.astype(float32)``, then
+``.astype(bfloat16)``) within one bfloat16 ulp of the larger value plus
+1e-5: the two float32 sums may round to neighbouring bfloat16 values."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -82,3 +85,48 @@ def test_roi_align_cpu_tensors_take_the_plain_version_and_other_devices_raise():
             torch.empty((1, 4, 4, 8), device="meta"),
             torch.empty((1, 2, 4), device="meta"), (2, 2), 1.0,
         )
+
+
+def _bf16_ulp(x):
+    """One bfloat16 ulp at |x| (8 significant bits)."""
+    _, e = np.frexp(np.abs(x).astype(np.float64))
+    return np.ldexp(1.0, e - 8)
+
+
+@pytest.mark.parametrize("sampling_ratio", [0, 2])
+@pytest.mark.parametrize("bin_stride", [1, 2])
+def test_roi_align_bf16_matches_jax_pool_then_cast(bin_stride, sampling_ratio):
+    feats, rois = _inputs(seed=40 + bin_stride * 10 + sampling_ratio)
+    fb = jnp.asarray(feats).astype(jnp.bfloat16)
+    out = torch_ra.roi_align(
+        torch.from_numpy(feats).to(torch.bfloat16), torch.from_numpy(rois), (7, 7), SCALE,
+        sampling_ratio, bin_stride=bin_stride,
+    )
+    assert out.dtype == torch.bfloat16
+    ref = roi_align_mxu(
+        fb.astype(jnp.float32), jnp.asarray(rois), (7, 7), SCALE, sampling_ratio,
+        bin_stride=bin_stride,
+    ).astype(jnp.bfloat16)
+    ref = np.asarray(ref.astype(jnp.float32))
+    got = out.float().numpy()
+    assert got.shape == ref.shape
+    limit = _bf16_ulp(np.maximum(np.abs(got), np.abs(ref))) + 1e-5
+    assert (np.abs(got - ref) <= limit).all(), np.abs(got - ref).max()
+
+
+@pytest.mark.parametrize("bin_stride", [1, 2])
+def test_roi_align_bf16_is_float32_pooling_then_cast(bin_stride):
+    """bfloat16 features widen exactly: the bfloat16 result is, bit for
+    bit, the float32 pooling of the widened features cast to bfloat16,
+    and that float32 pooling keeps the float32 tolerance against JAX."""
+    feats, rois = _inputs(seed=60 + bin_stride)
+    fb = torch.from_numpy(feats).to(torch.bfloat16)
+    args = (torch.from_numpy(rois), (7, 7), SCALE, 0, 8, bin_stride)
+    out = torch_ra.roi_align(fb, *args)
+    wide = torch_ra.roi_align(fb.float(), *args)
+    assert out.dtype == torch.bfloat16 and wide.dtype == torch.float32
+    assert torch.equal(out, wide.to(torch.bfloat16))
+    ref = roi_align_mxu(
+        jnp.asarray(fb.float().numpy()), jnp.asarray(rois), (7, 7), SCALE, 0, bin_stride=bin_stride,
+    )
+    np.testing.assert_allclose(wide.numpy(), np.asarray(ref), rtol=0, atol=1e-5)

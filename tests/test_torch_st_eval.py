@@ -11,6 +11,9 @@ Tolerances (float32): boxes 1e-3 px, scores 1e-5, mask probabilities
 valid masks are equal.  The bfloat16 backbone comparison allows 2% of
 the feature range: both sides round every conv and frozen-BN output to
 bfloat16 (8 bits of mantissa), at different places inside fused ops.
+The bfloat16 ``RoIHeadsBundle.extract`` comparison allows the same 2%:
+the pooled features agree to one bfloat16 ulp, and the C5 convs round as
+the backbone's do.
 """
 
 import jax
@@ -24,6 +27,7 @@ from cvpr22_cross_modal_pseudo_labeling_tpu.models import backbone as jax_backbo
 from cvpr22_cross_modal_pseudo_labeling_tpu.models.detector import (
     st_generalized_rcnn as jax_st,
 )
+from cvpr22_cross_modal_pseudo_labeling_tpu.models.roi_heads import bundle as jax_bundle
 from cvpr22_cross_modal_pseudo_labeling_torch import bridge
 from cvpr22_cross_modal_pseudo_labeling_torch.config import get_default_cfg as torch_cfg
 from cvpr22_cross_modal_pseudo_labeling_torch.engine.inference import Predictor
@@ -31,6 +35,7 @@ from cvpr22_cross_modal_pseudo_labeling_torch.models import backbone as torch_ba
 from cvpr22_cross_modal_pseudo_labeling_torch.models.detector import (
     st_generalized_rcnn as torch_st,
 )
+from cvpr22_cross_modal_pseudo_labeling_torch.models.roi_heads import bundle as torch_bundle
 
 CONFIG = "configs/coco_cap_det/student_teacher_mask_rcnn_uncertainty.yaml"
 TINY_OPTS = [
@@ -139,6 +144,34 @@ def test_bf16_backbone_features_match_jax():
     with torch.no_grad():
         out = tm(torch.from_numpy(x))[0]
     assert out.dtype == torch.bfloat16 and out.shape == ref.shape
+    ref = np.asarray(ref.astype(jnp.float32))
+    diff = np.abs(out.float().numpy() - ref).max()
+    assert diff <= 0.02 * np.abs(ref).max(), (diff, np.abs(ref).max())
+
+
+def test_bf16_bundle_extract_matches_jax():
+    """The pooler reads bfloat16 features and writes bfloat16 (no casts
+    around it); the JAX bundle pools ``f.astype(float32)`` and casts."""
+    js, ts = tiny_statics("bfloat16")
+    tm = torch_bundle.RoIHeadsBundle(ts.base, uncertainty=True).eval()
+    tree = bridge.seeded_flax_params(tm, seed=5)
+    bridge.load_flax_params(tm, tree)
+    rng = np.random.default_rng(6)
+    c = ts.base.backbone_out_channels
+    feats = rng.standard_normal((2, 5, 6, c)).astype(np.float32)
+    x1 = rng.uniform(-8, 90, (2, 12))
+    y1 = rng.uniform(-8, 70, (2, 12))
+    boxes = np.stack([x1, y1, x1 + rng.uniform(2, 60, (2, 12)),
+                      y1 + rng.uniform(2, 50, (2, 12))], -1).astype(np.float32)
+    fb = jnp.asarray(feats).astype(jnp.bfloat16)
+    jm = jax_bundle.RoIHeadsBundle(js.base, uncertainty=True)
+    ref = jm.apply(
+        {"params": jax.tree_util.tree_map(jnp.asarray, tree)}, [fb], jnp.asarray(boxes),
+        method=jax_bundle.RoIHeadsBundle.extract,
+    )
+    with torch.no_grad():
+        out = tm.extract([torch.from_numpy(feats).to(torch.bfloat16)], torch.from_numpy(boxes))
+    assert out.dtype == torch.bfloat16 and tuple(out.shape) == ref.shape
     ref = np.asarray(ref.astype(jnp.float32))
     diff = np.abs(out.float().numpy() - ref).max()
     assert diff <= 0.02 * np.abs(ref).max(), (diff, np.abs(ref).max())
