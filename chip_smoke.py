@@ -9,8 +9,9 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                 all started together) and print what ``ptxas -v`` says of each
                 kernel: registers, shared memory, spills.
 2. nms       -- the NMS kernels against their plain PyTorch version at the main
-                path's shapes (RPN: 8 x 6000 -> 1000 at IoU 0.7; detections:
-                8 x 1000, 65 labels -> 100 at IoU 0.5), with overlapping boxes,
+                path's shapes (RPN: 8 x 6000 -> 1000 at IoU 0.7; the training
+                RPN selector: 8 x 12000 -> 2000 at IoU 0.7; detections: 8 x
+                1000, 65 labels -> 100 at IoU 0.5), with overlapping boxes,
                 tied scores and invalid slots.  Indices and masks must be equal.
                 The whole function is timed with CUDA events, its enqueue time
                 with the host clock, and the mask and scan kernels' own device
@@ -22,7 +23,8 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                 that each call's band schedule is sized from the other
                 traffic's stop point.
 3. roi_align -- the RoIAlign kernel against its plain version on [8, 50, 84,
-                1024] features with 1000 or 100 rois per image, in bfloat16
+                1024] features with 1000, 512 (a training branch's sampled
+                rois), 100 or 32 (the teacher's pseudo boxes) rois per image, in bfloat16
                 (the main path's dtype) and float32, bin_stride 1 and 2; the
                 result has the features' dtype.  Max abs diff <= 1e-5 * max|F|
                 for float32 (only the summation order differs), plus one
@@ -41,6 +43,22 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
 6. profile   -- one more serving batch under torch.profiler: device time by
                 kernel group, the largest kernels, each copy and cast, and the
                 device's busy share.
+7. small_train -- a narrow float32 student-teacher Trainer on 2 x 64 x 64
+                images: one CUDA step against one CPU step on the same weights,
+                batch and draws (losses and the updated student parameters).
+8. train     -- a Trainer on the same config at full width in bfloat16, the
+                serving weights, 3 SGD steps on batches of 8 at 800 x 1333 in
+                the collate format: up to 100 gt boxes with 28 x 28 masks per
+                image, 32 caption nouns, the 66 x 768 class table and a 1203 x
+                768 LVIS table; both branches on every image.  Every kernel
+                launch of the first step is held against the plain version;
+                launch counts are read over the 3 steps.  Every loss and the
+                gradient norm must be finite, the student's parameters must
+                change and the frozen ones (backbone, rpn_head, teacher, bert)
+                must not.  Step latency, images/s, steady peak memory and the
+                host syncs of a step, then one more step under
+                torch.profiler, grouped as in phase 6.  Then one line gives
+                the seconds each of the two training phases took.
 
 Then the card's name and power limit, the per-kernel JSON line, and the last
 line ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when
@@ -65,15 +83,20 @@ NMS_CASES = (  # name, boxes per image, max_outputs, IoU, labels (0 = none), box
     ("rpn", 6000, 1000, 0.7, 0, "spread"),
     ("detections", 1000, 100, 0.5, 65, "spread"),
     ("rpn_dense", 6000, 1000, 0.7, 0, "dense"),
+    ("rpn_train", 12000, 2000, 0.7, 0, "spread"),
 )
 ROI_FEATURES = (8, 50, 84, 1024)
 F32, BF16 = torch.float32, torch.bfloat16
 ROI_CASES = (  # rois per image, bin_stride, feature (and result) dtype
-    (1000, 2, BF16), (100, 2, BF16),
+    (1000, 2, BF16), (512, 2, BF16), (100, 2, BF16), (32, 2, BF16),
     (1000, 1, F32), (1000, 2, F32), (100, 2, F32),
 )
 ROI_MAIN = (1000, 2, BF16)  # the proposals' pooling on the main path
+ROI_TRAIN = ((512, 2, BF16), (32, 2, BF16))  # the training-only shapes
 SERVING = dict(batches=3, batch=8, hw=(800, 1333), opts=())
+# the train step at the serving bucket with SOLVER.IMS_PER_BATCH 8
+TRAIN = dict(steps=3, batch=8, hw=(800, 1333), max_gt=100, nouns=32, noun_tokens=8,
+             lvis=1203, classes=66, opts=())
 H100_BYTES_PER_S = 3.35e12
 H100_F32_OPS_PER_S = 67e12
 IOU_OPS = 16  # min/max, sub/add, mul, div and compare of one +1 IoU test
@@ -387,8 +410,6 @@ def phase_serving(dev, results):
     from cvpr22_cross_modal_pseudo_labeling_torch import bridge
     from cvpr22_cross_modal_pseudo_labeling_torch.engine.inference import Predictor
     from cvpr22_cross_modal_pseudo_labeling_torch.ops import kernels
-    from cvpr22_cross_modal_pseudo_labeling_torch.ops import nms as nm
-    from cvpr22_cross_modal_pseudo_labeling_torch.ops import roi_align as ra
 
     t0 = time.perf_counter()
     pred = Predictor(CONFIG, SERVING["opts"], device=dev)
@@ -409,18 +430,7 @@ def phase_serving(dev, results):
         sizes[0] = (h, w)
         batches.append((images, sizes))
 
-    checks = {"nms": [], "roi_align": []}
-
-    def check_nms(inputs, out):
-        ref = nm.nms_plain(*inputs)
-        checks["nms"].append(int((out[0] != ref[0]).sum() + (out[1] != ref[1]).sum()))
-
-    def check_roi(inputs, out):
-        ref = ra.roi_align_plain(*inputs)  # at the launch's own dtype
-        checks["roi_align"].append(
-            roi_err(out, ref, float(inputs[0].float().abs().max())) + (str(out.dtype),)
-        )
-
+    checks, check_nms, check_roi = launch_checks()
     kernels.reset_launches()
     lat, counts = [], []
     for i, (images, sizes) in enumerate(batches):
@@ -444,10 +454,10 @@ def phase_serving(dev, results):
     launches = {k.name: k.launches for k in kernels.ALL}
     peak = torch.cuda.max_memory_allocated()
 
-    check(len(checks["nms"]) == 2 and all(m == 0 for m in checks["nms"]),
+    check(len(checks["nms"]) == 2 and all(m == 0 for m, _ in checks["nms"]),
           f"serving: NMS launches differ from the plain version: {checks['nms']}")
     check(len(checks["roi_align"]) == 2
-          and all(excess <= 0 for _, excess, _ in checks["roi_align"]),
+          and all(excess <= 0 for _, excess, _, _ in checks["roi_align"]),
           f"serving: RoIAlign launches over tolerance: {checks['roi_align']}")
     check(all(v > 0 for v in launches.values()), f"serving: a kernel never launched: {launches}")
     steady = lat[1:]
@@ -456,10 +466,10 @@ def phase_serving(dev, results):
         emb_pred_std=EMB_PRED_STD, setup_s=setup_s, batch_latency_s=lat,
         steady_images_per_s=b * len(steady) / sum(steady),
         steady_peak_memory_gb=peak / 1e9, valid_detections=counts, launches=launches,
-        first_batch_checks={"nms_mismatches": checks["nms"],
-                            "roi_align_max_abs_err": [e for e, _, _ in checks["roi_align"]],
-                            "roi_align_excess_over_limit": [x for _, x, _ in checks["roi_align"]],
-                            "roi_align_dtype": [d for _, _, d in checks["roi_align"]]},
+        first_batch_checks={"nms_mismatches": [m for m, _ in checks["nms"]],
+                            "roi_align_max_abs_err": [e for e, _, _, _ in checks["roi_align"]],
+                            "roi_align_excess_over_limit": [x for _, x, _, _ in checks["roi_align"]],
+                            "roi_align_dtype": [d for _, _, d, _ in checks["roi_align"]]},
     )
     emit(rec)
     results["serving"] = rec
@@ -477,19 +487,18 @@ KERNEL_GROUPS = (  # (group, substrings of device kernel names), first match win
 )
 
 
-def phase_profile(pred, batch, table):
-    """One more serving batch under torch.profiler: device time by kernel
-    group and the device's busy share of the batch's wall time.  Only
-    device-side events count (the aten ops that launched them would
-    count the same time twice)."""
+def profile_groups(run):
+    """One call of ``run`` under torch.profiler: device time by kernel
+    group, the largest kernels, each copy and cast, and the device's busy
+    share of the call's wall time.  Only device-side events count (the
+    aten ops that launched them would count the same time twice)."""
     from torch.profiler import ProfilerActivity, profile
 
-    images, sizes = batch
-    pred(images, sizes, table)
+    run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        pred(images, sizes, table)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
     groups, top, copies = {}, [], []
@@ -505,11 +514,237 @@ def phase_profile(pred, batch, table):
     top.sort(reverse=True)
     copies.sort(reverse=True)
     device_ms = sum(groups.values())
-    emit(dict(phase="profile", wall_ms=wall_ms, device_ms=device_ms,
-              device_busy_share=device_ms / wall_ms,
-              groups_ms=dict(sorted(groups.items(), key=lambda kv: -kv[1])),
-              top=[dict(ms=ms, calls=n, name=name) for ms, n, name in top[:15]],
-              copy_cast=[dict(ms=ms, calls=n, name=name) for ms, n, name in copies]))
+    return dict(wall_ms=wall_ms, device_ms=device_ms, device_busy_share=device_ms / wall_ms,
+                groups_ms=dict(sorted(groups.items(), key=lambda kv: -kv[1])),
+                top=[dict(ms=ms, calls=n, name=name) for ms, n, name in top[:15]],
+                copy_cast=[dict(ms=ms, calls=n, name=name) for ms, n, name in copies])
+
+
+def phase_profile(pred, batch, table):
+    """One more serving batch under torch.profiler."""
+    images, sizes = batch
+    emit(dict(phase="profile", **profile_groups(lambda: pred(images, sizes, table))))
+
+
+def launch_checks():
+    """Hooks that hold each kernel launch against the plain version:
+    (checks, NMS hook, RoIAlign hook).  NMS must be exact; RoIAlign within
+    ``roi_err``'s limit at the launch's own dtype."""
+    from cvpr22_cross_modal_pseudo_labeling_torch.ops import nms as nm
+    from cvpr22_cross_modal_pseudo_labeling_torch.ops import roi_align as ra
+
+    checks = {"nms": [], "roi_align": []}
+
+    def check_nms(inputs, out):
+        ref = nm.nms_plain(*inputs)
+        n = inputs[0].shape[-2]
+        checks["nms"].append((int((out[0] != ref[0]).sum() + (out[1] != ref[1]).sum()),
+                              f"{inputs[0].shape[0]} x {n} -> {inputs[4]}"))
+
+    def check_roi(inputs, out):
+        ref = ra.roi_align_plain(*inputs)  # at the launch's own dtype
+        checks["roi_align"].append(
+            roi_err(out, ref, float(inputs[0].float().abs().max()))
+            + (str(out.dtype), f"{inputs[1].shape[0]} x {inputs[1].shape[1]}")
+        )
+
+    return checks, check_nms, check_roi
+
+
+def small_train_setup(device, rng_seed):
+    from cvpr22_cross_modal_pseudo_labeling_torch import bridge
+    from cvpr22_cross_modal_pseudo_labeling_torch.engine.train_step import Trainer
+
+    opts = [
+        "MODEL.RESNETS.STEM_OUT_CHANNELS", 8, "MODEL.RESNETS.RES2_OUT_CHANNELS", 16,
+        "MODEL.RESNETS.WIDTH_PER_GROUP", 4, "MODEL.ROI_BOX_HEAD.EMB_DIM", 16,
+        "MODEL.RPN.PRE_NMS_TOP_N_TEST", 128, "MODEL.RPN.POST_NMS_TOP_N_TEST", 32,
+        "MODEL.RPN.PRE_NMS_TOP_N_TRAIN", 128, "MODEL.RPN.POST_NMS_TOP_N_TRAIN", 32,
+        "MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE", 16, "TPU.MASK_POS_CAP", 8,
+        "TPU.MAX_GT", 4, "TPU.MAX_CAP_NOUNS", 3,
+        "MODEL.ROI_MASK_HEAD.CONV_LAYERS", (8,), "TPU.COMPUTE_DTYPE", "float32",
+    ]
+    trainer = Trainer(CONFIG, opts, device=device, seed=rng_seed)
+    trainer.load_flax_params(bridge.seeded_flax_params(trainer.model, SEED, 0.01))
+    return trainer
+
+
+def phase_small_train(devices=("cuda", "cpu")):
+    """The CUDA Trainer against the CPU Trainer (whose plain versions the
+    CPU tests hold against the JAX train step) on one tiny step with the
+    same draws: losses within 1e-4 relative, updated student parameters
+    within 1e-3 of each update's norm (the C5 head's gradient is
+    sensitive to rounding at ReLU boundaries)."""
+    from cvpr22_cross_modal_pseudo_labeling_torch.models.detector.st_generalized_rcnn import (
+        TrainDraws,
+    )
+
+    rng = np.random.default_rng(SEED + 5)
+    batch = train_batch(rng, 2, (64, 64), max_gt=4, nouns=3, noun_tokens=4, lvis=20,
+                        classes=6, emb_dim=16)
+    # gt masks whose resampled targets do not sit on the 0.5 threshold
+    batch["gt_masks"] = rng.choice(np.float32([0.2, 0.9]), batch["gt_masks"].shape)
+    draws = TrainDraws(
+        torch.from_numpy(rng.uniform(size=(2, 2, 32)).astype(np.float32)),
+        torch.from_numpy(rng.uniform(size=(2, 2, 36)).astype(np.float32)),
+        torch.from_numpy(rng.standard_normal((1, 16, 14, 14, 2)).astype(np.float32)),
+    )
+    out = []
+    for device in devices:
+        trainer = small_train_setup(device, SEED)
+        before = {n: p.detach().cpu().clone() for n, p in trainer.model.student.named_parameters()}
+        metrics = trainer.step(batch, TrainDraws(*(d.to(device) for d in draws)))
+        after = {n: p.detach().cpu() for n, p in trainer.model.student.named_parameters()}
+        out.append(({k: float(v) for k, v in metrics.items()},
+                    {n: after[n] - before[n] for n in after}))
+    (gm, gu), (cm, cu) = out
+    loss_err = max(abs(gm[k] - cm[k]) / max(abs(cm[k]), 1e-6) for k in cm)
+    update_err = max(float((gu[n] - cu[n]).norm() / cu[n].norm().clamp(min=1e-30)) for n in cu)
+    check(all(np.isfinite(v) for v in gm.values()), f"small train: non-finite metrics {gm}")
+    check(loss_err <= 1e-4 and update_err <= 1e-3,
+          f"small train: CUDA vs CPU loss {loss_err}, update {update_err} over tolerance")
+    emit(dict(phase="small_train", loss_rel_err=loss_err, update_rel_err=update_err,
+              losses_cuda={k: gm[k] for k in sorted(gm)}))
+
+
+def train_batch(rng, b, hw, max_gt, nouns, noun_tokens, lvis, classes, emb_dim=768):
+    """A collated training batch (``data/collate.py`` keys) plus the class
+    table (row 0 the background) and the LVIS table: uint8 images with
+    sizes 3/4 to 1 of the bucket, half to all of ``max_gt`` gt boxes per
+    image with elliptic 28 x 28 masks in their box frames, and ``nouns``
+    caption nouns of 1 to 3 wordpieces between CLS and SEP."""
+    h, w = hw
+    sizes = np.stack([rng.integers(3 * h // 4, h + 1, b), rng.integers(2 * w // 3, w + 1, b)],
+                     1).astype(np.int32)
+    sizes[0] = (h, w)
+    count = rng.integers(max_gt // 2, max_gt + 1, b)
+    valid = np.arange(max_gt)[None, :] < count[:, None]
+    bw = rng.uniform(8, 0.5 * w, (b, max_gt))
+    bh = rng.uniform(8, 0.5 * h, (b, max_gt))
+    x1 = rng.uniform(0, 1, (b, max_gt)) * (sizes[:, 1:2] - bw)
+    y1 = rng.uniform(0, 1, (b, max_gt)) * (sizes[:, 0:1] - bh)
+    boxes = np.stack([x1, y1, x1 + bw, y1 + bh], -1).astype(np.float32) * valid[..., None]
+    grid = (np.arange(28) + 0.5) / 28 - 0.5
+    rx = rng.uniform(0.2, 0.5, (b, max_gt, 1, 1))
+    ry = rng.uniform(0.2, 0.5, (b, max_gt, 1, 1))
+    masks = ((grid[None, None, None, :] / rx) ** 2 + (grid[None, None, :, None] / ry) ** 2 <= 1)
+    tokens = rng.integers(1, 4, (b, nouns))
+    pos = np.arange(noun_tokens)[None, None, :]
+    tok_mask = (pos >= 1) & (pos <= tokens[..., None])
+    table = rng.standard_normal((classes, emb_dim)).astype(np.float32)
+    table[0] = 0.0
+    return dict(
+        images=rng.integers(0, 256, (b, h, w, 3), dtype=np.uint8),
+        image_sizes=sizes,
+        gt_boxes=boxes,
+        gt_labels=(rng.integers(1, classes, (b, max_gt)) * valid).astype(np.int32),
+        gt_valid=valid,
+        gt_masks=(masks & valid[..., None, None]).astype(np.float32),
+        cap_mask=np.ones((b,), bool),
+        det_mask=np.ones((b,), bool),
+        cap_tok_ids=np.where(tok_mask, rng.integers(1000, 30522, (b, nouns, noun_tokens)), 0)
+        .astype(np.int32),
+        cap_tok_mask=tok_mask.astype(np.int32),
+        cap_word_valid=np.ones((b, nouns), bool),
+        cap_labels=rng.integers(0, lvis, (b, nouns)).astype(np.int32),
+        class_embeddings=table,
+        lvis_class_embeddings=rng.standard_normal((lvis, emb_dim)).astype(np.float32),
+    )
+
+
+FROZEN_MODULES = ("backbone", "rpn_head", "teacher", "bert")
+
+
+def phase_train(dev, results):
+    from cvpr22_cross_modal_pseudo_labeling_torch import bridge
+    from cvpr22_cross_modal_pseudo_labeling_torch.engine.train_step import Trainer
+    from cvpr22_cross_modal_pseudo_labeling_torch.ops import kernels
+
+    t0 = time.perf_counter()
+    trainer = Trainer(CONFIG, TRAIN["opts"], device=dev, seed=SEED)
+    trainer.load_flax_params(bridge.seeded_flax_params(trainer.model, SEED, EMB_PRED_STD))
+    check(trainer.cfg.TPU.COMPUTE_DTYPE == "bfloat16", "the training config must run in bfloat16")
+    setup_s = time.perf_counter() - t0
+    model = trainer.model
+    frozen = {n: p.detach().clone() for n, p in model.named_parameters()
+              if n.split(".")[0] in FROZEN_MODULES}
+    check(all(not model.get_parameter(n).requires_grad for n in frozen),
+          "train: a parameter of a frozen module requires grad")
+    student = {n: p.detach().clone() for n, p in model.student.named_parameters()}
+
+    rng = np.random.default_rng(SEED + 4)
+    emb_dim = model.statics.base.emb_dim
+    batches = [train_batch(rng, TRAIN["batch"], TRAIN["hw"], TRAIN["max_gt"], TRAIN["nouns"],
+                           TRAIN["noun_tokens"], TRAIN["lvis"], TRAIN["classes"], emb_dim)
+               for _ in range(TRAIN["steps"] + 1)]
+    checks, check_nms, check_roi = launch_checks()
+    kernels.reset_launches()
+    lat, metrics = [], []
+    for i, batch in enumerate(batches[:TRAIN["steps"]]):
+        first = i == 0
+        kernels.NMS.on_launch = check_nms if first else None
+        kernels.ROI_ALIGN.on_launch = check_roi if first else None
+        torch.cuda.synchronize()
+        if i == 1:  # the peak of training, not of the first step's checks
+            torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        m = trainer.step(batch)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t)
+        metrics.append({k: float(v) for k, v in m.items()})
+        check(all(np.isfinite(v) for v in metrics[-1].values()),
+              f"train: step {i} has a non-finite metric: {metrics[-1]}")
+    kernels.NMS.on_launch = kernels.ROI_ALIGN.on_launch = None
+    launches = {k.name: k.launches for k in kernels.ALL}
+    peak = torch.cuda.max_memory_allocated()
+
+    unchanged = [n for n, p in model.student.named_parameters() if torch.equal(p, student[n])]
+    moved = [n for n, p in model.named_parameters() if n in frozen and not torch.equal(p, frozen[n])]
+    check(not unchanged, f"train: student parameters did not change: {unchanged[:5]}")
+    check(not moved, f"train: frozen parameters changed: {moved[:5]}")
+    nms_sizes = sorted({shape for _, shape in checks["nms"]})
+    check(len(checks["nms"]) == 2 and all(m == 0 for m, _ in checks["nms"]),
+          f"train: NMS launches differ from the plain version: {checks['nms']}")
+    check(len(checks["roi_align"]) == 4
+          and all(excess <= 0 for _, excess, _, _ in checks["roi_align"]),
+          f"train: RoIAlign launches over tolerance: {checks['roi_align']}")
+    check(all(v > 0 for v in launches.values()), f"train: a kernel never launched: {launches}")
+    steady = lat[1:]
+    rec = dict(
+        phase="train", config=CONFIG, dtype="bfloat16", batch=TRAIN["batch"],
+        image_hw=list(TRAIN["hw"]), setup_s=setup_s, step_latency_s=lat,
+        steady_step_s=sum(steady) / len(steady),
+        steady_images_per_s=TRAIN["batch"] * len(steady) / sum(steady),
+        steady_peak_memory_gb=peak / 1e9, launches=launches, metrics=metrics,
+        gt_per_image=[int(v.sum()) for v in batches[0]["gt_valid"]],
+        first_step_checks={
+            "nms_mismatches": [m for m, _ in checks["nms"]], "nms_shapes": nms_sizes,
+            "roi_align_max_abs_err": [e for e, _, _, _ in checks["roi_align"]],
+            "roi_align_excess_over_limit": [x for _, x, _, _ in checks["roi_align"]],
+            "roi_align_rois": [r for _, _, _, r in checks["roi_align"]],
+            "roi_align_dtype": [d for _, _, d, _ in checks["roi_align"]]},
+    )
+    rec["host_syncs_per_step"] = count_syncs(lambda: trainer.step(batches[-1]))
+    emit(rec)
+    results["train"] = rec
+    emit(dict(phase="train_profile", **profile_groups(lambda: trainer.step(batches[-1]))))
+
+
+def count_syncs(run):
+    """The synchronizing CUDA calls one call of ``run`` makes (blocking
+    copies, ``.item()``, ...), as ``torch.cuda.set_sync_debug_mode``
+    reports them."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchronizing CUDA operation" in str(w.message) for w in caught)
 
 
 def main():
@@ -541,6 +776,13 @@ def main():
     pred, batch, table = phase_serving(dev, results)
     phase_profile(pred, batch, table)
     del pred
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    phase_small_train()
+    small_train_s = time.perf_counter() - t
+    phase_train(dev, results)
+    emit(dict(phase="timing", small_train_s=small_train_s,
+              train_s=time.perf_counter() - t - small_train_s))
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -548,31 +790,42 @@ def main():
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
 
-    serving = results["serving"]
+    serving, train = results["serving"], results["train"]
     nms_rpn, roi_main = results["nms_rpn"], results[("roi_align",) + ROI_MAIN]
+
+    def shape_rec(rec):
+        return {k: rec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+
     emit({"kernels": [
         dict(name="nms", route="cuda",
              source="cvpr22_cross_modal_pseudo_labeling_torch/csrc/nms.cu",
              replaces="cvpr22_cross_modal_pseudo_labeling_tpu/ops/nms_pallas.py:47",
              launches=serving["launches"]["nms"],
+             train_launches=train["launches"]["nms"],
              launch_unit="one nms_forward call: a memset, then a mask and a scan "
                          "kernel per column band",
              max_abs_err=float(max(serving["first_batch_checks"]["nms_mismatches"]
+                                   + train["first_step_checks"]["nms_mismatches"]
                                    + [results[f"nms_{c[0]}"]["mismatches"] for c in NMS_CASES]
                                    + [results["nms_rpn_dense"]["one_band_mismatches"]])),
              ms=nms_rpn["ms"], plain_ms=nms_rpn["plain_ms"],
              bound_ms=nms_rpn["bound_ms"], bound_by=nms_rpn["bound_by"],
-             library_ms=None),
+             library_ms=None,
+             train_shapes={"8 x 12000 -> 2000": shape_rec(results["nms_rpn_train"])}),
         dict(name="roi_align", route="cuda",
              source="cvpr22_cross_modal_pseudo_labeling_torch/csrc/roi_align.cu",
              replaces="tools/proto_pallas_roialign.py:146",
              launches=serving["launches"]["roi_align"],
+             train_launches=train["launches"]["roi_align"],
              max_abs_err=max(serving["first_batch_checks"]["roi_align_max_abs_err"]
+                             + train["first_step_checks"]["roi_align_max_abs_err"]
                              + [results[("roi_align",) + c]["max_abs_err"] for c in ROI_CASES]),
              dtypes="bfloat16 features -> bfloat16 output",
              ms=roi_main["ms"], plain_ms=roi_main["plain_ms"],
              bound_ms=roi_main["bound_ms"], bound_by=roi_main["bound_by"],
-             library_ms=None),
+             library_ms=None,
+             train_shapes={f"8 x {c[0]} bf16": shape_rec(results[("roi_align",) + c])
+                           for c in ROI_TRAIN}),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

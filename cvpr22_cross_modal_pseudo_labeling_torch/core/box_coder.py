@@ -1,9 +1,9 @@
-"""Detectron box decoding.
+"""Detectron box encoding and decoding.
 
 Counterpart of ``cvpr22_cross_modal_pseudo_labeling_tpu/core/box_coder.py``
-(``decode_boxes``), with the same legacy numerics: +1 widths/heights,
-dw/dh clipped at ``log(1000/16)`` and the asymmetric ``-1`` on x2/y2.
-Encoding belongs to training and is not ported yet.
+(``encode_boxes`` :17, ``decode_boxes`` :51), with the same legacy
+numerics: +1 widths/heights, dw/dh clipped at ``log(1000/16)`` and the
+asymmetric ``-1`` on x2/y2.
 """
 
 import math
@@ -12,6 +12,37 @@ from typing import Tuple
 import torch
 
 BBOX_XFORM_CLIP = math.log(1000.0 / 16)
+
+
+def encode_boxes(
+    reference_boxes: torch.Tensor,
+    proposals: torch.Tensor,
+    weights: Tuple[float, float, float, float],
+) -> torch.Tensor:
+    """Regression targets ``[..., 4]`` (dx, dy, dw, dh) of gt
+    ``reference_boxes`` against ``proposals``, both ``[..., 4]`` xyxy.
+    Zero-size (padded) slots are floored at 1e-8; callers mask them."""
+    wx, wy, ww, wh = weights
+    ex_w = proposals[..., 2] - proposals[..., 0] + 1.0
+    ex_h = proposals[..., 3] - proposals[..., 1] + 1.0
+    ex_cx = proposals[..., 0] + 0.5 * ex_w
+    ex_cy = proposals[..., 1] + 0.5 * ex_h
+
+    gt_w = reference_boxes[..., 2] - reference_boxes[..., 0] + 1.0
+    gt_h = reference_boxes[..., 3] - reference_boxes[..., 1] + 1.0
+    gt_cx = reference_boxes[..., 0] + 0.5 * gt_w
+    gt_cy = reference_boxes[..., 1] + 0.5 * gt_h
+
+    ex_w = ex_w.clamp(min=1e-8)
+    ex_h = ex_h.clamp(min=1e-8)
+    gt_w = gt_w.clamp(min=1e-8)
+    gt_h = gt_h.clamp(min=1e-8)
+
+    dx = wx * (gt_cx - ex_cx) / ex_w
+    dy = wy * (gt_cy - ex_cy) / ex_h
+    dw = ww * torch.log(gt_w / ex_w)
+    dh = wh * torch.log(gt_h / ex_h)
+    return torch.stack([dx, dy, dw, dh], dim=-1)
 
 
 def decode_boxes(

@@ -1,11 +1,12 @@
 // RoIAlign forward over channels-last features, for Hopper (sm_90a).
 //
-// Replaces: cvpr22_cross_modal_pseudo_labeling_tpu/tools/
-// proto_pallas_roialign.py::run_fused / fwd_kernel / fwd_kernel_sloop and
-// ::run_fused_bigdot / fwd_kernel_bigdot, the Pallas TPU kernels of the
-// contraction out[b,s,p,q,c] = sum_h,w Ay[b,s,p,h] F[b,h,w,c] Ax[b,s,q,w]
-// that the main path's pooler computes through ops/roi_align_mxu.py::
-// roi_align_mxu.  The numerics are those of the JAX ops/roi_align.py::
+// Replaces: tools/proto_pallas_roialign.py (at the root of the repository)
+// ::run_fused / fwd_kernel / fwd_kernel_sloop and ::run_fused_bigdot /
+// fwd_kernel_bigdot, the Pallas TPU kernels of the contraction
+// out[b,s,p,q,c] = sum_h,w Ay[b,s,p,h] F[b,h,w,c] Ax[b,s,q,w] that the main
+// path's pooler computes through cvpr22_cross_modal_pseudo_labeling_tpu/
+// ops/roi_align_mxu.py::roi_align_mxu.  The numerics are those of the JAX
+// ops/roi_align.py::
 // roi_align and _bilinear_weights (roi size max(.,1), no half-pixel shift,
 // adaptive grid ceil(roi/bins) clipped to [1, min(max_samples,
 // ceil(size/bins))], samples outside [-1, size] dropped, edge clamp), and

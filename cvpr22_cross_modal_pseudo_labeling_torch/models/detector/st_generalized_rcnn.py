@@ -1,15 +1,30 @@
-"""STGeneralizedRCNN: the student-teacher detector, eval forward.
+"""STGeneralizedRCNN: the student-teacher detector.
 
 Counterpart of ``cvpr22_cross_modal_pseudo_labeling_tpu/models/detector/
 st_generalized_rcnn.py`` (``STStatics`` :62, ``st_statics_from_cfg``
-:74, ``normalize_rows`` :87, ``combine_embs`` :226, ``__call__`` :501,
-``forward_eval`` :678).  Eval serves the student RoI heads with the
-dataset's class table: normalize -> frozen R-50-C4 trunk -> RPN ->
-student box head -> per-class NMS -> student mask head.  The module also
-holds the teacher bundle, the word-embedding table and
-``lambda_exemplar`` so that a full student-teacher checkpoint loads; the
-training forward (pseudo-labels and both student branches) is a later
-slice.
+:74, ``normalize_rows`` :87, ``extract_word_embeddings`` :213,
+``combine_embs`` :226, ``_teacher_region_scores`` :292,
+``_teacher_masks`` :322, ``generate_pseudo_labels`` :336,
+``_student_branch_losses`` :387, ``__call__`` :501, ``forward_eval``
+:678).
+
+Training runs two student branches over the whole padded batch, each
+masked per image.  The caption branch takes the teacher's pseudo-labels:
+the teacher-regressed proposal that best matches each caption noun, its
+sigmoid score and the teacher's binarized mask; the student trains on
+them against the LVIS table, with its box losses weighted by ``0.01 /
+avg_uncertain`` (detached).  The GT branch trains on the detection
+annotations against the dataset's class table.  The backbone, the RPN
+and the teacher run under ``torch.no_grad()``: their parameters are
+frozen, and the JAX module stops the gradient at their outputs.
+Eval serves the student RoI heads with the dataset's class table.
+
+The random draws (the RoI sampler's priorities and the mask
+uncertainty's normal samples) come from a ``torch.Generator`` or, to
+replay another program's draws, from :class:`TrainDraws`.  The exemplar
+table (``MODEL.EXEMPLARS_ENABLED``) and the in-step LVIS table of
+``MODEL.LANGUAGE_BACKBONE.FT_EMB`` are not ported; both are off in the
+shipped configs.
 """
 
 from typing import Dict, NamedTuple, Optional, Tuple
@@ -17,13 +32,15 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
+from ...core.box_coder import decode_boxes
+from ...core.boxes import clip_to_image
 from ..backbone import ResNetBackbone, device_normalize
 from ..language.bert import WordEmbeddingBackbone
-from ..roi_heads.box_head import Detections, postprocess_boxes
+from ..roi_heads.box_head import Detections, box_head_loss, postprocess_boxes, subsample_rois
 from ..roi_heads.bundle import RoIHeadsBundle, compute_dtype
-from ..roi_heads.mask_head import mask_head_inference
+from ..roi_heads.mask_head import mask_head_inference, mask_head_loss
 from ..rpn.anchors import build_anchors_for_levels
-from ..rpn.rpn import RPNHead, flatten_rpn_outputs, select_proposals_single_level
+from ..rpn.rpn import RPNHead, RPNProposals, flatten_rpn_outputs, select_proposals_single_level
 from .statics import RCNNStatics, statics_from_cfg
 
 
@@ -64,6 +81,32 @@ class RCNNEvalOutput(NamedTuple):
     mask_probs: Optional[torch.Tensor]  # [B, D, M, M]
 
 
+class RCNNTrainOutput(NamedTuple):
+    losses: Dict[str, torch.Tensor]
+    info: Dict[str, torch.Tensor]
+
+
+class TrainDraws(NamedTuple):
+    """Random draws of one training forward; a None field is drawn from
+    the generator.  ``pseudo_sampler`` ``[B, 2, P_test]`` and
+    ``gt_sampler`` ``[B, 2, P_train + G]``: the RoI sampler's positive
+    and negative priorities of each branch; ``mask_eps`` ``[n_s,
+    B * cap, M, M, 2]``: the caption branch's uncertainty samples, in the
+    mask logits' dtype."""
+
+    pseudo_sampler: Optional[torch.Tensor] = None
+    gt_sampler: Optional[torch.Tensor] = None
+    mask_eps: Optional[torch.Tensor] = None
+
+
+class PseudoLabels(NamedTuple):
+    boxes: torch.Tensor  # [B, W, 4] teacher-regressed
+    scores: torch.Tensor  # [B, W] sigmoid of the best region score
+    valid: torch.Tensor  # [B, W] bool
+    labels: torch.Tensor  # [B, W] int64 LVIS ids of the nouns
+    masks: Optional[torch.Tensor]  # [B, W, M, M] binarized teacher masks
+
+
 class STGeneralizedRCNN(nn.Module):
     def __init__(self, statics: STStatics):
         super().__init__()
@@ -102,6 +145,14 @@ class STGeneralizedRCNN(nn.Module):
         """combine_embs without exemplars: row-normalize the table."""
         return normalize_rows(embs)
 
+    def extract_word_embeddings(self, token_ids, token_mask):
+        """Mean word embedding over the real wordpieces, L2-normalized:
+        ``[..., T]`` ids and mask -> ``[..., emb_dim]``."""
+        emb = self.bert(token_ids)
+        m = token_mask.to(torch.float32)[..., None]
+        mean = torch.sum(emb * m, dim=-2) / torch.sum(m, dim=-2).clamp(min=1e-6)
+        return normalize_rows(mean)
+
     def anchors(self, feat: torch.Tensor) -> torch.Tensor:
         """The C4 level's anchors, cached per feature shape and device."""
         key = (tuple(feat.shape[1:3]), feat.device)
@@ -118,36 +169,242 @@ class STGeneralizedRCNN(nn.Module):
         image_sizes: torch.Tensor,
         class_embeddings: torch.Tensor,
         train: bool = False,
-    ) -> RCNNEvalOutput:
+        batch: Optional[Dict[str, torch.Tensor]] = None,
+        lvis_class_embeddings: Optional[torch.Tensor] = None,
+        draws: TrainDraws = TrainDraws(),
+        generator: Optional[torch.Generator] = None,
+    ):
         """images ``[B, H, W, 3]`` uint8 (or already-normalized float);
         image_sizes ``[B, 2]`` (h, w); class_embeddings ``[C, emb_dim]``
-        with the background row 0."""
-        if train:
-            raise NotImplementedError(
-                "the STGeneralizedRCNN training forward comes with the "
-                "training slice of the port; only eval is ported"
-            )
+        with the background row 0.
+
+        Eval returns :class:`RCNNEvalOutput`.  Training (``train=True``)
+        returns :class:`RCNNTrainOutput` and reads ``batch``: ``cap_mask``
+        and ``det_mask`` ``[B]`` (the images of each branch);
+        ``cap_tok_ids``, ``cap_tok_mask`` ``[B, W, T]``, ``cap_word_valid``
+        and ``cap_labels`` ``[B, W]`` (caption nouns); ``gt_boxes`` ``[B,
+        G, 4]``, ``gt_labels``, ``gt_valid`` ``[B, G]`` and ``gt_masks``
+        ``[B, G, Mr, Mr]``.  ``lvis_class_embeddings`` ``[1203, emb_dim]``
+        is the caption branch's table."""
         sb = self.statics.base
+        if train:
+            self._check_trainable(batch)
         x = device_normalize(
             images, image_sizes, sb.pixel_mean, sb.pixel_std, sb.to_bgr255
         )
-        feats = self.backbone(x)
-        return self.forward_eval(feats, image_sizes, class_embeddings)
+        if not train:
+            return self.forward_eval(self.backbone(x), image_sizes, class_embeddings)
+        with torch.no_grad():
+            feats = self.backbone(x)
+            obj_l, reg_l = self.rpn_head(feats)
+            objectness, box_reg = flatten_rpn_outputs(obj_l, reg_l)
+        return self.forward_train(
+            feats, objectness, box_reg, image_sizes, batch, class_embeddings,
+            lvis_class_embeddings, draws, generator,
+        )
+
+    def _check_trainable(self, batch):
+        if batch is None:
+            raise ValueError("STGeneralizedRCNN training needs `batch`")
+        if self.statics.exemplars_enabled:
+            raise NotImplementedError(
+                "MODEL.EXEMPLARS_ENABLED: the exemplar table is not ported"
+            )
+        if "lvis_name_ids" in batch:
+            raise NotImplementedError(
+                "MODEL.LANGUAGE_BACKBONE.FT_EMB: the in-step LVIS table is not ported"
+            )
+
+    def _proposals(self, feats, objectness, box_reg, image_sizes, train_selector):
+        sb = self.statics.base
+        return select_proposals_single_level(
+            self.anchors(feats[0]),
+            objectness.to(torch.float32),
+            box_reg.to(torch.float32),
+            image_sizes,
+            sb.rpn_pre_nms_train if train_selector else sb.rpn_pre_nms_test,
+            sb.rpn_post_nms_train if train_selector else sb.rpn_post_nms_test,
+            sb.rpn_nms_thresh,
+            sb.rpn_min_size,
+        )
+
+    # ------------------------------------------------------------------
+    def _teacher_region_scores(self, feats, proposals, image_sizes, cap_tok_ids, cap_tok_mask):
+        """Teacher-regressed boxes and the region x caption-noun
+        similarity ``[B, P, W]`` of the teacher's region embeddings."""
+        sb = self.statics.base
+        b, p = proposals.boxes.shape[:2]
+        x = self.teacher.extract(feats, proposals.boxes)
+        _, deltas, emb = self.teacher.box_outputs(
+            x, torch.zeros((1, sb.emb_dim), device=x.device)
+        )
+        emb = emb.to(torch.float32).reshape(b, p, -1)
+        deltas = deltas.to(torch.float32).reshape(b, p, -1)[..., -4:]
+        reg_boxes = clip_to_image(
+            decode_boxes(deltas, proposals.boxes, sb.reg_weights), image_sizes
+        )
+        noun_embs = self.extract_word_embeddings(cap_tok_ids, cap_tok_mask)
+        return reg_boxes, torch.einsum("bpd,bwd->bpw", emb, noun_embs)
+
+    def _teacher_masks(self, feats, pseudo_boxes):
+        """The teacher's masks on the chosen boxes, binarized at 0.5."""
+        b = pseudo_boxes.shape[0]
+        x2 = self.teacher.extract(feats, pseudo_boxes)
+        mask_logits, _ = self.teacher.mask_outputs(x2)
+        probs = mask_head_inference(mask_logits.to(torch.float32))
+        m = probs.shape[-1]
+        return (probs.reshape(b, -1, m, m) >= 0.5).to(torch.float32)
+
+    @torch.no_grad()
+    def generate_pseudo_labels(
+        self, feats, proposals, image_sizes, cap_tok_ids, cap_tok_mask,
+        cap_word_valid, cap_labels,
+    ) -> PseudoLabels:
+        """Per caption noun, the valid proposal of the highest region
+        score (the first among ties); a noun whose image has no valid
+        proposal is invalid.  The chosen regions' embeddings, which only
+        the exemplar table reads, are not kept."""
+        reg_boxes, region_scores = self._teacher_region_scores(
+            feats, proposals, image_sizes, cap_tok_ids, cap_tok_mask
+        )
+        region_scores = torch.where(
+            proposals.valid[:, :, None], region_scores,
+            torch.full((), -float("inf"), device=region_scores.device),
+        )
+        aligned_scores, aligned_idx = region_scores.max(dim=1)  # [B, W]
+        pseudo_boxes = torch.gather(reg_boxes, 1, aligned_idx[..., None].expand(-1, -1, 4))
+        masks = self._teacher_masks(feats, pseudo_boxes) if self.statics.base.mask_on else None
+        return PseudoLabels(
+            boxes=pseudo_boxes,
+            scores=torch.sigmoid(aligned_scores),
+            valid=cap_word_valid.to(torch.bool) & torch.isfinite(aligned_scores),
+            labels=cap_labels.to(torch.int64),
+            masks=masks,
+        )
+
+    # ------------------------------------------------------------------
+    def _student_branch_losses(
+        self, feats, proposals: RPNProposals, gt_boxes, gt_labels, gt_valid,
+        gt_masks, gt_mask_boxes, class_embeddings, image_mask,
+        compute_uncertain, append_gt, rand=None, eps=None, generator=None,
+    ):
+        """One student branch: sample rois, then the box and mask losses,
+        over the images of ``image_mask`` only.  Returns (classification,
+        box, mask, avg_uncertain)."""
+        sb = self.statics.base
+        pvalid = proposals.valid & image_mask[:, None]
+        gvalid = gt_valid & image_mask[:, None]
+        if append_gt:
+            # the train selector's add_gt_proposals; the caption branch's
+            # eval selector appends no targets
+            all_boxes = torch.cat([proposals.boxes, gt_boxes], dim=1)
+            all_valid = torch.cat([pvalid, gvalid], dim=1)
+        else:
+            all_boxes, all_valid = proposals.boxes, pvalid
+        sampled = subsample_rois(
+            all_boxes, all_valid, gt_boxes, gt_labels, gvalid, rand, generator,
+            sb.roi_batch_per_image, sb.roi_positive_fraction,
+            sb.roi_fg_iou, sb.roi_bg_iou, sb.reg_weights,
+        )
+        sampled = sampled._replace(
+            valid=sampled.valid & image_mask[:, None],
+            is_pos=sampled.is_pos & image_mask[:, None],
+        )
+        x = self.student.extract(feats, sampled.boxes)
+        logits, deltas, _ = self.student.box_outputs(x, class_embeddings)
+        cls_loss, box_loss = box_head_loss(
+            logits.to(torch.float32), deltas.to(torch.float32), sampled, sb.bg_weight
+        )
+        mask_loss = torch.zeros((), device=x.device)
+        avg_uncertain = torch.ones((), device=x.device)
+        if sb.mask_on:
+            # the positives-first slots (SampledRoIs.head)
+            cap = min(sb.mask_pos_cap, sb.roi_batch_per_image)
+            b = feats[0].shape[0]
+            x_mask = x.reshape(b, -1, *x.shape[1:])[:, :cap].reshape(-1, *x.shape[1:])
+            sampled_mask = sampled.head(cap)
+            mask_logits, scale = self.student.mask_outputs(
+                x_mask, compute_uncertain=compute_uncertain, train=True,
+                eps=eps, generator=generator,
+            )
+            mask_loss = mask_head_loss(
+                mask_logits.to(torch.float32), sampled_mask, gt_masks, gt_mask_boxes,
+                estimator=sb.uncertainty_estimator,
+            )
+            if scale is not None:
+                pos = (sampled_mask.is_pos & sampled_mask.valid).reshape(-1).to(torch.float32)
+                avg_uncertain = torch.sum(
+                    scale[..., 0].to(torch.float32).mean(dim=(1, 2)) * pos
+                ) / pos.sum().clamp(min=1.0)
+        return cls_loss, box_loss, mask_loss, avg_uncertain
+
+    def forward_train(
+        self, feats, objectness, box_reg, image_sizes, batch, class_embeddings,
+        lvis_class_embeddings, draws: TrainDraws = TrainDraws(),
+        generator: Optional[torch.Generator] = None,
+    ) -> RCNNTrainOutput:
+        s = self.statics
+        losses: Dict[str, torch.Tensor] = {}
+        info: Dict[str, torch.Tensor] = {}
+        cap_mask = batch["cap_mask"].to(torch.bool)
+        det_mask = batch["det_mask"].to(torch.bool)
+
+        # ---- caption branch: teacher pseudo-labels -> student ----------
+        eval_proposals = self._proposals(feats, objectness, box_reg, image_sizes, False)
+        pseudo = self.generate_pseudo_labels(
+            feats, eval_proposals, image_sizes, batch["cap_tok_ids"],
+            batch["cap_tok_mask"], batch["cap_word_valid"], batch["cap_labels"],
+        )
+        masks = pseudo.masks
+        if masks is None:
+            masks = torch.zeros((feats[0].shape[0], 1, 1, 1), device=feats[0].device)
+        cls_p, box_p, mask_p, avg_unc = self._student_branch_losses(
+            feats, eval_proposals, pseudo.boxes, pseudo.labels, pseudo.valid,
+            masks, pseudo.boxes, self.combine_embs(lvis_class_embeddings),
+            cap_mask, compute_uncertain=s.uncertainty, append_gt=False,
+            rand=draws.pseudo_sampler, eps=draws.mask_eps, generator=generator,
+        )
+        info["avg_uncertain"] = avg_unc
+        if s.uncertainty and s.reweight:
+            # 0.01 / avg_uncertain, detached; a branch without a valid
+            # pseudo sample has avg_uncertain 0 and weight 0 (not inf)
+            safe = avg_unc.detach()
+            lam = torch.where(
+                safe > 0, torch.full_like(safe, 0.01) / safe.clamp(min=1e-20),
+                torch.zeros_like(safe),
+            )
+            info["adaptive_lamb"] = lam
+            losses["loss_classifier_pseudo"] = cls_p * lam
+            losses["loss_box_reg_pseudo"] = box_p * lam
+            losses["loss_mask_pseudo"] = mask_p
+        else:
+            lam = s.lambda_pseudo_label
+            losses["loss_classifier_pseudo"] = cls_p * lam
+            losses["loss_box_reg_pseudo"] = box_p * lam
+            losses["loss_mask_pseudo"] = mask_p * lam
+        if s.no_pseudo_mask:
+            losses["loss_mask_pseudo"] = losses["loss_mask_pseudo"] * 0.0
+
+        # ---- detection branch: GT supervision ---------------------------
+        train_proposals = self._proposals(feats, objectness, box_reg, image_sizes, True)
+        gt_boxes = batch["gt_boxes"].to(torch.float32)
+        cls_g, box_g, mask_g, _ = self._student_branch_losses(
+            feats, train_proposals, gt_boxes, batch["gt_labels"],
+            batch["gt_valid"].to(torch.bool), batch["gt_masks"], gt_boxes,
+            self.combine_embs(class_embeddings), det_mask,
+            compute_uncertain=False, append_gt=True, rand=draws.gt_sampler,
+            generator=generator,
+        )
+        losses["loss_classifier"] = cls_g
+        losses["loss_box_reg"] = box_g
+        losses["loss_mask"] = mask_g
+        return RCNNTrainOutput(losses, info)
 
     def forward_eval(self, feats, image_sizes, class_embeddings):
         sb = self.statics.base
         obj_l, reg_l = self.rpn_head(feats)
         objectness, box_reg = flatten_rpn_outputs(obj_l, reg_l)
-        proposals = select_proposals_single_level(
-            self.anchors(feats[0]),
-            objectness.to(torch.float32),
-            box_reg.to(torch.float32),
-            image_sizes,
-            sb.rpn_pre_nms_test,
-            sb.rpn_post_nms_test,
-            sb.rpn_nms_thresh,
-            sb.rpn_min_size,
-        )
+        proposals = self._proposals(feats, objectness, box_reg, image_sizes, False)
         embs = self.combine_embs(class_embeddings)
         x = self.student.extract(feats, proposals.boxes)
         logits, deltas, _ = self.student.box_outputs(x, embs)
@@ -169,7 +426,7 @@ class STGeneralizedRCNN(nn.Module):
         mask_probs = None
         if sb.mask_on:
             x2 = self.student.extract(feats, dets.boxes)
-            mask_logits = self.student.mask_outputs(x2)
+            mask_logits, _ = self.student.mask_outputs(x2)
             probs = mask_head_inference(mask_logits.to(torch.float32))
             m = probs.shape[-1]
             mask_probs = probs.reshape(b, -1, m, m)

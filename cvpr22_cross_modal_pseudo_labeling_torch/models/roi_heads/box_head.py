@@ -1,22 +1,27 @@
-"""Box predictor and test-time box postprocessing.
+"""Box predictor, RoI sampling, box loss and test-time postprocessing.
 
 Counterpart of ``cvpr22_cross_modal_pseudo_labeling_tpu/models/
-roi_heads/box_head.py`` (``BoxPredictor`` :45, ``Detections`` :263,
-``postprocess_boxes`` :270) for the configuration the port serves: the
+roi_heads/box_head.py`` (``BoxPredictor`` :45, ``SampledRoIs`` :145,
+``subsample_rois`` :161, ``box_head_loss`` :210, ``Detections`` :263,
+``postprocess_boxes`` :270) for the configuration the port runs: the
 embedding-based predictor, which scores RoI embeddings against a class
 table passed as an argument, with class-agnostic box regression.  The
 ``class_valid`` mask of the JAX predictor (class tables padded for a TPU
-model mesh axis) has no counterpart.  Sampling and the losses belong to
-the training slice.
+model mesh axis) has no counterpart, nor have the baselines' per-sample
+weights and focal reweighting of the box loss.
 """
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from ...core.box_coder import decode_boxes
-from ...core.boxes import clip_to_image
+from ...core.box_coder import decode_boxes, encode_boxes
+from ...core.boxes import box_iou, clip_to_image
+from ...core.matcher import match_boxes
+from ...core.sampler import balanced_sample_indices, draw_priorities
+from ...ops.losses import smooth_l1_loss
 from ...ops.nms import batched_nms
 from ..layers import Linear
 from ..rpn.rpn import top_k
@@ -36,6 +41,91 @@ class BoxPredictor(nn.Module):
         emb = self.emb_pred(pooled_vec)
         logits = emb @ class_embeddings.to(emb.dtype).T
         return logits, self.bbox_pred(pooled_vec), emb
+
+
+class SampledRoIs(NamedTuple):
+    boxes: torch.Tensor  # [B, S, 4]
+    labels: torch.Tensor  # [B, S] int64 (0 = background)
+    reg_targets: torch.Tensor  # [B, S, 4]
+    valid: torch.Tensor  # [B, S] bool
+    is_pos: torch.Tensor  # [B, S] bool
+    matched_gt: torch.Tensor  # [B, S] int64 index into the gt
+
+    def head(self, cap: int) -> "SampledRoIs":
+        """The first ``cap`` slots per image: sampling puts positives
+        first, so this keeps every positive whenever #pos <= cap (the
+        reference computes masks on positives only)."""
+        return SampledRoIs(*(a[:, :cap] for a in self))
+
+
+def _take(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``a [B, N, ...]`` at ``idx [B, S]`` along axis 1."""
+    idx = idx.reshape(idx.shape + (1,) * (a.dim() - 2)).expand(idx.shape + a.shape[2:])
+    return torch.gather(a, 1, idx)
+
+
+def subsample_rois(
+    proposals: torch.Tensor,
+    proposal_valid: torch.Tensor,
+    gt_boxes: torch.Tensor,
+    gt_labels: torch.Tensor,
+    gt_valid: torch.Tensor,
+    rand: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+    batch_size_per_image: int = 512,
+    positive_fraction: float = 0.25,
+    fg_iou_threshold: float = 0.5,
+    bg_iou_threshold: float = 0.5,
+    reg_weights: Tuple[float, float, float, float] = (10.0, 10.0, 5.0, 5.0),
+) -> SampledRoIs:
+    """Positive/negative RoI sampling, batched over images.
+
+    proposals ``[B, N, 4]``; gt ``[B, G, ...]``.  ``rand`` ``[B, 2, N]``
+    holds the sampler's priorities (see ``core/sampler.py``); without it
+    they are drawn from ``generator``."""
+    b, n = proposals.shape[:2]
+    if rand is None:
+        rand = draw_priorities(b, n, proposals.device, generator)
+    quality = box_iou(gt_boxes, proposals)  # [B, G, N]
+    matched = match_boxes(quality, gt_valid, fg_iou_threshold, bg_iou_threshold)
+    pos = (matched >= 0) & proposal_valid
+    neg = (matched == -1) & proposal_valid
+    idx, valid, is_pos = balanced_sample_indices(
+        pos, neg, rand, batch_size_per_image, positive_fraction
+    )
+    sampled_boxes = _take(proposals, idx)
+    sampled_matched = torch.gather(matched, 1, idx).clamp(min=0)
+    labels = torch.where(is_pos, torch.gather(gt_labels.to(torch.int64), 1, sampled_matched), 0)
+    reg_targets = encode_boxes(_take(gt_boxes, sampled_matched), sampled_boxes, reg_weights)
+    return SampledRoIs(sampled_boxes, labels, reg_targets, valid, is_pos, sampled_matched)
+
+
+def box_head_loss(
+    class_logits: torch.Tensor,
+    box_deltas: torch.Tensor,
+    sampled: SampledRoIs,
+    bg_weight: float = 1.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """class_logits ``[B*S, C]``, box_deltas ``[B*S, 8]`` (class-agnostic).
+
+    classification = sum_i w_{y_i} CE_i / N_valid (``bg_weight`` for the
+    background); box = sum over positives of smooth-L1 (beta 1) on the
+    foreground deltas / N_valid."""
+    labels = sampled.labels.reshape(-1)
+    valid = sampled.valid.reshape(-1)
+    is_pos = sampled.is_pos.reshape(-1)
+    reg_targets = sampled.reg_targets.reshape(-1, 4)
+    n = valid.to(torch.float32).sum().clamp(min=1.0)
+
+    logp = F.log_softmax(class_logits, dim=-1)
+    ce = -torch.gather(logp, 1, labels.clamp(min=0)[:, None])[:, 0]
+    class_w = torch.where(labels == 0, bg_weight, 1.0)
+    w = class_w * valid.to(ce.dtype)
+    classification_loss = torch.sum(ce * w) / n
+
+    box_l = smooth_l1_loss(box_deltas[:, 4:8], reg_targets, beta=1.0)
+    box_loss = torch.sum(box_l * is_pos.to(box_l.dtype)[:, None]) / n
+    return classification_loss, box_loss
 
 
 class Detections(NamedTuple):

@@ -40,6 +40,7 @@ class RoIHeadsBundle(nn.Module):
                 num_classes=2,
                 dim_reduced=s.mask_dim_reduced,
                 uncertainty=uncertainty,
+                sigma_max=s.uncertainty_sigma_max,
                 dtype=dtype,
             )
 
@@ -63,5 +64,11 @@ class RoIHeadsBundle(nn.Module):
     def box_outputs(self, x, class_embeddings):
         return self.box_predictor(x.mean(dim=(1, 2)), class_embeddings)
 
-    def mask_outputs(self, x):
-        return self.mask_predictor(x)
+    def mask_outputs(self, x, compute_uncertain=False, train=False, eps=None, generator=None):
+        """``(logits, scale)`` of the mask predictor; in training with
+        ``compute_uncertain`` the logits carry ``uncertainty_samples``
+        reparameterized draws (``eps`` or ``generator``)."""
+        return self.mask_predictor(
+            x, compute_uncertain=compute_uncertain, train=train,
+            num_samples=self.statics.uncertainty_samples, eps=eps, generator=generator,
+        )

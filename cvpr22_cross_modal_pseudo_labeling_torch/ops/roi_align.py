@@ -168,6 +168,12 @@ def roi_align(
         )
     if features.device.type != "cuda":
         raise ValueError(f"roi_align runs on cpu or cuda tensors, not {features.device}")
+    if torch.is_grad_enabled() and (features.requires_grad or rois_per_image.requires_grad):
+        raise RuntimeError(
+            "roi_align: csrc/roi_align.cu has no backward kernel, so its result "
+            "carries no gradient; run it on inputs that need none (detach them, "
+            "or call it under torch.no_grad())"
+        )
     P, Q = output_size
     B, H, W, C = features.shape
     S = rois_per_image.shape[1]

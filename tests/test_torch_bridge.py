@@ -103,7 +103,7 @@ def test_conv_transpose_layout_computes_the_flax_function():
     bridge.load_flax_params(tm, jax.tree_util.tree_map(np.asarray, params))
     ref = np.asarray(jm.apply({"params": params}, jnp.asarray(x))[0])
     with torch.no_grad():
-        out = tm(torch.from_numpy(x)).numpy()
+        out = tm(torch.from_numpy(x))[0].numpy()  # (logits, scale), as the JAX module
     np.testing.assert_allclose(out, ref, rtol=0, atol=1e-5)
 
 

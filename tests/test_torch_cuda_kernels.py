@@ -164,3 +164,18 @@ def test_roi_align_kernel_rejects_what_it_cannot_take(card):
         ra.roi_align(torch.zeros((1, 4, 4, 12), device=card, dtype=torch.bfloat16), rois, (2, 2), 1.0)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         ra.roi_align(torch.zeros((1, 4, 4, 8), device=card, dtype=torch.float16), rois, (2, 2), 1.0)
+
+
+def test_roi_align_kernel_refuses_inputs_that_need_a_gradient(card):
+    """The kernel has no backward: with grad mode on, features or rois
+    that require grad raise instead of returning a result without a
+    gradient; detached inputs, or grad mode off, launch as usual."""
+    feats = torch.randn((1, 4, 4, 8), device=card, requires_grad=True)
+    rois = torch.tensor([[[0.0, 0.0, 30.0, 30.0]]], device=card)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ra.roi_align(feats, rois, (2, 2), 1.0 / 8)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ra.roi_align(feats.detach(), rois.clone().requires_grad_(), (2, 2), 1.0 / 8)
+    with torch.no_grad():
+        out = ra.roi_align(feats, rois, (2, 2), 1.0 / 8)
+    assert torch.equal(out, ra.roi_align(feats.detach(), rois, (2, 2), 1.0 / 8))

@@ -130,3 +130,25 @@ def test_roi_align_bf16_is_float32_pooling_then_cast(bin_stride):
         jnp.asarray(fb.float().numpy()), jnp.asarray(rois), (7, 7), SCALE, 0, bin_stride=bin_stride,
     )
     np.testing.assert_allclose(wide.numpy(), np.asarray(ref), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("bin_stride", [1, 2])
+def test_roi_align_plain_version_is_differentiable(bin_stride):
+    """CPU tensors keep autograd: the gradient of the pooled sum with
+    respect to the features equals JAX's gradient of ``roi_align_mxu``
+    (the CUDA kernel has no backward and refuses inputs that need one,
+    see ``tests/test_torch_cuda_kernels.py``).  Same 1e-5 tolerance: the
+    backward is the transposed contraction of the same A matrices."""
+    import jax
+
+    feats, rois = _inputs(seed=80 + bin_stride)
+    weight = np.random.RandomState(7).standard_normal((2, rois.shape[1], 4 if bin_stride == 2 else 7,
+                                                       4 if bin_stride == 2 else 7, 8)).astype(np.float32)
+    f = torch.from_numpy(feats).requires_grad_()
+    out = torch_ra.roi_align(f, torch.from_numpy(rois), (7, 7), SCALE, 0, bin_stride=bin_stride)
+    (out * torch.from_numpy(weight)).sum().backward()
+    ref = jax.grad(lambda x: jnp.sum(
+        roi_align_mxu(x, jnp.asarray(rois), (7, 7), SCALE, 0, bin_stride=bin_stride) * weight
+    ))(jnp.asarray(feats))
+    assert f.grad is not None and np.abs(f.grad.numpy()).max() > 0
+    np.testing.assert_allclose(f.grad.numpy(), np.asarray(ref), rtol=0, atol=1e-5)

@@ -178,10 +178,20 @@ def test_bf16_bundle_extract_matches_jax():
 
 
 def test_training_forward_is_not_ported(tiny_f32):
-    _, model, _ = tiny_f32
+    """The training forward is ported (``tests/test_torch_st_train.py``
+    holds it against JAX) except for its two options that no shipped
+    config turns on: the exemplar table and the in-step LVIS table of
+    FT_EMB.  Both raise, as does a training call without a batch."""
+    js, model, _ = tiny_f32
     images, sizes, table = tiny_inputs()
-    with pytest.raises(NotImplementedError, match="training slice"):
-        model(torch.from_numpy(images), torch.from_numpy(sizes), torch.from_numpy(table), train=True)
+    args = (torch.from_numpy(images), torch.from_numpy(sizes), torch.from_numpy(table))
+    with pytest.raises(ValueError, match="needs `batch`"):
+        model(*args, train=True)
+    with pytest.raises(NotImplementedError, match="FT_EMB"):
+        model(*args, train=True, batch={"lvis_name_ids": torch.zeros((3, 4), dtype=torch.int64)})
+    ex = torch_st.STGeneralizedRCNN(model.statics._replace(exemplars_enabled=True))
+    with pytest.raises(NotImplementedError, match="EXEMPLARS_ENABLED"):
+        ex(*args, train=True, batch={})
 
 
 def test_predictor_needs_a_card_unless_cpu_is_asked_for():
