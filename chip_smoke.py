@@ -57,8 +57,36 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                 change and the frozen ones (backbone, rpn_head, teacher, bert)
                 must not.  Step latency, images/s, steady peak memory and the
                 host syncs of a step, then one more step under
-                torch.profiler, grouped as in phase 6.  Then one line gives
-                the seconds each of the two training phases took.
+                torch.profiler, grouped as in phase 6.
+9. roi_align_backward -- the RoIAlign backward kernel against the plain
+                version's autograd gradient on the same [8, 50, 84, 1024] map
+                shape, rois and a seeded cotangent: bfloat16 with 512 (the
+                teacher's sampled rois, the main case) and 1000 rois per image
+                at bin_stride 2, float32 with 512 at bin_stride 1 and 2.  Max
+                abs diff <= 1e-5 * max|dF_plain| for float32 (the atomics' order
+                changes from run to run), plus one bfloat16 ulp of the result
+                for bfloat16.  Time, bound, plain time and the rate of the
+                scatter's float32 atomic adds.
+10. small_teacher_train -- a narrow float32 teacher (GeneralizedRCNN on
+                configs/coco_cap_det/zeroshot_mask.yaml) Trainer on 2 x 64 x 64
+                images: one CUDA step against one CPU step on the same weights,
+                batch and draws (losses, and the update of every trainable
+                parameter, layer2 and layer3 included).
+11. teacher_serving -- a Predictor on zeroshot_mask.yaml at full width in
+                bfloat16, seeded weights through bridge.py, a 49 x 768 class
+                table (passed raw, as the teacher takes it), 3 batches of 8
+                uint8 images at 800 x 1333; every launch of the first batch
+                held against the plain version.
+12. teacher_train -- a Trainer on zeroshot_mask.yaml at full width in
+                bfloat16, 3 SGD steps of 8 at 800 x 1333 with up to 100 gt boxes
+                and 28 x 28 masks per image.  Every launch of the first step is
+                held against the plain version: the NMS (12000 -> 2000), the
+                RoIAlign forward (8 x 512) and the RoIAlign backward.  Losses
+                and the gradient norm finite; layer2, layer3, rpn_head,
+                roi_extractor, bbox_pred and mask_predictor change, the stem,
+                layer1 and emb_pred do not.  Step latency, images/s, steady
+                peak memory, host syncs of a step and one profiled step.  Then
+                one line gives the seconds each training and teacher phase took.
 
 Then the card's name and power limit, the per-kernel JSON line, and the last
 line ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when
@@ -94,6 +122,12 @@ ROI_CASES = (  # rois per image, bin_stride, feature (and result) dtype
 ROI_MAIN = (1000, 2, BF16)  # the proposals' pooling on the main path
 ROI_TRAIN = ((512, 2, BF16), (32, 2, BF16))  # the training-only shapes
 SERVING = dict(batches=3, batch=8, hw=(800, 1333), opts=())
+TEACHER = "configs/coco_cap_det/zeroshot_mask.yaml"
+TEACHER_CLASSES = 49  # the config's NUM_CLASSES: 48 seen COCO classes and the background
+ROI_BWD_CASES = (  # rois per image, bin_stride, feature (and gradient) dtype
+    (512, 2, BF16), (1000, 2, BF16), (512, 1, F32), (512, 2, F32),
+)
+ROI_BWD_MAIN = (512, 2, BF16)  # the teacher step's sampled rois
 # the train step at the serving bucket with SOLVER.IMS_PER_BATCH 8
 TRAIN = dict(steps=3, batch=8, hw=(800, 1333), max_gt=100, nouns=32, noun_tokens=8,
              lvis=1203, classes=66, opts=())
@@ -211,17 +245,13 @@ def nms_bound(scores, valid, labels, idx, keep, k):
             stop_blocks)
 
 
-def roi_bound(features, rois, output_size, bin_stride):
-    """Bytes: features and rois read once, output (in the features'
-    dtype) written once, each at its element size.  Operations: two flops per (nonzero A_y entry,
-    nonzero A_x entry, channel) of each emitted bin, counted from this
-    run's rois.  Also returns the bytes the gather reads from L2 (one row
-    of C channels per tap of each bin) and the bytes of the distinct taps
-    of each roi (what staging the roi's window would read instead)."""
+def roi_taps(feature_shape, rois, output_size, bin_stride):
+    """(taps, distinct taps, emitted bins per roi) of this run's rois: a
+    tap is a (nonzero A_y entry, nonzero A_x entry) pair of an emitted
+    bin; the distinct taps are the feature positions each roi touches."""
     from cvpr22_cross_modal_pseudo_labeling_torch.ops import roi_align as ra
 
-    B, H, W, C = features.shape
-    S = rois.shape[1]
+    B, H, W, _ = feature_shape
     P, Q = output_size
     (sh, bh, gh, ch), (sw, bw, gw, cw) = ra._roi_geometry(rois, 1.0 / 16, P, Q, H, W, 0, 8)
     taps = distinct = 0
@@ -234,7 +264,20 @@ def roi_bound(features, rois, output_size, bin_stride):
         uy = (ay != 0).any(1).sum(-1).to(torch.float64)  # [S]
         ux = (ax != 0).any(1).sum(-1).to(torch.float64)
         distinct += float((uy * ux).sum())
-    out_el = B * S * ay.shape[1] * ax.shape[1] * C
+    return taps, distinct, ay.shape[1] * ax.shape[1]
+
+
+def roi_bound(features, rois, output_size, bin_stride):
+    """Bytes: features and rois read once, output (in the features'
+    dtype) written once, each at its element size.  Operations: two flops per (nonzero A_y entry,
+    nonzero A_x entry, channel) of each emitted bin, counted from this
+    run's rois.  Also returns the bytes the gather reads from L2 (one row
+    of C channels per tap of each bin) and the bytes of the distinct taps
+    of each roi (what staging the roi's window would read instead)."""
+    B, H, W, C = features.shape
+    S = rois.shape[1]
+    taps, distinct, bins = roi_taps(features.shape, rois, output_size, bin_stride)
+    out_el = B * S * bins * C
     byts = (features.numel() + out_el) * features.element_size() + rois.numel() * 4
     ops = 2.0 * taps * C
     t_bytes, t_ops = byts / H100_BYTES_PER_S, ops / H100_F32_OPS_PER_S
@@ -371,6 +414,52 @@ def phase_roi_align(dev, results):
         torch.cuda.empty_cache()
 
 
+def roi_bwd_bound(grad, rois, feature_shape, output_size, bin_stride):
+    """Bytes: the cotangent and rois read once, dF (in the features'
+    dtype) written once.  Operations: two flops per (tap, channel), counted
+    from this run's rois.  Also returns the scatter's float32 atomic adds
+    (one per tap and channel)."""
+    C = feature_shape[3]
+    taps, _, _ = roi_taps(feature_shape, rois, output_size, bin_stride)
+    byts = (grad.numel() + int(np.prod(feature_shape))) * grad.element_size() + rois.numel() * 4
+    t_bytes, t_ops = byts / H100_BYTES_PER_S, 2.0 * taps * C / H100_F32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations", taps * C)
+
+
+def phase_roi_align_backward(dev, results):
+    from cvpr22_cross_modal_pseudo_labeling_torch.ops import roi_align as ra
+
+    rng = np.random.default_rng(SEED + 6)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    for s, bin_stride, dtype in ROI_BWD_CASES:
+        rois = roi_inputs(rng, ROI_FEATURES[0], s, SERVING["hw"], dev)
+        p = -(-14 // bin_stride)
+        grad = torch.randn((ROI_FEATURES[0], s, p, p, ROI_FEATURES[3]), generator=gen,
+                           device=dev).to(dtype)
+        args = (grad, rois, ROI_FEATURES, dtype, (14, 14), 1.0 / 16, 0, 8, bin_stride)
+        out = ra.roi_align_backward(*args)
+        ref = ra.roi_align_backward_plain(*args)
+        torch.cuda.synchronize()
+        check(out.dtype == dtype and out.shape == ref.shape, f"roi_align_backward: {out.dtype} {out.shape}")
+        fmax = float(ref.float().abs().max())
+        err, excess = roi_err(out, ref, fmax)
+        name = f"S={s} bin_stride={bin_stride} {dtype}"
+        check(fmax > 0 and excess <= 0,
+              f"roi_align_backward {name}: max abs diff {err}, {excess} over the limit")
+        del out, ref
+        ms = cuda_ms(lambda: ra.roi_align_backward(*args), 10)
+        plain_ms = cuda_ms(lambda: ra.roi_align_backward_plain(*args), 2)
+        bound_ms, bound_by, adds = roi_bwd_bound(grad, rois, ROI_FEATURES, (14, 14), bin_stride)
+        rec = dict(phase="roi_align_backward", rois_per_image=s, bin_stride=bin_stride,
+                   features=list(ROI_FEATURES), dtype=str(dtype), max_abs_err=err,
+                   excess_over_limit=excess, f32_tol=1e-5 * fmax, ms=ms, plain_ms=plain_ms,
+                   bound_ms=bound_ms, bound_by=bound_by, atomic_adds_g=adds / 1e9,
+                   l2_atomic_g_adds_per_s=adds / (ms * 1e-3) / 1e9)
+        emit(rec)
+        results[("roi_align_backward", s, bin_stride, dtype)] = rec
+        torch.cuda.empty_cache()
+
+
 def small_model(device):
     from cvpr22_cross_modal_pseudo_labeling_torch import bridge
     from cvpr22_cross_modal_pseudo_labeling_torch.engine.inference import Predictor
@@ -430,7 +519,7 @@ def phase_serving(dev, results):
         sizes[0] = (h, w)
         batches.append((images, sizes))
 
-    checks, check_nms, check_roi = launch_checks()
+    checks, check_nms, check_roi, _ = launch_checks()
     kernels.reset_launches()
     lat, counts = [], []
     for i, (images, sizes) in enumerate(batches):
@@ -459,7 +548,8 @@ def phase_serving(dev, results):
     check(len(checks["roi_align"]) == 2
           and all(excess <= 0 for _, excess, _, _ in checks["roi_align"]),
           f"serving: RoIAlign launches over tolerance: {checks['roi_align']}")
-    check(all(v > 0 for v in launches.values()), f"serving: a kernel never launched: {launches}")
+    check(launches["nms"] > 0 and launches["roi_align"] > 0 and launches["roi_align_backward"] == 0,
+          f"serving: a kernel of the path never launched, or the backward did: {launches}")
     steady = lat[1:]
     rec = dict(
         phase="serving", config=CONFIG, dtype="bfloat16", batch=b, image_hw=[h, w],
@@ -479,6 +569,7 @@ def phase_serving(dev, results):
 KERNEL_GROUPS = (  # (group, substrings of device kernel names), first match wins
     ("port: nms", ("nms_mask_kernel", "nms_scan_kernel")),
     ("port: roi_align", ("roi_align_fwd_kernel",)),
+    ("port: roi_align backward", ("roi_align_bwd_kernel", "cast_to_bf16_kernel")),
     ("conv / matmul", ("xmma", "nvjet", "cutlass", "gemm", "conv", "implicit")),
     ("sort / select", ("sort", "radix", "scan", "topk", "index", "gather")),
     ("copy / cast", ("copy", "Memcpy", "Memset")),
@@ -528,12 +619,13 @@ def phase_profile(pred, batch, table):
 
 def launch_checks():
     """Hooks that hold each kernel launch against the plain version:
-    (checks, NMS hook, RoIAlign hook).  NMS must be exact; RoIAlign within
-    ``roi_err``'s limit at the launch's own dtype."""
+    (checks, NMS hook, RoIAlign hook, RoIAlign backward hook).  NMS must
+    be exact; RoIAlign within ``roi_err``'s limit at the launch's own
+    dtype (of max|F| forward, of max|dF| backward)."""
     from cvpr22_cross_modal_pseudo_labeling_torch.ops import nms as nm
     from cvpr22_cross_modal_pseudo_labeling_torch.ops import roi_align as ra
 
-    checks = {"nms": [], "roi_align": []}
+    checks = {"nms": [], "roi_align": [], "roi_align_backward": []}
 
     def check_nms(inputs, out):
         ref = nm.nms_plain(*inputs)
@@ -548,7 +640,14 @@ def launch_checks():
             + (str(out.dtype), f"{inputs[1].shape[0]} x {inputs[1].shape[1]}")
         )
 
-    return checks, check_nms, check_roi
+    def check_roi_bwd(inputs, out):
+        ref = ra.roi_align_backward_plain(*inputs)
+        checks["roi_align_backward"].append(
+            roi_err(out, ref, float(ref.float().abs().max()))
+            + (str(out.dtype), f"{inputs[1].shape[0]} x {inputs[1].shape[1]}")
+        )
+
+    return checks, check_nms, check_roi, check_roi_bwd
 
 
 def small_train_setup(device, rng_seed):
@@ -593,7 +692,7 @@ def phase_small_train(devices=("cuda", "cpu")):
     for device in devices:
         trainer = small_train_setup(device, SEED)
         before = {n: p.detach().cpu().clone() for n, p in trainer.model.student.named_parameters()}
-        metrics = trainer.step(batch, TrainDraws(*(d.to(device) for d in draws)))
+        metrics = trainer.step(batch, TrainDraws(*(None if d is None else d.to(device) for d in draws)))
         after = {n: p.detach().cpu() for n, p in trainer.model.student.named_parameters()}
         out.append(({k: float(v) for k, v in metrics.items()},
                     {n: after[n] - before[n] for n in after}))
@@ -677,7 +776,7 @@ def phase_train(dev, results):
     batches = [train_batch(rng, TRAIN["batch"], TRAIN["hw"], TRAIN["max_gt"], TRAIN["nouns"],
                            TRAIN["noun_tokens"], TRAIN["lvis"], TRAIN["classes"], emb_dim)
                for _ in range(TRAIN["steps"] + 1)]
-    checks, check_nms, check_roi = launch_checks()
+    checks, check_nms, check_roi, _ = launch_checks()
     kernels.reset_launches()
     lat, metrics = [], []
     for i, batch in enumerate(batches[:TRAIN["steps"]]):
@@ -708,7 +807,9 @@ def phase_train(dev, results):
     check(len(checks["roi_align"]) == 4
           and all(excess <= 0 for _, excess, _, _ in checks["roi_align"]),
           f"train: RoIAlign launches over tolerance: {checks['roi_align']}")
-    check(all(v > 0 for v in launches.values()), f"train: a kernel never launched: {launches}")
+    # the ST step pools features that carry no gradient: no backward
+    check(launches["nms"] > 0 and launches["roi_align"] > 0 and launches["roi_align_backward"] == 0,
+          f"train: a kernel of the path never launched, or the backward did: {launches}")
     steady = lat[1:]
     rec = dict(
         phase="train", config=CONFIG, dtype="bfloat16", batch=TRAIN["batch"],
@@ -728,6 +829,231 @@ def phase_train(dev, results):
     emit(rec)
     results["train"] = rec
     emit(dict(phase="train_profile", **profile_groups(lambda: trainer.step(batches[-1]))))
+
+
+TINY_TEACHER_OPTS = [
+    "MODEL.RESNETS.STEM_OUT_CHANNELS", 8, "MODEL.RESNETS.RES2_OUT_CHANNELS", 16,
+    "MODEL.RESNETS.WIDTH_PER_GROUP", 4, "MODEL.ROI_BOX_HEAD.EMB_DIM", 16,
+    "MODEL.RPN.PRE_NMS_TOP_N_TRAIN", 128, "MODEL.RPN.POST_NMS_TOP_N_TRAIN", 32,
+    "MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE", 16, "TPU.MASK_POS_CAP", 8, "TPU.MAX_GT", 4,
+    "MODEL.ROI_MASK_HEAD.CONV_LAYERS", (8,), "TPU.COMPUTE_DTYPE", "float32",
+]
+# the teacher's parameter groups: what an SGD step must change, and what
+# FREEZE_CONV_BODY_AT 2 and FREEZE_EMB_PRED keep bit-identical
+TEACHER_TRAINED = ("backbone.body.layer2.", "backbone.body.layer3.", "rpn_head.", "roi_extractor.",
+                   "box_predictor.bbox_pred.", "mask_predictor.")
+TEACHER_FROZEN = ("backbone.body.stem.", "backbone.body.layer1.", "box_predictor.emb_pred.")
+
+
+def rcnn_batch(batch):
+    """The keys of a teacher training batch."""
+    from cvpr22_cross_modal_pseudo_labeling_torch.engine.train_step import RCNN_BATCH_DTYPES
+
+    return {k: batch[k] for k in RCNN_BATCH_DTYPES}
+
+
+def phase_small_teacher_train(devices=("cuda", "cpu")):
+    """The CUDA teacher Trainer against the CPU one (whose plain versions
+    the CPU tests hold against the JAX train step) on one tiny step with
+    the same draws: losses within 1e-4 relative, every trainable
+    parameter's update (layer2 and layer3 included) within 1e-3 of its
+    norm.  The step goes through the RoIAlign backward kernel on CUDA."""
+    from cvpr22_cross_modal_pseudo_labeling_torch import bridge
+    from cvpr22_cross_modal_pseudo_labeling_torch.engine.train_step import Trainer
+    from cvpr22_cross_modal_pseudo_labeling_torch.models.detector.generalized_rcnn import TrainDraws
+    from cvpr22_cross_modal_pseudo_labeling_torch.ops import kernels
+
+    rng = np.random.default_rng(SEED + 7)
+    batch = rcnn_batch(train_batch(rng, 2, (64, 64), max_gt=4, nouns=3, noun_tokens=4, lvis=20,
+                                   classes=6, emb_dim=16))
+    batch["gt_masks"] = rng.choice(np.float32([0.2, 0.9]), batch["gt_masks"].shape)
+    anchors = 4 * 4 * 15  # the 64 x 64 images' C4 grid, 15 anchors a cell
+    draws = TrainDraws(
+        gt_sampler=torch.from_numpy(rng.uniform(size=(2, 2, 32 + 4)).astype(np.float32)),
+        rpn_sampler=torch.from_numpy(rng.uniform(size=(2, 2, anchors)).astype(np.float32)),
+    )
+    out = []
+    for device in devices:
+        trainer = Trainer(TEACHER, TINY_TEACHER_OPTS, device=device, seed=SEED)
+        trainer.load_flax_params(bridge.seeded_flax_params(trainer.model, SEED, 0.01))
+        before = {n: p.detach().cpu().clone() for n, p in trainer.model.named_parameters()
+                  if p.requires_grad}
+        bwd = kernels.ROI_ALIGN_BACKWARD.launches
+        metrics = trainer.step(batch, TrainDraws(*(None if d is None else d.to(device) for d in draws)))
+        bwd = kernels.ROI_ALIGN_BACKWARD.launches - bwd
+        after = {n: p.detach().cpu() for n, p in trainer.model.named_parameters() if n in before}
+        out.append(({k: float(v) for k, v in metrics.items()},
+                    {n: after[n] - before[n] for n in after}, bwd))
+    (gm, gu, g_bwd), (cm, cu, _) = out
+    loss_err = max(abs(gm[k] - cm[k]) / max(abs(cm[k]), 1e-6) for k in cm)
+    update_err = {n: float((gu[n] - cu[n]).norm() / cu[n].norm().clamp(min=1e-30)) for n in cu}
+    worst = max(update_err, key=update_err.get)
+    trunk = [n for n in cu if n.startswith(("backbone.body.layer2.", "backbone.body.layer3."))]
+    check(all(np.isfinite(v) for v in gm.values()), f"small teacher train: non-finite metrics {gm}")
+    check(trunk and all(cu[n].abs().max() > 0 for n in trunk), "small teacher train: the trunk did not train")
+    check(devices[0] == "cpu" or g_bwd == 1, f"small teacher train: {g_bwd} backward launches, not 1")
+    check(loss_err <= 1e-4 and update_err[worst] <= 1e-3,
+          f"small teacher train: CUDA vs CPU loss {loss_err}, update {update_err[worst]} "
+          f"({worst}) over tolerance")
+    emit(dict(phase="small_teacher_train", loss_rel_err=loss_err, update_rel_err=update_err[worst],
+              worst_update=worst, trunk_update_rel_err=max(update_err[n] for n in trunk),
+              backward_launches=g_bwd, losses_cuda={k: gm[k] for k in sorted(gm)}))
+
+
+def phase_teacher_serving(dev, results):
+    from cvpr22_cross_modal_pseudo_labeling_torch import bridge
+    from cvpr22_cross_modal_pseudo_labeling_torch.engine.inference import Predictor
+    from cvpr22_cross_modal_pseudo_labeling_torch.models.detector.generalized_rcnn import (
+        GeneralizedRCNN,
+    )
+    from cvpr22_cross_modal_pseudo_labeling_torch.ops import kernels
+
+    t0 = time.perf_counter()
+    pred = Predictor(TEACHER, SERVING["opts"], device=dev)
+    pred.load_flax_params(bridge.seeded_flax_params(pred.model, SEED, EMB_PRED_STD))
+    check(isinstance(pred.model, GeneralizedRCNN), f"teacher serving: built {type(pred.model)}")
+    check(pred.cfg.TPU.COMPUTE_DTYPE == "bfloat16", "the teacher config must run in bfloat16")
+    setup_s = time.perf_counter() - t0
+
+    rng = np.random.default_rng(SEED + 8)
+    table = rng.standard_normal((TEACHER_CLASSES, pred.model.statics.emb_dim)).astype(np.float32)
+    table[0] = 0.0
+    b, (h, w) = SERVING["batch"], SERVING["hw"]
+    batches = []
+    for _ in range(SERVING["batches"]):
+        images = rng.integers(0, 256, (b, h, w, 3), dtype=np.uint8)
+        sizes = np.stack(
+            [rng.integers(3 * h // 4, h + 1, b), rng.integers(2 * w // 3, w + 1, b)], 1
+        ).astype(np.int32)
+        sizes[0] = (h, w)
+        batches.append((images, sizes))
+
+    checks, check_nms, check_roi, _ = launch_checks()
+    kernels.reset_launches()
+    lat, counts = [], []
+    for i, (images, sizes) in enumerate(batches):
+        first = i == 0
+        kernels.NMS.on_launch = check_nms if first else None
+        kernels.ROI_ALIGN.on_launch = check_roi if first else None
+        torch.cuda.synchronize()
+        if i == 1:
+            torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        dets, masks = pred(images, sizes, table)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t)
+        counts.append(dets.valid.sum(1).tolist())
+        check(dets.boxes.shape == (b, 100, 4) and masks.shape == (b, 100, 14, 14),
+              f"teacher serving: unexpected shapes {dets.boxes.shape} {masks.shape}")
+        check(np.isfinite(dets.boxes).all() and np.isfinite(dets.scores).all()
+              and np.isfinite(masks).all(), "teacher serving: non-finite output")
+        check(bool(dets.valid.any(1).all()), f"teacher serving: batch {i} has an image without detections")
+        check(int(dets.labels[dets.valid].max()) < TEACHER_CLASSES, "teacher serving: a label off the table")
+    kernels.NMS.on_launch = kernels.ROI_ALIGN.on_launch = None
+    launches = {k.name: k.launches for k in kernels.ALL}
+    peak = torch.cuda.max_memory_allocated()
+
+    check(len(checks["nms"]) == 2 and all(m == 0 for m, _ in checks["nms"]),
+          f"teacher serving: NMS launches differ from the plain version: {checks['nms']}")
+    check(len(checks["roi_align"]) == 2
+          and all(excess <= 0 for _, excess, _, _ in checks["roi_align"]),
+          f"teacher serving: RoIAlign launches over tolerance: {checks['roi_align']}")
+    check(launches["nms"] > 0 and launches["roi_align"] > 0 and launches["roi_align_backward"] == 0,
+          f"teacher serving: a kernel of the path never launched, or the backward did: {launches}")
+    steady = lat[1:]
+    rec = dict(
+        phase="teacher_serving", config=TEACHER, dtype="bfloat16", batch=b, image_hw=[h, w],
+        classes=TEACHER_CLASSES, emb_pred_std=EMB_PRED_STD, setup_s=setup_s, batch_latency_s=lat,
+        steady_images_per_s=b * len(steady) / sum(steady),
+        steady_peak_memory_gb=peak / 1e9, valid_detections=counts, launches=launches,
+        first_batch_checks={"nms_mismatches": [m for m, _ in checks["nms"]],
+                            "nms_shapes": [n for _, n in checks["nms"]],
+                            "roi_align_max_abs_err": [e for e, _, _, _ in checks["roi_align"]],
+                            "roi_align_excess_over_limit": [x for _, x, _, _ in checks["roi_align"]],
+                            "roi_align_rois": [r for _, _, _, r in checks["roi_align"]]},
+    )
+    emit(rec)
+    results["teacher_serving"] = rec
+    emit(dict(phase="teacher_serving_profile",
+              **profile_groups(lambda: pred(*batches[-1], table))))
+
+
+def phase_teacher_train(dev, results):
+    from cvpr22_cross_modal_pseudo_labeling_torch import bridge
+    from cvpr22_cross_modal_pseudo_labeling_torch.engine.train_step import Trainer
+    from cvpr22_cross_modal_pseudo_labeling_torch.ops import kernels
+
+    t0 = time.perf_counter()
+    trainer = Trainer(TEACHER, TRAIN["opts"], device=dev, seed=SEED)
+    trainer.load_flax_params(bridge.seeded_flax_params(trainer.model, SEED, EMB_PRED_STD))
+    check(trainer.cfg.TPU.COMPUTE_DTYPE == "bfloat16", "the teacher config must run in bfloat16")
+    setup_s = time.perf_counter() - t0
+    model = trainer.model
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+    frozen = [n for n, p in model.named_parameters() if not p.requires_grad]
+    check(sorted(frozen) == sorted(n for n in start if n.startswith(TEACHER_FROZEN)),
+          f"teacher train: the frozen parameters are not the stem, layer1 and emb_pred: {frozen[:5]}")
+    buffers = {n: b.clone() for n, b in model.named_buffers()}
+
+    rng = np.random.default_rng(SEED + 9)
+    batches = [rcnn_batch(train_batch(rng, TRAIN["batch"], TRAIN["hw"], TRAIN["max_gt"], 1, 4, 1,
+                                      TEACHER_CLASSES, model.statics.emb_dim))
+               for _ in range(TRAIN["steps"] + 1)]
+    checks, check_nms, check_roi, check_roi_bwd = launch_checks()
+    kernels.reset_launches()
+    lat, metrics = [], []
+    for i, batch in enumerate(batches[:TRAIN["steps"]]):
+        first = i == 0
+        kernels.NMS.on_launch = check_nms if first else None
+        kernels.ROI_ALIGN.on_launch = check_roi if first else None
+        kernels.ROI_ALIGN_BACKWARD.on_launch = check_roi_bwd if first else None
+        torch.cuda.synchronize()
+        if i == 1:
+            torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        m = trainer.step(batch)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t)
+        metrics.append({k: float(v) for k, v in m.items()})
+        check(all(np.isfinite(v) for v in metrics[-1].values()),
+              f"teacher train: step {i} has a non-finite metric: {metrics[-1]}")
+    kernels.NMS.on_launch = kernels.ROI_ALIGN.on_launch = kernels.ROI_ALIGN_BACKWARD.on_launch = None
+    launches = {k.name: k.launches for k in kernels.ALL}
+    peak = torch.cuda.max_memory_allocated()
+
+    params = dict(model.named_parameters())
+    unchanged = [n for n in start if n.startswith(TEACHER_TRAINED) and torch.equal(params[n], start[n])]
+    moved = [n for n in frozen if not torch.equal(params[n], start[n])]
+    moved += [n for n, b in model.named_buffers() if not torch.equal(b, buffers[n])]
+    check(not unchanged, f"teacher train: trained parameters did not change: {unchanged[:5]}")
+    check(not moved, f"teacher train: frozen parameters or buffers changed: {moved[:5]}")
+    check(all(any(n.startswith(g) for n in start) for g in TEACHER_TRAINED + TEACHER_FROZEN),
+          "teacher train: a parameter group is missing")
+    check(len(checks["nms"]) == 1 and all(m == 0 for m, _ in checks["nms"]),
+          f"teacher train: NMS launches differ from the plain version: {checks['nms']}")
+    for key in ("roi_align", "roi_align_backward"):
+        check(len(checks[key]) == 1 and all(excess <= 0 for _, excess, _, _ in checks[key]),
+              f"teacher train: {key} launches over tolerance: {checks[key]}")
+    check(all(v > 0 for v in launches.values()), f"teacher train: a kernel never launched: {launches}")
+    steady = lat[1:]
+    rec = dict(
+        phase="teacher_train", config=TEACHER, dtype="bfloat16", batch=TRAIN["batch"],
+        image_hw=list(TRAIN["hw"]), setup_s=setup_s, step_latency_s=lat,
+        steady_step_s=sum(steady) / len(steady),
+        steady_images_per_s=TRAIN["batch"] * len(steady) / sum(steady),
+        steady_peak_memory_gb=peak / 1e9, launches=launches, metrics=metrics,
+        gt_per_image=[int(v.sum()) for v in batches[0]["gt_valid"]],
+        first_step_checks={
+            "nms_mismatches": [m for m, _ in checks["nms"]],
+            "nms_shapes": [n for _, n in checks["nms"]],
+            **{f"{key}_{field}": [c[i] for c in checks[key]]
+               for key in ("roi_align", "roi_align_backward")
+               for i, field in enumerate(("max_abs_err", "excess_over_limit", "dtype", "rois"))}},
+    )
+    rec["host_syncs_per_step"] = count_syncs(lambda: trainer.step(batches[-1]))
+    emit(rec)
+    results["teacher_train"] = rec
+    emit(dict(phase="teacher_train_profile", **profile_groups(lambda: trainer.step(batches[-1]))))
 
 
 def count_syncs(run):
@@ -765,9 +1091,10 @@ def main():
 
     t = time.perf_counter()
     kernels.build_all()
+    by_source = {k.source.name: k for k in kernels.ALL}
     emit(dict(phase="build", seconds=time.perf_counter() - t,
-              libraries=[str(k.library_path().name) for k in kernels.ALL],
-              ptxas={k.name: k.resource_usage() for k in kernels.ALL}))
+              libraries=[str(k.library_path().name) for k in by_source.values()],
+              ptxas={name: k.resource_usage() for name, k in by_source.items()}))
 
     results = {}
     phase_nms(dev, results)
@@ -777,12 +1104,23 @@ def main():
     phase_profile(pred, batch, table)
     del pred
     torch.cuda.empty_cache()
-    t = time.perf_counter()
-    phase_small_train()
-    small_train_s = time.perf_counter() - t
-    phase_train(dev, results)
-    emit(dict(phase="timing", small_train_s=small_train_s,
-              train_s=time.perf_counter() - t - small_train_s))
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[f"{name}_s"] = time.perf_counter() - t
+        return out
+
+    timed("small_train", phase_small_train)
+    timed("train", phase_train, dev, results)
+    torch.cuda.empty_cache()
+    timed("roi_align_backward", phase_roi_align_backward, dev, results)
+    timed("small_teacher_train", phase_small_teacher_train)
+    timed("teacher_serving", phase_teacher_serving, dev, results)
+    torch.cuda.empty_cache()
+    timed("teacher_train", phase_teacher_train, dev, results)
+    emit(dict(phase="timing", **seconds))
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -791,7 +1129,9 @@ def main():
     print(smi, flush=True)
 
     serving, train = results["serving"], results["train"]
+    t_serving, t_train = results["teacher_serving"], results["teacher_train"]
     nms_rpn, roi_main = results["nms_rpn"], results[("roi_align",) + ROI_MAIN]
+    bwd_main = results[("roi_align_backward",) + ROI_BWD_MAIN]
 
     def shape_rec(rec):
         return {k: rec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
@@ -802,10 +1142,14 @@ def main():
              replaces="cvpr22_cross_modal_pseudo_labeling_tpu/ops/nms_pallas.py:47",
              launches=serving["launches"]["nms"],
              train_launches=train["launches"]["nms"],
+             teacher_serving_launches=t_serving["launches"]["nms"],
+             teacher_train_launches=t_train["launches"]["nms"],
              launch_unit="one nms_forward call: a memset, then a mask and a scan "
                          "kernel per column band",
              max_abs_err=float(max(serving["first_batch_checks"]["nms_mismatches"]
                                    + train["first_step_checks"]["nms_mismatches"]
+                                   + t_serving["first_batch_checks"]["nms_mismatches"]
+                                   + t_train["first_step_checks"]["nms_mismatches"]
                                    + [results[f"nms_{c[0]}"]["mismatches"] for c in NMS_CASES]
                                    + [results["nms_rpn_dense"]["one_band_mismatches"]])),
              ms=nms_rpn["ms"], plain_ms=nms_rpn["plain_ms"],
@@ -817,8 +1161,12 @@ def main():
              replaces="tools/proto_pallas_roialign.py:146",
              launches=serving["launches"]["roi_align"],
              train_launches=train["launches"]["roi_align"],
+             teacher_serving_launches=t_serving["launches"]["roi_align"],
+             teacher_train_launches=t_train["launches"]["roi_align"],
              max_abs_err=max(serving["first_batch_checks"]["roi_align_max_abs_err"]
                              + train["first_step_checks"]["roi_align_max_abs_err"]
+                             + t_serving["first_batch_checks"]["roi_align_max_abs_err"]
+                             + t_train["first_step_checks"]["roi_align_max_abs_err"]
                              + [results[("roi_align",) + c]["max_abs_err"] for c in ROI_CASES]),
              dtypes="bfloat16 features -> bfloat16 output",
              ms=roi_main["ms"], plain_ms=roi_main["plain_ms"],
@@ -826,6 +1174,22 @@ def main():
              library_ms=None,
              train_shapes={f"8 x {c[0]} bf16": shape_rec(results[("roi_align",) + c])
                            for c in ROI_TRAIN}),
+        dict(name="roi_align_backward", route="cuda",
+             source="cvpr22_cross_modal_pseudo_labeling_torch/csrc/roi_align.cu",
+             replaces="cvpr22_cross_modal_pseudo_labeling_tpu/ops/roi_align_mxu.py:91 "
+                      "(its XLA-derived gradient; no Pallas kernel)",
+             launches=t_train["launches"]["roi_align_backward"],
+             launches_per_teacher_step=t_train["launches"]["roi_align_backward"] / TRAIN["steps"],
+             launch_unit="one roi_align_backward call: the float32 scatter, then the cast "
+                         "to bfloat16",
+             max_abs_err=max(t_train["first_step_checks"]["roi_align_backward_max_abs_err"]
+                             + [results[("roi_align_backward",) + c]["max_abs_err"]
+                                for c in ROI_BWD_CASES]),
+             dtypes="bfloat16 cotangent -> bfloat16 dF, float32 sums",
+             ms=bwd_main["ms"], plain_ms=bwd_main["plain_ms"],
+             bound_ms=bwd_main["bound_ms"], bound_by=bwd_main["bound_by"],
+             library_ms=None,
+             l2_atomic_g_adds_per_s=bwd_main["l2_atomic_g_adds_per_s"]),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -49,6 +49,33 @@
 // arithmetic throughout: bfloat16 to float32 is exact, so bfloat16
 // features in and a bfloat16 store give what the JAX bundle computes
 // (pool in float32, then cast), up to the summation order.
+//
+// The backward, roi_align_backward, writes the gradient of the features:
+// dF[b,h,w,c] = sum_s sum_p,q Ay[b,s,p,h] Ax[b,s,q,w] g[b,s,p,q,c].
+// Replaces: no Pallas kernel.  The JAX package gets this gradient from
+// XLA's autodiff of roi_align_mxu (ops/roi_align_mxu.py:91), the
+// transposed contraction, summed in float32 because the bundle pools
+// f.astype(float32) (models/detector/generalized_rcnn.py:197-205), then
+// cast back to the features' dtype.
+//
+// What bounds the backward on the H100: bytes, on paper.  It must read
+// the cotangent once and write dF once: on the teacher's train step 8 x
+// 512 rois x 7 x 7 x 1024 bfloat16 in (411 MB) and the 69 MB bfloat16
+// map out, about 0.14 ms at 3.35 TB/s.  In practice the scatter's
+// float32 atomics into L2 set the pace: one vector add per (bin, tap,
+// 4 channels), about 1 G scalar adds on that shape.
+//
+// Design: the forward's grid and prologue (one CTA per roi, image-major,
+// the roi's tap lists in shared memory).  Each thread owns 16 bytes of
+// channels of the cotangent; for every bin it reads them once and, for
+// each of the bin's taps, adds w_y * w_x * g into a float32 scratch map
+// [B, H, W, C] that the caller zeroed, with sm_90's float4 atomicAdd
+// (red.global.add.v4.f32).  The rois of one image run together, so their
+// adds meet in that image's 17 MB slab of the scratch, which L2 holds.
+// A second kernel casts the scratch to bfloat16 for bfloat16 features
+// (the JAX float32 sum, then the astype); for float32 features the
+// scratch is the result.  The atomics' order changes from run to run, so
+// float32 results agree with the plain version up to the summation order.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -176,6 +203,54 @@ __device__ int axis_taps(float c0, float c1, float scale, int bins, int size,
   return m;
 }
 
+// One roi's bins in shared memory: per emitted row, at most ly (row
+// offset h * W, weight) pairs; per emitted column, at most lx (w, weight)
+// pairs; then the counts.
+struct TapLists {
+  int ly, lx;
+  int* yoff;
+  float* yw;
+  int* xoff;
+  float* xw;
+  int* ny;
+  int* nx;
+};
+
+// The prologue of both kernels: one thread per emitted row in [p0, p1)
+// and one per emitted column builds that bin's tap list; ends with a
+// barrier, so every thread of the CTA must call it.
+__device__ __forceinline__ TapLists build_tap_lists(
+    int* smem, const float* roi, int H, int W, int P, int Q, float scale,
+    int sampling_ratio, int cap_h, int cap_w, int bin_stride, int out_p,
+    int out_q, int p0, int p1) {
+  TapLists t;
+  t.ly = 2 * cap_h;
+  t.lx = 2 * cap_w;
+  t.yoff = smem;
+  t.yw = reinterpret_cast<float*>(t.yoff + out_p * t.ly);
+  t.xoff = reinterpret_cast<int*>(t.yw + out_p * t.ly);
+  t.xw = reinterpret_cast<float*>(t.xoff + out_q * t.lx);
+  t.ny = reinterpret_cast<int*>(t.xw + out_q * t.lx);
+  t.nx = t.ny + out_p;
+  for (int j = threadIdx.x; j < p1 - p0 + out_q; j += blockDim.x) {
+    if (j < p1 - p0) {
+      const int p = p0 + j;
+      int* ji = t.yoff + p * t.ly;
+      const int n = axis_taps(roi[1], roi[3], scale, P, H, p * bin_stride,
+                              sampling_ratio, cap_h, ji, t.yw + p * t.ly);
+      for (int k = 0; k < n; ++k) ji[k] *= W;
+      t.ny[p] = n;
+    } else {
+      const int q = j - (p1 - p0);
+      t.nx[q] = axis_taps(roi[0], roi[2], scale, Q, W, q * bin_stride,
+                          sampling_ratio, cap_w, t.xoff + q * t.lx,
+                          t.xw + q * t.lx);
+    }
+  }
+  __syncthreads();
+  return t;
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kMaxThreads)
     roi_align_fwd_kernel(const T* __restrict__ feat,
@@ -187,50 +262,27 @@ __global__ void __launch_bounds__(kMaxThreads)
   using V = Vec<T>;
   constexpr int kVec = V::n;
   constexpr int kUnroll = V::taps;
-  // per emitted row: <= ly (row offset h * W, weight); per column: <= lx
-  // (w, weight); then the counts
   extern __shared__ int smem[];
-  const int ly = 2 * cap_h, lx = 2 * cap_w;
-  int* yoff = smem;
-  float* yw = reinterpret_cast<float*>(yoff + out_p * ly);
-  int* xoff = reinterpret_cast<int*>(yw + out_p * ly);
-  float* xw = reinterpret_cast<float*>(xoff + out_q * lx);
-  int* ny = reinterpret_cast<int*>(xw + out_q * lx);
-  int* nx = ny + out_p;
-
   const int roi_id = blockIdx.x;  // b * S + s
   const int b = roi_id / S;
   const int p0 = blockIdx.y * rows;  // this CTA's rows of bins
   const int p1 = min(out_p, p0 + rows);
-  const float* roi = rois + (size_t)roi_id * 4;
-  for (int j = threadIdx.x; j < p1 - p0 + out_q; j += blockDim.x) {
-    if (j < p1 - p0) {
-      const int p = p0 + j;
-      int* ji = yoff + p * ly;
-      const int n = axis_taps(roi[1], roi[3], scale, P, H, p * bin_stride,
-                              sampling_ratio, cap_h, ji, yw + p * ly);
-      for (int k = 0; k < n; ++k) ji[k] *= W;
-      ny[p] = n;
-    } else {
-      const int q = j - (p1 - p0);
-      nx[q] = axis_taps(roi[0], roi[2], scale, Q, W, q * bin_stride,
-                        sampling_ratio, cap_w, xoff + q * lx, xw + q * lx);
-    }
-  }
-  __syncthreads();
+  const TapLists t = build_tap_lists(
+      smem, rois + (size_t)roi_id * 4, H, W, P, Q, scale, sampling_ratio,
+      cap_h, cap_w, bin_stride, out_p, out_q, p0, p1);
 
   const T* fb = feat + (size_t)b * H * W * C;
   T* ob = out + (size_t)roi_id * out_p * out_q * C;
   for (int cv = threadIdx.x * kVec; cv < C; cv += blockDim.x * kVec) {
     const T* f = fb + cv;
     for (int p = p0; p < p1; ++p) {
-      const int* yo = yoff + p * ly;
-      const float* ywp = yw + p * ly;
-      const int nyp = ny[p];
+      const int* yo = t.yoff + p * t.ly;
+      const float* ywp = t.yw + p * t.ly;
+      const int nyp = t.ny[p];
       for (int q = 0; q < out_q; ++q) {
-        const int* xo = xoff + q * lx;
-        const float* xwq = xw + q * lx;
-        const int nxq = nx[q];
+        const int* xo = t.xoff + q * t.lx;
+        const float* xwq = t.xw + q * t.lx;
+        const int nxq = t.nx[q];
         const int total = nyp * nxq;
         float acc[kVec];
 #pragma unroll
@@ -268,25 +320,135 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
 }
 
+// Adds w * g[0..n) to the n float32 channels at dst (16-byte aligned).
+template <int n>
+__device__ __forceinline__ void scatter_add(float* dst, float w,
+                                            const float (&g)[n]) {
+#pragma unroll
+  for (int i = 0; i < n; i += 4) {
+    atomicAdd(reinterpret_cast<float4*>(dst + i),
+              make_float4(w * g[i], w * g[i + 1], w * g[i + 2], w * g[i + 3]));
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kMaxThreads)
+    roi_align_bwd_kernel(const T* __restrict__ grad,
+                         const float* __restrict__ rois,
+                         float* __restrict__ dfeat, int H, int W, int C,
+                         int S, int P, int Q, float scale, int sampling_ratio,
+                         int cap_h, int cap_w, int bin_stride, int out_p,
+                         int out_q, int rows) {
+  using V = Vec<T>;
+  constexpr int kVec = V::n;
+  extern __shared__ int smem[];
+  const int roi_id = blockIdx.x;  // b * S + s
+  const int b = roi_id / S;
+  const int p0 = blockIdx.y * rows;
+  const int p1 = min(out_p, p0 + rows);
+  const TapLists t = build_tap_lists(
+      smem, rois + (size_t)roi_id * 4, H, W, P, Q, scale, sampling_ratio,
+      cap_h, cap_w, bin_stride, out_p, out_q, p0, p1);
+
+  float* fb = dfeat + (size_t)b * H * W * C;
+  const T* gb = grad + (size_t)roi_id * out_p * out_q * C;
+  for (int cv = threadIdx.x * kVec; cv < C; cv += blockDim.x * kVec) {
+    float* f = fb + cv;
+    for (int p = p0; p < p1; ++p) {
+      const int* yo = t.yoff + p * t.ly;
+      const float* ywp = t.yw + p * t.ly;
+      const int nyp = t.ny[p];
+      for (int q = 0; q < out_q; ++q) {
+        const int* xo = t.xoff + q * t.lx;
+        const float* xwq = t.xw + q * t.lx;
+        const int nxq = t.nx[q];
+        float g[kVec];
+        V::unpack(__ldg(reinterpret_cast<const typename V::raw*>(
+                      gb + ((size_t)p * out_q + q) * C + cv)),
+                  g);
+        for (int iy = 0; iy < nyp; ++iy) {
+          const float wy = ywp[iy];
+          for (int ix = 0; ix < nxq; ++ix) {
+            scatter_add(f + (size_t)(yo[iy] + xo[ix]) * C, wy * xwq[ix], g);
+          }
+        }
+      }
+    }
+  }
+}
+
+// n4 groups of 4 float32 values to bfloat16, round to nearest even.
+__global__ void cast_to_bf16_kernel(const float4* __restrict__ in,
+                                    uint2* __restrict__ out, size_t n4) {
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const float4 v = in[i];
+    __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+    __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+    out[i] = make_uint2(*reinterpret_cast<uint32_t*>(&lo),
+                        *reinterpret_cast<uint32_t*>(&hi));
+  }
+}
+
+// The launch shape both directions share.
+struct Geometry {
+  int out_p, out_q, rows;
+  size_t smem;
+  dim3 grid;
+  int threads;
+};
+
+template <typename T>
+Geometry geometry(int B, int C, int S, int P, int Q, int cap_h, int cap_w,
+                  int bin_stride) {
+  Geometry g;
+  g.out_p = (P + bin_stride - 1) / bin_stride;
+  g.out_q = (Q + bin_stride - 1) / bin_stride;
+  g.smem = (size_t)(g.out_p * 2 * cap_h + g.out_q * 2 * cap_w) * 8 +
+           (g.out_p + g.out_q) * 4;
+  g.threads = min(C / Vec<T>::n, kMaxThreads);
+  g.threads = max(32, (g.threads + 31) / 32 * 32);
+  g.rows = B * S < kSplitBelow ? 1 : g.out_p;
+  g.grid = dim3(B * S, (g.out_p + g.rows - 1) / g.rows);
+  return g;
+}
+
 template <typename T>
 cudaError_t launch(const void* features, const void* rois, void* out, int B,
                    int H, int W, int C, int S, int P, int Q, float scale,
                    int sampling_ratio, int cap_h, int cap_w, int bin_stride,
                    cudaStream_t st) {
-  const int out_p = (P + bin_stride - 1) / bin_stride;
-  const int out_q = (Q + bin_stride - 1) / bin_stride;
-  const size_t smem =
-      (size_t)(out_p * 2 * cap_h + out_q * 2 * cap_w) * 8 + (out_p + out_q) * 4;
-  if (smem > 48 * 1024) return cudaErrorInvalidValue;
-  int threads = min(C / Vec<T>::n, kMaxThreads);
-  threads = max(32, (threads + 31) / 32 * 32);
-  const int rows = B * S < kSplitBelow ? 1 : out_p;
-  const dim3 grid(B * S, (out_p + rows - 1) / rows);
-  roi_align_fwd_kernel<T><<<grid, threads, smem, st>>>(
+  const Geometry g = geometry<T>(B, C, S, P, Q, cap_h, cap_w, bin_stride);
+  if (g.smem > 48 * 1024) return cudaErrorInvalidValue;
+  roi_align_fwd_kernel<T><<<g.grid, g.threads, g.smem, st>>>(
       static_cast<const T*>(features), static_cast<const float*>(rois),
       static_cast<T*>(out), H, W, C, S, P, Q, scale, sampling_ratio, cap_h,
-      cap_w, bin_stride, out_p, out_q, rows);
+      cap_w, bin_stride, g.out_p, g.out_q, g.rows);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_backward(const void* grad, const void* rois,
+                            void* scratch, int B, int H, int W, int C, int S,
+                            int P, int Q, float scale, int sampling_ratio,
+                            int cap_h, int cap_w, int bin_stride,
+                            cudaStream_t st) {
+  const Geometry g = geometry<T>(B, C, S, P, Q, cap_h, cap_w, bin_stride);
+  if (g.smem > 48 * 1024) return cudaErrorInvalidValue;
+  roi_align_bwd_kernel<T><<<g.grid, g.threads, g.smem, st>>>(
+      static_cast<const T*>(grad), static_cast<const float*>(rois),
+      static_cast<float*>(scratch), H, W, C, S, P, Q, scale, sampling_ratio,
+      cap_h, cap_w, bin_stride, g.out_p, g.out_q, g.rows);
+  return cudaGetLastError();
+}
+
+void sample_caps(int H, int W, int P, int Q, int sampling_ratio,
+                 int max_samples, int* cap_h, int* cap_w) {
+  *cap_h = *cap_w = sampling_ratio;
+  if (sampling_ratio <= 0) {
+    *cap_h = min(max_samples, (H + P - 1) / P);
+    *cap_w = min(max_samples, (W + Q - 1) / Q);
+  }
 }
 
 }  // namespace
@@ -301,11 +463,8 @@ extern "C" int roi_align_forward(const void* features, const void* rois,
                                  int sampling_ratio, int max_samples,
                                  int bin_stride, int bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int cap_h = sampling_ratio, cap_w = sampling_ratio;
-  if (sampling_ratio <= 0) {
-    cap_h = min(max_samples, (H + P - 1) / P);
-    cap_w = min(max_samples, (W + Q - 1) / Q);
-  }
+  int cap_h, cap_w;
+  sample_caps(H, W, P, Q, sampling_ratio, max_samples, &cap_h, &cap_w);
   const cudaError_t err =
       bf16 ? launch<__nv_bfloat16>(features, rois, out, B, H, W, C, S, P, Q,
                                    spatial_scale, sampling_ratio, cap_h, cap_w,
@@ -314,4 +473,37 @@ extern "C" int roi_align_forward(const void* features, const void* rois,
                            spatial_scale, sampling_ratio, cap_h, cap_w,
                            bin_stride, st);
   return static_cast<int>(err);
+}
+
+// grad [B, S, ceil(P/bin_stride), ceil(Q/bin_stride), C] in the features'
+// type (float32 with C % 4 == 0, or bfloat16 with C % 8 == 0), 16-byte
+// aligned; rois as for the forward; scratch [B, H, W, C] float32, zeroed
+// by the caller, receives the float32 sums.  For bfloat16 (bf16 = 1) the
+// result is then cast into out [B, H, W, C] bfloat16; for float32 the
+// scratch is the result and out is not touched.
+extern "C" int roi_align_backward(const void* grad, const void* rois,
+                                  void* scratch, void* out, int B, int H,
+                                  int W, int C, int S, int P, int Q,
+                                  float spatial_scale, int sampling_ratio,
+                                  int max_samples, int bin_stride, int bf16,
+                                  void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int cap_h, cap_w;
+  sample_caps(H, W, P, Q, sampling_ratio, max_samples, &cap_h, &cap_w);
+  cudaError_t err =
+      bf16 ? launch_backward<__nv_bfloat16>(grad, rois, scratch, B, H, W, C,
+                                            S, P, Q, spatial_scale,
+                                            sampling_ratio, cap_h, cap_w,
+                                            bin_stride, st)
+           : launch_backward<float>(grad, rois, scratch, B, H, W, C, S, P, Q,
+                                    spatial_scale, sampling_ratio, cap_h,
+                                    cap_w, bin_stride, st);
+  if (err != cudaSuccess || !bf16) return static_cast<int>(err);
+  const size_t n4 = (size_t)B * H * W * C / 4;
+  const int threads = 256;
+  const size_t want = (n4 + threads - 1) / threads;
+  const int blocks = (int)(want < 132 * 16 ? want : 132 * 16);
+  cast_to_bf16_kernel<<<blocks, threads, 0, st>>>(
+      static_cast<const float4*>(scratch), static_cast<uint2*>(out), n4);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -3,8 +3,10 @@
 Counterpart of the ``forward`` that ``cvpr22_cross_modal_pseudo_labeling_
 tpu/engine/inference.py::compute_on_dataset`` runs per batch (:49-59,
 :149-159): the eval forward on a padded uint8 batch with the dataset's
-class table, brought back to the host as numpy.  The data loader and the
-COCO evaluator come with a later slice.
+class table, brought back to the host as numpy, for the model the
+config's ``MODEL.META_ARCHITECTURE`` names (``GeneralizedRCNN``, the
+teacher, or ``STGeneralizedRCNN``).  The data loader and the COCO
+evaluator come with a later slice.
 """
 
 from typing import NamedTuple, Sequence
@@ -14,10 +16,7 @@ import torch
 
 from ..bridge import load_flax_params
 from ..config import get_default_cfg
-from ..models.detector.st_generalized_rcnn import (
-    STGeneralizedRCNN,
-    st_statics_from_cfg,
-)
+from ..models.detector import build_detection_model
 
 
 class NumpyDetections(NamedTuple):
@@ -53,13 +52,8 @@ class Predictor:
                 "to run on the CPU"
             )
         self.cfg = load_cfg(config_file, opts)
-        arch = self.cfg.MODEL.META_ARCHITECTURE
-        if arch != "STGeneralizedRCNN":
-            raise NotImplementedError(
-                f"META_ARCHITECTURE {arch}: only STGeneralizedRCNN eval is ported yet"
-            )
         self.device = device
-        self.model = STGeneralizedRCNN(st_statics_from_cfg(self.cfg)).eval().to(device)
+        self.model = build_detection_model(self.cfg).eval().to(device)
 
     def load_flax_params(self, params) -> None:
         load_flax_params(self.model, params)
@@ -73,8 +67,11 @@ class Predictor:
     ):
         """images ``[B, H, W, 3]`` uint8 padded batch; image_sizes
         ``[B, 2]`` (h, w); class_embeddings ``[C, emb_dim]`` (row 0 is
-        the background).  Returns ``(NumpyDetections, mask_probs
-        [B, D, M, M] float32 or None)``."""
+        the background), passed to the model as it is: the
+        student-teacher model normalizes its rows, the teacher scores
+        against them unnormalized, as their JAX counterparts do.
+        Returns ``(NumpyDetections, mask_probs [B, D, M, M] float32 or
+        None)``."""
         dev = self.device
         out = self.model(
             torch.as_tensor(images).to(dev),

@@ -28,9 +28,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..models.detector import ST_FAMILY
 from .lr_schedule import warmup_multistep_schedule
-
-ST_FAMILY = ("STGeneralizedRCNN",)
 
 
 def label_params(names: Sequence[str], frozen_prefixes: Sequence[str]) -> Dict[str, str]:

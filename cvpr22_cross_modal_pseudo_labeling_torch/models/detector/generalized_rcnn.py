@@ -1,0 +1,295 @@
+"""GeneralizedRCNN: backbone -> RPN -> RoI heads, the teacher detector.
+
+Counterpart of ``cvpr22_cross_modal_pseudo_labeling_tpu/models/detector/
+generalized_rcnn.py`` (``RCNNTrainOutput`` :55, ``RCNNEvalOutput`` :60,
+``GeneralizedRCNN`` :78 with ``_rpn_forward`` :164,
+``_extract_box_features`` :195, ``forward_train`` :241 and
+``forward_eval`` :410) for the configuration the port runs: the C4 body,
+the embedding-based box predictor with class-agnostic regression and a
+class-agnostic mask head.  It trains in the paper's first stage
+(``configs/coco_cap_det/zeroshot_mask.yaml``): the RPN loss, RoI
+sampling over the proposals plus the gt boxes, the box loss and the
+mask loss on the positives-first slots.  The backbone runs with
+autograd; the optimizer's frozen prefixes (``FREEZE_CONV_BODY_AT``) set
+which stages train, and a stage whose parameters and input need no
+gradient saves nothing.  The class table is used as it is given (the
+student-teacher model normalizes its tables; this model does not).
+
+The module's attributes are the flax scopes (``backbone``, ``rpn_head``,
+``roi_extractor``, ``box_predictor``, ``mask_predictor`` at the top
+level), so ``bridge.py`` maps the JAX parameter tree by path: the RoI
+heads come from :class:`RoIHeadsBundle`, which this class extends.
+
+Also here, shared with the student-teacher model: the output types, the
+random draws of a training forward (:class:`TrainDraws`) and the pieces
+of the forward both detectors run (:func:`check_ported`,
+:func:`c4_backbone`, :class:`AnchorCache`, :func:`select_proposals`,
+:func:`detect`).  Not ported, and refused: the FPN and C5 bodies,
+``KEYPOINT_ON``, ``WSDDN``, ``RPN_ONLY``, ``GT_BOX_EVAL``, the
+``class_valid`` row mask, and ``run_teacher_pseudo_branch`` /
+``predict_masks_for_boxes`` (no caller in the JAX package).
+"""
+
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from ..backbone import ResNetBackbone, device_normalize
+from ..roi_heads.box_head import Detections, box_head_loss, postprocess_boxes, subsample_rois
+from ..roi_heads.bundle import RoIHeadsBundle, compute_dtype
+from ..roi_heads.mask_head import mask_head_inference, mask_head_loss
+from ..rpn.anchors import anchor_visibility, build_anchors_for_levels
+from ..rpn.rpn import RPNHead, RPNProposals, flatten_rpn_outputs, rpn_loss, select_proposals_single_level
+from .statics import RCNNStatics
+
+
+class RCNNEvalOutput(NamedTuple):
+    detections: Detections
+    mask_probs: Optional[torch.Tensor]  # [B, D, M, M]
+
+
+class RCNNTrainOutput(NamedTuple):
+    losses: Dict[str, torch.Tensor]
+    info: Dict[str, torch.Tensor]
+
+
+class TrainDraws(NamedTuple):
+    """Random draws of one training forward; a None field is drawn from
+    the generator.  The RoI and RPN samplers' positive and negative
+    priorities: ``pseudo_sampler`` ``[B, 2, P_test]`` (the student-teacher
+    caption branch), ``gt_sampler`` ``[B, 2, P_train + G]`` (the
+    detection branch, or the teacher's RoI sampler), ``rpn_sampler``
+    ``[B, 2, N_anchors]`` (the teacher's RPN loss); ``mask_eps`` ``[n_s,
+    B * cap, M, M, 2]``: the mask uncertainty's samples, in the mask
+    logits' dtype."""
+
+    pseudo_sampler: Optional[torch.Tensor] = None
+    gt_sampler: Optional[torch.Tensor] = None
+    mask_eps: Optional[torch.Tensor] = None
+    rpn_sampler: Optional[torch.Tensor] = None
+
+
+def check_ported(s: RCNNStatics) -> None:
+    """Raises NotImplementedError for a configuration the port does not
+    run yet."""
+    if not s.conv_body.endswith("-C4"):
+        raise NotImplementedError(f"CONV_BODY {s.conv_body}: only the C4 body is ported yet")
+    if not (s.embedding_based and s.cls_agnostic_bbox_reg
+            and (s.cls_agnostic_mask or not s.mask_on)):
+        raise NotImplementedError(
+            "only the embedding-based, class-agnostic box and mask heads are ported yet"
+        )
+    for on, key in ((s.keypoint_on, "MODEL.KEYPOINT_ON"), (s.wsddn, "MODEL.ROI_BOX_HEAD.WSDDN"),
+                    (s.rpn_only, "MODEL.RPN_ONLY"), (s.gt_box_eval, "MODEL.GT_BOX_EVAL")):
+        if on:
+            raise NotImplementedError(f"{key} is not ported yet")
+
+
+def c4_backbone(s: RCNNStatics) -> ResNetBackbone:
+    return ResNetBackbone(
+        depth=s.conv_body[:-3],
+        stem_out_channels=s.stem_out_channels,
+        res2_out_channels=s.res2_out_channels,
+        num_groups=s.num_groups,
+        width_per_group=s.width_per_group,
+        stride_in_1x1=s.stride_in_1x1,
+        dtype=compute_dtype(s),
+    )
+
+
+class AnchorCache:
+    """The C4 level's anchors, built once per feature shape and device."""
+
+    def __init__(self, s: RCNNStatics):
+        self.statics = s
+        self._anchors: Dict[Tuple, torch.Tensor] = {}
+
+    def __call__(self, feat: torch.Tensor) -> torch.Tensor:
+        key = (tuple(feat.shape[1:3]), feat.device)
+        if key not in self._anchors:
+            s = self.statics
+            (self._anchors[key],) = build_anchors_for_levels(
+                [key[0]], s.anchor_stride, s.anchor_sizes, s.aspect_ratios, feat.device
+            )
+        return self._anchors[key]
+
+
+def select_proposals(s: RCNNStatics, anchors, objectness, box_reg, image_sizes, train: bool) -> RPNProposals:
+    """The train or test selector of the config on float32 inputs."""
+    return select_proposals_single_level(
+        anchors,
+        objectness.to(torch.float32),
+        box_reg.to(torch.float32),
+        image_sizes,
+        s.rpn_pre_nms_train if train else s.rpn_pre_nms_test,
+        s.rpn_post_nms_train if train else s.rpn_post_nms_test,
+        s.rpn_nms_thresh,
+        s.rpn_min_size,
+    )
+
+
+def detect(heads: RoIHeadsBundle, feats, proposals: RPNProposals, image_sizes,
+           class_embeddings) -> RCNNEvalOutput:
+    """The eval RoI heads: box scores against ``class_embeddings`` (used
+    as given), ``postprocess_boxes``, then the masks of the detections."""
+    s = heads.statics
+    x = heads.extract(feats, proposals.boxes)
+    logits, deltas, _ = heads.box_outputs(x, class_embeddings)
+    b, p = proposals.boxes.shape[:2]
+    dets = postprocess_boxes(
+        logits.to(torch.float32).reshape(b, p, -1),
+        deltas.to(torch.float32).reshape(b, p, -1),
+        proposals.boxes,
+        proposals.valid,
+        image_sizes,
+        s.score_thresh,
+        s.nms_thresh,
+        s.detections_per_img,
+        pre_nms_candidates=min(10 * s.detections_per_img, p * max(logits.shape[-1] - 1, 1)),
+        reg_weights=s.reg_weights,
+    )
+    mask_probs = None
+    if s.mask_on:
+        x2 = heads.extract(feats, dets.boxes)
+        mask_logits, _ = heads.mask_outputs(x2)
+        probs = mask_head_inference(mask_logits.to(torch.float32))
+        m = probs.shape[-1]
+        mask_probs = probs.reshape(b, -1, m, m)
+    return RCNNEvalOutput(dets, mask_probs)
+
+
+class GeneralizedRCNN(RoIHeadsBundle):
+    def __init__(self, statics: RCNNStatics):
+        check_ported(statics)
+        super().__init__(statics, uncertainty=statics.uncertainty)
+        s = statics
+        self.backbone = c4_backbone(s)
+        self.rpn_head = RPNHead(
+            s.backbone_out_channels, len(s.aspect_ratios) * len(s.anchor_sizes), compute_dtype(s)
+        )
+        self.anchors = AnchorCache(s)
+
+    def forward(
+        self,
+        images: torch.Tensor,
+        image_sizes: torch.Tensor,
+        class_embeddings: torch.Tensor,
+        train: bool = False,
+        batch: Optional[Dict[str, torch.Tensor]] = None,
+        compute_uncertain: bool = False,
+        draws: TrainDraws = TrainDraws(),
+        generator: Optional[torch.Generator] = None,
+    ):
+        """images ``[B, H, W, 3]`` uint8 (or already-normalized float);
+        image_sizes ``[B, 2]`` (h, w); class_embeddings ``[C, emb_dim]``
+        with the background row 0.
+
+        Eval returns :class:`RCNNEvalOutput`.  Training (``train=True``)
+        returns :class:`RCNNTrainOutput` and reads the targets from
+        ``batch``: ``gt_boxes`` ``[B, G, 4]``, ``gt_labels``, ``gt_valid``
+        ``[B, G]`` and ``gt_masks`` ``[B, G, Mr, Mr]``.
+        ``compute_uncertain`` samples the mask uncertainty (when the
+        model has it) and reports ``avg_uncertain``; the train step
+        leaves it off, as the JAX loss function does."""
+        s = self.statics
+        images = device_normalize(images, image_sizes, s.pixel_mean, s.pixel_std, s.to_bgr255)
+        if not train:
+            return self.forward_eval(images, image_sizes, class_embeddings)
+        if batch is None:
+            raise ValueError("GeneralizedRCNN training needs `batch`")
+        if "class_valid" in batch:
+            raise NotImplementedError("the class_valid row mask of padded class tables is not ported")
+        return self.forward_train(
+            images, image_sizes, class_embeddings, batch, compute_uncertain, draws, generator
+        )
+
+    def _rpn_forward(self, images, image_sizes, train: bool):
+        feats = self.backbone(images)
+        obj_l, reg_l = self.rpn_head(feats)
+        objectness, box_reg = flatten_rpn_outputs(obj_l, reg_l)
+        anchors = self.anchors(feats[0])
+        proposals = select_proposals(self.statics, anchors, objectness, box_reg, image_sizes, train)
+        return feats, objectness, box_reg, anchors, proposals
+
+    def forward_train(
+        self, images, image_sizes, class_embeddings, batch, compute_uncertain: bool = False,
+        draws: TrainDraws = TrainDraws(), generator: Optional[torch.Generator] = None,
+    ) -> RCNNTrainOutput:
+        s = self.statics
+        feats, objectness, box_reg, anchors, proposals = self._rpn_forward(
+            images, image_sizes, train=True
+        )
+        gt_boxes = batch["gt_boxes"].to(torch.float32)
+        gt_labels = batch["gt_labels"]
+        gt_valid = batch["gt_valid"].to(torch.bool)
+        losses: Dict[str, torch.Tensor] = {}
+        info: Dict[str, torch.Tensor] = {}
+
+        if not s.rpn_dont_train:
+            obj_loss, rpn_box_loss = rpn_loss(
+                anchors,
+                anchor_visibility(anchors, image_sizes, s.straddle_thresh),
+                objectness.to(torch.float32),
+                box_reg.to(torch.float32),
+                gt_boxes,
+                gt_valid,
+                draws.rpn_sampler,
+                generator,
+                s.rpn_fg_iou,
+                s.rpn_bg_iou,
+                s.rpn_batch_per_image,
+                s.rpn_positive_fraction,
+            )
+            losses["loss_objectness"] = obj_loss
+            losses["loss_rpn_box_reg"] = rpn_box_loss
+
+        # add_gt_proposals (rpn/inference.py:53-74)
+        sampled = subsample_rois(
+            torch.cat([proposals.boxes, gt_boxes], dim=1),
+            torch.cat([proposals.valid, gt_valid], dim=1),
+            gt_boxes, gt_labels, gt_valid, draws.gt_sampler, generator,
+            s.roi_batch_per_image, s.roi_positive_fraction,
+            s.roi_fg_iou, s.roi_bg_iou, s.reg_weights,
+        )
+        x = self.extract(feats, sampled.boxes)
+        logits, deltas, _ = self.box_outputs(x, class_embeddings)
+        losses["loss_classifier"], losses["loss_box_reg"] = box_head_loss(
+            logits.to(torch.float32), deltas.to(torch.float32), sampled, s.bg_weight
+        )
+        if s.mask_on:
+            # the mask head on the positives-first slots (SampledRoIs.head)
+            cap = min(s.mask_pos_cap, s.roi_batch_per_image)
+            b = images.shape[0]
+            x_mask = x.reshape(b, -1, *x.shape[1:])[:, :cap].reshape(-1, *x.shape[1:])
+            sampled_mask = sampled.head(cap)
+            mask_logits, scale = self.mask_outputs(
+                x_mask, compute_uncertain=compute_uncertain, train=True,
+                eps=draws.mask_eps, generator=generator,
+            )
+            losses["loss_mask"] = mask_head_loss(
+                mask_logits.to(torch.float32), sampled_mask, batch["gt_masks"], gt_boxes,
+                estimator=s.uncertainty_estimator,
+            )
+            if scale is not None:
+                # the mean sigma over the positive mask slots (the JAX
+                # code reads the positives of all sampled slots, the same
+                # ones whenever the mask slice covers them all)
+                pos = (sampled_mask.is_pos & sampled_mask.valid).reshape(-1).to(torch.float32)
+                info["avg_uncertain"] = torch.sum(
+                    scale[..., 0].to(torch.float32).mean(dim=(1, 2)) * pos
+                ) / pos.sum().clamp(min=1.0)
+        return RCNNTrainOutput(losses, info)
+
+    def forward_eval(self, images, image_sizes, class_embeddings) -> RCNNEvalOutput:
+        feats, _, _, _, proposals = self._rpn_forward(images, image_sizes, train=False)
+        return detect(self, feats, proposals, image_sizes, class_embeddings)
+
+    def run_teacher_pseudo_branch(self, *args, **kwargs):
+        raise NotImplementedError(
+            "run_teacher_pseudo_branch is not ported: nothing in the JAX package calls it"
+        )
+
+    def predict_masks_for_boxes(self, *args, **kwargs):
+        raise NotImplementedError(
+            "predict_masks_for_boxes is not ported: nothing in the JAX package calls it"
+        )

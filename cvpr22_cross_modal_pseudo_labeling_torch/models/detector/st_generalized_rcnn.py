@@ -27,20 +27,29 @@ table (``MODEL.EXEMPLARS_ENABLED``) and the in-step LVIS table of
 shipped configs.
 """
 
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional
 
 import torch
 from torch import nn
 
 from ...core.box_coder import decode_boxes
 from ...core.boxes import clip_to_image
-from ..backbone import ResNetBackbone, device_normalize
+from ..backbone import device_normalize
 from ..language.bert import WordEmbeddingBackbone
-from ..roi_heads.box_head import Detections, box_head_loss, postprocess_boxes, subsample_rois
+from ..roi_heads.box_head import box_head_loss, subsample_rois
 from ..roi_heads.bundle import RoIHeadsBundle, compute_dtype
 from ..roi_heads.mask_head import mask_head_inference, mask_head_loss
-from ..rpn.anchors import build_anchors_for_levels
-from ..rpn.rpn import RPNHead, RPNProposals, flatten_rpn_outputs, select_proposals_single_level
+from ..rpn.rpn import RPNHead, RPNProposals, flatten_rpn_outputs
+from .generalized_rcnn import (
+    AnchorCache,
+    RCNNEvalOutput,
+    RCNNTrainOutput,
+    TrainDraws,
+    c4_backbone,
+    check_ported,
+    detect,
+    select_proposals,
+)
 from .statics import RCNNStatics, statics_from_cfg
 
 
@@ -76,29 +85,6 @@ def normalize_rows(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     return x * torch.rsqrt(sq.clamp(min=eps * eps))
 
 
-class RCNNEvalOutput(NamedTuple):
-    detections: Detections
-    mask_probs: Optional[torch.Tensor]  # [B, D, M, M]
-
-
-class RCNNTrainOutput(NamedTuple):
-    losses: Dict[str, torch.Tensor]
-    info: Dict[str, torch.Tensor]
-
-
-class TrainDraws(NamedTuple):
-    """Random draws of one training forward; a None field is drawn from
-    the generator.  ``pseudo_sampler`` ``[B, 2, P_test]`` and
-    ``gt_sampler`` ``[B, 2, P_train + G]``: the RoI sampler's positive
-    and negative priorities of each branch; ``mask_eps`` ``[n_s,
-    B * cap, M, M, 2]``: the caption branch's uncertainty samples, in the
-    mask logits' dtype."""
-
-    pseudo_sampler: Optional[torch.Tensor] = None
-    gt_sampler: Optional[torch.Tensor] = None
-    mask_eps: Optional[torch.Tensor] = None
-
-
 class PseudoLabels(NamedTuple):
     boxes: torch.Tensor  # [B, W, 4] teacher-regressed
     scores: torch.Tensor  # [B, W] sigmoid of the best region score
@@ -111,35 +97,17 @@ class STGeneralizedRCNN(nn.Module):
     def __init__(self, statics: STStatics):
         super().__init__()
         s = statics.base
-        if not s.conv_body.endswith("-C4"):
-            raise NotImplementedError(
-                f"CONV_BODY {s.conv_body}: only the C4 body is ported yet"
-            )
-        if not (s.embedding_based and s.cls_agnostic_bbox_reg
-                and (s.cls_agnostic_mask or not s.mask_on)):
-            raise NotImplementedError(
-                "only the embedding-based, class-agnostic box and mask heads "
-                "are ported yet"
-            )
+        check_ported(s)
         self.statics = statics
-        dtype = compute_dtype(s)
-        self.backbone = ResNetBackbone(
-            depth=s.conv_body[:-3],
-            stem_out_channels=s.stem_out_channels,
-            res2_out_channels=s.res2_out_channels,
-            num_groups=s.num_groups,
-            width_per_group=s.width_per_group,
-            stride_in_1x1=s.stride_in_1x1,
-            dtype=dtype,
-        )
+        self.backbone = c4_backbone(s)
         self.rpn_head = RPNHead(
-            s.backbone_out_channels, len(s.aspect_ratios) * len(s.anchor_sizes), dtype
+            s.backbone_out_channels, len(s.aspect_ratios) * len(s.anchor_sizes), compute_dtype(s)
         )
         self.teacher = RoIHeadsBundle(s, uncertainty=False)
         self.student = RoIHeadsBundle(s, uncertainty=statics.uncertainty)
         self.bert = WordEmbeddingBackbone(statics.vocab_size, s.emb_dim)
         self.lambda_exemplar = nn.Parameter(torch.zeros(1))
-        self._anchors: Dict[Tuple, torch.Tensor] = {}
+        self.anchors = AnchorCache(s)
 
     def combine_embs(self, embs: torch.Tensor) -> torch.Tensor:
         """combine_embs without exemplars: row-normalize the table."""
@@ -152,16 +120,6 @@ class STGeneralizedRCNN(nn.Module):
         m = token_mask.to(torch.float32)[..., None]
         mean = torch.sum(emb * m, dim=-2) / torch.sum(m, dim=-2).clamp(min=1e-6)
         return normalize_rows(mean)
-
-    def anchors(self, feat: torch.Tensor) -> torch.Tensor:
-        """The C4 level's anchors, cached per feature shape and device."""
-        key = (tuple(feat.shape[1:3]), feat.device)
-        if key not in self._anchors:
-            s = self.statics.base
-            (self._anchors[key],) = build_anchors_for_levels(
-                [key[0]], s.anchor_stride, s.anchor_sizes, s.aspect_ratios, feat.device
-            )
-        return self._anchors[key]
 
     def forward(
         self,
@@ -216,16 +174,9 @@ class STGeneralizedRCNN(nn.Module):
             )
 
     def _proposals(self, feats, objectness, box_reg, image_sizes, train_selector):
-        sb = self.statics.base
-        return select_proposals_single_level(
-            self.anchors(feats[0]),
-            objectness.to(torch.float32),
-            box_reg.to(torch.float32),
-            image_sizes,
-            sb.rpn_pre_nms_train if train_selector else sb.rpn_pre_nms_test,
-            sb.rpn_post_nms_train if train_selector else sb.rpn_post_nms_test,
-            sb.rpn_nms_thresh,
-            sb.rpn_min_size,
+        return select_proposals(
+            self.statics.base, self.anchors(feats[0]), objectness, box_reg, image_sizes,
+            train_selector,
         )
 
     # ------------------------------------------------------------------
@@ -400,34 +351,9 @@ class STGeneralizedRCNN(nn.Module):
         losses["loss_mask"] = mask_g
         return RCNNTrainOutput(losses, info)
 
-    def forward_eval(self, feats, image_sizes, class_embeddings):
-        sb = self.statics.base
+    def forward_eval(self, feats, image_sizes, class_embeddings) -> RCNNEvalOutput:
+        """The student's RoI heads against the normalized class table."""
         obj_l, reg_l = self.rpn_head(feats)
         objectness, box_reg = flatten_rpn_outputs(obj_l, reg_l)
         proposals = self._proposals(feats, objectness, box_reg, image_sizes, False)
-        embs = self.combine_embs(class_embeddings)
-        x = self.student.extract(feats, proposals.boxes)
-        logits, deltas, _ = self.student.box_outputs(x, embs)
-        b, p = proposals.boxes.shape[:2]
-        dets = postprocess_boxes(
-            logits.to(torch.float32).reshape(b, p, -1),
-            deltas.to(torch.float32).reshape(b, p, -1),
-            proposals.boxes,
-            proposals.valid,
-            image_sizes,
-            sb.score_thresh,
-            sb.nms_thresh,
-            sb.detections_per_img,
-            pre_nms_candidates=min(
-                10 * sb.detections_per_img, p * max(logits.shape[-1] - 1, 1)
-            ),
-            reg_weights=sb.reg_weights,
-        )
-        mask_probs = None
-        if sb.mask_on:
-            x2 = self.student.extract(feats, dets.boxes)
-            mask_logits, _ = self.student.mask_outputs(x2)
-            probs = mask_head_inference(mask_logits.to(torch.float32))
-            m = probs.shape[-1]
-            mask_probs = probs.reshape(b, -1, m, m)
-        return RCNNEvalOutput(dets, mask_probs)
+        return detect(self.student, feats, proposals, image_sizes, self.combine_embs(class_embeddings))

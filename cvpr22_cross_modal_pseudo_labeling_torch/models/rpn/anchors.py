@@ -2,9 +2,10 @@
 
 Counterpart of ``cvpr22_cross_modal_pseudo_labeling_tpu/models/rpn/
 anchors.py`` (``generate_cell_anchors`` :40, ``grid_anchors`` :68,
-``build_anchors_for_levels`` :102).  Anchors are a numpy precompute in
-float32; one level's anchors are ordered (y, x, a), the order in which
-``flatten_rpn_outputs`` flattens an NHWC head output.
+``anchor_visibility`` :83, ``build_anchors_for_levels`` :102).
+Anchors are a numpy precompute in float32; one level's anchors are
+ordered (y, x, a), the order in which ``flatten_rpn_outputs`` flattens
+an NHWC head output.
 """
 
 from typing import List, Sequence, Tuple
@@ -65,6 +66,26 @@ def grid_anchors(
     sx, sy = np.meshgrid(shifts_x, shifts_y)
     shifts = np.stack([sx, sy, sx, sy], axis=-1).reshape(-1, 1, 4)
     return (shifts + cell_anchors[None]).reshape(-1, 4)
+
+
+def anchor_visibility(
+    anchors: torch.Tensor, image_size: torch.Tensor, straddle_thresh: float = 0.0
+) -> torch.Tensor:
+    """Which anchors lie inside the image, within ``straddle_thresh``
+    pixels: ``[..., N]`` bool for anchors ``[N, 4]`` and ``image_size``
+    ``[..., 2]`` (h, w), batched over its leading axes.  A negative
+    threshold keeps every anchor."""
+    shape = image_size.shape[:-1] + anchors.shape[:-1]
+    if straddle_thresh < 0:
+        return torch.ones(shape, dtype=torch.bool, device=anchors.device)
+    h = image_size[..., 0, None].to(anchors.dtype)
+    w = image_size[..., 1, None].to(anchors.dtype)
+    return (
+        (anchors[..., 0] >= -straddle_thresh)
+        & (anchors[..., 1] >= -straddle_thresh)
+        & (anchors[..., 2] < w + straddle_thresh)
+        & (anchors[..., 3] < h + straddle_thresh)
+    )
 
 
 def build_anchors_for_levels(

@@ -1,20 +1,23 @@
-"""Region Proposal Network head and test-time proposal selection.
+"""Region Proposal Network head, proposal selection and loss.
 
 Counterpart of ``cvpr22_cross_modal_pseudo_labeling_tpu/models/rpn/
 rpn.py`` (``RPNHead`` :28, ``flatten_rpn_outputs`` :61,
 ``select_proposals_single_level`` :76, the branch of
-``select_proposals_multi_level`` that the C4 body takes).  FPN selection
-and the RPN loss belong to later slices.
+``select_proposals_multi_level`` that the C4 body takes, ``rpn_loss``
+:229).  FPN selection belongs to a later slice.
 """
 
-from typing import NamedTuple, Sequence
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...core.box_coder import decode_boxes
-from ...core.boxes import clip_to_image, nonempty_mask
+from ...core.box_coder import decode_boxes, encode_boxes
+from ...core.boxes import box_iou, clip_to_image, nonempty_mask
+from ...core.matcher import match_boxes
+from ...core.sampler import balanced_sample_masks, draw_priorities
+from ...ops.losses import binary_cross_entropy_with_logits, smooth_l1_loss
 from ...ops.nms import nms
 from ..layers import Conv2d
 
@@ -72,10 +75,14 @@ def select_proposals_single_level(
     min_size: float,
 ) -> RPNProposals:
     """Top-k by objectness, decode, clip, min-size filter, NMS, per image
-    (all images in one batched pass).
+    (all images in one batched pass).  The proposals carry no gradient:
+    the JAX function stops it at its outputs (rpn.py:110-113); the port
+    cuts it at the inputs, so that no graph is built for the selection.
 
     anchors ``[N, 4]``; objectness ``[B, N]`` raw logits; box_regression
     ``[B, N, 4]``; image_sizes ``[B, 2]`` (h, w)."""
+    objectness = objectness.detach()
+    box_regression = box_regression.detach()
     n = anchors.shape[0]
     k = min(pre_nms_top_n, n)
     topv, topi = top_k(objectness, k)
@@ -93,3 +100,51 @@ def select_proposals_single_level(
         valid=keep_valid,
     )
 
+
+def rpn_loss(
+    anchors: torch.Tensor,
+    visibility: torch.Tensor,
+    objectness: torch.Tensor,
+    box_regression: torch.Tensor,
+    gt_boxes: torch.Tensor,
+    gt_valid: torch.Tensor,
+    rand: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+    fg_iou_threshold: float = 0.7,
+    bg_iou_threshold: float = 0.3,
+    batch_size_per_image: int = 256,
+    positive_fraction: float = 0.5,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The RPN losses, batched over images: (objectness, box) scalars.
+
+    anchors ``[N, 4]``; visibility, objectness ``[B, N]``; box_regression
+    ``[B, N, 4]``; gt_boxes ``[B, G, 4]``; gt_valid ``[B, G]``.  Anchors
+    match gt at 0.7 / 0.3 with the low-quality recovery; invisible
+    anchors are neither positive nor negative; the balanced sampler takes
+    ``batch_size_per_image`` of them per image.  BCE over the sampled
+    anchors and smooth-L1 (beta 1/9) over the sampled positives, both
+    divided by the batch's total sampled count.  ``rand`` ``[B, 2, N]``
+    holds the sampler's priorities (``core/sampler.py``), else drawn from
+    ``generator``."""
+    b, n = objectness.shape
+    if rand is None:
+        rand = draw_priorities(b, n, objectness.device, generator)
+    matched = match_boxes(
+        box_iou(gt_boxes, anchors), gt_valid, fg_iou_threshold, bg_iou_threshold,
+        allow_low_quality_matches=True,
+    )  # [B, N]
+    pos = (matched >= 0) & visibility
+    neg = (matched == -1) & visibility
+    sampled_pos, sampled_neg = balanced_sample_masks(
+        pos, neg, rand, batch_size_per_image, positive_fraction
+    )
+    sampled = (sampled_pos | sampled_neg).to(objectness.dtype)
+    matched_gt = torch.gather(gt_boxes, 1, matched.clamp(min=0)[..., None].expand(-1, -1, 4))
+    reg_targets = encode_boxes(matched_gt, anchors, (1.0, 1.0, 1.0, 1.0))
+    obj_sum = torch.sum(binary_cross_entropy_with_logits(objectness, pos.to(objectness.dtype)) * sampled)
+    box_sum = torch.sum(
+        smooth_l1_loss(box_regression, reg_targets, beta=1.0 / 9)
+        * sampled_pos.to(box_regression.dtype)[..., None]
+    )
+    total = sampled.sum().clamp(min=1.0)
+    return obj_sum / total, box_sum / total

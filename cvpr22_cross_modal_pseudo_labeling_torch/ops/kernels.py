@@ -2,9 +2,12 @@
 
 Each ``csrc/*.cu`` file is compiled by ``nvcc`` into a shared library
 with a plain C interface and loaded with ``ctypes`` (no PyTorch headers,
-so a build takes seconds).  Libraries live in ``build/kernels/`` at the
-root of the checkout, named by the hash of their source: a changed
-source is rebuilt on its next use, an unchanged one is loaded as it is.
+so a build takes seconds).  One library may serve several
+:class:`Kernel` counters: the RoIAlign forward and backward share
+``csrc/roi_align.cu`` and count their launches apart.  Libraries live
+in ``build/kernels/`` at the root of the checkout, named by the hash of
+their source: a changed source is rebuilt on its next use, an unchanged
+one is loaded as it is.
 A failed build raises; nothing falls back to the plain versions.
 
 Every C entry point takes its pointers and the CUDA stream as
@@ -43,18 +46,19 @@ def _nvcc() -> str:
 
 
 class Kernel:
-    """One CUDA source file: its library, its C entry points and the
-    count of launches made through it.
+    """C entry points of one CUDA source file, and the count of launches
+    made through them.
 
     ``entry_points`` maps each C function to its ``ctypes`` argument
-    types.  ``on_launch``, when set, is called after every launch with
-    the wrapper's inputs and outputs (a harness uses it to hold each
-    launch against the plain version); it is None in normal use.
+    types; ``source`` names the file under ``csrc/`` (default: ``name``).
+    ``on_launch``, when set, is called after every launch with the
+    wrapper's inputs and outputs (a harness uses it to hold each launch
+    against the plain version); it is None in normal use.
     """
 
-    def __init__(self, name: str, entry_points: Dict[str, Sequence]):
+    def __init__(self, name: str, entry_points: Dict[str, Sequence], source: Optional[str] = None):
         self.name = name
-        self.source = CSRC / f"{name}.cu"
+        self.source = CSRC / f"{source or name}.cu"
         self.entry_points = dict(entry_points)
         self.launches = 0
         self.on_launch: Optional[Callable] = None
@@ -65,7 +69,7 @@ class Kernel:
         digest = hashlib.sha256(
             self.source.read_bytes() + " ".join(NVCC_FLAGS).encode()
         ).hexdigest()[:16]
-        return BUILD_DIR / f"lib{self.name}-{digest}.so"
+        return BUILD_DIR / f"lib{self.source.stem}-{digest}.so"
 
     def start_build(self):
         """Starts ``nvcc`` for this source unless its library exists;
@@ -166,13 +170,26 @@ ROI_ALIGN = Kernel(
         ),
     },
 )
-ALL = (NMS, ROI_ALIGN)
+ROI_ALIGN_BACKWARD = Kernel(
+    "roi_align_backward",
+    {
+        # grad, rois, scratch, out, B, H, W, C, S, P, Q, spatial_scale,
+        # sampling_ratio, max_samples, bin_stride, bf16, stream
+        "roi_align_backward": (
+            VP, VP, VP, VP, I32, I32, I32, I32, I32, I32, I32, F32,
+            I32, I32, I32, I32, VP,
+        ),
+    },
+    source="roi_align",
+)
+ALL = (NMS, ROI_ALIGN, ROI_ALIGN_BACKWARD)
 
 
 def build_all() -> None:
-    """Builds every kernel that is missing, one ``nvcc`` per source, all
+    """Builds every library that is missing, one ``nvcc`` per source, all
     started together, then loads them."""
-    procs = [(k, k.start_build()) for k in ALL]
+    by_source = {k.source: k for k in ALL}
+    procs = [(k, k.start_build()) for k in by_source.values()]
     errors = []
     for k, p in procs:
         try:

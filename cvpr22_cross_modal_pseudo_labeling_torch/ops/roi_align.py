@@ -1,4 +1,4 @@
-"""RoIAlign forward over channels-last features.
+"""RoIAlign over channels-last features, and its gradient.
 
 Counterpart of ``cvpr22_cross_modal_pseudo_labeling_tpu/ops/
 roi_align_mxu.py::roi_align_mxu`` (:91, with ``_axis_interp_matrix``
@@ -27,11 +27,19 @@ Features may be float32 or bfloat16, and the result has their dtype;
 the arithmetic is float32 either way.  bfloat16 features give what the
 JAX bundle computes by pooling ``f.astype(float32)`` and casting the
 result with ``.astype(bfloat16)``.
+
+The gradient with respect to the features is the transposed contraction
+``dF[h, w, c] = sum_p,q A_y[p, h] A_x[q, w] g[p, q, c]`` summed over the
+rois, which XLA derives for the JAX package.  On the CPU autograd
+differentiates the plain version; on CUDA a ``torch.autograd.Function``
+runs the kernel's backward entry (a float32 scatter, then the cast to
+the features' dtype), counted in ``kernels.ROI_ALIGN_BACKWARD``.
 """
 
 from typing import Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from . import kernels
 
@@ -142,67 +150,78 @@ def roi_align_plain(
     return out
 
 
-def roi_align(
-    features: torch.Tensor,
+def roi_align_backward_plain(
+    grad: torch.Tensor,
     rois_per_image: torch.Tensor,
+    feature_shape: Tuple[int, int, int, int],
+    feature_dtype: torch.dtype,
     output_size: Tuple[int, int],
     spatial_scale: float,
     sampling_ratio: int = 0,
     max_samples: int = 8,
     bin_stride: int = 1,
 ) -> torch.Tensor:
-    """RoIAlign forward (see the module docstring).
+    """The plain version of the backward: the gradient of
+    ``sum(roi_align_plain(F, rois, ...) * grad)`` with respect to ``F``
+    of ``feature_shape`` and ``feature_dtype`` (it does not depend on F's
+    values), by autograd of the plain version: the transposed float32
+    contraction, cast to the features' dtype."""
+    with torch.enable_grad():
+        f = torch.zeros(feature_shape, dtype=feature_dtype, device=grad.device, requires_grad=True)
+        out = roi_align_plain(
+            f, rois_per_image, output_size, spatial_scale, sampling_ratio, max_samples, bin_stride
+        )
+        (dfeat,) = torch.autograd.grad(out, f, grad)
+    return dfeat
 
-    features ``[B, H, W, C]`` float32 or bfloat16; rois_per_image
-    ``[B, S, 4]`` xyxy in image pixels, roi s of image b pooling from
-    ``features[b]``.  Returns ``[B, S, ceil(P / bin_stride), ceil(Q /
-    bin_stride), C]`` in the features' dtype.  CPU
-    tensors run the plain version; CUDA tensors launch
-    ``csrc/roi_align.cu``, which reads 16 bytes of channels at a time:
-    C a multiple of 4 for float32 features, of 8 for bfloat16.
-    """
-    if features.device.type == "cpu":
-        return roi_align_plain(
-            features, rois_per_image, output_size, spatial_scale,
-            sampling_ratio, max_samples, bin_stride,
-        )
-    if features.device.type != "cuda":
-        raise ValueError(f"roi_align runs on cpu or cuda tensors, not {features.device}")
-    if torch.is_grad_enabled() and (features.requires_grad or rois_per_image.requires_grad):
-        raise RuntimeError(
-            "roi_align: csrc/roi_align.cu has no backward kernel, so its result "
-            "carries no gradient; run it on inputs that need none (detach them, "
-            "or call it under torch.no_grad())"
-        )
-    P, Q = output_size
-    B, H, W, C = features.shape
+
+def _check_kernel_inputs(shape, dtype, device, rois_per_image, sampling_ratio, max_samples, bin_stride):
+    """What the kernels take, for features of ``shape``, ``dtype`` and
+    ``device``; raises on anything else.  Returns the float32 rois."""
+    B, H, W, C = shape
     S = rois_per_image.shape[1]
-    if features.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"roi_align kernel takes float32 or bfloat16 features, got {features.dtype}")
-    vec = 16 // features.element_size()
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"roi_align kernel takes float32 or bfloat16 features, got {dtype}")
+    vec = 16 // dtype.itemsize
     if C % vec != 0:
-        raise ValueError(f"roi_align kernel needs C % {vec} == 0 for {features.dtype}, got C={C}")
-    if rois_per_image.shape != (B, S, 4) or rois_per_image.device != features.device:
+        raise ValueError(f"roi_align kernel needs C % {vec} == 0 for {dtype}, got C={C}")
+    if rois_per_image.shape != (B, S, 4) or rois_per_image.device != device:
         raise ValueError(
-            f"rois must be [B={B}, S, 4] on {features.device}, got "
+            f"rois must be [B={B}, S, 4] on {device}, got "
             f"{tuple(rois_per_image.shape)} on {rois_per_image.device}"
         )
     # one CTA per roi; the roi's tap lists share the default 48 KB of
     # shared memory
-    if not (0 < B * S < 2**31 and H * W * C < 2**31 and 0 < max_samples <= 64
+    if not (0 < B * S < 2**31 and 0 < H * W * C < 2**31 and 0 < max_samples <= 64
             and sampling_ratio <= 64 and bin_stride >= 1):
         raise ValueError(
             f"roi_align kernel cannot take B={B}, S={S}, H={H}, W={W}, C={C}, "
             f"sampling_ratio={sampling_ratio}, max_samples={max_samples}, "
             f"bin_stride={bin_stride}"
         )
-    feats = features.contiguous()
-    if feats.data_ptr() % 16 != 0:
-        raise ValueError("roi_align kernel reads 16 bytes at a time: features must be 16-byte aligned")
-    rois = rois_per_image.to(torch.float32).contiguous()
-    out_p = -(-P // bin_stride)
-    out_q = -(-Q // bin_stride)
-    out = torch.empty((B, S, out_p, out_q, C), dtype=feats.dtype, device=features.device)
+    return rois_per_image.detach().to(torch.float32).contiguous()
+
+
+def _aligned(t: torch.Tensor, what: str) -> torch.Tensor:
+    t = t.contiguous()
+    if t.data_ptr() % 16 != 0:
+        raise ValueError(f"roi_align kernel reads 16 bytes at a time: {what} must be 16-byte aligned")
+    return t
+
+
+def _forward_cuda(features, rois_per_image, output_size, spatial_scale,
+                  sampling_ratio, max_samples, bin_stride):
+    P, Q = output_size
+    B, H, W, C = features.shape
+    S = rois_per_image.shape[1]
+    rois = _check_kernel_inputs(
+        features.shape, features.dtype, features.device, rois_per_image,
+        sampling_ratio, max_samples, bin_stride,
+    )
+    feats = _aligned(features, "features")
+    out = torch.empty(
+        (B, S, -(-P // bin_stride), -(-Q // bin_stride), C), dtype=feats.dtype, device=feats.device
+    )
     kernels.ROI_ALIGN.call(
         "roi_align_forward",
         feats.data_ptr(), rois.data_ptr(), out.data_ptr(),
@@ -219,3 +238,127 @@ def roi_align(
             out,
         )
     return out
+
+
+def _backward_cuda(grad, rois_per_image, feature_shape, feature_dtype, output_size,
+                   spatial_scale, sampling_ratio, max_samples, bin_stride):
+    """Launches ``roi_align_backward``: a float32 scatter of the
+    cotangent into a zeroed ``[B, H, W, C]`` scratch map, then (bfloat16
+    features) its cast into the result."""
+    P, Q = output_size
+    B, H, W, C = feature_shape
+    S = rois_per_image.shape[1]
+    out_shape = (B, S, -(-P // bin_stride), -(-Q // bin_stride), C)
+    if tuple(grad.shape) != out_shape:
+        raise ValueError(f"roi_align backward: cotangent {tuple(grad.shape)}, expected {out_shape}")
+    rois = _check_kernel_inputs(
+        feature_shape, feature_dtype, grad.device, rois_per_image,
+        sampling_ratio, max_samples, bin_stride,
+    )
+    g = _aligned(grad.to(feature_dtype), "the cotangent")
+    scratch = torch.zeros(feature_shape, dtype=torch.float32, device=g.device)
+    bf16 = feature_dtype == torch.bfloat16
+    out = torch.empty(feature_shape, dtype=feature_dtype, device=g.device) if bf16 else scratch
+    kernels.ROI_ALIGN_BACKWARD.call(
+        "roi_align_backward",
+        g.data_ptr(), rois.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+        B, H, W, C, S, P, Q, float(spatial_scale),
+        int(sampling_ratio), int(max_samples), int(bin_stride), int(bf16),
+    )
+    kernels.ROI_ALIGN_BACKWARD.launches += 1
+    hook = kernels.ROI_ALIGN_BACKWARD.on_launch
+    if hook is not None:
+        hook(
+            (grad, rois_per_image, tuple(feature_shape), feature_dtype, output_size,
+             spatial_scale, sampling_ratio, max_samples, bin_stride),
+            out,
+        )
+    return out
+
+
+def roi_align_backward(
+    grad: torch.Tensor,
+    rois_per_image: torch.Tensor,
+    feature_shape: Tuple[int, int, int, int],
+    feature_dtype: torch.dtype,
+    output_size: Tuple[int, int],
+    spatial_scale: float,
+    sampling_ratio: int = 0,
+    max_samples: int = 8,
+    bin_stride: int = 1,
+) -> torch.Tensor:
+    """The gradient of :func:`roi_align` with respect to features of
+    ``feature_shape`` and ``feature_dtype``, for the cotangent ``grad``
+    (``[B, S, P', Q', C]``).  CPU tensors run
+    :func:`roi_align_backward_plain`; CUDA tensors launch the kernel's
+    ``roi_align_backward`` entry.  ``roi_align`` calls it from its
+    ``autograd.Function`` on CUDA."""
+    args = (grad, rois_per_image, tuple(feature_shape), feature_dtype, output_size,
+            spatial_scale, sampling_ratio, max_samples, bin_stride)
+    if grad.device.type == "cpu":
+        return roi_align_backward_plain(*args)
+    if grad.device.type != "cuda":
+        raise ValueError(f"roi_align_backward runs on cpu or cuda tensors, not {grad.device}")
+    return _backward_cuda(*args)
+
+
+class _RoIAlignCUDA(torch.autograd.Function):
+    """The CUDA route with its gradient: ``roi_align_forward`` forward,
+    ``roi_align_backward`` backward (with respect to the features only)."""
+
+    @staticmethod
+    def forward(ctx, features, rois_per_image, output_size, spatial_scale,
+                sampling_ratio, max_samples, bin_stride):
+        ctx.save_for_backward(rois_per_image)
+        ctx.args = (tuple(features.shape), features.dtype, output_size, spatial_scale,
+                    sampling_ratio, max_samples, bin_stride)
+        return _forward_cuda(features, rois_per_image, output_size, spatial_scale,
+                             sampling_ratio, max_samples, bin_stride)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        (rois_per_image,) = ctx.saved_tensors
+        dfeat = _backward_cuda(grad, rois_per_image, *ctx.args)
+        return (dfeat,) + (None,) * 6
+
+
+def roi_align(
+    features: torch.Tensor,
+    rois_per_image: torch.Tensor,
+    output_size: Tuple[int, int],
+    spatial_scale: float,
+    sampling_ratio: int = 0,
+    max_samples: int = 8,
+    bin_stride: int = 1,
+) -> torch.Tensor:
+    """RoIAlign (see the module docstring).
+
+    features ``[B, H, W, C]`` float32 or bfloat16; rois_per_image
+    ``[B, S, 4]`` xyxy in image pixels, roi s of image b pooling from
+    ``features[b]``.  Returns ``[B, S, ceil(P / bin_stride), ceil(Q /
+    bin_stride), C]`` in the features' dtype.  CPU tensors run the plain
+    version (autograd differentiates it); CUDA tensors launch
+    ``csrc/roi_align.cu``, which reads 16 bytes of channels at a time: C a
+    multiple of 4 for float32 features, of 8 for bfloat16.  On CUDA the
+    result carries a gradient for features that require one, computed by
+    the backward kernel; rois that require grad raise, as the kernels
+    differentiate with respect to the features only (the JAX model stops
+    the gradient of the proposals, and gt boxes are data).
+    """
+    if features.device.type == "cpu":
+        return roi_align_plain(
+            features, rois_per_image, output_size, spatial_scale,
+            sampling_ratio, max_samples, bin_stride,
+        )
+    if features.device.type != "cuda":
+        raise ValueError(f"roi_align runs on cpu or cuda tensors, not {features.device}")
+    if torch.is_grad_enabled() and rois_per_image.requires_grad:
+        raise RuntimeError(
+            "roi_align: csrc/roi_align.cu differentiates with respect to the "
+            "features only, so rois must not require grad (detach them)"
+        )
+    return _RoIAlignCUDA.apply(
+        features, rois_per_image, output_size, spatial_scale,
+        sampling_ratio, max_samples, bin_stride,
+    )

@@ -7,7 +7,9 @@ file imports torch and the port only, so it runs where JAX is absent:
 NMS must agree exactly; RoIAlign within 1e-5 * max|F| for a float32
 result (only the summation order differs), plus one bfloat16 ulp of the
 result for a bfloat16 one (the two float32 sums may round to neighbouring
-bfloat16 values).
+bfloat16 values).  The RoIAlign backward within 1e-5 * max|dF| of the
+plain version's autograd gradient (its atomics add in an order that
+changes from run to run), plus one bfloat16 ulp for bfloat16 features.
 """
 
 import numpy as np
@@ -167,15 +169,97 @@ def test_roi_align_kernel_rejects_what_it_cannot_take(card):
 
 
 def test_roi_align_kernel_refuses_inputs_that_need_a_gradient(card):
-    """The kernel has no backward: with grad mode on, features or rois
-    that require grad raise instead of returning a result without a
-    gradient; detached inputs, or grad mode off, launch as usual."""
+    """The kernels differentiate with respect to the features only: with
+    grad mode on, rois that require grad raise instead of returning a
+    result without their gradient; features that require grad get one;
+    with grad mode off, rois that require grad launch as usual."""
     feats = torch.randn((1, 4, 4, 8), device=card, requires_grad=True)
     rois = torch.tensor([[[0.0, 0.0, 30.0, 30.0]]], device=card)
-    with pytest.raises(RuntimeError, match="no backward"):
-        ra.roi_align(feats, rois, (2, 2), 1.0 / 8)
-    with pytest.raises(RuntimeError, match="no backward"):
+    with pytest.raises(RuntimeError, match="rois must not require grad"):
         ra.roi_align(feats.detach(), rois.clone().requires_grad_(), (2, 2), 1.0 / 8)
+    with pytest.raises(RuntimeError, match="rois must not require grad"):
+        ra.roi_align(feats, rois.clone().requires_grad_(), (2, 2), 1.0 / 8)
+    assert ra.roi_align(feats, rois, (2, 2), 1.0 / 8).grad_fn is not None
     with torch.no_grad():
-        out = ra.roi_align(feats, rois, (2, 2), 1.0 / 8)
+        out = ra.roi_align(feats, rois.clone().requires_grad_(), (2, 2), 1.0 / 8)
+    assert out.grad_fn is None
     assert torch.equal(out, ra.roi_align(feats.detach(), rois, (2, 2), 1.0 / 8))
+
+
+def _grad_check(card, feats_shape, dtype, rois, bin_stride, sampling_ratio=0, seed=0):
+    """(kernel dF, plain dF) for a seeded cotangent; one launch."""
+    p = -(-14 // bin_stride)
+    gen = torch.Generator(device=card).manual_seed(seed)
+    grad = torch.randn((feats_shape[0], rois.shape[1], p, p, feats_shape[3]), generator=gen,
+                       device=card).to(dtype)
+    args = (rois, tuple(feats_shape), dtype, (14, 14), 1.0 / 16, sampling_ratio, 8, bin_stride)
+    before = kernels.ROI_ALIGN_BACKWARD.launches
+    out = ra.roi_align_backward(grad, *args)
+    torch.cuda.synchronize()
+    assert kernels.ROI_ALIGN_BACKWARD.launches == before + 1
+    ref = ra.roi_align_backward_plain(grad, *args)
+    assert out.dtype == ref.dtype == dtype and out.shape == ref.shape
+    return out, ref
+
+
+@pytest.mark.parametrize("dtype,c", [(torch.float32, 4), (torch.float32, 1024),
+                                     (torch.bfloat16, 8), (torch.bfloat16, 1024)])
+@pytest.mark.parametrize("bin_stride,sampling_ratio", [(1, 0), (2, 0), (2, 2)])
+def test_roi_align_backward_kernel_equals_plain(card, dtype, c, bin_stride, sampling_ratio):
+    rng = np.random.default_rng(c + bin_stride + 11)
+    _, rois = _roi_inputs(rng, 8, torch.float32, card)
+    out, ref = _grad_check(card, (2, 17, 23, c), dtype, rois, bin_stride, sampling_ratio)
+    assert _within_tolerance(out, ref, float(ref.float().abs().max()))
+    assert ref.float().abs().max() > 0
+
+
+def test_roi_align_backward_kernel_at_the_edges(card):
+    """Rois on and beyond the map's edges, of zero size, and one that
+    covers the whole map (its grid capped at ceil(size / bins))."""
+    rois = torch.tensor([[
+        [0.0, 0.0, 0.0, 0.0],          # zero size at the corner
+        [100.0, 60.0, 100.0, 60.0],    # zero size inside
+        [-80.0, -80.0, 0.0, 0.0],      # ends on the top-left edge
+        [352.0, 256.0, 500.0, 400.0],  # starts on the bottom-right edge
+        [340.0, -50.0, 420.0, 300.0],  # straddles the right edge
+        [0.0, 0.0, 367.0, 271.0],      # the whole map
+        [-300.0, -300.0, 700.0, 600.0],  # beyond it on every side
+        [600.0, 500.0, 700.0, 650.0],  # outside: no gradient
+    ]], device=card)
+    for dtype, c in ((torch.float32, 36), (torch.bfloat16, 40)):
+        for bin_stride in (1, 2):
+            out, ref = _grad_check(card, (1, 17, 23, c), dtype, rois, bin_stride, seed=bin_stride)
+            assert _within_tolerance(out, ref, float(ref.float().abs().max()))
+    only_outside = rois[:, -1:].contiguous()
+    out, ref = _grad_check(card, (1, 17, 23, 8), torch.float32, only_outside, 2)
+    assert not out.any() and not ref.any()
+
+
+def test_roi_align_backward_of_a_zero_cotangent_is_exactly_zero(card):
+    rng = np.random.default_rng(5)
+    _, rois = _roi_inputs(rng, 8, torch.float32, card)
+    for dtype in (torch.float32, torch.bfloat16):
+        grad = torch.zeros((2, 50, 7, 7, 1024), device=card, dtype=dtype)
+        out = ra.roi_align_backward(grad, rois, (2, 17, 23, 1024), dtype, (14, 14), 1.0 / 16, 0, 8, 2)
+        assert out.dtype == dtype and not out.any()
+
+
+def test_roi_align_autograd_route_launches_the_backward_once(card):
+    """A CUDA ``roi_align`` on features that require grad has a
+    ``grad_fn``; ``.backward()`` launches the backward kernel once and
+    gives the plain version's gradient."""
+    rng = np.random.default_rng(9)
+    for dtype, c in ((torch.float32, 1024), (torch.bfloat16, 1024)):
+        feats, rois = _roi_inputs(rng, c, dtype, card)
+        feats.requires_grad_()
+        fwd, bwd = kernels.ROI_ALIGN.launches, kernels.ROI_ALIGN_BACKWARD.launches
+        out = ra.roi_align(feats, rois, (14, 14), 1.0 / 16, 0, 8, 2)
+        assert out.grad_fn is not None and kernels.ROI_ALIGN.launches == fwd + 1
+        grad = torch.randn(out.shape, device=card).to(dtype)
+        out.backward(grad)
+        torch.cuda.synchronize()
+        assert kernels.ROI_ALIGN_BACKWARD.launches == bwd + 1
+        assert kernels.ROI_ALIGN.launches == fwd + 1
+        ref = ra.roi_align_backward_plain(grad, rois, tuple(feats.shape), dtype, (14, 14), 1.0 / 16, 0, 8, 2)
+        assert feats.grad.dtype == dtype
+        assert _within_tolerance(feats.grad, ref, float(ref.float().abs().max()))

@@ -136,9 +136,10 @@ def test_roi_align_bf16_is_float32_pooling_then_cast(bin_stride):
 def test_roi_align_plain_version_is_differentiable(bin_stride):
     """CPU tensors keep autograd: the gradient of the pooled sum with
     respect to the features equals JAX's gradient of ``roi_align_mxu``
-    (the CUDA kernel has no backward and refuses inputs that need one,
-    see ``tests/test_torch_cuda_kernels.py``).  Same 1e-5 tolerance: the
-    backward is the transposed contraction of the same A matrices."""
+    (on CUDA the backward kernel computes it, held against this plain
+    version by ``tests/test_torch_cuda_kernels.py``).  Same 1e-5
+    tolerance: the backward is the transposed contraction of the same A
+    matrices."""
     import jax
 
     feats, rois = _inputs(seed=80 + bin_stride)
@@ -152,3 +153,49 @@ def test_roi_align_plain_version_is_differentiable(bin_stride):
     ))(jnp.asarray(feats))
     assert f.grad is not None and np.abs(f.grad.numpy()).max() > 0
     np.testing.assert_allclose(f.grad.numpy(), np.asarray(ref), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bin_stride", [1, 2])
+def test_roi_align_backward_plain_matches_jax_grad(dtype, bin_stride):
+    """The backward kernel's plain version (autograd of the plain
+    forward, on zeros of the features' shape and dtype) against
+    ``jax.grad`` of the JAX bundle's recipe: pool ``f.astype(float32)``
+    with ``roi_align_mxu``, cast to the features' dtype.  float32: 1e-5;
+    bfloat16: one bfloat16 ulp of the larger value plus 1e-5 (the float32
+    sums may round to neighbouring bfloat16 values)."""
+    import jax
+
+    feats, rois = _inputs(seed=90 + bin_stride)
+    p = -(-7 // bin_stride)
+    g = np.random.RandomState(8).standard_normal((2, rois.shape[1], p, p, 8)).astype(np.float32)
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    grad = torch.from_numpy(g).to(dtype)
+    out = torch_ra.roi_align_backward_plain(
+        grad, torch.from_numpy(rois), feats.shape, dtype, (7, 7), SCALE, 0, 8, bin_stride)
+    assert out.dtype == dtype and out.shape == feats.shape
+
+    def pooled(x):
+        y = roi_align_mxu(x.astype(jnp.float32), jnp.asarray(rois), (7, 7), SCALE, 0, bin_stride=bin_stride)
+        return jnp.sum(y.astype(jdt).astype(jnp.float32) * jnp.asarray(grad.float().numpy()))
+
+    ref = np.asarray(jax.grad(pooled)(jnp.asarray(feats).astype(jdt)).astype(jnp.float32))
+    got = out.float().numpy()
+    limit = 1e-5 + (_bf16_ulp(np.maximum(np.abs(got), np.abs(ref))) if dtype == torch.bfloat16 else 0)
+    assert (np.abs(got - ref) <= limit).all(), np.abs(got - ref).max()
+    assert np.abs(got).max() > 0
+
+
+def test_roi_align_backward_shares_the_forward_library_and_counts_apart():
+    """The backward entry lives in ``csrc/roi_align.cu`` beside the
+    forward: one library, built once, with a launch count and hook of its
+    own."""
+    fwd, bwd = kernels.ROI_ALIGN, kernels.ROI_ALIGN_BACKWARD
+    assert fwd.library_path() == bwd.library_path()
+    assert "roi_align_backward" in bwd.entry_points and "roi_align_backward" not in fwd.entry_points
+    assert fwd is not bwd and bwd in kernels.ALL
+    before = (fwd.launches, bwd.launches)
+    feats, rois = _inputs(seed=3)
+    f = torch.from_numpy(feats).requires_grad_()
+    torch_ra.roi_align(f, torch.from_numpy(rois), (7, 7), SCALE).sum().backward()
+    assert (fwd.launches, bwd.launches) == before  # CPU tensors take the plain versions
