@@ -58,15 +58,20 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                 must not.  Step latency, images/s, steady peak memory and the
                 host syncs of a step, then one more step under
                 torch.profiler, grouped as in phase 6.
-9. roi_align_backward -- the RoIAlign backward kernel against the plain
-                version's autograd gradient on the same [8, 50, 84, 1024] map
-                shape, rois and a seeded cotangent: bfloat16 with 512 (the
-                teacher's sampled rois, the main case) and 1000 rois per image
-                at bin_stride 2, float32 with 512 at bin_stride 1 and 2.  Max
-                abs diff <= 1e-5 * max|dF_plain| for float32 (the atomics' order
-                changes from run to run), plus one bfloat16 ulp of the result
-                for bfloat16.  Time, bound, plain time and the rate of the
-                scatter's float32 atomic adds.
+9. roi_align_backward -- the RoIAlign backward kernels (a plan of each
+                roi's tap lists, then tiles of dF summed in shared memory)
+                against the plain version's autograd gradient on the same [8,
+                50, 84, 1024] map shape, rois and a seeded cotangent: bfloat16
+                with 512 (the teacher's sampled rois, the main case) and 1000
+                rois per image at bin_stride 2, float32 with 512 at bin_stride 1
+                and 2.  Max abs diff <= 1e-5 * max|dF_plain| for float32 (the
+                kernel sums in another order than the plain contraction), plus
+                one bfloat16 ulp of the result for bfloat16.  Time, bound, plain
+                time, the plan and tile kernels' device times, the rate of the
+                float32 adds, and the main case timed at a few other tiles of
+                dF.  After phase 12, one more case: the first teacher step's
+                own cotangent and sampled rois (which overlap far more than the
+                uniform rois), checked and timed the same way.
 10. small_teacher_train -- a narrow float32 teacher (GeneralizedRCNN on
                 configs/coco_cap_det/zeroshot_mask.yaml) Trainer on 2 x 64 x 64
                 images: one CUDA step against one CPU step on the same weights,
@@ -86,7 +91,8 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                 roi_extractor, bbox_pred and mask_predictor change, the stem,
                 layer1 and emb_pred do not.  Step latency, images/s, steady
                 peak memory, host syncs of a step and one profiled step.  Then
-                one line gives the seconds each training and teacher phase took.
+                the backward on that step's rois (phase 9), and one line gives
+                the seconds each training and teacher phase took.
 
 Then the card's name and power limit, the per-kernel JSON line, and the last
 line ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when
@@ -128,6 +134,9 @@ ROI_BWD_CASES = (  # rois per image, bin_stride, feature (and gradient) dtype
     (512, 2, BF16), (1000, 2, BF16), (512, 1, F32), (512, 2, F32),
 )
 ROI_BWD_MAIN = (512, 2, BF16)  # the teacher step's sampled rois
+# tiles of dF (rows, columns, channels) the main case is also timed at,
+# beside the default ops.roi_align.BACKWARD_TILE
+ROI_BWD_TILES = ((2, 21, 256), (2, 28, 256), (4, 14, 256), (4, 28, 256), (4, 21, 128))
 # the train step at the serving bucket with SOLVER.IMS_PER_BATCH 8
 TRAIN = dict(steps=3, batch=8, hw=(800, 1333), max_gt=100, nouns=32, noun_tokens=8,
              lvis=1203, classes=66, opts=())
@@ -417,8 +426,8 @@ def phase_roi_align(dev, results):
 def roi_bwd_bound(grad, rois, feature_shape, output_size, bin_stride):
     """Bytes: the cotangent and rois read once, dF (in the features'
     dtype) written once.  Operations: two flops per (tap, channel), counted
-    from this run's rois.  Also returns the scatter's float32 atomic adds
-    (one per tap and channel)."""
+    from this run's rois.  Also returns the float32 adds (one per tap and
+    channel)."""
     C = feature_shape[3]
     taps, _, _ = roi_taps(feature_shape, rois, output_size, bin_stride)
     byts = (grad.numel() + int(np.prod(feature_shape))) * grad.element_size() + rois.numel() * 4
@@ -426,9 +435,53 @@ def roi_bwd_bound(grad, rois, feature_shape, output_size, bin_stride):
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations", taps * C)
 
 
-def phase_roi_align_backward(dev, results):
+def roi_bwd_case(name, args, tiles=()):
+    """One backward case on ``roi_align_backward``'s arguments ``args``
+    (on the [8, 50, 84, 1024] map, 14 x 14 bins, scale 1/16, adaptive
+    grid of at most 8): the kernel against the plain version, its time,
+    bound and plain time, the plan and tile kernels' device times, and its
+    time at each of ``tiles``."""
     from cvpr22_cross_modal_pseudo_labeling_torch.ops import roi_align as ra
 
+    grad, rois, shape, dtype, output_size, scale, sampling_ratio, max_samples, bin_stride = args
+    check((tuple(shape), output_size, scale, sampling_ratio, max_samples)
+          == (ROI_FEATURES, (14, 14), 1.0 / 16, 0, 8),
+          f"roi_align_backward {name}: unexpected arguments {shape} {output_size} {scale}")
+    out = ra.roi_align_backward(*args)
+    ref = ra.roi_align_backward_plain(*args)
+    torch.cuda.synchronize()
+    check(out.dtype == dtype and out.shape == ref.shape, f"roi_align_backward: {out.dtype} {out.shape}")
+    fmax = float(ref.float().abs().max())
+    err, excess = roi_err(out, ref, fmax)
+    check(fmax > 0 and excess <= 0,
+          f"roi_align_backward {name}: max abs diff {err}, {excess} over the limit")
+    again = ra.roi_align_backward(*args)
+    identical = bool(torch.equal(out, again))
+    del out, ref, again
+    ms = cuda_ms(lambda: ra.roi_align_backward(*args), 10)
+    plain_ms = cuda_ms(lambda: ra.roi_align_backward_plain(*args), 2)
+    split = device_ms(lambda: ra.roi_align_backward(*args),
+                      ("roi_align_bwd_plan_kernel", "roi_align_bwd_kernel"), 5)
+    bound_ms, bound_by, adds = roi_bwd_bound(grad, rois, ROI_FEATURES, (14, 14), bin_stride)
+    B, H, W, C = ROI_FEATURES
+    rec = dict(phase="roi_align_backward", case=name, rois_per_image=rois.shape[1],
+               bin_stride=bin_stride, features=list(ROI_FEATURES), dtype=str(dtype),
+               max_abs_err=err, excess_over_limit=excess, f32_tol=1e-5 * fmax,
+               bit_identical_rerun=identical, ms=ms, plain_ms=plain_ms,
+               plan_kernel_ms=split["roi_align_bwd_plan_kernel"],
+               tile_kernel_ms=split["roi_align_bwd_kernel"],
+               tile=list(ra.backward_tiling(H, W, C, 2 * min(8, -(-W // 14)))),
+               bound_ms=bound_ms, bound_by=bound_by, adds_g=adds / 1e9,
+               shared_g_adds_per_s=adds / (ms * 1e-3) / 1e9)
+    if tiles:
+        rec["ms_by_tile"] = {
+            "x".join(map(str, t)): cuda_ms(lambda: ra._backward_cuda(*args, tile=t), 10) for t in tiles}
+    emit(rec)
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_roi_align_backward(dev, results):
     rng = np.random.default_rng(SEED + 6)
     gen = torch.Generator(device=dev).manual_seed(SEED + 6)
     for s, bin_stride, dtype in ROI_BWD_CASES:
@@ -436,28 +489,44 @@ def phase_roi_align_backward(dev, results):
         p = -(-14 // bin_stride)
         grad = torch.randn((ROI_FEATURES[0], s, p, p, ROI_FEATURES[3]), generator=gen,
                            device=dev).to(dtype)
+        main = (s, bin_stride, dtype) == ROI_BWD_MAIN
         args = (grad, rois, ROI_FEATURES, dtype, (14, 14), 1.0 / 16, 0, 8, bin_stride)
-        out = ra.roi_align_backward(*args)
-        ref = ra.roi_align_backward_plain(*args)
-        torch.cuda.synchronize()
-        check(out.dtype == dtype and out.shape == ref.shape, f"roi_align_backward: {out.dtype} {out.shape}")
-        fmax = float(ref.float().abs().max())
-        err, excess = roi_err(out, ref, fmax)
-        name = f"S={s} bin_stride={bin_stride} {dtype}"
-        check(fmax > 0 and excess <= 0,
-              f"roi_align_backward {name}: max abs diff {err}, {excess} over the limit")
-        del out, ref
-        ms = cuda_ms(lambda: ra.roi_align_backward(*args), 10)
-        plain_ms = cuda_ms(lambda: ra.roi_align_backward_plain(*args), 2)
-        bound_ms, bound_by, adds = roi_bwd_bound(grad, rois, ROI_FEATURES, (14, 14), bin_stride)
-        rec = dict(phase="roi_align_backward", rois_per_image=s, bin_stride=bin_stride,
-                   features=list(ROI_FEATURES), dtype=str(dtype), max_abs_err=err,
-                   excess_over_limit=excess, f32_tol=1e-5 * fmax, ms=ms, plain_ms=plain_ms,
-                   bound_ms=bound_ms, bound_by=bound_by, atomic_adds_g=adds / 1e9,
-                   l2_atomic_g_adds_per_s=adds / (ms * 1e-3) / 1e9)
-        emit(rec)
+        rec = roi_bwd_case(f"S={s} bin_stride={bin_stride} {dtype}", args,
+                           ROI_BWD_TILES if main else ())
+        if main:
+            rec = dict(rec, case="yardstick", yardstick_ms=yardstick_ms(grad, rois, dtype, bin_stride))
+            emit(rec)
         results[("roi_align_backward", s, bin_stride, dtype)] = rec
-        torch.cuda.empty_cache()
+
+
+def yardstick_ms(grad, rois, dtype, bin_stride):
+    """The first version's float32 atomic scatter, remapped to four
+    channels a thread, with its zeroed scratch and its cast: timed once."""
+    from cvpr22_cross_modal_pseudo_labeling_torch.ops import kernels
+
+    B, H, W, C = ROI_FEATURES
+
+    def run():
+        scratch = torch.zeros(ROI_FEATURES, dtype=torch.float32, device=grad.device)
+        out = torch.empty(ROI_FEATURES, dtype=dtype, device=grad.device) if dtype == BF16 else scratch
+        kernels.ROI_ALIGN_BACKWARD.call(
+            "roi_align_backward_atomic", grad.data_ptr(), rois.data_ptr(), scratch.data_ptr(),
+            out.data_ptr(), B, H, W, C, rois.shape[1], 14, 14, 1.0 / 16, 0, 8, bin_stride,
+            int(dtype == BF16))
+        return out
+
+    from cvpr22_cross_modal_pseudo_labeling_torch.ops import roi_align as ra
+    ref = ra.roi_align_backward_plain(grad, rois, ROI_FEATURES, dtype, (14, 14), 1.0 / 16, 0, 8, bin_stride)
+    err, excess = roi_err(run(), ref, float(ref.float().abs().max()))
+    check(excess <= 0, f"yardstick over tolerance: {err}")
+    return cuda_ms(run, 10)
+
+
+def phase_roi_align_backward_teacher_rois(results):
+    """The backward on the first teacher step's own cotangent and rois
+    (captured by the launch hook in phase 12)."""
+    results["roi_align_backward_teacher_rois"] = roi_bwd_case(
+        "teacher step rois", results.pop("teacher_bwd_inputs"))
 
 
 def small_model(device):
@@ -569,7 +638,7 @@ def phase_serving(dev, results):
 KERNEL_GROUPS = (  # (group, substrings of device kernel names), first match wins
     ("port: nms", ("nms_mask_kernel", "nms_scan_kernel")),
     ("port: roi_align", ("roi_align_fwd_kernel",)),
-    ("port: roi_align backward", ("roi_align_bwd_kernel", "cast_to_bf16_kernel")),
+    ("port: roi_align backward", ("roi_align_bwd",)),
     ("conv / matmul", ("xmma", "nvjet", "cutlass", "gemm", "conv", "implicit")),
     ("sort / select", ("sort", "radix", "scan", "topk", "index", "gather")),
     ("copy / cast", ("copy", "Memcpy", "Memset")),
@@ -641,6 +710,7 @@ def launch_checks():
         )
 
     def check_roi_bwd(inputs, out):
+        checks.setdefault("roi_align_backward_inputs", inputs)
         ref = ra.roi_align_backward_plain(*inputs)
         checks["roi_align_backward"].append(
             roi_err(out, ref, float(ref.float().abs().max()))
@@ -1053,6 +1123,7 @@ def phase_teacher_train(dev, results):
     rec["host_syncs_per_step"] = count_syncs(lambda: trainer.step(batches[-1]))
     emit(rec)
     results["teacher_train"] = rec
+    results["teacher_bwd_inputs"] = checks["roi_align_backward_inputs"]
     emit(dict(phase="teacher_train_profile", **profile_groups(lambda: trainer.step(batches[-1]))))
 
 
@@ -1120,6 +1191,8 @@ def main():
     timed("teacher_serving", phase_teacher_serving, dev, results)
     torch.cuda.empty_cache()
     timed("teacher_train", phase_teacher_train, dev, results)
+    torch.cuda.empty_cache()
+    timed("roi_align_backward_teacher_rois", phase_roi_align_backward_teacher_rois, results)
     emit(dict(phase="timing", **seconds))
 
     smi = subprocess.run(
@@ -1132,6 +1205,7 @@ def main():
     t_serving, t_train = results["teacher_serving"], results["teacher_train"]
     nms_rpn, roi_main = results["nms_rpn"], results[("roi_align",) + ROI_MAIN]
     bwd_main = results[("roi_align_backward",) + ROI_BWD_MAIN]
+    bwd_teacher = results["roi_align_backward_teacher_rois"]
 
     def shape_rec(rec):
         return {k: rec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
@@ -1180,16 +1254,19 @@ def main():
                       "(its XLA-derived gradient; no Pallas kernel)",
              launches=t_train["launches"]["roi_align_backward"],
              launches_per_teacher_step=t_train["launches"]["roi_align_backward"] / TRAIN["steps"],
-             launch_unit="one roi_align_backward call: the float32 scatter, then the cast "
-                         "to bfloat16",
+             launch_unit="one roi_align_backward call: the plan kernel (each roi's tap "
+                         "lists), then the tile kernel (each tile of dF summed in shared "
+                         "memory, written once in bfloat16)",
              max_abs_err=max(t_train["first_step_checks"]["roi_align_backward_max_abs_err"]
                              + [results[("roi_align_backward",) + c]["max_abs_err"]
-                                for c in ROI_BWD_CASES]),
+                                for c in ROI_BWD_CASES]
+                             + [bwd_teacher["max_abs_err"]]),
              dtypes="bfloat16 cotangent -> bfloat16 dF, float32 sums",
              ms=bwd_main["ms"], plain_ms=bwd_main["plain_ms"],
              bound_ms=bwd_main["bound_ms"], bound_by=bwd_main["bound_by"],
              library_ms=None,
-             l2_atomic_g_adds_per_s=bwd_main["l2_atomic_g_adds_per_s"]),
+             shared_g_adds_per_s=bwd_main["shared_g_adds_per_s"],
+             teacher_step_rois=shape_rec(bwd_teacher)),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -61,21 +61,37 @@
 // What bounds the backward on the H100: bytes, on paper.  It must read
 // the cotangent once and write dF once: on the teacher's train step 8 x
 // 512 rois x 7 x 7 x 1024 bfloat16 in (411 MB) and the 69 MB bfloat16
-// map out, about 0.14 ms at 3.35 TB/s.  In practice the scatter's
-// float32 atomics into L2 set the pace: one vector add per (bin, tap,
-// 4 channels), about 1 G scalar adds on that shape.
+// map out, 0.143 ms at 3.35 TB/s.  Its adds are about 1 G float32
+// multiply-adds (one per tap and channel); a scatter of them into device
+// memory is what held the first version back (float4 atomics into a
+// float32 scratch map, 3.31 ms), so here every add lands in shared memory.
 //
-// Design: the forward's grid and prologue (one CTA per roi, image-major,
-// the roi's tap lists in shared memory).  Each thread owns 16 bytes of
-// channels of the cotangent; for every bin it reads them once and, for
-// each of the bin's taps, adds w_y * w_x * g into a float32 scratch map
-// [B, H, W, C] that the caller zeroed, with sm_90's float4 atomicAdd
-// (red.global.add.v4.f32).  The rois of one image run together, so their
-// adds meet in that image's 17 MB slab of the scratch, which L2 holds.
-// A second kernel casts the scratch to bfloat16 for bfloat16 features
-// (the JAX float32 sum, then the astype); for float32 features the
-// scratch is the result.  The atomics' order changes from run to run, so
-// float32 results agree with the plain version up to the summation order.
+// Design: owner computes, in two kernels.
+//  * Plan (roi_align_bwd_plan_kernel): one CTA per roi builds its tap
+//    lists with the forward's prologue (the same rounded arithmetic, so
+//    the weights are the plain version's) and writes them to a workspace
+//    the caller allocates: per emitted row and column, (index, weight)
+//    pairs in ascending index order, their count and their first and last
+//    index, and the first and last column of each run of kQ emitted
+//    columns.
+//  * Accumulate (roi_align_bwd_kernel): one CTA per (tile of tile_h rows
+//    by tile_w columns of one image, slab of channels).  It holds the
+//    tile's float32 sums [tile_h * tile_w, slab] in dynamic shared
+//    memory, and each thread owns two channels of every position, so no
+//    two threads ever add to one word: no atomics, and the sums are taken
+//    in one fixed order (bit-identical from run to run).  The CTA lists,
+//    in order, the work items (roi, emitted row, run of kQ emitted
+//    columns) whose taps meet the tile (a ballot compaction into shared
+//    memory), then walks them: each thread loads its 4 or 8 bytes of the
+//    item's cotangent bins (the next item's loads are in flight while
+//    this one is summed), keeps the row taps inside the tile in registers
+//    and, per column tap, adds w_y * w_x * g to each row's sum (all loads,
+//    then all multiply-adds, then all stores: the positions are
+//    distinct).  At the end it writes the tile once, in the features'
+//    dtype (round to nearest even for bfloat16).  Every position of dF
+//    belongs to one tile, so nothing is zeroed first, and no float32 map
+//    is written.  The tile is chosen by the caller
+//    (ops/roi_align.py::backward_tiling).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -320,39 +336,516 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
 }
 
-// Adds w * g[0..n) to the n float32 channels at dst (16-byte aligned).
-template <int n>
-__device__ __forceinline__ void scatter_add(float* dst, float w,
-                                            const float (&g)[n]) {
-#pragma unroll
-  for (int i = 0; i < n; i += 4) {
-    atomicAdd(reinterpret_cast<float4*>(dst + i),
-              make_float4(w * g[i], w * g[i + 1], w * g[i + 2], w * g[i + 3]));
+// The backward's workspace, filled by the plan kernel: NR = B * S rois,
+// each with out_p emitted rows and out_q emitted columns.  A tap is
+// (index, weight bits); an empty range is (1 << 30, -1).
+struct Plan {
+  int2* ytaps;  // [NR, out_p, ly] (row h, weight)
+  int2* xtaps;  // [NR, out_q, lx] (column w, weight)
+  int* ny;      // [NR, out_p]
+  int* nx;      // [NR, out_q]
+  int2* yr;     // [NR, out_p] first and last row tapped
+  int2* xr;     // [NR, out_q] first and last column tapped
+  int2* xc;     // [NR, nqc] the same over each run of kQ emitted columns
+};
+
+constexpr int kQ = 7;             // emitted columns per work item
+constexpr int kMaxTileRows = 4;   // rows of a tile
+constexpr int kXBatch = 4;        // column taps summed together
+constexpr int kXPre = 3;          // column taps per lane loaded ahead
+constexpr int kYPre = 8;          // row taps loaded at once when staging
+constexpr int kListCap = 512;     // work items staged per tile row and round
+constexpr int kBwdMaxThreads = 256;
+constexpr int kPlanThreads = 32;
+constexpr int kEmpty = 1 << 30;
+
+__global__ void __launch_bounds__(kPlanThreads)
+    roi_align_bwd_plan_kernel(const float* __restrict__ rois, Plan plan,
+                              int H, int W, int P, int Q, float scale,
+                              int sampling_ratio, int cap_h, int cap_w,
+                              int bin_stride, int out_p, int out_q,
+                              int nqc) {
+  extern __shared__ int smem[];
+  const size_t roi = blockIdx.x;
+  const TapLists t = build_tap_lists(
+      smem, rois + roi * 4, H, W, P, Q, scale, sampling_ratio, cap_h, cap_w,
+      bin_stride, out_p, out_q, 0, out_p);
+  for (int j = threadIdx.x; j < out_p * t.ly; j += blockDim.x) {
+    const int p = j / t.ly;
+    plan.ytaps[roi * out_p * t.ly + j] =
+        j - p * t.ly < t.ny[p]
+            ? make_int2(t.yoff[j] / W, __float_as_int(t.yw[j]))
+            : make_int2(0, 0);
+  }
+  for (int j = threadIdx.x; j < out_q * t.lx; j += blockDim.x) {
+    const int q = j / t.lx;
+    plan.xtaps[roi * out_q * t.lx + j] =
+        j - q * t.lx < t.nx[q]
+            ? make_int2(t.xoff[j], __float_as_int(t.xw[j]))
+            : make_int2(0, 0);
+  }
+  for (int p = threadIdx.x; p < out_p; p += blockDim.x) {
+    const int n = t.ny[p];
+    const int* idx = t.yoff + p * t.ly;
+    plan.ny[roi * out_p + p] = n;
+    plan.yr[roi * out_p + p] =
+        n ? make_int2(idx[0] / W, idx[n - 1] / W) : make_int2(kEmpty, -1);
+  }
+  for (int q = threadIdx.x; q < out_q; q += blockDim.x) {
+    const int n = t.nx[q];
+    const int* idx = t.xoff + q * t.lx;
+    plan.nx[roi * out_q + q] = n;
+    plan.xr[roi * out_q + q] =
+        n ? make_int2(idx[0], idx[n - 1]) : make_int2(kEmpty, -1);
+  }
+  for (int qc = threadIdx.x; qc < nqc; qc += blockDim.x) {
+    int lo = kEmpty, hi = -1;
+    for (int q = qc * kQ; q < min(out_q, qc * kQ + kQ); ++q) {
+      const int n = t.nx[q];
+      if (n) {
+        lo = min(lo, t.xoff[q * t.lx]);
+        hi = max(hi, t.xoff[q * t.lx + n - 1]);
+      }
+    }
+    plan.xc[roi * nqc + qc] = make_int2(lo, hi);
   }
 }
 
+// Four channels of the cotangent and of dF.
+template <typename T>
+struct Lanes;
+
+template <>
+struct Lanes<float> {
+  using raw = float4;
+  __device__ static raw zero() { return make_float4(0.f, 0.f, 0.f, 0.f); }
+  __device__ static raw load(const float* p) {
+    return __ldg(reinterpret_cast<const float4*>(p));
+  }
+  __device__ static float4 unpack(const raw& r) { return r; }
+  __device__ static void store(float* o, const float4& a) {
+    *reinterpret_cast<float4*>(o) = a;
+  }
+};
+
+template <>
+struct Lanes<__nv_bfloat16> {
+  using raw = uint2;
+  __device__ static raw zero() { return make_uint2(0u, 0u); }
+  __device__ static raw load(const __nv_bfloat16* p) {
+    return __ldg(reinterpret_cast<const uint2*>(p));
+  }
+  __device__ static float4 unpack(const raw& r) {
+    return make_float4(__uint_as_float(r.x << 16),
+                       __uint_as_float(r.x & 0xffff0000u),
+                       __uint_as_float(r.y << 16),
+                       __uint_as_float(r.y & 0xffff0000u));
+  }
+  // round to nearest even, as torch's .to(torch.bfloat16)
+  __device__ static void store(__nv_bfloat16* o, const float4& a) {
+    __nv_bfloat162 lo = __floats2bfloat162_rn(a.x, a.y);
+    __nv_bfloat162 hi = __floats2bfloat162_rn(a.z, a.w);
+    *reinterpret_cast<uint2*>(o) = make_uint2(
+        *reinterpret_cast<uint32_t*>(&lo), *reinterpret_cast<uint32_t*>(&hi));
+  }
+};
+
+// What one thread of the accumulate kernel works on.
+struct Tile {
+  int b, h0, h1, w0, w1;  // image, first and last row and column
+  int c;                  // this thread's first channel
+  bool active;            // c < C
+  int S, out_p, out_q, nqc, C, ly, lx, stride;
+};
+
+struct Item {
+  size_t roi;
+  int p, qc;
+};
+
+__device__ __forceinline__ Item decode(const Tile& k, int e) {
+  const int per_roi = k.out_p * k.nqc;
+  const int s = e / per_roi;
+  const int r = e - s * per_roi;
+  Item it;
+  it.roi = (size_t)k.b * k.S + s;
+  it.p = r / k.nqc;
+  it.qc = r - it.p * k.nqc;
+  return it;
+}
+
+__device__ __forceinline__ bool meets(int2 range, int lo, int hi) {
+  return range.x <= hi && range.y >= lo;
+}
+
+// Entry e's emitted columns whose taps meet the tile (bits of qm) and the
+// weight of its row tap on each row of the tile (0: none).  Its loads are
+// issued together, the first kYPre row taps included.
+__device__ __forceinline__ void stage(const Plan& plan, const Tile& k, int e,
+                                      unsigned& qm,
+                                      float (&w)[kMaxTileRows]) {
+  const Item it = decode(k, e);
+  const size_t row = it.roi * k.out_p + it.p;
+  const int2 yr = __ldg(plan.yr + row);
+  const int2 xc = __ldg(plan.xc + it.roi * k.nqc + it.qc);
+  const int ny = __ldg(plan.ny + row);
+  int2 xr[kQ];
+#pragma unroll
+  for (int u = 0; u < kQ; ++u)
+    xr[u] = it.qc * kQ + u < k.out_q
+                ? __ldg(plan.xr + it.roi * k.out_q + it.qc * kQ + u)
+                : make_int2(kEmpty, -1);
+  const int2* yt = plan.ytaps + row * k.ly;
+  int2 t[kYPre];
+#pragma unroll
+  for (int j = 0; j < kYPre; ++j)
+    t[j] = j < k.ly ? __ldg(yt + j) : make_int2(kEmpty, 0);
+  qm = 0;
+#pragma unroll
+  for (int r = 0; r < kMaxTileRows; ++r) w[r] = 0.0f;
+  if (!meets(yr, k.h0, k.h1) || !meets(xc, k.w0, k.w1)) return;
+#pragma unroll
+  for (int u = 0; u < kQ; ++u)
+    if (meets(xr[u], k.w0, k.w1)) qm |= 1u << u;
+#pragma unroll
+  for (int j = 0; j < kYPre; ++j)
+#pragma unroll
+    for (int r = 0; r < kMaxTileRows; ++r)
+      if (j < ny && t[j].x - k.h0 == r && t[j].x <= k.h1)
+        w[r] = __int_as_float(t[j].y);
+  for (int j = kYPre; j < ny; ++j) {
+    const int2 tj = __ldg(yt + j);
+#pragma unroll
+    for (int r = 0; r < kMaxTileRows; ++r)
+      if (tj.x - k.h0 == r && tj.x <= k.h1) w[r] = __int_as_float(tj.y);
+  }
+}
+
+// Loads this thread's two channels of the item's cotangent bins that
+// meet the tile.
+template <typename T>
+__device__ __forceinline__ void fetch(const T* __restrict__ grad,
+                                      const Tile& k, int2 rec,
+                                      typename Lanes<T>::raw (&g)[kQ]) {
+  const Item it = decode(k, rec.x >> 8);
+  const T* gp = grad + ((it.roi * k.out_p + it.p) * k.out_q +
+                        (size_t)it.qc * kQ) * k.C + k.c;
+#pragma unroll
+  for (int u = 0; u < kQ; ++u) {
+    g[u] = Lanes<T>::zero();
+    if (k.active && (rec.x >> u & 1)) g[u] = Lanes<T>::load(gp + (size_t)u * k.C);
+  }
+}
+
+// The column taps of one item's kQ emitted columns, as a warp holds them
+// between their loads and their copy into its buffer in shared memory
+// ([kQ][lx] taps, then kQ counts): slot lane + 32 * j, j < kXPre, of the
+// taps, and the count of column lane for lane < kQ.
+struct XTaps {
+  int2 t[kXPre];
+  int n;
+};
+
+__device__ __forceinline__ XTaps load_x(const Plan& plan, const Tile& k,
+                                        int2 rec) {
+  const Item it = decode(k, rec.x >> 8);
+  const int q0 = it.qc * kQ;
+  const int slots = min(kQ, k.out_q - q0) * k.lx;
+  const int2* src = plan.xtaps + (it.roi * k.out_q + q0) * k.lx;
+  const int lane = threadIdx.x & 31;
+  XTaps x;
+#pragma unroll
+  for (int j = 0; j < kXPre; ++j)
+    x.t[j] = lane + 32 * j < slots ? __ldg(src + lane + 32 * j)
+                                   : make_int2(0, 0);
+  x.n = lane < kQ && q0 + lane < k.out_q
+            ? __ldg(plan.nx + it.roi * k.out_q + q0 + lane)
+            : 0;
+  return x;
+}
+
+// One chunk of 32 slots of an item's column taps into the warp's buffer:
+// each tap inside the tile as (offset of its column in the thread's sums,
+// weight); lanes u < kQ count, for emitted column u, the taps before the
+// tile (first) and inside it (count): they form one run, since the taps
+// ascend.
+__device__ __forceinline__ void store_chunk(const Tile& k, int j, int slots,
+                                            int2 t, int nx_lane, int2* xbuf,
+                                            int& first, int& count) {
+  const int lane = threadIdx.x & 31;
+  const int s = 32 * j + lane;
+  const int u = min(s / k.lx, kQ - 1);
+  const int nx = __shfl_sync(0xffffffffu, nx_lane, u);
+  const bool tap = s < slots && s - u * k.lx < nx;
+  const bool before = tap && t.x < k.w0;
+  const bool in = tap && t.x >= k.w0 && t.x <= k.w1;
+  if (in) xbuf[s] = make_int2((t.x - k.w0) * k.stride, t.y);
+  const unsigned b_before = __ballot_sync(0xffffffffu, before);
+  const unsigned b_in = __ballot_sync(0xffffffffu, in);
+  if (lane < kQ) {
+    const int lo = max(lane * k.lx - 32 * j, 0);
+    const int hi = min(lane * k.lx + k.lx - 32 * j, 32);
+    if (hi > lo) {
+      const unsigned m = (hi == 32 ? 0xffffffffu : (1u << hi) - 1u) &
+                         ~((1u << lo) - 1u);
+      first += __popc(b_before & m);
+      count += __popc(b_in & m);
+    }
+  }
+}
+
+// Copies an item's column taps into the warp's buffer ([kQ][lx] taps, then
+// each emitted column's run (first, count)), the slots past 32 * kXPre
+// straight from device memory; the warp syncs around it.
+__device__ __forceinline__ void store_x(const Plan& plan, const Tile& k,
+                                        int2 rec, const XTaps& x,
+                                        int2* xbuf) {
+  const Item it = decode(k, rec.x >> 8);
+  const int q0 = it.qc * kQ;
+  const int slots = min(kQ, k.out_q - q0) * k.lx;
+  const int lane = threadIdx.x & 31;
+  int first = 0, count = 0;
+#pragma unroll
+  for (int j = 0; j < kXPre; ++j)
+    store_chunk(k, j, slots, x.t[j], x.n, xbuf, first, count);
+  const int2* src = plan.xtaps + (it.roi * k.out_q + q0) * k.lx;
+  for (int j = kXPre; 32 * j < slots; ++j) {
+    const int s = 32 * j + lane;
+    store_chunk(k, j, slots, s < slots ? __ldg(src + s) : make_int2(0, 0),
+                x.n, xbuf, first, count);
+  }
+  if (lane < kQ) xbuf[kQ * k.lx + lane] = make_int2(first, count);
+}
+
+// Adds the item's taps on this thread's row of the tile into its sums;
+// the column taps come from the warp's buffer.
+template <typename T>
+__device__ __forceinline__ void accumulate(const Tile& k, int2 rec,
+                                           const typename Lanes<T>::raw (&g)[kQ],
+                                           const int2* xbuf, float4* mine) {
+  const float wy = __int_as_float(rec.y);
+#pragma unroll
+  for (int u = 0; u < kQ; ++u) {
+    if (!(rec.x >> u & 1)) continue;
+    const float4 gv = Lanes<T>::unpack(g[u]);
+    const int2 run = xbuf[kQ * k.lx + u];
+    const int2* xt = xbuf + u * k.lx + run.x;
+    // kXBatch column taps at a time, at distinct positions: all loads,
+    // then the multiply-adds, then the stores
+    for (int i0 = 0; i0 < run.y; i0 += kXBatch) {
+      int2 t[kXBatch];
+      float4 v[kXBatch];
+#pragma unroll
+      for (int i = 0; i < kXBatch; ++i) {
+        t[i] = i0 + i < run.y ? xt[i0 + i] : make_int2(0, 0);
+        if (i0 + i < run.y) v[i] = mine[t[i].x];
+      }
+#pragma unroll
+      for (int i = 0; i < kXBatch; ++i) {
+        if (i0 + i < run.y) {
+          const float w = wy * __int_as_float(t[i].y);
+          v[i].x = fmaf(w, gv.x, v[i].x);
+          v[i].y = fmaf(w, gv.y, v[i].y);
+          v[i].z = fmaf(w, gv.z, v[i].z);
+          v[i].w = fmaf(w, gv.w, v[i].w);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kXBatch; ++i)
+        if (i0 + i < run.y) mine[t[i].x] = v[i];
+    }
+  }
+}
+
+// One staged item as a thread holds it between its loads and its sums.
+template <typename T>
+struct Work {
+  typename Lanes<T>::raw g[kQ];
+  XTaps x;
+  int2 rec;
+};
+
+template <typename T>
+__device__ __forceinline__ void prefetch(const T* __restrict__ grad,
+                                         const Plan& plan, const Tile& k,
+                                         int2 rec, Work<T>& w) {
+  w.rec = rec;
+  fetch<T>(grad, k, rec, w.g);
+  w.x = load_x(plan, k, rec);
+}
+
+// Sums one item: its column taps into the warp's buffer, then its taps
+// into this thread's sums.
+template <typename T>
+__device__ __forceinline__ void step(const Plan& plan, const Tile& k,
+                                     const Work<T>& w, int2* xbuf,
+                                     float4* mine) {
+  store_x(plan, k, w.rec, w.x, xbuf);
+  __syncwarp();
+  accumulate<T>(k, w.rec, w.g, xbuf, mine);
+  __syncwarp();
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kBwdMaxThreads, 2)
+    roi_align_bwd_kernel(const T* __restrict__ grad, Plan plan,
+                         T* __restrict__ out, int H, int W, int C, int S,
+                         int out_p, int out_q, int nqc, int ly, int lx,
+                         int tile_h, int tile_w, int slab, int tiles_w) {
+  extern __shared__ float4 smem4[];
+  float* acc = reinterpret_cast<float*>(smem4);
+  int2* lists = reinterpret_cast<int2*>(acc + (size_t)tile_h * tile_w * slab);
+  int* warp_cnt = reinterpret_cast<int*>(lists + tile_h * kListCap);
+  // each warp's buffer of one item's column taps: kQ * lx taps, kQ runs
+  int2* xbuf = reinterpret_cast<int2*>(warp_cnt + kMaxTileRows * 32) +
+               (threadIdx.x >> 5) * (kQ * lx + kQ);
+
+  // tile_h groups of slab / 4 threads (whole warps): group r owns row
+  // h0 + r of the tile, each thread four channels of it
+  const int per_row = slab / 4;
+  const int gr = threadIdx.x / per_row;
+  const int cs = 4 * (threadIdx.x - gr * per_row);
+  Tile k;
+  k.b = blockIdx.z;
+  k.h0 = blockIdx.x / tiles_w * tile_h;
+  k.w0 = blockIdx.x % tiles_w * tile_w;
+  k.h1 = min(H, k.h0 + tile_h) - 1;
+  k.w1 = min(W, k.w0 + tile_w) - 1;
+  k.c = blockIdx.y * slab + cs;
+  k.active = k.c < C;
+  k.S = S;
+  k.out_p = out_p;
+  k.out_q = out_q;
+  k.nqc = nqc;
+  k.C = C;
+  k.ly = ly;
+  k.lx = lx;
+  k.stride = slab / 4;
+  // column x of this thread's row: mine[(x - w0) * stride]
+  float4* mine =
+      reinterpret_cast<float4*>(acc + (size_t)gr * tile_w * slab + cs);
+  for (int x = 0; x < tile_w; ++x)
+    mine[x * k.stride] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int n_entries = S * out_p * nqc;
+  const int2* mylist = lists + gr * kListCap;
+  for (int e0 = 0; e0 < n_entries;) {
+    // stage, in order, the next work items of each row of the tile:
+    // (entry << 8 | emitted columns meeting the tile, row weight)
+    int count[kMaxTileRows] = {};
+    int most = 0;
+    while (e0 < n_entries && most + (int)blockDim.x <= kListCap) {
+      const int e = e0 + threadIdx.x;
+      unsigned qm = 0;
+      float w[kMaxTileRows];
+#pragma unroll
+      for (int r = 0; r < kMaxTileRows; ++r) w[r] = 0.0f;
+      if (e < n_entries) stage(plan, k, e, qm, w);
+      unsigned m[kMaxTileRows];
+#pragma unroll
+      for (int r = 0; r < kMaxTileRows; ++r) {
+        m[r] = __ballot_sync(0xffffffffu, qm != 0 && w[r] != 0.0f);
+        if (lane == 0 && r < tile_h) warp_cnt[r * 32 + warp] = __popc(m[r]);
+      }
+      __syncthreads();
+#pragma unroll
+      for (int r = 0; r < kMaxTileRows; ++r) {
+        if (r >= tile_h) break;
+        int off = count[r], total = 0;
+        for (int v = 0; v < nwarps; ++v) {
+          const int n = warp_cnt[r * 32 + v];
+          off += v < warp ? n : 0;
+          total += n;
+        }
+        if (m[r] >> lane & 1)
+          lists[r * kListCap + off + __popc(m[r] & ((1u << lane) - 1u))] =
+              make_int2(e << 8 | (int)qm, __float_as_int(w[r]));
+        count[r] += total;
+        most = max(most, count[r]);
+      }
+      __syncthreads();
+      e0 += blockDim.x;
+    }
+    // sum this row's items; the next item's cotangent is loaded while
+    // this one is summed
+    int n = 0;
+#pragma unroll
+    for (int r = 0; r < kMaxTileRows; ++r) n = r == gr ? count[r] : n;
+    // two items in flight: one's loads are issued while the other is
+    // summed, in registers that alternate without copies
+    Work<T> wa = {}, wb = {};
+    if (n > 0) prefetch(grad, plan, k, mylist[0], wa);
+    if (n > 1) prefetch(grad, plan, k, mylist[1], wb);
+    for (int i = 0; i < n; i += 2) {
+      step(plan, k, wa, xbuf, mine);
+      if (i + 2 < n) prefetch(grad, plan, k, mylist[i + 2], wa);
+      if (i + 1 < n) {
+        step(plan, k, wb, xbuf, mine);
+        if (i + 3 < n) prefetch(grad, plan, k, mylist[i + 3], wb);
+      }
+    }
+    __syncthreads();  // the lists are rewritten in the next round
+  }
+
+  const int y = k.h0 + gr;
+  if (!k.active || y > k.h1) return;
+  for (int x = k.w0; x <= k.w1; ++x) {
+    Lanes<T>::store(out + ((size_t)(k.b * H + y) * W + x) * C + k.c,
+                    mine[(x - k.w0) * k.stride]);
+  }
+}
+
+// YARDSTICK, timed once and then removed: the first version's scatter
+// with each thread owning 4 channels, so that a warp's float4 atomics
+// cover 512 contiguous bytes of the float32 scratch.
+template <typename T>
+struct Quad;
+
+template <>
+struct Quad<float> {
+  using raw = float4;
+  __device__ static void unpack(const raw& r, float* v) {
+    v[0] = r.x;
+    v[1] = r.y;
+    v[2] = r.z;
+    v[3] = r.w;
+  }
+};
+
+template <>
+struct Quad<__nv_bfloat16> {
+  using raw = uint2;
+  __device__ static void unpack(const raw& r, float* v) {
+    v[0] = __uint_as_float(r.x << 16);
+    v[1] = __uint_as_float(r.x & 0xffff0000u);
+    v[2] = __uint_as_float(r.y << 16);
+    v[3] = __uint_as_float(r.y & 0xffff0000u);
+  }
+};
+
 template <typename T>
 __global__ void __launch_bounds__(kMaxThreads)
-    roi_align_bwd_kernel(const T* __restrict__ grad,
-                         const float* __restrict__ rois,
-                         float* __restrict__ dfeat, int H, int W, int C,
-                         int S, int P, int Q, float scale, int sampling_ratio,
-                         int cap_h, int cap_w, int bin_stride, int out_p,
-                         int out_q, int rows) {
-  using V = Vec<T>;
-  constexpr int kVec = V::n;
+    roi_align_bwd_atomic_kernel(const T* __restrict__ grad,
+                                const float* __restrict__ rois,
+                                float* __restrict__ dfeat, int H, int W,
+                                int C, int S, int P, int Q, float scale,
+                                int sampling_ratio, int cap_h, int cap_w,
+                                int bin_stride, int out_p, int out_q,
+                                int rows) {
   extern __shared__ int smem[];
-  const int roi_id = blockIdx.x;  // b * S + s
+  const int roi_id = blockIdx.x;
   const int b = roi_id / S;
   const int p0 = blockIdx.y * rows;
   const int p1 = min(out_p, p0 + rows);
   const TapLists t = build_tap_lists(
       smem, rois + (size_t)roi_id * 4, H, W, P, Q, scale, sampling_ratio,
       cap_h, cap_w, bin_stride, out_p, out_q, p0, p1);
-
   float* fb = dfeat + (size_t)b * H * W * C;
   const T* gb = grad + (size_t)roi_id * out_p * out_q * C;
-  for (int cv = threadIdx.x * kVec; cv < C; cv += blockDim.x * kVec) {
+  for (int cv = threadIdx.x * 4; cv < C; cv += blockDim.x * 4) {
     float* f = fb + cv;
     for (int p = p0; p < p1; ++p) {
       const int* yo = t.yoff + p * t.ly;
@@ -362,14 +855,16 @@ __global__ void __launch_bounds__(kMaxThreads)
         const int* xo = t.xoff + q * t.lx;
         const float* xwq = t.xw + q * t.lx;
         const int nxq = t.nx[q];
-        float g[kVec];
-        V::unpack(__ldg(reinterpret_cast<const typename V::raw*>(
-                      gb + ((size_t)p * out_q + q) * C + cv)),
-                  g);
+        float g[4];
+        Quad<T>::unpack(__ldg(reinterpret_cast<const typename Quad<T>::raw*>(
+                            gb + ((size_t)p * out_q + q) * C + cv)),
+                        g);
         for (int iy = 0; iy < nyp; ++iy) {
           const float wy = ywp[iy];
           for (int ix = 0; ix < nxq; ++ix) {
-            scatter_add(f + (size_t)(yo[iy] + xo[ix]) * C, wy * xwq[ix], g);
+            const float w = wy * xwq[ix];
+            atomicAdd(reinterpret_cast<float4*>(f + (size_t)(yo[iy] + xo[ix]) * C),
+                      make_float4(w * g[0], w * g[1], w * g[2], w * g[3]));
           }
         }
       }
@@ -427,15 +922,80 @@ cudaError_t launch(const void* features, const void* rois, void* out, int B,
   return cudaGetLastError();
 }
 
+// Where each array of the plan lies in the workspace, 256-byte aligned;
+// returns the bytes it needs (ops/roi_align.py::_plan_bytes computes the
+// same).
+size_t plan_layout(char* base, size_t nr, int out_p, int out_q, int ly,
+                   int lx, int nqc, Plan* plan) {
+  size_t off = 0;
+  auto take = [&](size_t bytes) {
+    char* p = base + off;
+    off += (bytes + 255) / 256 * 256;
+    return p;
+  };
+  plan->ytaps = reinterpret_cast<int2*>(take(nr * out_p * ly * 8));
+  plan->xtaps = reinterpret_cast<int2*>(take(nr * out_q * lx * 8));
+  plan->ny = reinterpret_cast<int*>(take(nr * out_p * 4));
+  plan->nx = reinterpret_cast<int*>(take(nr * out_q * 4));
+  plan->yr = reinterpret_cast<int2*>(take(nr * out_p * 8));
+  plan->xr = reinterpret_cast<int2*>(take(nr * out_q * 8));
+  plan->xc = reinterpret_cast<int2*>(take(nr * nqc * 8));
+  return off;
+}
+
 template <typename T>
 cudaError_t launch_backward(const void* grad, const void* rois,
-                            void* scratch, int B, int H, int W, int C, int S,
+                            void* workspace, long long workspace_bytes,
+                            void* out, int B, int H, int W, int C, int S,
                             int P, int Q, float scale, int sampling_ratio,
-                            int cap_h, int cap_w, int bin_stride,
-                            cudaStream_t st) {
+                            int cap_h, int cap_w, int bin_stride, int tile_h,
+                            int tile_w, int slab, cudaStream_t st) {
   const Geometry g = geometry<T>(B, C, S, P, Q, cap_h, cap_w, bin_stride);
+  const int ly = 2 * cap_h, lx = 2 * cap_w;
+  const int nqc = (g.out_q + kQ - 1) / kQ;
+  const size_t nr = (size_t)B * S;
+  Plan plan;
+  const size_t need = plan_layout(static_cast<char*>(workspace), nr, g.out_p,
+                                  g.out_q, ly, lx, nqc, &plan);
+  const int threads = tile_h * slab / 4;
+  const size_t smem = (size_t)tile_h * tile_w * slab * 4 +
+                      (size_t)tile_h * kListCap * 8 + kMaxTileRows * 32 * 4 +
+                      (size_t)threads / 32 * (kQ * lx + kQ) * 8;
+  if (g.smem > 48 * 1024 || need > (size_t)workspace_bytes || tile_h < 1 ||
+      tile_h > kMaxTileRows || tile_w < 1 || slab % 128 != 0 ||
+      threads > kBwdMaxThreads || smem > 232448 ||
+      (long long)S * g.out_p * nqc >= (1 << 23))
+    return cudaErrorInvalidValue;
+  roi_align_bwd_plan_kernel<<<(unsigned)nr, kPlanThreads, g.smem, st>>>(
+      static_cast<const float*>(rois), plan, H, W, P, Q, scale,
+      sampling_ratio, cap_h, cap_w, bin_stride, g.out_p, g.out_q, nqc);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(roi_align_bwd_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  const int tiles_w = (W + tile_w - 1) / tile_w;
+  const dim3 grid(tiles_w * ((H + tile_h - 1) / tile_h),
+                  (C + slab - 1) / slab, B);
+  roi_align_bwd_kernel<T><<<grid, threads, smem, st>>>(
+      static_cast<const T*>(grad), plan, static_cast<T*>(out), H, W, C, S,
+      g.out_p, g.out_q, nqc, ly, lx, tile_h, tile_w, slab, tiles_w);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_backward_atomic(const void* grad, const void* rois,
+                                   void* scratch, int B, int H, int W, int C,
+                                   int S, int P, int Q, float scale,
+                                   int sampling_ratio, int cap_h, int cap_w,
+                                   int bin_stride, cudaStream_t st) {
+  Geometry g = geometry<T>(B, C, S, P, Q, cap_h, cap_w, bin_stride);
+  g.threads = max(32, (min(C / 4, kMaxThreads) + 31) / 32 * 32);
   if (g.smem > 48 * 1024) return cudaErrorInvalidValue;
-  roi_align_bwd_kernel<T><<<g.grid, g.threads, g.smem, st>>>(
+  roi_align_bwd_atomic_kernel<T><<<g.grid, g.threads, g.smem, st>>>(
       static_cast<const T*>(grad), static_cast<const float*>(rois),
       static_cast<float*>(scratch), H, W, C, S, P, Q, scale, sampling_ratio,
       cap_h, cap_w, bin_stride, g.out_p, g.out_q, g.rows);
@@ -477,27 +1037,54 @@ extern "C" int roi_align_forward(const void* features, const void* rois,
 
 // grad [B, S, ceil(P/bin_stride), ceil(Q/bin_stride), C] in the features'
 // type (float32 with C % 4 == 0, or bfloat16 with C % 8 == 0), 16-byte
-// aligned; rois as for the forward; scratch [B, H, W, C] float32, zeroed
-// by the caller, receives the float32 sums.  For bfloat16 (bf16 = 1) the
-// result is then cast into out [B, H, W, C] bfloat16; for float32 the
-// scratch is the result and out is not touched.
+// aligned; rois as for the forward; workspace of workspace_bytes (the
+// plan, at least what ops/roi_align.py::_plan_bytes gives); out [B, H, W,
+// C] in the features' type (bf16 = 1 selects bfloat16) receives dF, every
+// element written.  The tile: tile_h (1 to 4) rows by tile_w columns by
+// slab channels (a multiple of 64, at most 512), its float32 sums in at
+// most 227 KB of shared memory.
 extern "C" int roi_align_backward(const void* grad, const void* rois,
-                                  void* scratch, void* out, int B, int H,
-                                  int W, int C, int S, int P, int Q,
-                                  float spatial_scale, int sampling_ratio,
-                                  int max_samples, int bin_stride, int bf16,
-                                  void* stream) {
+                                  void* workspace, long long workspace_bytes,
+                                  void* out, int B, int H, int W, int C,
+                                  int S, int P, int Q, float spatial_scale,
+                                  int sampling_ratio, int max_samples,
+                                  int bin_stride, int tile_h, int tile_w,
+                                  int slab, int bf16, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int cap_h, cap_w;
+  sample_caps(H, W, P, Q, sampling_ratio, max_samples, &cap_h, &cap_w);
+  const cudaError_t err =
+      bf16 ? launch_backward<__nv_bfloat16>(
+                 grad, rois, workspace, workspace_bytes, out, B, H, W, C, S,
+                 P, Q, spatial_scale, sampling_ratio, cap_h, cap_w,
+                 bin_stride, tile_h, tile_w, slab, st)
+           : launch_backward<float>(
+                 grad, rois, workspace, workspace_bytes, out, B, H, W, C, S,
+                 P, Q, spatial_scale, sampling_ratio, cap_h, cap_w,
+                 bin_stride, tile_h, tile_w, slab, st);
+  return static_cast<int>(err);
+}
+
+// YARDSTICK entry, removed after its one timing: scratch [B, H, W, C]
+// float32 zeroed by the caller, then cast into out for bfloat16.
+extern "C" int roi_align_backward_atomic(const void* grad, const void* rois,
+                                         void* scratch, void* out, int B,
+                                         int H, int W, int C, int S, int P,
+                                         int Q, float spatial_scale,
+                                         int sampling_ratio, int max_samples,
+                                         int bin_stride, int bf16,
+                                         void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int cap_h, cap_w;
   sample_caps(H, W, P, Q, sampling_ratio, max_samples, &cap_h, &cap_w);
   cudaError_t err =
-      bf16 ? launch_backward<__nv_bfloat16>(grad, rois, scratch, B, H, W, C,
-                                            S, P, Q, spatial_scale,
-                                            sampling_ratio, cap_h, cap_w,
-                                            bin_stride, st)
-           : launch_backward<float>(grad, rois, scratch, B, H, W, C, S, P, Q,
-                                    spatial_scale, sampling_ratio, cap_h,
-                                    cap_w, bin_stride, st);
+      bf16 ? launch_backward_atomic<__nv_bfloat16>(
+                 grad, rois, scratch, B, H, W, C, S, P, Q, spatial_scale,
+                 sampling_ratio, cap_h, cap_w, bin_stride, st)
+           : launch_backward_atomic<float>(grad, rois, scratch, B, H, W, C,
+                                           S, P, Q, spatial_scale,
+                                           sampling_ratio, cap_h, cap_w,
+                                           bin_stride, st);
   if (err != cudaSuccess || !bf16) return static_cast<int>(err);
   const size_t n4 = (size_t)B * H * W * C / 4;
   const int threads = 256;

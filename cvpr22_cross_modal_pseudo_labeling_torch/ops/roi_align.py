@@ -32,8 +32,10 @@ The gradient with respect to the features is the transposed contraction
 ``dF[h, w, c] = sum_p,q A_y[p, h] A_x[q, w] g[p, q, c]`` summed over the
 rois, which XLA derives for the JAX package.  On the CPU autograd
 differentiates the plain version; on CUDA a ``torch.autograd.Function``
-runs the kernel's backward entry (a float32 scatter, then the cast to
-the features' dtype), counted in ``kernels.ROI_ALIGN_BACKWARD``.
+runs the kernel's backward entry (a plan of each roi's tap lists, then
+one CTA per tile of dF summing every roi's taps in shared memory and
+writing the tile once in the features' dtype), counted in
+``kernels.ROI_ALIGN_BACKWARD``.
 """
 
 from typing import Tuple
@@ -44,6 +46,15 @@ from torch.autograd.function import once_differentiable
 from . import kernels
 
 _PLAIN_ROI_CHUNK = 128
+# the backward kernel's tile of dF: rows, columns, channels, sized on an
+# H100 (PERF.md section 6)
+BACKWARD_TILE = (4, 21, 256)
+SHARED_MEMORY_PER_BLOCK = 232448  # bytes a CTA may use on sm_90
+# constants of the backward kernel in csrc/roi_align.cu
+_BWD_MAX_ROWS = 4  # kMaxTileRows
+_BWD_MAX_THREADS = 256  # kBwdMaxThreads
+_BWD_LIST = 512  # kListCap
+_BWD_COLUMNS_PER_ITEM = 7  # kQ
 
 
 def _bilinear_weights(coord: torch.Tensor, size: int):
@@ -240,30 +251,84 @@ def _forward_cuda(features, rois_per_image, output_size, spatial_scale,
     return out
 
 
+def backward_tiling(H: int, W: int, C: int, column_taps: int,
+                    tile: Tuple[int, int, int] = BACKWARD_TILE):
+    """(rows, columns, channels) of the backward kernel's tile of dF for
+    ``[H, W, C]`` features and at most ``column_taps`` taps per emitted
+    column: ``tile`` cut to the map (at most 4 rows, the columns spread
+    evenly over the tiles of a row) and to C, the channels a multiple of
+    128 (each row of the tile has a group of whole warps, four channels a
+    thread, at most 256 threads in all), fewer channels while the CTA's
+    shared memory would not fit."""
+    rows, cols, slab = tile
+    rows = max(1, min(rows, H, _BWD_MAX_ROWS))
+    cols = max(1, min(cols, W))
+    cols = -(-W // -(-W // cols))
+    widest = 4 * _BWD_MAX_THREADS // rows // 128 * 128
+    slab = max(128, min(-(-slab // 128) * 128, widest, -(-C // 128) * 128))
+    while slab > 128 and backward_shared_bytes(rows, cols, slab, column_taps) > SHARED_MEMORY_PER_BLOCK:
+        slab -= 128
+    return rows, cols, slab
+
+
+def backward_shared_bytes(rows: int, cols: int, slab: int, column_taps: int) -> int:
+    """Dynamic shared memory of one CTA of the backward kernel: the
+    tile's float32 sums, each row's work list, the warps' counts, and
+    each warp's buffer of one item's column taps."""
+    warps = rows * slab // 128
+    return (rows * cols * slab * 4 + rows * _BWD_LIST * 8 + _BWD_MAX_ROWS * 32 * 4
+            + warps * (_BWD_COLUMNS_PER_ITEM * column_taps + _BWD_COLUMNS_PER_ITEM) * 8)
+
+
+def _sample_caps(H, W, P, Q, sampling_ratio, max_samples):
+    if sampling_ratio > 0:
+        return sampling_ratio, sampling_ratio
+    return min(max_samples, -(-H // P)), min(max_samples, -(-W // Q))
+
+
+def _plan_bytes(B, S, out_p, out_q, cap_h, cap_w):
+    """Bytes of the backward's plan (``plan_layout`` of the kernel): per
+    roi, the (index, weight) tap lists of its emitted rows and columns,
+    their counts and index ranges, and the column range of each run of
+    emitted columns; each array 256-byte aligned."""
+    nr = B * S
+    nqc = -(-out_q // _BWD_COLUMNS_PER_ITEM)
+    sizes = (nr * out_p * 2 * cap_h * 8, nr * out_q * 2 * cap_w * 8, nr * out_p * 4,
+             nr * out_q * 4, nr * out_p * 8, nr * out_q * 8, nr * nqc * 8)
+    return sum(-(-n // 256) * 256 for n in sizes)
+
+
 def _backward_cuda(grad, rois_per_image, feature_shape, feature_dtype, output_size,
-                   spatial_scale, sampling_ratio, max_samples, bin_stride):
-    """Launches ``roi_align_backward``: a float32 scatter of the
-    cotangent into a zeroed ``[B, H, W, C]`` scratch map, then (bfloat16
-    features) its cast into the result."""
+                   spatial_scale, sampling_ratio, max_samples, bin_stride, tile=BACKWARD_TILE):
+    """Launches ``roi_align_backward``: the plan of every roi's tap lists
+    into a workspace, then the tiles of dF, each summed in shared memory
+    and written once in the features' dtype (``tile`` as for
+    :func:`backward_tiling`)."""
     P, Q = output_size
     B, H, W, C = feature_shape
     S = rois_per_image.shape[1]
-    out_shape = (B, S, -(-P // bin_stride), -(-Q // bin_stride), C)
+    out_p, out_q = -(-P // bin_stride), -(-Q // bin_stride)
+    out_shape = (B, S, out_p, out_q, C)
     if tuple(grad.shape) != out_shape:
         raise ValueError(f"roi_align backward: cotangent {tuple(grad.shape)}, expected {out_shape}")
     rois = _check_kernel_inputs(
         feature_shape, feature_dtype, grad.device, rois_per_image,
         sampling_ratio, max_samples, bin_stride,
     )
+    cap_h, cap_w = _sample_caps(H, W, P, Q, sampling_ratio, max_samples)
+    rows, cols, slab = backward_tiling(H, W, C, 2 * cap_w, tile)
+    if backward_shared_bytes(rows, cols, slab, 2 * cap_w) > SHARED_MEMORY_PER_BLOCK:
+        raise ValueError(f"roi_align backward: a {rows} x {cols} x {slab} tile does not fit a CTA")
     g = _aligned(grad.to(feature_dtype), "the cotangent")
-    scratch = torch.zeros(feature_shape, dtype=torch.float32, device=g.device)
-    bf16 = feature_dtype == torch.bfloat16
-    out = torch.empty(feature_shape, dtype=feature_dtype, device=g.device) if bf16 else scratch
+    nbytes = _plan_bytes(B, S, out_p, out_q, cap_h, cap_w)
+    workspace = torch.empty(nbytes, dtype=torch.uint8, device=g.device)
+    out = torch.empty(feature_shape, dtype=feature_dtype, device=g.device)
     kernels.ROI_ALIGN_BACKWARD.call(
         "roi_align_backward",
-        g.data_ptr(), rois.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+        g.data_ptr(), rois.data_ptr(), workspace.data_ptr(), nbytes, out.data_ptr(),
         B, H, W, C, S, P, Q, float(spatial_scale),
-        int(sampling_ratio), int(max_samples), int(bin_stride), int(bf16),
+        int(sampling_ratio), int(max_samples), int(bin_stride), rows, cols, slab,
+        int(feature_dtype == torch.bfloat16),
     )
     kernels.ROI_ALIGN_BACKWARD.launches += 1
     hook = kernels.ROI_ALIGN_BACKWARD.on_launch

@@ -8,8 +8,9 @@ NMS must agree exactly; RoIAlign within 1e-5 * max|F| for a float32
 result (only the summation order differs), plus one bfloat16 ulp of the
 result for a bfloat16 one (the two float32 sums may round to neighbouring
 bfloat16 values).  The RoIAlign backward within 1e-5 * max|dF| of the
-plain version's autograd gradient (its atomics add in an order that
-changes from run to run), plus one bfloat16 ulp for bfloat16 features.
+plain version's autograd gradient (the kernel sums each tile's taps in
+another order than the plain contraction), plus one bfloat16 ulp for
+bfloat16 features.
 """
 
 import numpy as np
@@ -186,15 +187,19 @@ def test_roi_align_kernel_refuses_inputs_that_need_a_gradient(card):
     assert torch.equal(out, ra.roi_align(feats.detach(), rois, (2, 2), 1.0 / 8))
 
 
-def _grad_check(card, feats_shape, dtype, rois, bin_stride, sampling_ratio=0, seed=0):
-    """(kernel dF, plain dF) for a seeded cotangent; one launch."""
+def _grad_check(card, feats_shape, dtype, rois, bin_stride, sampling_ratio=0, seed=0, tile=None):
+    """(kernel dF, plain dF) for a seeded cotangent; one launch (with the
+    default tile, or ``tile``)."""
     p = -(-14 // bin_stride)
     gen = torch.Generator(device=card).manual_seed(seed)
     grad = torch.randn((feats_shape[0], rois.shape[1], p, p, feats_shape[3]), generator=gen,
                        device=card).to(dtype)
     args = (rois, tuple(feats_shape), dtype, (14, 14), 1.0 / 16, sampling_ratio, 8, bin_stride)
     before = kernels.ROI_ALIGN_BACKWARD.launches
-    out = ra.roi_align_backward(grad, *args)
+    if tile is None:
+        out = ra.roi_align_backward(grad, *args)
+    else:
+        out = ra._backward_cuda(grad, *args, tile=tile)
     torch.cuda.synchronize()
     assert kernels.ROI_ALIGN_BACKWARD.launches == before + 1
     ref = ra.roi_align_backward_plain(grad, *args)
@@ -263,3 +268,82 @@ def test_roi_align_autograd_route_launches_the_backward_once(card):
         ref = ra.roi_align_backward_plain(grad, rois, tuple(feats.shape), dtype, (14, 14), 1.0 / 16, 0, 8, 2)
         assert feats.grad.dtype == dtype
         assert _within_tolerance(feats.grad, ref, float(ref.float().abs().max()))
+
+
+def _backward_equals_plain(card, feats_shape, rois, tile=None):
+    for dtype in (torch.float32, torch.bfloat16):
+        for bin_stride in (1, 2):
+            for sampling_ratio in (0, 2):
+                out, ref = _grad_check(card, feats_shape, dtype, rois, bin_stride, sampling_ratio,
+                                       seed=bin_stride + sampling_ratio, tile=tile)
+                assert _within_tolerance(out, ref, float(ref.float().abs().max())), (
+                    dtype, bin_stride, sampling_ratio, float((out.float() - ref.float()).abs().max()))
+
+
+@pytest.mark.parametrize("c", [8, 40, 1024])
+def test_roi_align_backward_kernel_64_copies_of_one_roi(card, c):
+    """The worst overlap: every roi of the image adds into the same
+    positions; C below, off and at a multiple of the channel slab."""
+    rois = torch.tensor([[[60.0, 40.0, 250.0, 200.0]] * 64], device=card)
+    _backward_equals_plain(card, (1, 17, 23, c), rois)
+
+
+@pytest.mark.parametrize("tile", [None, (1, 5, 64), (3, 7, 128), (8, 23, 64), (4, 21, 512)])
+def test_roi_align_backward_kernel_across_tile_boundaries(card, tile):
+    """Rois whose taps straddle the boundaries between tiles of rows and
+    of columns, rois on the last row and column, a roi over the whole map
+    and rois wholly outside it, for several tiles (one row at a time, a
+    tile wider than the map, a slab wider than C)."""
+    rng = np.random.default_rng(21)
+    edges = [[0.0, 0.0, 367.0, 271.0],      # the whole map
+             [330.0, 240.0, 367.0, 271.0],  # the last row and column
+             [360.0, 0.0, 400.0, 300.0],    # the last column, beyond the edge
+             [0.0, 264.0, 367.0, 290.0],    # the last row
+             [-300.0, -300.0, 700.0, 600.0],  # beyond the map on every side
+             [500.0, 400.0, 600.0, 500.0],  # outside: no gradient
+             [-90.0, -90.0, -20.0, -30.0]]  # outside: no gradient
+    # rois that start and end near multiples of 16 pixels (row and
+    # column boundaries of the tiles at scale 1/16)
+    starts = rng.integers(0, 20, (2, 40, 2)) * 16.0 + rng.uniform(-3, 3, (2, 40, 2))
+    sizes = rng.uniform(8, 200, (2, 40, 2))
+    grid = np.concatenate([starts, starts + sizes], -1)
+    rois = np.concatenate([np.broadcast_to(np.float32(edges), (2, 7, 4)), grid], 1)
+    rois = torch.from_numpy(rois.astype(np.float32)).to(card)
+    _backward_equals_plain(card, (2, 17, 23, 40), rois, tile)
+
+
+@pytest.mark.parametrize("b,s", [(1, 1), (3, 1), (2, 2049), (1, 4100)])
+def test_roi_align_backward_kernel_few_and_many_rois(card, b, s):
+    """One roi per image, and B x S below and above the forward's
+    kSplitBelow (4096)."""
+    rng = np.random.default_rng(b * s)
+    x1 = rng.uniform(-40, 360, (b, s))
+    y1 = rng.uniform(-40, 260, (b, s))
+    rois = np.stack([x1, y1, x1 + rng.uniform(1, 300, (b, s)), y1 + rng.uniform(1, 200, (b, s))], -1)
+    rois = torch.from_numpy(rois.astype(np.float32)).to(card)
+    for dtype, c in ((torch.float32, 8), (torch.bfloat16, 16)):
+        out, ref = _grad_check(card, (b, 17, 23, c), dtype, rois, 2)
+        assert _within_tolerance(out, ref, float(ref.float().abs().max()))
+        assert ref.float().abs().max() > 0
+
+
+def test_roi_align_backward_kernel_is_bit_identical_from_run_to_run(card):
+    """Each position's sum is taken by one thread in one fixed order."""
+    rng = np.random.default_rng(13)
+    _, rois = _roi_inputs(rng, 8, torch.float32, card)
+    for dtype in (torch.float32, torch.bfloat16):
+        grad = torch.randn((2, 50, 7, 7, 1024), device=card).to(dtype)
+        args = (grad, rois, (2, 17, 23, 1024), dtype, (14, 14), 1.0 / 16, 0, 8, 2)
+        assert torch.equal(ra.roi_align_backward(*args), ra.roi_align_backward(*args))
+
+
+def test_roi_align_backward_kernel_refuses_a_tile_too_large(card):
+    """A tile whose float32 sums alone pass 227 KB, even at the narrowest
+    slab of channels, raises before any launch."""
+    rois = torch.zeros((1, 2, 4), device=card)
+    grad = torch.zeros((1, 2, 7, 7, 64), device=card)
+    before = kernels.ROI_ALIGN_BACKWARD.launches
+    with pytest.raises(ValueError, match="does not fit"):
+        ra._backward_cuda(grad, rois, (1, 50, 300, 64), torch.float32, (14, 14), 1.0 / 16, 0, 8, 2,
+                          tile=(4, 300, 64))
+    assert kernels.ROI_ALIGN_BACKWARD.launches == before
