@@ -134,9 +134,10 @@ ROI_BWD_CASES = (  # rois per image, bin_stride, feature (and gradient) dtype
     (512, 2, BF16), (1000, 2, BF16), (512, 1, F32), (512, 2, F32),
 )
 ROI_BWD_MAIN = (512, 2, BF16)  # the teacher step's sampled rois
-# tiles of dF (rows, columns, channels) the main case is also timed at,
-# beside the default ops.roi_align.BACKWARD_TILE
-ROI_BWD_TILES = ((2, 21, 256), (2, 28, 256), (4, 14, 256), (4, 28, 256), (4, 21, 128))
+# tiles of dF (rows, columns, channels, slabs per CTA) the main case is
+# also timed at, beside the default ops.roi_align.BACKWARD_TILE
+ROI_BWD_TILES = ((4, 21, 256, 1), (4, 21, 256, 4), (2, 21, 256, 2), (2, 28, 256, 2), (4, 14, 256, 2),
+                 (4, 28, 256, 2))
 # the train step at the serving bucket with SOLVER.IMS_PER_BATCH 8
 TRAIN = dict(steps=3, batch=8, hw=(800, 1333), max_gt=100, nouns=32, noun_tokens=8,
              lvis=1203, classes=66, opts=())
@@ -493,40 +494,14 @@ def phase_roi_align_backward(dev, results):
         args = (grad, rois, ROI_FEATURES, dtype, (14, 14), 1.0 / 16, 0, 8, bin_stride)
         rec = roi_bwd_case(f"S={s} bin_stride={bin_stride} {dtype}", args,
                            ROI_BWD_TILES if main else ())
-        if main:
-            rec = dict(rec, case="yardstick", yardstick_ms=yardstick_ms(grad, rois, dtype, bin_stride))
-            emit(rec)
         results[("roi_align_backward", s, bin_stride, dtype)] = rec
 
 
-def yardstick_ms(grad, rois, dtype, bin_stride):
-    """The first version's float32 atomic scatter, remapped to four
-    channels a thread, with its zeroed scratch and its cast: timed once."""
-    from cvpr22_cross_modal_pseudo_labeling_torch.ops import kernels
-
-    B, H, W, C = ROI_FEATURES
-
-    def run():
-        scratch = torch.zeros(ROI_FEATURES, dtype=torch.float32, device=grad.device)
-        out = torch.empty(ROI_FEATURES, dtype=dtype, device=grad.device) if dtype == BF16 else scratch
-        kernels.ROI_ALIGN_BACKWARD.call(
-            "roi_align_backward_atomic", grad.data_ptr(), rois.data_ptr(), scratch.data_ptr(),
-            out.data_ptr(), B, H, W, C, rois.shape[1], 14, 14, 1.0 / 16, 0, 8, bin_stride,
-            int(dtype == BF16))
-        return out
-
-    from cvpr22_cross_modal_pseudo_labeling_torch.ops import roi_align as ra
-    ref = ra.roi_align_backward_plain(grad, rois, ROI_FEATURES, dtype, (14, 14), 1.0 / 16, 0, 8, bin_stride)
-    err, excess = roi_err(run(), ref, float(ref.float().abs().max()))
-    check(excess <= 0, f"yardstick over tolerance: {err}")
-    return cuda_ms(run, 10)
-
-
-def phase_roi_align_backward_teacher_rois(results):
+def phase_roi_align_backward_teacher_rois(dev, results):
     """The backward on the first teacher step's own cotangent and rois
     (captured by the launch hook in phase 12)."""
-    results["roi_align_backward_teacher_rois"] = roi_bwd_case(
-        "teacher step rois", results.pop("teacher_bwd_inputs"))
+    args = tuple(x.to(dev) if torch.is_tensor(x) else x for x in results.pop("teacher_bwd_inputs"))
+    results["roi_align_backward_teacher_rois"] = roi_bwd_case("teacher step rois", args)
 
 
 def small_model(device):
@@ -710,7 +685,9 @@ def launch_checks():
         )
 
     def check_roi_bwd(inputs, out):
-        checks.setdefault("roi_align_backward_inputs", inputs)
+        # kept on the host, out of the steady steps' peak memory
+        checks.setdefault("roi_align_backward_inputs", tuple(
+            x.cpu() if torch.is_tensor(x) else x for x in inputs))
         ref = ra.roi_align_backward_plain(*inputs)
         checks["roi_align_backward"].append(
             roi_err(out, ref, float(ref.float().abs().max()))
@@ -1192,7 +1169,7 @@ def main():
     torch.cuda.empty_cache()
     timed("teacher_train", phase_teacher_train, dev, results)
     torch.cuda.empty_cache()
-    timed("roi_align_backward_teacher_rois", phase_roi_align_backward_teacher_rois, results)
+    timed("roi_align_backward_teacher_rois", phase_roi_align_backward_teacher_rois, dev, results)
     emit(dict(phase="timing", **seconds))
 
     smi = subprocess.run(

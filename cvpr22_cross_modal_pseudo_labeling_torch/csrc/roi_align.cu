@@ -351,13 +351,14 @@ struct Plan {
 
 constexpr int kQ = 7;             // emitted columns per work item
 constexpr int kMaxTileRows = 4;   // rows of a tile
-constexpr int kXBatch = 4;        // column taps summed together
 constexpr int kXPre = 3;          // column taps per lane loaded ahead
 constexpr int kYPre = 8;          // row taps loaded at once when staging
 constexpr int kListCap = 512;     // work items staged per tile row and round
 constexpr int kBwdMaxThreads = 256;
 constexpr int kPlanThreads = 32;
 constexpr int kEmpty = 1 << 30;
+constexpr int kMaxDevices = 64;
+constexpr int kMaxRoisPerImage = 65535;  // what a staged record holds
 
 __global__ void __launch_bounds__(kPlanThreads)
     roi_align_bwd_plan_kernel(const float* __restrict__ rois, Plan plan,
@@ -418,6 +419,9 @@ struct Lanes;
 template <>
 struct Lanes<float> {
   using raw = float4;
+  // column taps summed together (more would spill the float32 kernel's
+  // registers)
+  static constexpr int taps = 2;
   __device__ static raw zero() { return make_float4(0.f, 0.f, 0.f, 0.f); }
   __device__ static raw load(const float* p) {
     return __ldg(reinterpret_cast<const float4*>(p));
@@ -431,6 +435,7 @@ struct Lanes<float> {
 template <>
 struct Lanes<__nv_bfloat16> {
   using raw = uint2;
+  static constexpr int taps = 4;
   __device__ static raw zero() { return make_uint2(0u, 0u); }
   __device__ static raw load(const __nv_bfloat16* p) {
     return __ldg(reinterpret_cast<const uint2*>(p));
@@ -472,6 +477,26 @@ __device__ __forceinline__ Item decode(const Tile& k, int e) {
   it.p = r / k.nqc;
   it.qc = r - it.p * k.nqc;
   return it;
+}
+
+// A staged record's first word: roi s << 16 | emitted row p << 10 | run
+// of emitted columns qc << 7 | the columns of the run that meet the tile.
+__device__ __forceinline__ unsigned pack(int s, int p, int qc, unsigned qm) {
+  return (unsigned)s << 16 | (unsigned)p << 10 | (unsigned)qc << 7 | qm;
+}
+
+__device__ __forceinline__ Item unpack(const Tile& k, int word) {
+  const unsigned w = (unsigned)word;
+  Item it;
+  it.roi = (size_t)k.b * k.S + (w >> 16);
+  it.p = w >> 10 & 63;
+  it.qc = w >> 7 & 7;
+  return it;
+}
+
+// Items with the same roi and run of columns share their column taps.
+__device__ __forceinline__ unsigned x_key(int word) {
+  return (unsigned)word >> 16 << 3 | ((unsigned)word >> 7 & 7);
 }
 
 __device__ __forceinline__ bool meets(int2 range, int lo, int hi) {
@@ -527,7 +552,7 @@ template <typename T>
 __device__ __forceinline__ void fetch(const T* __restrict__ grad,
                                       const Tile& k, int2 rec,
                                       typename Lanes<T>::raw (&g)[kQ]) {
-  const Item it = decode(k, rec.x >> 8);
+  const Item it = unpack(k, rec.x);
   const T* gp = grad + ((it.roi * k.out_p + it.p) * k.out_q +
                         (size_t)it.qc * kQ) * k.C + k.c;
 #pragma unroll
@@ -548,7 +573,7 @@ struct XTaps {
 
 __device__ __forceinline__ XTaps load_x(const Plan& plan, const Tile& k,
                                         int2 rec) {
-  const Item it = decode(k, rec.x >> 8);
+  const Item it = unpack(k, rec.x);
   const int q0 = it.qc * kQ;
   const int slots = min(kQ, k.out_q - q0) * k.lx;
   const int2* src = plan.xtaps + (it.roi * k.out_q + q0) * k.lx;
@@ -600,7 +625,7 @@ __device__ __forceinline__ void store_chunk(const Tile& k, int j, int slots,
 __device__ __forceinline__ void store_x(const Plan& plan, const Tile& k,
                                         int2 rec, const XTaps& x,
                                         int2* xbuf) {
-  const Item it = decode(k, rec.x >> 8);
+  const Item it = unpack(k, rec.x);
   const int q0 = it.qc * kQ;
   const int slots = min(kQ, k.out_q - q0) * k.lx;
   const int lane = threadIdx.x & 31;
@@ -623,6 +648,7 @@ template <typename T>
 __device__ __forceinline__ void accumulate(const Tile& k, int2 rec,
                                            const typename Lanes<T>::raw (&g)[kQ],
                                            const int2* xbuf, float4* mine) {
+  constexpr int kB = Lanes<T>::taps;
   const float wy = __int_as_float(rec.y);
 #pragma unroll
   for (int u = 0; u < kQ; ++u) {
@@ -630,18 +656,18 @@ __device__ __forceinline__ void accumulate(const Tile& k, int2 rec,
     const float4 gv = Lanes<T>::unpack(g[u]);
     const int2 run = xbuf[kQ * k.lx + u];
     const int2* xt = xbuf + u * k.lx + run.x;
-    // kXBatch column taps at a time, at distinct positions: all loads,
+    // kB column taps at a time, at distinct positions: all loads,
     // then the multiply-adds, then the stores
-    for (int i0 = 0; i0 < run.y; i0 += kXBatch) {
-      int2 t[kXBatch];
-      float4 v[kXBatch];
+    for (int i0 = 0; i0 < run.y; i0 += kB) {
+      int2 t[kB];
+      float4 v[kB];
 #pragma unroll
-      for (int i = 0; i < kXBatch; ++i) {
+      for (int i = 0; i < kB; ++i) {
         t[i] = i0 + i < run.y ? xt[i0 + i] : make_int2(0, 0);
         if (i0 + i < run.y) v[i] = mine[t[i].x];
       }
 #pragma unroll
-      for (int i = 0; i < kXBatch; ++i) {
+      for (int i = 0; i < kB; ++i) {
         if (i0 + i < run.y) {
           const float w = wy * __int_as_float(t[i].y);
           v[i].x = fmaf(w, gv.x, v[i].x);
@@ -651,7 +677,7 @@ __device__ __forceinline__ void accumulate(const Tile& k, int2 rec,
         }
       }
 #pragma unroll
-      for (int i = 0; i < kXBatch; ++i)
+      for (int i = 0; i < kB; ++i)
         if (i0 + i < run.y) mine[t[i].x] = v[i];
     }
   }
@@ -663,27 +689,33 @@ struct Work {
   typename Lanes<T>::raw g[kQ];
   XTaps x;
   int2 rec;
+  bool same_x;  // the column taps of the item before it: already buffered
 };
 
+// Item i of the list: its loads.
 template <typename T>
 __device__ __forceinline__ void prefetch(const T* __restrict__ grad,
                                          const Plan& plan, const Tile& k,
-                                         int2 rec, Work<T>& w) {
-  w.rec = rec;
-  fetch<T>(grad, k, rec, w.g);
-  w.x = load_x(plan, k, rec);
+                                         const int2* list, int i,
+                                         Work<T>& w) {
+  w.rec = list[i];
+  w.same_x = i > 0 && x_key(list[i - 1].x) == x_key(w.rec.x);
+  fetch<T>(grad, k, w.rec, w.g);
+  if (!w.same_x) w.x = load_x(plan, k, w.rec);
 }
 
-// Sums one item: its column taps into the warp's buffer, then its taps
-// into this thread's sums.
+// Sums one item: its column taps into the warp's buffer (unless they are
+// there), then its taps into this thread's sums.
 template <typename T>
 __device__ __forceinline__ void step(const Plan& plan, const Tile& k,
                                      const Work<T>& w, int2* xbuf,
                                      float4* mine) {
-  store_x(plan, k, w.rec, w.x, xbuf);
-  __syncwarp();
+  if (!w.same_x) {
+    __syncwarp();
+    store_x(plan, k, w.rec, w.x, xbuf);
+    __syncwarp();
+  }
   accumulate<T>(k, w.rec, w.g, xbuf, mine);
-  __syncwarp();
 }
 
 template <typename T>
@@ -691,7 +723,8 @@ __global__ void __launch_bounds__(kBwdMaxThreads, 2)
     roi_align_bwd_kernel(const T* __restrict__ grad, Plan plan,
                          T* __restrict__ out, int H, int W, int C, int S,
                          int out_p, int out_q, int nqc, int ly, int lx,
-                         int tile_h, int tile_w, int slab, int tiles_w) {
+                         int tile_h, int tile_w, int slab, int tiles_w,
+                         int slabs_per_cta) {
   extern __shared__ float4 smem4[];
   float* acc = reinterpret_cast<float*>(smem4);
   int2* lists = reinterpret_cast<int2*>(acc + (size_t)tile_h * tile_w * slab);
@@ -711,8 +744,6 @@ __global__ void __launch_bounds__(kBwdMaxThreads, 2)
   k.w0 = blockIdx.x % tiles_w * tile_w;
   k.h1 = min(H, k.h0 + tile_h) - 1;
   k.w1 = min(W, k.w0 + tile_w) - 1;
-  k.c = blockIdx.y * slab + cs;
-  k.active = k.c < C;
   k.S = S;
   k.out_p = out_p;
   k.out_q = out_q;
@@ -724,164 +755,95 @@ __global__ void __launch_bounds__(kBwdMaxThreads, 2)
   // column x of this thread's row: mine[(x - w0) * stride]
   float4* mine =
       reinterpret_cast<float4*>(acc + (size_t)gr * tile_w * slab + cs);
-  for (int x = 0; x < tile_w; ++x)
-    mine[x * k.stride] = make_float4(0.f, 0.f, 0.f, 0.f);
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
   const int n_entries = S * out_p * nqc;
   const int2* mylist = lists + gr * kListCap;
-  for (int e0 = 0; e0 < n_entries;) {
-    // stage, in order, the next work items of each row of the tile:
-    // (entry << 8 | emitted columns meeting the tile, row weight)
-    int count[kMaxTileRows] = {};
-    int most = 0;
-    while (e0 < n_entries && most + (int)blockDim.x <= kListCap) {
-      const int e = e0 + threadIdx.x;
-      unsigned qm = 0;
-      float w[kMaxTileRows];
+  // this CTA's slabs of channels, one after the other: when the first
+  // staged every item in one round, the others sum the same lists
+  const int first_slab = blockIdx.y * slabs_per_cta;
+  const int end_slab = min((C + slab - 1) / slab, first_slab + slabs_per_cta);
+  bool reuse = false;
+  int count[kMaxTileRows] = {};
+  for (int sl = first_slab; sl < end_slab; ++sl) {
+    k.c = sl * slab + cs;
+    k.active = k.c < C;
+    for (int x = 0; x < tile_w; ++x)
+      mine[x * k.stride] = make_float4(0.f, 0.f, 0.f, 0.f);
+    int e0 = 0, rounds = 0;
+    do {
+      if (!reuse) {
+        // stage, in order, the next work items of each row of the tile:
+        // (roi, emitted row and columns, the columns meeting the tile;
+        // the row weight)
 #pragma unroll
-      for (int r = 0; r < kMaxTileRows; ++r) w[r] = 0.0f;
-      if (e < n_entries) stage(plan, k, e, qm, w);
-      unsigned m[kMaxTileRows];
+        for (int r = 0; r < kMaxTileRows; ++r) count[r] = 0;
+        int most = 0;
+        while (e0 < n_entries && most + (int)blockDim.x <= kListCap) {
+          const int e = e0 + threadIdx.x;
+          unsigned qm = 0;
+          float w[kMaxTileRows];
 #pragma unroll
-      for (int r = 0; r < kMaxTileRows; ++r) {
-        m[r] = __ballot_sync(0xffffffffu, qm != 0 && w[r] != 0.0f);
-        if (lane == 0 && r < tile_h) warp_cnt[r * 32 + warp] = __popc(m[r]);
-      }
-      __syncthreads();
+          for (int r = 0; r < kMaxTileRows; ++r) w[r] = 0.0f;
+          if (e < n_entries) stage(plan, k, e, qm, w);
+          unsigned m[kMaxTileRows];
 #pragma unroll
-      for (int r = 0; r < kMaxTileRows; ++r) {
-        if (r >= tile_h) break;
-        int off = count[r], total = 0;
-        for (int v = 0; v < nwarps; ++v) {
-          const int n = warp_cnt[r * 32 + v];
-          off += v < warp ? n : 0;
-          total += n;
-        }
-        if (m[r] >> lane & 1)
-          lists[r * kListCap + off + __popc(m[r] & ((1u << lane) - 1u))] =
-              make_int2(e << 8 | (int)qm, __float_as_int(w[r]));
-        count[r] += total;
-        most = max(most, count[r]);
-      }
-      __syncthreads();
-      e0 += blockDim.x;
-    }
-    // sum this row's items; the next item's cotangent is loaded while
-    // this one is summed
-    int n = 0;
-#pragma unroll
-    for (int r = 0; r < kMaxTileRows; ++r) n = r == gr ? count[r] : n;
-    // two items in flight: one's loads are issued while the other is
-    // summed, in registers that alternate without copies
-    Work<T> wa = {}, wb = {};
-    if (n > 0) prefetch(grad, plan, k, mylist[0], wa);
-    if (n > 1) prefetch(grad, plan, k, mylist[1], wb);
-    for (int i = 0; i < n; i += 2) {
-      step(plan, k, wa, xbuf, mine);
-      if (i + 2 < n) prefetch(grad, plan, k, mylist[i + 2], wa);
-      if (i + 1 < n) {
-        step(plan, k, wb, xbuf, mine);
-        if (i + 3 < n) prefetch(grad, plan, k, mylist[i + 3], wb);
-      }
-    }
-    __syncthreads();  // the lists are rewritten in the next round
-  }
-
-  const int y = k.h0 + gr;
-  if (!k.active || y > k.h1) return;
-  for (int x = k.w0; x <= k.w1; ++x) {
-    Lanes<T>::store(out + ((size_t)(k.b * H + y) * W + x) * C + k.c,
-                    mine[(x - k.w0) * k.stride]);
-  }
-}
-
-// YARDSTICK, timed once and then removed: the first version's scatter
-// with each thread owning 4 channels, so that a warp's float4 atomics
-// cover 512 contiguous bytes of the float32 scratch.
-template <typename T>
-struct Quad;
-
-template <>
-struct Quad<float> {
-  using raw = float4;
-  __device__ static void unpack(const raw& r, float* v) {
-    v[0] = r.x;
-    v[1] = r.y;
-    v[2] = r.z;
-    v[3] = r.w;
-  }
-};
-
-template <>
-struct Quad<__nv_bfloat16> {
-  using raw = uint2;
-  __device__ static void unpack(const raw& r, float* v) {
-    v[0] = __uint_as_float(r.x << 16);
-    v[1] = __uint_as_float(r.x & 0xffff0000u);
-    v[2] = __uint_as_float(r.y << 16);
-    v[3] = __uint_as_float(r.y & 0xffff0000u);
-  }
-};
-
-template <typename T>
-__global__ void __launch_bounds__(kMaxThreads)
-    roi_align_bwd_atomic_kernel(const T* __restrict__ grad,
-                                const float* __restrict__ rois,
-                                float* __restrict__ dfeat, int H, int W,
-                                int C, int S, int P, int Q, float scale,
-                                int sampling_ratio, int cap_h, int cap_w,
-                                int bin_stride, int out_p, int out_q,
-                                int rows) {
-  extern __shared__ int smem[];
-  const int roi_id = blockIdx.x;
-  const int b = roi_id / S;
-  const int p0 = blockIdx.y * rows;
-  const int p1 = min(out_p, p0 + rows);
-  const TapLists t = build_tap_lists(
-      smem, rois + (size_t)roi_id * 4, H, W, P, Q, scale, sampling_ratio,
-      cap_h, cap_w, bin_stride, out_p, out_q, p0, p1);
-  float* fb = dfeat + (size_t)b * H * W * C;
-  const T* gb = grad + (size_t)roi_id * out_p * out_q * C;
-  for (int cv = threadIdx.x * 4; cv < C; cv += blockDim.x * 4) {
-    float* f = fb + cv;
-    for (int p = p0; p < p1; ++p) {
-      const int* yo = t.yoff + p * t.ly;
-      const float* ywp = t.yw + p * t.ly;
-      const int nyp = t.ny[p];
-      for (int q = 0; q < out_q; ++q) {
-        const int* xo = t.xoff + q * t.lx;
-        const float* xwq = t.xw + q * t.lx;
-        const int nxq = t.nx[q];
-        float g[4];
-        Quad<T>::unpack(__ldg(reinterpret_cast<const typename Quad<T>::raw*>(
-                            gb + ((size_t)p * out_q + q) * C + cv)),
-                        g);
-        for (int iy = 0; iy < nyp; ++iy) {
-          const float wy = ywp[iy];
-          for (int ix = 0; ix < nxq; ++ix) {
-            const float w = wy * xwq[ix];
-            atomicAdd(reinterpret_cast<float4*>(f + (size_t)(yo[iy] + xo[ix]) * C),
-                      make_float4(w * g[0], w * g[1], w * g[2], w * g[3]));
+          for (int r = 0; r < kMaxTileRows; ++r) {
+            m[r] = __ballot_sync(0xffffffffu, qm != 0 && w[r] != 0.0f);
+            if (lane == 0 && r < tile_h) warp_cnt[r * 32 + warp] = __popc(m[r]);
           }
+          __syncthreads();
+#pragma unroll
+          for (int r = 0; r < kMaxTileRows; ++r) {
+            if (r >= tile_h) break;
+            int off = count[r], total = 0;
+            for (int v = 0; v < nwarps; ++v) {
+              const int n = warp_cnt[r * 32 + v];
+              off += v < warp ? n : 0;
+              total += n;
+            }
+            if (m[r] >> lane & 1)
+              lists[r * kListCap + off + __popc(m[r] & ((1u << lane) - 1u))] =
+                  make_int2((int)pack(e / (out_p * nqc), e / nqc % out_p,
+                                      e % nqc, qm),
+                            __float_as_int(w[r]));
+            count[r] += total;
+            most = max(most, count[r]);
+          }
+          __syncthreads();
+          e0 += blockDim.x;
         }
       }
-    }
-  }
-}
+      // sum this row's items, two in flight: one's loads are issued while
+      // the other is summed, in registers that alternate without copies
+      int n = 0;
+#pragma unroll
+      for (int r = 0; r < kMaxTileRows; ++r) n = r == gr ? count[r] : n;
+      Work<T> wa = {}, wb = {};
+      if (n > 0) prefetch(grad, plan, k, mylist, 0, wa);
+      if (n > 1) prefetch(grad, plan, k, mylist, 1, wb);
+      for (int i = 0; i < n; i += 2) {
+        step(plan, k, wa, xbuf, mine);
+        if (i + 2 < n) prefetch(grad, plan, k, mylist, i + 2, wa);
+        if (i + 1 < n) {
+          step(plan, k, wb, xbuf, mine);
+          if (i + 3 < n) prefetch(grad, plan, k, mylist, i + 3, wb);
+        }
+      }
+      __syncwarp();
+      __syncthreads();  // the lists are rewritten in the next round
+      ++rounds;
+    } while (!reuse && e0 < n_entries);
+    reuse = reuse || rounds == 1;
 
-// n4 groups of 4 float32 values to bfloat16, round to nearest even.
-__global__ void cast_to_bf16_kernel(const float4* __restrict__ in,
-                                    uint2* __restrict__ out, size_t n4) {
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
-       i += (size_t)gridDim.x * blockDim.x) {
-    const float4 v = in[i];
-    __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
-    __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
-    out[i] = make_uint2(*reinterpret_cast<uint32_t*>(&lo),
-                        *reinterpret_cast<uint32_t*>(&hi));
+    const int y = k.h0 + gr;
+    if (k.active && y <= k.h1) {
+      for (int x = k.w0; x <= k.w1; ++x)
+        Lanes<T>::store(out + ((size_t)(k.b * H + y) * W + x) * C + k.c,
+                        mine[(x - k.w0) * k.stride]);
+    }
   }
 }
 
@@ -949,7 +911,8 @@ cudaError_t launch_backward(const void* grad, const void* rois,
                             void* out, int B, int H, int W, int C, int S,
                             int P, int Q, float scale, int sampling_ratio,
                             int cap_h, int cap_w, int bin_stride, int tile_h,
-                            int tile_w, int slab, cudaStream_t st) {
+                            int tile_w, int slab, int slabs_per_cta,
+                            cudaStream_t st) {
   const Geometry g = geometry<T>(B, C, S, P, Q, cap_h, cap_w, bin_stride);
   const int ly = 2 * cap_h, lx = 2 * cap_w;
   const int nqc = (g.out_q + kQ - 1) / kQ;
@@ -963,42 +926,36 @@ cudaError_t launch_backward(const void* grad, const void* rois,
                       (size_t)threads / 32 * (kQ * lx + kQ) * 8;
   if (g.smem > 48 * 1024 || need > (size_t)workspace_bytes || tile_h < 1 ||
       tile_h > kMaxTileRows || tile_w < 1 || slab % 128 != 0 ||
-      threads > kBwdMaxThreads || smem > 232448 ||
-      (long long)S * g.out_p * nqc >= (1 << 23))
+      threads > kBwdMaxThreads || smem > 232448 || slabs_per_cta < 1 ||
+      S > kMaxRoisPerImage ||
+      g.out_p > 64 || nqc > 8)
     return cudaErrorInvalidValue;
   roi_align_bwd_plan_kernel<<<(unsigned)nr, kPlanThreads, g.smem, st>>>(
       static_cast<const float*>(rois), plan, H, W, P, Q, scale,
       sampling_ratio, cap_h, cap_w, bin_stride, g.out_p, g.out_q, nqc);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  if (smem > 48 * 1024) {
+  // the opt-in above 48 KB holds per device: made once for the largest
+  // size asked so far
+  static size_t opted[kMaxDevices] = {};
+  int dev = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (smem > 48 * 1024 && (dev >= kMaxDevices || smem > opted[dev])) {
     err = cudaFuncSetAttribute(roi_align_bwd_kernel<T>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return err;
+    if (dev < kMaxDevices) opted[dev] = smem;
   }
   const int tiles_w = (W + tile_w - 1) / tile_w;
+  const int slabs = (C + slab - 1) / slab;
   const dim3 grid(tiles_w * ((H + tile_h - 1) / tile_h),
-                  (C + slab - 1) / slab, B);
+                  (slabs + slabs_per_cta - 1) / slabs_per_cta, B);
   roi_align_bwd_kernel<T><<<grid, threads, smem, st>>>(
       static_cast<const T*>(grad), plan, static_cast<T*>(out), H, W, C, S,
-      g.out_p, g.out_q, nqc, ly, lx, tile_h, tile_w, slab, tiles_w);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_backward_atomic(const void* grad, const void* rois,
-                                   void* scratch, int B, int H, int W, int C,
-                                   int S, int P, int Q, float scale,
-                                   int sampling_ratio, int cap_h, int cap_w,
-                                   int bin_stride, cudaStream_t st) {
-  Geometry g = geometry<T>(B, C, S, P, Q, cap_h, cap_w, bin_stride);
-  g.threads = max(32, (min(C / 4, kMaxThreads) + 31) / 32 * 32);
-  if (g.smem > 48 * 1024) return cudaErrorInvalidValue;
-  roi_align_bwd_atomic_kernel<T><<<g.grid, g.threads, g.smem, st>>>(
-      static_cast<const T*>(grad), static_cast<const float*>(rois),
-      static_cast<float*>(scratch), H, W, C, S, P, Q, scale, sampling_ratio,
-      cap_h, cap_w, bin_stride, g.out_p, g.out_q, g.rows);
+      g.out_p, g.out_q, nqc, ly, lx, tile_h, tile_w, slab, tiles_w,
+      slabs_per_cta);
   return cudaGetLastError();
 }
 
@@ -1049,7 +1006,8 @@ extern "C" int roi_align_backward(const void* grad, const void* rois,
                                   int S, int P, int Q, float spatial_scale,
                                   int sampling_ratio, int max_samples,
                                   int bin_stride, int tile_h, int tile_w,
-                                  int slab, int bf16, void* stream) {
+                                  int slab, int slabs_per_cta, int bf16,
+                                  void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int cap_h, cap_w;
   sample_caps(H, W, P, Q, sampling_ratio, max_samples, &cap_h, &cap_w);
@@ -1057,40 +1015,10 @@ extern "C" int roi_align_backward(const void* grad, const void* rois,
       bf16 ? launch_backward<__nv_bfloat16>(
                  grad, rois, workspace, workspace_bytes, out, B, H, W, C, S,
                  P, Q, spatial_scale, sampling_ratio, cap_h, cap_w,
-                 bin_stride, tile_h, tile_w, slab, st)
+                 bin_stride, tile_h, tile_w, slab, slabs_per_cta, st)
            : launch_backward<float>(
                  grad, rois, workspace, workspace_bytes, out, B, H, W, C, S,
                  P, Q, spatial_scale, sampling_ratio, cap_h, cap_w,
-                 bin_stride, tile_h, tile_w, slab, st);
+                 bin_stride, tile_h, tile_w, slab, slabs_per_cta, st);
   return static_cast<int>(err);
-}
-
-// YARDSTICK entry, removed after its one timing: scratch [B, H, W, C]
-// float32 zeroed by the caller, then cast into out for bfloat16.
-extern "C" int roi_align_backward_atomic(const void* grad, const void* rois,
-                                         void* scratch, void* out, int B,
-                                         int H, int W, int C, int S, int P,
-                                         int Q, float spatial_scale,
-                                         int sampling_ratio, int max_samples,
-                                         int bin_stride, int bf16,
-                                         void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int cap_h, cap_w;
-  sample_caps(H, W, P, Q, sampling_ratio, max_samples, &cap_h, &cap_w);
-  cudaError_t err =
-      bf16 ? launch_backward_atomic<__nv_bfloat16>(
-                 grad, rois, scratch, B, H, W, C, S, P, Q, spatial_scale,
-                 sampling_ratio, cap_h, cap_w, bin_stride, st)
-           : launch_backward_atomic<float>(grad, rois, scratch, B, H, W, C,
-                                           S, P, Q, spatial_scale,
-                                           sampling_ratio, cap_h, cap_w,
-                                           bin_stride, st);
-  if (err != cudaSuccess || !bf16) return static_cast<int>(err);
-  const size_t n4 = (size_t)B * H * W * C / 4;
-  const int threads = 256;
-  const size_t want = (n4 + threads - 1) / threads;
-  const int blocks = (int)(want < 132 * 16 ? want : 132 * 16);
-  cast_to_bf16_kernel<<<blocks, threads, 0, st>>>(
-      static_cast<const float4*>(scratch), static_cast<uint2*>(out), n4);
-  return static_cast<int>(cudaGetLastError());
 }

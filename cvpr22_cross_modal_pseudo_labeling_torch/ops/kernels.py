@@ -175,17 +175,10 @@ ROI_ALIGN_BACKWARD = Kernel(
     {
         # grad, rois, workspace, workspace_bytes, out, B, H, W, C, S, P, Q,
         # spatial_scale, sampling_ratio, max_samples, bin_stride, tile_h,
-        # tile_w, slab, bf16, stream
+        # tile_w, slab, slabs_per_cta, bf16, stream
         "roi_align_backward": (
             VP, VP, VP, I64, VP, I32, I32, I32, I32, I32, I32, I32, F32,
-            I32, I32, I32, I32, I32, I32, I32, VP,
-        ),
-        # YARDSTICK (timed once, then removed): grad, rois, scratch, out, B,
-        # H, W, C, S, P, Q, spatial_scale, sampling_ratio, max_samples,
-        # bin_stride, bf16, stream
-        "roi_align_backward_atomic": (
-            VP, VP, VP, VP, I32, I32, I32, I32, I32, I32, I32, F32,
-            I32, I32, I32, I32, VP,
+            I32, I32, I32, I32, I32, I32, I32, I32, VP,
         ),
     },
     source="roi_align",

@@ -46,9 +46,10 @@ from torch.autograd.function import once_differentiable
 from . import kernels
 
 _PLAIN_ROI_CHUNK = 128
-# the backward kernel's tile of dF: rows, columns, channels, sized on an
-# H100 (PERF.md section 6)
-BACKWARD_TILE = (4, 21, 256)
+# the backward kernel's tile of dF: rows, columns, channels, and the
+# slabs of channels one CTA sums one after the other; sized on an H100
+# (PERF.md section 6)
+BACKWARD_TILE = (4, 21, 256, 2)
 SHARED_MEMORY_PER_BLOCK = 232448  # bytes a CTA may use on sm_90
 # constants of the backward kernel in csrc/roi_align.cu
 _BWD_MAX_ROWS = 4  # kMaxTileRows
@@ -252,15 +253,16 @@ def _forward_cuda(features, rois_per_image, output_size, spatial_scale,
 
 
 def backward_tiling(H: int, W: int, C: int, column_taps: int,
-                    tile: Tuple[int, int, int] = BACKWARD_TILE):
-    """(rows, columns, channels) of the backward kernel's tile of dF for
-    ``[H, W, C]`` features and at most ``column_taps`` taps per emitted
-    column: ``tile`` cut to the map (at most 4 rows, the columns spread
-    evenly over the tiles of a row) and to C, the channels a multiple of
-    128 (each row of the tile has a group of whole warps, four channels a
-    thread, at most 256 threads in all), fewer channels while the CTA's
-    shared memory would not fit."""
-    rows, cols, slab = tile
+                    tile: Tuple[int, int, int, int] = BACKWARD_TILE):
+    """(rows, columns, channels, slabs per CTA) of the backward kernel's
+    tile of dF for ``[H, W, C]`` features and at most ``column_taps`` taps
+    per emitted column: ``tile`` cut to the map (at most 4 rows, the
+    columns spread evenly over the tiles of a row) and to C, the channels
+    a multiple of 128 (each row of the tile has a group of whole warps,
+    four channels a thread, at most 256 threads in all), fewer channels
+    while the CTA's shared memory would not fit, and at most as many slabs
+    per CTA as C has."""
+    rows, cols, slab, per_cta = tile
     rows = max(1, min(rows, H, _BWD_MAX_ROWS))
     cols = max(1, min(cols, W))
     cols = -(-W // -(-W // cols))
@@ -268,7 +270,7 @@ def backward_tiling(H: int, W: int, C: int, column_taps: int,
     slab = max(128, min(-(-slab // 128) * 128, widest, -(-C // 128) * 128))
     while slab > 128 and backward_shared_bytes(rows, cols, slab, column_taps) > SHARED_MEMORY_PER_BLOCK:
         slab -= 128
-    return rows, cols, slab
+    return rows, cols, slab, max(1, min(per_cta, -(-C // slab)))
 
 
 def backward_shared_bytes(rows: int, cols: int, slab: int, column_taps: int) -> int:
@@ -315,8 +317,13 @@ def _backward_cuda(grad, rois_per_image, feature_shape, feature_dtype, output_si
         feature_shape, feature_dtype, grad.device, rois_per_image,
         sampling_ratio, max_samples, bin_stride,
     )
+    if S > 65535 or out_p > 64 or out_q > 8 * _BWD_COLUMNS_PER_ITEM:
+        raise ValueError(
+            f"roi_align backward kernel takes at most 65535 rois per image and 64 x "
+            f"{8 * _BWD_COLUMNS_PER_ITEM} emitted bins, got S={S}, {out_p} x {out_q}"
+        )
     cap_h, cap_w = _sample_caps(H, W, P, Q, sampling_ratio, max_samples)
-    rows, cols, slab = backward_tiling(H, W, C, 2 * cap_w, tile)
+    rows, cols, slab, per_cta = backward_tiling(H, W, C, 2 * cap_w, tile)
     if backward_shared_bytes(rows, cols, slab, 2 * cap_w) > SHARED_MEMORY_PER_BLOCK:
         raise ValueError(f"roi_align backward: a {rows} x {cols} x {slab} tile does not fit a CTA")
     g = _aligned(grad.to(feature_dtype), "the cotangent")
@@ -327,7 +334,7 @@ def _backward_cuda(grad, rois_per_image, feature_shape, feature_dtype, output_si
         "roi_align_backward",
         g.data_ptr(), rois.data_ptr(), workspace.data_ptr(), nbytes, out.data_ptr(),
         B, H, W, C, S, P, Q, float(spatial_scale),
-        int(sampling_ratio), int(max_samples), int(bin_stride), rows, cols, slab,
+        int(sampling_ratio), int(max_samples), int(bin_stride), rows, cols, slab, per_cta,
         int(feature_dtype == torch.bfloat16),
     )
     kernels.ROI_ALIGN_BACKWARD.launches += 1

@@ -288,12 +288,14 @@ def test_roi_align_backward_kernel_64_copies_of_one_roi(card, c):
     _backward_equals_plain(card, (1, 17, 23, c), rois)
 
 
-@pytest.mark.parametrize("tile", [None, (1, 5, 64), (3, 7, 128), (8, 23, 64), (4, 21, 512)])
-def test_roi_align_backward_kernel_across_tile_boundaries(card, tile):
+@pytest.mark.parametrize("c", [40, 520])
+@pytest.mark.parametrize("tile", [None, (1, 5, 128, 1), (3, 7, 128, 2), (8, 23, 128, 4), (4, 21, 512, 1)])
+def test_roi_align_backward_kernel_across_tile_boundaries(card, tile, c):
     """Rois whose taps straddle the boundaries between tiles of rows and
     of columns, rois on the last row and column, a roi over the whole map
     and rois wholly outside it, for several tiles (one row at a time, a
-    tile wider than the map, a slab wider than C)."""
+    tile wider than the map, a slab wider than C, one or more slabs a
+    CTA)."""
     rng = np.random.default_rng(21)
     edges = [[0.0, 0.0, 367.0, 271.0],      # the whole map
              [330.0, 240.0, 367.0, 271.0],  # the last row and column
@@ -309,19 +311,20 @@ def test_roi_align_backward_kernel_across_tile_boundaries(card, tile):
     grid = np.concatenate([starts, starts + sizes], -1)
     rois = np.concatenate([np.broadcast_to(np.float32(edges), (2, 7, 4)), grid], 1)
     rois = torch.from_numpy(rois.astype(np.float32)).to(card)
-    _backward_equals_plain(card, (2, 17, 23, 40), rois, tile)
+    _backward_equals_plain(card, (2, 17, 23, c), rois, tile)
 
 
 @pytest.mark.parametrize("b,s", [(1, 1), (3, 1), (2, 2049), (1, 4100)])
 def test_roi_align_backward_kernel_few_and_many_rois(card, b, s):
     """One roi per image, and B x S below and above the forward's
-    kSplitBelow (4096)."""
+    kSplitBelow (4096): more work items than one round of the kernel's
+    lists holds, over several slabs of channels."""
     rng = np.random.default_rng(b * s)
     x1 = rng.uniform(-40, 360, (b, s))
     y1 = rng.uniform(-40, 260, (b, s))
     rois = np.stack([x1, y1, x1 + rng.uniform(1, 300, (b, s)), y1 + rng.uniform(1, 200, (b, s))], -1)
     rois = torch.from_numpy(rois.astype(np.float32)).to(card)
-    for dtype, c in ((torch.float32, 8), (torch.bfloat16, 16)):
+    for dtype, c in ((torch.float32, 264), (torch.bfloat16, 520)):
         out, ref = _grad_check(card, (b, 17, 23, c), dtype, rois, 2)
         assert _within_tolerance(out, ref, float(ref.float().abs().max()))
         assert ref.float().abs().max() > 0
@@ -345,5 +348,5 @@ def test_roi_align_backward_kernel_refuses_a_tile_too_large(card):
     before = kernels.ROI_ALIGN_BACKWARD.launches
     with pytest.raises(ValueError, match="does not fit"):
         ra._backward_cuda(grad, rois, (1, 50, 300, 64), torch.float32, (14, 14), 1.0 / 16, 0, 8, 2,
-                          tile=(4, 300, 64))
+                          tile=(4, 300, 64, 1))
     assert kernels.ROI_ALIGN_BACKWARD.launches == before
