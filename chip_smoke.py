@@ -471,7 +471,7 @@ def roi_bwd_case(name, args, tiles=()):
                bit_identical_rerun=identical, ms=ms, plain_ms=plain_ms,
                plan_kernel_ms=split["roi_align_bwd_plan_kernel"],
                tile_kernel_ms=split["roi_align_bwd_kernel"],
-               tile=list(ra.backward_tiling(H, W, C, 2 * min(8, -(-W // 14)))),
+               tile=list(ra.backward_tiling(H, W, C, 2 * ra._sample_caps(H, W, 14, 14, 0, 8)[1])),
                bound_ms=bound_ms, bound_by=bound_by, adds_g=adds / 1e9,
                shared_g_adds_per_s=adds / (ms * 1e-3) / 1e9)
     if tiles:

@@ -61,37 +61,54 @@
 // What bounds the backward on the H100: bytes, on paper.  It must read
 // the cotangent once and write dF once: on the teacher's train step 8 x
 // 512 rois x 7 x 7 x 1024 bfloat16 in (411 MB) and the 69 MB bfloat16
-// map out, 0.143 ms at 3.35 TB/s.  Its adds are about 1 G float32
-// multiply-adds (one per tap and channel); a scatter of them into device
-// memory is what held the first version back (float4 atomics into a
-// float32 scratch map, 3.31 ms), so here every add lands in shared memory.
+// map out, 0.143 ms at 3.35 TB/s.  Its adds are 1.0 G float32
+// multiply-adds (one per tap and channel).  The first version scattered
+// them with float4 atomics into a zeroed float32 scratch map [B, H, W, C]
+// and cast that to bfloat16: 3.31 ms, the atomics' L2 traffic and the
+// scratch's 345 MB of zeroing and casting setting the pace.  Here every
+// add lands in shared memory, and what bounds the kernel in practice is
+// the instructions and latency of walking each tile's work items (see
+// PERF.md section 6).
 //
 // Design: owner computes, in two kernels.
 //  * Plan (roi_align_bwd_plan_kernel): one CTA per roi builds its tap
 //    lists with the forward's prologue (the same rounded arithmetic, so
 //    the weights are the plain version's) and writes them to a workspace
-//    the caller allocates: per emitted row and column, (index, weight)
-//    pairs in ascending index order, their count and their first and last
-//    index, and the first and last column of each run of kQ emitted
-//    columns.
-//  * Accumulate (roi_align_bwd_kernel): one CTA per (tile of tile_h rows
-//    by tile_w columns of one image, slab of channels).  It holds the
-//    tile's float32 sums [tile_h * tile_w, slab] in dynamic shared
-//    memory, and each thread owns two channels of every position, so no
-//    two threads ever add to one word: no atomics, and the sums are taken
-//    in one fixed order (bit-identical from run to run).  The CTA lists,
-//    in order, the work items (roi, emitted row, run of kQ emitted
-//    columns) whose taps meet the tile (a ballot compaction into shared
-//    memory), then walks them: each thread loads its 4 or 8 bytes of the
-//    item's cotangent bins (the next item's loads are in flight while
-//    this one is summed), keeps the row taps inside the tile in registers
-//    and, per column tap, adds w_y * w_x * g to each row's sum (all loads,
-//    then all multiply-adds, then all stores: the positions are
-//    distinct).  At the end it writes the tile once, in the features'
-//    dtype (round to nearest even for bfloat16).  Every position of dF
-//    belongs to one tile, so nothing is zeroed first, and no float32 map
-//    is written.  The tile is chosen by the caller
-//    (ops/roi_align.py::backward_tiling).
+//    the caller allocates (5.3 MB on the main path): per emitted row and
+//    column, (index, weight) pairs in ascending index order, their count
+//    and their first and last index, and the first and last column of
+//    each run of kQ emitted columns.
+//  * Tiles (roi_align_bwd_kernel): one CTA per (tile of tile_h rows by
+//    tile_w columns of one image, slabs_per_cta slabs of slab channels).
+//    It holds the tile's float32 sums [tile_h, tile_w, slab] in dynamic
+//    shared memory; a group of whole warps owns each row of the tile and
+//    each thread four channels of every position of its row, so no two
+//    threads ever add to one word: no atomics, and every sum is taken in
+//    one fixed order, so the result is bit-identical from run to run.
+//    The CTA stages, in order, each row's work items (roi, emitted row,
+//    run of kQ emitted columns with taps on that row and in the tile:
+//    one ballot compaction per row into shared memory), then each row's
+//    warps walk their list, two items in flight: the next item's
+//    cotangent bins (8 or 16 bytes a thread) and column taps are loaded
+//    while this one is summed.  A warp turns an item's column taps into
+//    runs of (offset in its sums, weight) inside the tile in a buffer of
+//    its own (kept for the next item of the same roi), then adds
+//    w_y * w_x * g for a few column taps at a time (all loads, then the
+//    multiply-adds, then the stores: the positions are distinct).  At the
+//    end it writes its row once, in the features' dtype (round to nearest
+//    even for bfloat16), and starts on the next slab, on the same lists
+//    when one round held them all.  Every position of dF belongs to one
+//    tile, so nothing is zeroed first and no float32 map is written.
+//    The caller picks the tile (ops/roi_align.py::backward_tiling).
+//
+// Tiling, sized on an H100 80GB HBM3 at 700 W by chip_smoke.py's
+// roi_align_backward phase: 4 rows x 21 columns x 256 channels, two slabs
+// a CTA (256 threads; 86 KB of sums, 16 KB of lists, 6 KB of tap
+// buffers: two CTAs an SM).  8 x 512 rois, bfloat16, bin_stride 2: 1.01
+// ms, where 2 x 21 took 1.05, 2 x 28 1.07, 4 x 14 1.16, 4 x 28 1.31, and
+// one slab a CTA 1.13.  ptxas: the tile kernel 128 registers (float32: 8
+// bytes of spill stores, 20 of loads; bfloat16: none), the plan kernel
+// 50, no spills.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -357,7 +374,6 @@ constexpr int kListCap = 512;     // work items staged per tile row and round
 constexpr int kBwdMaxThreads = 256;
 constexpr int kPlanThreads = 32;
 constexpr int kEmpty = 1 << 30;
-constexpr int kMaxDevices = 64;
 constexpr int kMaxRoisPerImage = 65535;  // what a staged record holds
 
 __global__ void __launch_bounds__(kPlanThreads)
@@ -546,7 +562,7 @@ __device__ __forceinline__ void stage(const Plan& plan, const Tile& k, int e,
   }
 }
 
-// Loads this thread's two channels of the item's cotangent bins that
+// Loads this thread's four channels of the item's cotangent bins that
 // meet the tile.
 template <typename T>
 __device__ __forceinline__ void fetch(const T* __restrict__ grad,
@@ -564,7 +580,7 @@ __device__ __forceinline__ void fetch(const T* __restrict__ grad,
 
 // The column taps of one item's kQ emitted columns, as a warp holds them
 // between their loads and their copy into its buffer in shared memory
-// ([kQ][lx] taps, then kQ counts): slot lane + 32 * j, j < kXPre, of the
+// ([kQ][lx] taps, then kQ runs): slot lane + 32 * j, j < kXPre, of the
 // taps, and the count of column lane for lane < kQ.
 struct XTaps {
   int2 t[kXPre];
@@ -935,18 +951,12 @@ cudaError_t launch_backward(const void* grad, const void* rois,
       sampling_ratio, cap_h, cap_w, bin_stride, g.out_p, g.out_q, nqc);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  // the opt-in above 48 KB holds per device: made once for the largest
-  // size asked so far
-  static size_t opted[kMaxDevices] = {};
-  int dev = 0;
-  err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (smem > 48 * 1024 && (dev >= kMaxDevices || smem > opted[dev])) {
+  // the opt-in above 48 KB holds per device: made on every call
+  if (smem > 48 * 1024) {
     err = cudaFuncSetAttribute(roi_align_bwd_kernel<T>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return err;
-    if (dev < kMaxDevices) opted[dev] = smem;
   }
   const int tiles_w = (W + tile_w - 1) / tile_w;
   const int slabs = (C + slab - 1) / slab;
@@ -998,8 +1008,9 @@ extern "C" int roi_align_forward(const void* features, const void* rois,
 // plan, at least what ops/roi_align.py::_plan_bytes gives); out [B, H, W,
 // C] in the features' type (bf16 = 1 selects bfloat16) receives dF, every
 // element written.  The tile: tile_h (1 to 4) rows by tile_w columns by
-// slab channels (a multiple of 64, at most 512), its float32 sums in at
-// most 227 KB of shared memory.
+// slab channels (a multiple of 128, tile_h * slab / 4 threads at most
+// 256), slabs_per_cta slabs a CTA; a CTA's shared memory at most 227 KB;
+// at most 65535 rois an image and 64 x 56 emitted bins.
 extern "C" int roi_align_backward(const void* grad, const void* rois,
                                   void* workspace, long long workspace_bytes,
                                   void* out, int B, int H, int W, int C,

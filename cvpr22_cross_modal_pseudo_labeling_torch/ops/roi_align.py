@@ -97,6 +97,14 @@ def _axis_interp_matrix(start, bin_size, grid, size, bins, s_cap, bin_stride):
     return a / g[:, :, None]
 
 
+def _sample_caps(H, W, P, Q, sampling_ratio, max_samples):
+    """The most samples a bin takes along each axis: the sampling ratio,
+    or the adaptive grid's cap min(max_samples, ceil(size / bins))."""
+    if sampling_ratio > 0:
+        return sampling_ratio, sampling_ratio
+    return min(max_samples, -(-H // P)), min(max_samples, -(-W // Q))
+
+
 def _roi_geometry(rois, spatial_scale, P, Q, H, W, sampling_ratio, max_samples):
     rois = rois.to(torch.float32)
     start_w = rois[..., 0] * spatial_scale
@@ -109,13 +117,11 @@ def _roi_geometry(rois, spatial_scale, P, Q, H, W, sampling_ratio, max_samples):
     # multiplication by its reciprocal, an ulp away from the JAX bins
     bin_h = roi_h / torch.full_like(roi_h, P)
     bin_w = roi_w / torch.full_like(roi_w, Q)
+    s_cap_h, s_cap_w = _sample_caps(H, W, P, Q, sampling_ratio, max_samples)
     if sampling_ratio > 0:
-        s_cap_h = s_cap_w = sampling_ratio
         grid_h = torch.full(roi_h.shape, sampling_ratio, dtype=torch.int32, device=rois.device)
         grid_w = grid_h
     else:
-        s_cap_h = min(max_samples, -(-H // P))
-        s_cap_w = min(max_samples, -(-W // Q))
         grid_h = torch.ceil(bin_h).to(torch.int32).clamp(1, s_cap_h)
         grid_w = torch.ceil(bin_w).to(torch.int32).clamp(1, s_cap_w)
     return (start_h, bin_h, grid_h, s_cap_h), (start_w, bin_w, grid_w, s_cap_w)
@@ -280,12 +286,6 @@ def backward_shared_bytes(rows: int, cols: int, slab: int, column_taps: int) -> 
     warps = rows * slab // 128
     return (rows * cols * slab * 4 + rows * _BWD_LIST * 8 + _BWD_MAX_ROWS * 32 * 4
             + warps * (_BWD_COLUMNS_PER_ITEM * column_taps + _BWD_COLUMNS_PER_ITEM) * 8)
-
-
-def _sample_caps(H, W, P, Q, sampling_ratio, max_samples):
-    if sampling_ratio > 0:
-        return sampling_ratio, sampling_ratio
-    return min(max_samples, -(-H // P)), min(max_samples, -(-W // Q))
 
 
 def _plan_bytes(B, S, out_p, out_q, cap_h, cap_w):

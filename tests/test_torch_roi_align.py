@@ -199,3 +199,94 @@ def test_roi_align_backward_shares_the_forward_library_and_counts_apart():
     f = torch.from_numpy(feats).requires_grad_()
     torch_ra.roi_align(f, torch.from_numpy(rois), (7, 7), SCALE).sum().backward()
     assert (fwd.launches, bwd.launches) == before  # CPU tensors take the plain versions
+
+
+def _overlap_rois(kind):
+    """Roi sets that stress the backward kernel's tiles: 24 copies of one
+    roi (every roi adds into the same positions), one roi over the whole
+    map among rois that reach past it, and rois on the last row and
+    column or wholly outside the map."""
+    if kind == "stacked":
+        one = np.array([[12.0, 9.0, 71.0, 58.0]], np.float32)
+        return np.broadcast_to(one, (2, 24, 4)).copy()
+    if kind == "whole_map":
+        rois = np.array([[0, 0, 104, 80], [-40, -40, 150, 130], [0, 0, 103.9, 79.9],
+                         [52, 40, 104, 80]], np.float32)
+        return np.stack([rois, rois[::-1]])
+    return np.array([[[96, 72, 104, 80], [100, 0, 130, 80], [0, 76, 104, 90],
+                      [-30, -30, -5, -5], [110, 85, 140, 120], [103.5, 79.5, 104, 80]],
+                     [[0, 0, 8, 8], [-10, 70, 20, 85], [95, -10, 110, 10],
+                      [40, 30, 40.2, 30.2], [200, 200, 220, 230], [0, 0, 104, 80]]], np.float32)
+
+
+@pytest.mark.parametrize("kind", ["stacked", "whole_map", "edges"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_roi_align_backward_plain_matches_jax_grad_on_overlap_and_edges(kind, dtype):
+    """The distributions the card tests give the backward kernel, on the
+    CPU: ``roi_align_backward_plain`` against ``jax.grad`` of the JAX
+    bundle's recipe (pool ``f.astype(float32)`` with ``roi_align_mxu``, cast
+    to the features' dtype), bin_stride 2.  float32: 1e-5 * max|dF| (sums
+    of up to 24 overlapping rois, taken in another order); bfloat16: that
+    plus one bfloat16 ulp of the larger value."""
+    import jax
+
+    feats, _ = _inputs(seed=7)
+    rois = _overlap_rois(kind)
+    g = np.random.RandomState(11).standard_normal((2, rois.shape[1], 4, 4, 8)).astype(np.float32)
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    grad = torch.from_numpy(g).to(dtype)
+    out = torch_ra.roi_align_backward_plain(
+        grad, torch.from_numpy(rois), feats.shape, dtype, (7, 7), SCALE, 0, 8, 2)
+    assert out.dtype == dtype and out.shape == feats.shape
+
+    def pooled(x):
+        y = roi_align_mxu(x.astype(jnp.float32), jnp.asarray(rois), (7, 7), SCALE, 0, bin_stride=2)
+        return jnp.sum(y.astype(jdt).astype(jnp.float32) * jnp.asarray(grad.float().numpy()))
+
+    ref = np.asarray(jax.grad(pooled)(jnp.asarray(feats).astype(jdt)).astype(jnp.float32))
+    got = out.float().numpy()
+    limit = 1e-5 * np.abs(ref).max()
+    if dtype == torch.bfloat16:
+        limit = limit + _bf16_ulp(np.maximum(np.abs(got), np.abs(ref)))
+    assert np.abs(ref).max() > 0
+    assert (np.abs(got - ref) <= limit).all(), np.abs(got - ref).max()
+    if kind == "edges":
+        assert np.abs(got[:, -1]).max() > 0 and np.abs(got[:, :, -1]).max() > 0  # last row, column
+
+
+@pytest.mark.parametrize("shape", [(50, 84, 1024), (17, 23, 40), (1, 1, 8), (100, 168, 2048),
+                                   (7, 300, 264)])
+@pytest.mark.parametrize("column_taps", [2, 12, 128])
+@pytest.mark.parametrize("tile", [torch_ra.BACKWARD_TILE, (4, 84, 512, 8)])
+def test_backward_tiling_fits_a_cta_and_covers_the_map(shape, column_taps, tile):
+    """The backward kernel's tile: at most 4 rows and 256 threads (four
+    channels each, whole warps per row), its shared memory within the
+    227 KB a CTA may use whenever the narrowest slab of channels fits,
+    its tiles and slabs covering every row, column and channel, and no
+    more slabs a CTA than C has."""
+    H, W, C = shape
+    rows, cols, slab, per_cta = torch_ra.backward_tiling(H, W, C, column_taps, tile)
+    assert 1 <= rows <= min(4, H) and 1 <= cols <= W
+    assert slab % 128 == 0 and rows * slab // 4 <= 256
+    slabs = -(-C // slab)
+    assert slabs * slab >= C and (slabs - 1) * slab < C
+    assert 1 <= per_cta <= slabs
+    assert -(-H // rows) * rows >= H and -(-W // cols) * cols >= W
+    # the columns spread evenly: no tile of a row is much narrower
+    assert W - (-(-W // cols) - 1) * cols >= cols - -(-W // cols)
+    fits = torch_ra.backward_shared_bytes(rows, cols, 128, column_taps) <= torch_ra.SHARED_MEMORY_PER_BLOCK
+    if fits:
+        assert torch_ra.backward_shared_bytes(rows, cols, slab, column_taps) <= 232448
+
+
+def test_backward_plan_bytes_hold_every_array():
+    """The plan of 8 x 512 rois at 7 x 7 emitted bins with 4 x 6 samples a
+    bin at most: tap lists, counts and ranges, each array 256-byte aligned,
+    about 5.3 MB (the float32 scratch of the first version was 138 MB)."""
+    nbytes = torch_ra._plan_bytes(8, 512, 7, 7, 4, 6)
+    nr = 8 * 512
+    raw = nr * (7 * 8 * 8 + 7 * 12 * 8 + 7 * 4 + 7 * 4 + 7 * 8 + 7 * 8 + 1 * 8)
+    assert raw <= nbytes < raw + 7 * 256
+    assert nbytes < 6e6
+    assert torch_ra._sample_caps(50, 84, 14, 14, 0, 8) == (4, 6)
+    assert torch_ra._sample_caps(50, 84, 14, 14, 2, 8) == (2, 2)
