@@ -91,8 +91,29 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                 roi_extractor, bbox_pred and mask_predictor change, the stem,
                 layer1 and emb_pred do not.  Step latency, images/s, steady
                 peak memory, host syncs of a step and one profiled step.  Then
-                the backward on that step's rois (phase 9), and one line gives
-                the seconds each training and teacher phase took.
+                the backward on that step's rois (phase 9).
+13. eval     -- the port's evaluation entry point, ``tools/test_net.main``, on
+                student_teacher_mask_rcnn_uncertainty.yaml at full width in
+                bfloat16 (seeded weights) over the config's three test datasets
+                of a synthetic COCO zero-shot tree written under
+                ``build/synth_coco``: 48 seen and 17 unseen classes with 768-d
+                embeddings, COCO's image sizes, 1-8 instances an image, 24 val
+                images (3 batches of 8 a dataset) and 8 train images.  With PIL
+                and cv2 the tree comes from ``tools/synth_coco.py`` (JPEG,
+                polygons); without them this script writes it (binary PPM,
+                uncompressed RLE) and the port's numpy counterparts decode,
+                resize and rasterize.  The ``host_libs`` line says which.  The
+                loader pads to the config's bucket ladder (800 x 1088, 1088 x
+                800, ..., ceil-to-64 for mixed batches); every kernel launch of
+                each dataset's first batch is held against the plain version;
+                each batch must have the bucket ``select_bucket`` gives its
+                images, every image a result, and every metric must be finite
+                (a class without ground truth has a NaN AP50, as in the JAX
+                evaluator).  Prints throughput end to end and steady, the
+                forward's seconds an image, the device's busy share, the
+                evaluator's seconds and the launches per batch; then one batch
+                of the train loader (COCOCapDetDataset), checked for shape and
+                dtype.  One line gives the seconds each phase from 7 on took.
 
 Then the card's name and power limit, the per-kernel JSON line, and the last
 line ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when
@@ -141,6 +162,13 @@ ROI_BWD_TILES = ((4, 21, 256, 1), (4, 21, 256, 4), (2, 21, 256, 2), (2, 28, 256,
 # the train step at the serving bucket with SOLVER.IMS_PER_BATCH 8
 TRAIN = dict(steps=3, batch=8, hw=(800, 1333), max_gt=100, nouns=32, noun_tokens=8,
              lvis=1203, classes=66, opts=())
+# the eval phase's synthetic tree and run
+EVAL = dict(train=8, val=24, opts=(), tree="build/synth_coco", out="build/eval_out",
+            train_batch=2)
+# tools/synth_coco.py's COCO size mix: (width, height), weight
+SYNTH_SIZES = (((640, 480), 0.45), ((640, 427), 0.20), ((500, 375), 0.05),
+               ((480, 640), 0.15), ((427, 640), 0.10), ((612, 612), 0.05))
+SYNTH_NOUNS = ("cat", "dog", "person", "car", "chair", "bottle", "bird", "horse")
 H100_BYTES_PER_S = 3.35e12
 H100_F32_OPS_PER_S = 67e12
 IOU_OPS = 16  # min/max, sub/add, mul, div and compare of one +1 IoU test
@@ -1104,6 +1132,277 @@ def phase_teacher_train(dev, results):
     emit(dict(phase="teacher_train_profile", **profile_groups(lambda: trainer.step(batches[-1]))))
 
 
+def host_libs():
+    """What the eval path's host code finds on this machine: PIL, cv2, the
+    libjpeg header and library the native decoder links, and g++."""
+    import ctypes.util
+    import importlib.util
+    import shutil
+
+    return {"PIL": importlib.util.find_spec("PIL") is not None,
+            "cv2": importlib.util.find_spec("cv2") is not None,
+            "jpeglib_h": os.path.exists("/usr/include/jpeglib.h"),
+            "libjpeg": ctypes.util.find_library("jpeg"),
+            "gxx": shutil.which("g++")}
+
+
+def write_ppm_tree(root, n_train, n_val, seen=48, unseen=17, seed=SEED):
+    """The layout of ``tools/synth_coco.py`` (its size mix, 48 seen and 17
+    unseen classes with 768-d ``BertEmb`` embeddings and ``split`` tags,
+    1-8 instances an image, LVIS nouns in the captions) for a machine
+    without PIL or cv2: smooth binary PPM (P6) images and elliptic
+    instance masks as uncompressed RLE."""
+    from cvpr22_cross_modal_pseudo_labeling_torch.utils.rle import mask_to_counts
+
+    rng = np.random.RandomState(seed)
+    coco = os.path.join(root, "coco")
+    for d in ("zero-shot", "annotations", "train2017", "val2017"):
+        os.makedirs(os.path.join(coco, d), exist_ok=True)
+    cats = [{"id": i + 1, "name": SYNTH_NOUNS[i] if i < len(SYNTH_NOUNS) else f"thing_{i}",
+             "split": "seen" if i < seen else "unseen",
+             "embedding": {"BertEmb": (0.1 * rng.randn(768)).tolist()}}
+            for i in range(seen + unseen)]
+    sizes, weights = zip(*SYNTH_SIZES)
+
+    def images(split, n):
+        out = []
+        for i in range(n):
+            w, h = sizes[rng.choice(len(sizes), p=np.asarray(weights))]
+            small = rng.randint(0, 256, (h // 16 + 1, w // 16 + 1, 3)).astype(np.int16)
+            img = np.repeat(np.repeat(small, 16, 0), 16, 1)[:h, :w] + rng.randint(-12, 12, (h, w, 3))
+            name = f"{split}_{i:06d}.ppm"
+            with open(os.path.join(coco, split, name), "wb") as f:
+                f.write(b"P6\n%d %d\n255\n" % (w, h) + np.clip(img, 0, 255).astype(np.uint8).tobytes())
+            out.append({"id": i + 1, "file_name": name, "width": w, "height": h})
+        return out
+
+    def anns(imgs, cat_ids):
+        out = []
+        for im in imgs:
+            for _ in range(rng.randint(1, 9)):
+                c = int(cat_ids[rng.randint(len(cat_ids))])
+                w = float(rng.randint(24, max(im["width"] // 2, 32)))
+                h = float(rng.randint(24, max(im["height"] // 2, 32)))
+                x = float(rng.randint(0, max(int(im["width"] - w), 1)))
+                y = float(rng.randint(0, max(int(im["height"] - h), 1)))
+                yy, xx = np.mgrid[:im["height"], :im["width"]]
+                mask = ((xx + 0.5 - x - w / 2) / (w / 2)) ** 2 + ((yy + 0.5 - y - h / 2) / (h / 2)) ** 2 <= 1
+                out.append({"id": len(out) + 1, "image_id": im["id"], "category_id": c,
+                            "bbox": [x, y, w, h], "area": float(mask.sum()), "iscrowd": 0,
+                            "segmentation": {"counts": mask_to_counts(mask).tolist(),
+                                             "size": [im["height"], im["width"]]}})
+        return out
+
+    train, val = images("train2017", n_train), images("val2017", n_val)
+    seen_cats = [c for c in cats if c["split"] == "seen"]
+    specs = {"instances_train2017_seen_2.json": (train, seen_cats),
+             "instances_val2017_seen_2.json": (val, seen_cats),
+             "instances_val2017_unseen_2.json": (val, [c for c in cats if c["split"] == "unseen"]),
+             "instances_val2017_all_2.json": (val, cats)}
+    for name, (imgs, cc) in specs.items():
+        with open(os.path.join(coco, "zero-shot", name), "w") as f:
+            json.dump({"images": imgs, "categories": cc, "annotations": anns(imgs, [c["id"] for c in cc])}, f)
+    caps = [{"id": 10_000_000 + im["id"], "image_id": im["id"],
+             "caption": "a %s and a %s near a %s" % tuple(SYNTH_NOUNS[j] for j in rng.randint(0, 8, 3))}
+            for im in train]
+    with open(os.path.join(coco, "annotations", "captions_train2017.json"), "w") as f:
+        json.dump({"images": train, "annotations": caps}, f)
+
+
+def make_eval_tree(libs):
+    """The eval phase's tree: ``tools/synth_coco.py`` where PIL and cv2
+    are present, else ``write_ppm_tree``.  Returns the writer's name."""
+    import shutil
+
+    shutil.rmtree(EVAL["tree"], ignore_errors=True)
+    if libs["PIL"] and libs["cv2"]:
+        subprocess.run([sys.executable, "tools/synth_coco.py", "--out", EVAL["tree"],
+                        "--train", str(EVAL["train"]), "--val", str(EVAL["val"])],
+                       check=True, timeout=600)
+        return "tools/synth_coco.py (JPEG, polygons)"
+    write_ppm_tree(EVAL["tree"], EVAL["train"], EVAL["val"])
+    return "chip_smoke.write_ppm_tree (PPM, uncompressed RLE)"
+
+
+def metrics_finite(metrics, dataset):
+    """Every metric finite, except the AP50 of a class with no ground
+    truth in the dataset, which must be the evaluator's NaN."""
+    no_gt = {dataset.categories[c] for c in dataset.coco.get_cat_ids()
+             if not any(a["category_id"] == c for a in dataset.coco.anns.values())}
+    bad = [k for k, v in metrics.items()
+           if not (np.isfinite(v) or (np.isnan(v) and k.split("AP50_class_")[-1] in no_gt
+                                      and "AP50_class_" in k))]
+    return bad, len(no_gt)
+
+
+def host_breakdown(pred, dataset, cfg):
+    """The eval path's layers one at a time, on the first batch of
+    ``dataset``: the loader's decode, resize and collate of 8 images on
+    one thread, the forward alone (no host work beside it), and the COCO
+    conversion (mask paste and RLE) of its detections on one thread and
+    split by image over ``compute_on_dataset``'s thread pool, with the mean pasted
+    box area."""
+    import concurrent.futures as cf
+
+    from cvpr22_cross_modal_pseudo_labeling_torch.data.collate import BatchCollator
+    from cvpr22_cross_modal_pseudo_labeling_torch.engine import inference as inf
+
+    b = cfg.TEST.IMS_PER_BATCH
+    idx = list(range(b))
+    t = time.perf_counter()
+    batch = BatchCollator.from_cfg(cfg)([dataset[i] for i in idx])
+    load_s = time.perf_counter() - t
+    run = lambda: pred(batch["images"], batch["image_sizes"], dataset.class_emb_mtx)  # noqa: E731
+    run()
+    t = time.perf_counter()
+    dets, masks = run()
+    forward_s = time.perf_counter() - t
+    t = time.perf_counter()
+    out = inf._convert_batch(dataset, dets, masks, idx, batch["image_sizes"])
+    convert_s = time.perf_counter() - t
+    workers = min(8, os.cpu_count() or 1)  # compute_on_dataset's pool
+    with cf.ThreadPoolExecutor(workers) as pool:
+        t = time.perf_counter()
+        split = list(pool.map(lambda i: inf._convert_batch(
+            dataset, type(dets)(*(a[i:i + 1] for a in dets)), masks[i:i + 1], [i],
+            batch["image_sizes"][i:i + 1]), idx))
+        pool_s = time.perf_counter() - t
+    check(sum(split, []) == out, "host breakdown: the pooled conversion differs from the serial one")
+    return dict(images=b, cpus=os.cpu_count(), load_s_per_img=load_s / b,
+                forward_alone_s_per_img=forward_s / b,
+                convert_s_per_img=convert_s / b, convert_pool_workers=workers,
+                convert_pool_s_per_img=pool_s / b, results=len(out),
+                mean_box_area_px=float(np.mean([r["bbox"][2] * r["bbox"][3] for r in out])),
+                mean_image_area_px=float(np.mean([dataset.get_img_info(i)["height"]
+                                                  * dataset.get_img_info(i)["width"] for i in idx])))
+
+
+def phase_eval(dev, results):
+    """The port's test_net over the config's three test datasets of the
+    synthetic tree, then one batch of the train loader."""
+    import shutil
+
+    from cvpr22_cross_modal_pseudo_labeling_torch.data import make_data_loader
+    from cvpr22_cross_modal_pseudo_labeling_torch.data.collate import select_bucket
+    from cvpr22_cross_modal_pseudo_labeling_torch.engine import inference as inf
+    from cvpr22_cross_modal_pseudo_labeling_torch.ops import kernels
+    from cvpr22_cross_modal_pseudo_labeling_torch.tools import test_net
+
+    libs = host_libs()
+    emit(dict(phase="host_libs", **libs))
+    t = time.perf_counter()
+    writer = make_eval_tree(libs)
+    tree_s = time.perf_counter() - t
+    os.environ["CMPL_TPU_DATA_DIR"] = EVAL["tree"]
+    shutil.rmtree(EVAL["out"], ignore_errors=True)
+    cfg = inf.load_cfg(CONFIG, EVAL["opts"])
+    check(cfg.TPU.COMPUTE_DTYPE == "bfloat16", "the eval config must run in bfloat16")
+    divisible = max(cfg.DATALOADER.SIZE_DIVISIBILITY, 64)
+
+    checks, check_nms, check_roi, _ = launch_checks()
+    batches, state = [], {}
+    call, run_dataset = inf.Predictor.__call__, inf.compute_on_dataset
+
+    def checked_call(self, images, image_sizes, class_embeddings):
+        state["predictor"] = self
+        first = state.pop("first", False)
+        kernels.NMS.on_launch = check_nms if first else None
+        kernels.ROI_ALIGN.on_launch = check_roi if first else None
+        out = call(self, images, image_sizes, class_embeddings)
+        kernels.NMS.on_launch = kernels.ROI_ALIGN.on_launch = None
+        sizes = np.asarray(image_sizes)
+        batches.append(dict(shape=list(images.shape), dtype=str(images.dtype),
+                            classes=int(class_embeddings.shape[0]), first=first,
+                            bucket=list(select_bucket(int(sizes[:, 0].max()), int(sizes[:, 1].max()),
+                                                      cfg.TPU.IMAGE_BUCKETS, divisible))))
+        return out
+
+    def marked_run(*args, **kw):
+        state["first"] = True
+        return run_dataset(*args, **kw)
+
+    inf.Predictor.__call__, inf.compute_on_dataset = checked_call, marked_run
+    kernels.reset_launches()
+    t = time.perf_counter()
+    try:
+        metrics = test_net.main(["--config-file", CONFIG, "--device", dev.type, "--seed", str(SEED),
+                                 *map(str, EVAL["opts"]), "OUTPUT_DIR", EVAL["out"]])
+    finally:
+        inf.Predictor.__call__, inf.compute_on_dataset = call, run_dataset
+        kernels.NMS.on_launch = kernels.ROI_ALIGN.on_launch = None
+    test_net_s = time.perf_counter() - t
+    launches = {k.name: k.launches for k in kernels.ALL}
+
+    n_sets = len(cfg.DATASETS.TEST)
+    check(len(metrics) == n_sets == 3, f"eval: metrics for {list(metrics)}")
+    check(sum(b["first"] for b in batches) == n_sets, f"eval: {len(batches)} batches, first flags wrong")
+    check(len(checks["nms"]) == 2 * n_sets and all(m == 0 for m, _ in checks["nms"]),
+          f"eval: NMS launches differ from the plain version: {checks['nms']}")
+    check(len(checks["roi_align"]) == 2 * n_sets
+          and all(excess <= 0 for _, excess, _, _ in checks["roi_align"]),
+          f"eval: RoIAlign launches over tolerance: {checks['roi_align']}")
+    off = [b for b in batches if b["shape"][1:3] != b["bucket"] or b["dtype"] != "uint8"]
+    check(not off, f"eval: batches off their bucket: {off}")
+    check(launches["nms"] > 0 and launches["roi_align"] > 0 and launches["roi_align_backward"] == 0,
+          f"eval: a kernel of the path never launched, or the backward did: {launches}")
+    _, datasets = make_data_loader(cfg, is_train=False)
+    per_set = {}
+    for name, ds in zip(cfg.DATASETS.TEST, datasets):
+        with open(os.path.join(EVAL["out"], f"predictions_{name}.json")) as f:
+            preds = json.load(f)
+        with open(os.path.join(EVAL["out"], f"metrics_{name}.json")) as f:
+            saved = json.load(f)
+        ids = set(ds.id_to_img_map.values())
+        covered = {p["image_id"] for p in preds}
+        check(covered == ids, f"eval {name}: {len(ids - covered)} images without a result")
+        check(all("segmentation" in p for p in preds), f"eval {name}: a result without a mask")
+        m = metrics[name]
+        check("bbox/AP" in saved and "segm/AP" in saved, f"eval {name}: no bbox/AP or segm/AP")
+        bad, no_gt = metrics_finite(saved, ds)
+        check(not bad, f"eval {name}: non-finite metrics {bad[:5]}")
+        per_set[name] = dict(
+            results=len(preds), classes=len(ds.class_emb_mtx),
+            classes_without_gt=no_gt, bbox_AP=m["bbox/AP"], segm_AP=m["segm/AP"],
+            bbox_AP50=m["bbox/AP50"], segm_AP50=m["segm/AP50"],
+            **{k[5:]: m[k] for k in m if k.startswith("time/")})
+    n_batches = len(batches)
+    rec = dict(phase="eval", config=CONFIG, dtype="bfloat16", tree=writer, tree_s=tree_s,
+               test_net_s=test_net_s, batches=n_batches,
+               shapes=sorted({tuple(b["shape"]) for b in batches}),
+               launches=launches,
+               launches_per_batch={k: v / n_batches for k, v in launches.items()},
+               datasets=per_set,
+               evaluate_s=sum(d["evaluate_s"] for d in per_set.values()),
+               first_batch_checks={
+                   "nms_mismatches": [m for m, _ in checks["nms"]],
+                   "nms_shapes": [n for _, n in checks["nms"]],
+                   "roi_align_max_abs_err": [e for e, _, _, _ in checks["roi_align"]],
+                   "roi_align_excess_over_limit": [x for _, x, _, _ in checks["roi_align"]],
+                   "roi_align_rois": [r for _, _, _, r in checks["roi_align"]]})
+    rec["host_breakdown"] = host_breakdown(state["predictor"], datasets[0], cfg)
+    emit(rec)
+    results["eval"] = rec
+
+    tcfg = inf.load_cfg(CONFIG, [*EVAL["opts"], "SOLVER.IMS_PER_BATCH", EVAL["train_batch"],
+                                 "SOLVER.MAX_ITER", 1])
+    loader, ds = make_data_loader(tcfg, is_train=True)
+    it = iter(loader)
+    batch, idx = next(it)
+    it.close()
+    b = EVAL["train_batch"]
+    shapes = {k: (list(v.shape), str(v.dtype)) for k, v in batch.items()}
+    sizes = batch["image_sizes"]
+    bucket = select_bucket(int(sizes[:, 0].max()), int(sizes[:, 1].max()), tcfg.TPU.IMAGE_BUCKETS, divisible)
+    check(batch["images"].dtype == np.uint8 and batch["images"].shape == (b, *bucket, 3),
+          f"train loader: images {shapes['images']}, bucket {bucket}")
+    check(batch["gt_masks"].shape == (b, tcfg.TPU.MAX_GT, 28, 28) and batch["gt_masks"].dtype == np.float32
+          and batch["gt_valid"].any(1).all() and batch["cap_mask"].all(),
+          f"train loader: {shapes}")
+    emit(dict(phase="eval_train_loader", dataset=type(ds).__name__, indices=list(idx),
+              keys=shapes, gt_per_image=batch["gt_valid"].sum(1).tolist(),
+              nouns_per_image=batch["cap_word_valid"].sum(1).tolist()))
+
+
 def count_syncs(run):
     """The synchronizing CUDA calls one call of ``run`` makes (blocking
     copies, ``.item()``, ...), as ``torch.cuda.set_sync_debug_mode``
@@ -1119,6 +1418,84 @@ def count_syncs(run):
         finally:
             torch.cuda.set_sync_debug_mode("default")
     return sum("synchronizing CUDA operation" in str(w.message) for w in caught)
+
+
+def kernels_line(results):
+    """The per-kernel JSON line from the phases' records."""
+    serving, train = results["serving"], results["train"]
+    t_serving, t_train = results["teacher_serving"], results["teacher_train"]
+    nms_rpn, roi_main = results["nms_rpn"], results[("roi_align",) + ROI_MAIN]
+    bwd_main = results[("roi_align_backward",) + ROI_BWD_MAIN]
+    bwd_teacher = results["roi_align_backward_teacher_rois"]
+    ev = results["eval"]
+
+    def shape_rec(rec):
+        return {k: rec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+
+    return {"kernels": [
+        dict(name="nms", route="cuda",
+             source="cvpr22_cross_modal_pseudo_labeling_torch/csrc/nms.cu",
+             replaces="cvpr22_cross_modal_pseudo_labeling_tpu/ops/nms_pallas.py:47",
+             launches=serving["launches"]["nms"],
+             train_launches=train["launches"]["nms"],
+             teacher_serving_launches=t_serving["launches"]["nms"],
+             teacher_train_launches=t_train["launches"]["nms"],
+             eval_launches=ev["launches"]["nms"],
+             eval_launches_per_batch=ev["launches_per_batch"]["nms"],
+             launch_unit="one nms_forward call: a memset, then a mask and a scan "
+                         "kernel per column band",
+             max_abs_err=float(max(serving["first_batch_checks"]["nms_mismatches"]
+                                   + train["first_step_checks"]["nms_mismatches"]
+                                   + t_serving["first_batch_checks"]["nms_mismatches"]
+                                   + t_train["first_step_checks"]["nms_mismatches"]
+                                   + ev["first_batch_checks"]["nms_mismatches"]
+                                   + [results[f"nms_{c[0]}"]["mismatches"] for c in NMS_CASES]
+                                   + [results["nms_rpn_dense"]["one_band_mismatches"]])),
+             ms=nms_rpn["ms"], plain_ms=nms_rpn["plain_ms"],
+             bound_ms=nms_rpn["bound_ms"], bound_by=nms_rpn["bound_by"],
+             library_ms=None,
+             train_shapes={"8 x 12000 -> 2000": shape_rec(results["nms_rpn_train"])}),
+        dict(name="roi_align", route="cuda",
+             source="cvpr22_cross_modal_pseudo_labeling_torch/csrc/roi_align.cu",
+             replaces="tools/proto_pallas_roialign.py:146",
+             launches=serving["launches"]["roi_align"],
+             train_launches=train["launches"]["roi_align"],
+             teacher_serving_launches=t_serving["launches"]["roi_align"],
+             teacher_train_launches=t_train["launches"]["roi_align"],
+             eval_launches=ev["launches"]["roi_align"],
+             eval_launches_per_batch=ev["launches_per_batch"]["roi_align"],
+             max_abs_err=max(serving["first_batch_checks"]["roi_align_max_abs_err"]
+                             + train["first_step_checks"]["roi_align_max_abs_err"]
+                             + t_serving["first_batch_checks"]["roi_align_max_abs_err"]
+                             + t_train["first_step_checks"]["roi_align_max_abs_err"]
+                             + ev["first_batch_checks"]["roi_align_max_abs_err"]
+                             + [results[("roi_align",) + c]["max_abs_err"] for c in ROI_CASES]),
+             dtypes="bfloat16 features -> bfloat16 output",
+             ms=roi_main["ms"], plain_ms=roi_main["plain_ms"],
+             bound_ms=roi_main["bound_ms"], bound_by=roi_main["bound_by"],
+             library_ms=None,
+             train_shapes={f"8 x {c[0]} bf16": shape_rec(results[("roi_align",) + c])
+                           for c in ROI_TRAIN}),
+        dict(name="roi_align_backward", route="cuda",
+             source="cvpr22_cross_modal_pseudo_labeling_torch/csrc/roi_align.cu",
+             replaces="cvpr22_cross_modal_pseudo_labeling_tpu/ops/roi_align_mxu.py:91 "
+                      "(its XLA-derived gradient; no Pallas kernel)",
+             launches=t_train["launches"]["roi_align_backward"],
+             launches_per_teacher_step=t_train["launches"]["roi_align_backward"] / TRAIN["steps"],
+             launch_unit="one roi_align_backward call: the plan kernel (each roi's tap "
+                         "lists), then the tile kernel (each tile of dF summed in shared "
+                         "memory, written once in bfloat16)",
+             max_abs_err=max(t_train["first_step_checks"]["roi_align_backward_max_abs_err"]
+                             + [results[("roi_align_backward",) + c]["max_abs_err"]
+                                for c in ROI_BWD_CASES]
+                             + [bwd_teacher["max_abs_err"]]),
+             dtypes="bfloat16 cotangent -> bfloat16 dF, float32 sums",
+             ms=bwd_main["ms"], plain_ms=bwd_main["plain_ms"],
+             bound_ms=bwd_main["bound_ms"], bound_by=bwd_main["bound_by"],
+             library_ms=None,
+             shared_g_adds_per_s=bwd_main["shared_g_adds_per_s"],
+             teacher_step_rois=shape_rec(bwd_teacher)),
+    ]}
 
 
 def main():
@@ -1170,6 +1547,8 @@ def main():
     timed("teacher_train", phase_teacher_train, dev, results)
     torch.cuda.empty_cache()
     timed("roi_align_backward_teacher_rois", phase_roi_align_backward_teacher_rois, dev, results)
+    torch.cuda.empty_cache()
+    timed("eval", phase_eval, dev, results)
     emit(dict(phase="timing", **seconds))
 
     smi = subprocess.run(
@@ -1178,73 +1557,7 @@ def main():
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
 
-    serving, train = results["serving"], results["train"]
-    t_serving, t_train = results["teacher_serving"], results["teacher_train"]
-    nms_rpn, roi_main = results["nms_rpn"], results[("roi_align",) + ROI_MAIN]
-    bwd_main = results[("roi_align_backward",) + ROI_BWD_MAIN]
-    bwd_teacher = results["roi_align_backward_teacher_rois"]
-
-    def shape_rec(rec):
-        return {k: rec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
-
-    emit({"kernels": [
-        dict(name="nms", route="cuda",
-             source="cvpr22_cross_modal_pseudo_labeling_torch/csrc/nms.cu",
-             replaces="cvpr22_cross_modal_pseudo_labeling_tpu/ops/nms_pallas.py:47",
-             launches=serving["launches"]["nms"],
-             train_launches=train["launches"]["nms"],
-             teacher_serving_launches=t_serving["launches"]["nms"],
-             teacher_train_launches=t_train["launches"]["nms"],
-             launch_unit="one nms_forward call: a memset, then a mask and a scan "
-                         "kernel per column band",
-             max_abs_err=float(max(serving["first_batch_checks"]["nms_mismatches"]
-                                   + train["first_step_checks"]["nms_mismatches"]
-                                   + t_serving["first_batch_checks"]["nms_mismatches"]
-                                   + t_train["first_step_checks"]["nms_mismatches"]
-                                   + [results[f"nms_{c[0]}"]["mismatches"] for c in NMS_CASES]
-                                   + [results["nms_rpn_dense"]["one_band_mismatches"]])),
-             ms=nms_rpn["ms"], plain_ms=nms_rpn["plain_ms"],
-             bound_ms=nms_rpn["bound_ms"], bound_by=nms_rpn["bound_by"],
-             library_ms=None,
-             train_shapes={"8 x 12000 -> 2000": shape_rec(results["nms_rpn_train"])}),
-        dict(name="roi_align", route="cuda",
-             source="cvpr22_cross_modal_pseudo_labeling_torch/csrc/roi_align.cu",
-             replaces="tools/proto_pallas_roialign.py:146",
-             launches=serving["launches"]["roi_align"],
-             train_launches=train["launches"]["roi_align"],
-             teacher_serving_launches=t_serving["launches"]["roi_align"],
-             teacher_train_launches=t_train["launches"]["roi_align"],
-             max_abs_err=max(serving["first_batch_checks"]["roi_align_max_abs_err"]
-                             + train["first_step_checks"]["roi_align_max_abs_err"]
-                             + t_serving["first_batch_checks"]["roi_align_max_abs_err"]
-                             + t_train["first_step_checks"]["roi_align_max_abs_err"]
-                             + [results[("roi_align",) + c]["max_abs_err"] for c in ROI_CASES]),
-             dtypes="bfloat16 features -> bfloat16 output",
-             ms=roi_main["ms"], plain_ms=roi_main["plain_ms"],
-             bound_ms=roi_main["bound_ms"], bound_by=roi_main["bound_by"],
-             library_ms=None,
-             train_shapes={f"8 x {c[0]} bf16": shape_rec(results[("roi_align",) + c])
-                           for c in ROI_TRAIN}),
-        dict(name="roi_align_backward", route="cuda",
-             source="cvpr22_cross_modal_pseudo_labeling_torch/csrc/roi_align.cu",
-             replaces="cvpr22_cross_modal_pseudo_labeling_tpu/ops/roi_align_mxu.py:91 "
-                      "(its XLA-derived gradient; no Pallas kernel)",
-             launches=t_train["launches"]["roi_align_backward"],
-             launches_per_teacher_step=t_train["launches"]["roi_align_backward"] / TRAIN["steps"],
-             launch_unit="one roi_align_backward call: the plan kernel (each roi's tap "
-                         "lists), then the tile kernel (each tile of dF summed in shared "
-                         "memory, written once in bfloat16)",
-             max_abs_err=max(t_train["first_step_checks"]["roi_align_backward_max_abs_err"]
-                             + [results[("roi_align_backward",) + c]["max_abs_err"]
-                                for c in ROI_BWD_CASES]
-                             + [bwd_teacher["max_abs_err"]]),
-             dtypes="bfloat16 cotangent -> bfloat16 dF, float32 sums",
-             ms=bwd_main["ms"], plain_ms=bwd_main["plain_ms"],
-             bound_ms=bwd_main["bound_ms"], bound_by=bwd_main["bound_by"],
-             library_ms=None,
-             shared_g_adds_per_s=bwd_main["shared_g_adds_per_s"],
-             teacher_step_rois=shape_rec(bwd_teacher)),
-    ]})
+    emit(kernels_line(results))
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -2,8 +2,10 @@
 
 The port's own copy of ``cvpr22_cross_modal_pseudo_labeling_tpu/config/
 defaults.py``, kept identical so every shipped YAML loads the same way.
-TPU-only keys (``TPU.NMS_TILE``, ``TPU.MESH_*``, ``TPU.S2D_STEM``,
-``TPU.IMAGE_BUCKETS``) are accepted and ignored by the port.
+TPU-only keys (``TPU.NMS_TILE``, ``TPU.MESH_*``, ``TPU.S2D_STEM``) are
+accepted and ignored by the port.  ``TPU.IMAGE_BUCKETS`` sets the padded
+shapes of the port's collator (``data/collate.py``), as it does the JAX
+package's, so that the two loaders give the same batches.
 
 Key names mirror the reference config surface
 (reference: maskrcnn_benchmark/config/defaults.py:21-581) so that the five
