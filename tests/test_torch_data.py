@@ -16,7 +16,6 @@ within 1e-5 of ``cv2.resize`` and, thresholded at 0.5 as the mask paths
 do, with no differing pixel on these inputs.
 """
 
-import os
 import random
 import subprocess
 import sys
