@@ -96,22 +96,23 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                 student_teacher_mask_rcnn_uncertainty.yaml at full width in
                 bfloat16 (seeded weights) over the config's three test datasets
                 of a synthetic COCO zero-shot tree written under
-                ``build/synth_coco``: 48 seen and 17 unseen classes with 768-d
-                embeddings, COCO's image sizes, 1-8 instances an image, 24 val
-                images (3 batches of 8 a dataset) and 8 train images.  With PIL
-                and cv2 the tree comes from ``tools/synth_coco.py`` (JPEG,
-                polygons); without them this script writes it (binary PPM,
-                uncompressed RLE) and the port's numpy counterparts decode,
-                resize and rasterize.  The ``host_libs`` line says which.  The
-                loader pads to the config's bucket ladder (800 x 1088, 1088 x
-                800, ..., ceil-to-64 for mixed batches); every kernel launch of
-                each dataset's first batch is held against the plain version;
-                each batch must have the bucket ``select_bucket`` gives its
-                images, every image a result, and every metric must be finite
-                (a class without ground truth has a NaN AP50, as in the JAX
-                evaluator).  Prints throughput end to end and steady, the
-                forward's seconds an image, the device's busy share, the
-                evaluator's seconds and the launches per batch; then one batch
+                ``build/synth_coco`` by ``tools/synth_coco.py`` (JPEG, polygons):
+                48 seen and 17 unseen classes with 768-d embeddings, COCO's
+                image sizes, 1-8 instances an image, 20 val images and 8 train
+                images.  Its seed is chosen so that each dataset's three
+                batches are a full batch on a ladder rung (800 x 1088), a full
+                mixed batch on the ceil-to-64 fallback (1088 x 1216) and a
+                ragged batch of 4 on a rung (800 x 1216).  The ``host_libs``
+                line prints what the host code finds (PIL, cv2, libjpeg, g++).
+                Every kernel launch of each dataset's first batch and of every
+                batch shape's first batch is held against the plain version,
+                and the run must have checked a ragged batch and a batch on a
+                rung; each batch must have the bucket ``select_bucket`` gives
+                its images, every image a result, and every metric must be
+                finite (a class without ground truth has a NaN AP50, as in the
+                JAX evaluator).  Prints throughput end to end and steady, the
+                Predictor calls' seconds an image and their share of the wall
+                time, the evaluator's seconds and the launches per batch; then one batch
                 of the train loader (COCOCapDetDataset), checked for shape and
                 dtype.  One line gives the seconds each phase from 7 on took.
 
@@ -162,13 +163,11 @@ ROI_BWD_TILES = ((4, 21, 256, 1), (4, 21, 256, 4), (2, 21, 256, 2), (2, 28, 256,
 # the train step at the serving bucket with SOLVER.IMS_PER_BATCH 8
 TRAIN = dict(steps=3, batch=8, hw=(800, 1333), max_gt=100, nouns=32, noun_tokens=8,
              lvis=1203, classes=66, opts=())
-# the eval phase's synthetic tree and run
-EVAL = dict(train=8, val=24, opts=(), tree="build/synth_coco", out="build/eval_out",
+# the eval phase's synthetic tree and run; tools/synth_coco.py's seed 2
+# with 20 val images gives batches at 800 x 1088 (8 images), 1088 x 1216
+# (8, mixed orientations) and 800 x 1216 (4, ragged)
+EVAL = dict(train=8, val=20, seed=2, opts=(), tree="build/synth_coco", out="build/eval_out",
             train_batch=2)
-# tools/synth_coco.py's COCO size mix: (width, height), weight
-SYNTH_SIZES = (((640, 480), 0.45), ((640, 427), 0.20), ((500, 375), 0.05),
-               ((480, 640), 0.15), ((427, 640), 0.10), ((612, 612), 0.05))
-SYNTH_NOUNS = ("cat", "dog", "person", "car", "chair", "bottle", "bird", "horse")
 H100_BYTES_PER_S = 3.35e12
 H100_F32_OPS_PER_S = 67e12
 IOU_OPS = 16  # min/max, sub/add, mul, div and compare of one +1 IoU test
@@ -1146,82 +1145,15 @@ def host_libs():
             "gxx": shutil.which("g++")}
 
 
-def write_ppm_tree(root, n_train, n_val, seen=48, unseen=17, seed=SEED):
-    """The layout of ``tools/synth_coco.py`` (its size mix, 48 seen and 17
-    unseen classes with 768-d ``BertEmb`` embeddings and ``split`` tags,
-    1-8 instances an image, LVIS nouns in the captions) for a machine
-    without PIL or cv2: smooth binary PPM (P6) images and elliptic
-    instance masks as uncompressed RLE."""
-    from cvpr22_cross_modal_pseudo_labeling_torch.utils.rle import mask_to_counts
-
-    rng = np.random.RandomState(seed)
-    coco = os.path.join(root, "coco")
-    for d in ("zero-shot", "annotations", "train2017", "val2017"):
-        os.makedirs(os.path.join(coco, d), exist_ok=True)
-    cats = [{"id": i + 1, "name": SYNTH_NOUNS[i] if i < len(SYNTH_NOUNS) else f"thing_{i}",
-             "split": "seen" if i < seen else "unseen",
-             "embedding": {"BertEmb": (0.1 * rng.randn(768)).tolist()}}
-            for i in range(seen + unseen)]
-    sizes, weights = zip(*SYNTH_SIZES)
-
-    def images(split, n):
-        out = []
-        for i in range(n):
-            w, h = sizes[rng.choice(len(sizes), p=np.asarray(weights))]
-            small = rng.randint(0, 256, (h // 16 + 1, w // 16 + 1, 3)).astype(np.int16)
-            img = np.repeat(np.repeat(small, 16, 0), 16, 1)[:h, :w] + rng.randint(-12, 12, (h, w, 3))
-            name = f"{split}_{i:06d}.ppm"
-            with open(os.path.join(coco, split, name), "wb") as f:
-                f.write(b"P6\n%d %d\n255\n" % (w, h) + np.clip(img, 0, 255).astype(np.uint8).tobytes())
-            out.append({"id": i + 1, "file_name": name, "width": w, "height": h})
-        return out
-
-    def anns(imgs, cat_ids):
-        out = []
-        for im in imgs:
-            for _ in range(rng.randint(1, 9)):
-                c = int(cat_ids[rng.randint(len(cat_ids))])
-                w = float(rng.randint(24, max(im["width"] // 2, 32)))
-                h = float(rng.randint(24, max(im["height"] // 2, 32)))
-                x = float(rng.randint(0, max(int(im["width"] - w), 1)))
-                y = float(rng.randint(0, max(int(im["height"] - h), 1)))
-                yy, xx = np.mgrid[:im["height"], :im["width"]]
-                mask = ((xx + 0.5 - x - w / 2) / (w / 2)) ** 2 + ((yy + 0.5 - y - h / 2) / (h / 2)) ** 2 <= 1
-                out.append({"id": len(out) + 1, "image_id": im["id"], "category_id": c,
-                            "bbox": [x, y, w, h], "area": float(mask.sum()), "iscrowd": 0,
-                            "segmentation": {"counts": mask_to_counts(mask).tolist(),
-                                             "size": [im["height"], im["width"]]}})
-        return out
-
-    train, val = images("train2017", n_train), images("val2017", n_val)
-    seen_cats = [c for c in cats if c["split"] == "seen"]
-    specs = {"instances_train2017_seen_2.json": (train, seen_cats),
-             "instances_val2017_seen_2.json": (val, seen_cats),
-             "instances_val2017_unseen_2.json": (val, [c for c in cats if c["split"] == "unseen"]),
-             "instances_val2017_all_2.json": (val, cats)}
-    for name, (imgs, cc) in specs.items():
-        with open(os.path.join(coco, "zero-shot", name), "w") as f:
-            json.dump({"images": imgs, "categories": cc, "annotations": anns(imgs, [c["id"] for c in cc])}, f)
-    caps = [{"id": 10_000_000 + im["id"], "image_id": im["id"],
-             "caption": "a %s and a %s near a %s" % tuple(SYNTH_NOUNS[j] for j in rng.randint(0, 8, 3))}
-            for im in train]
-    with open(os.path.join(coco, "annotations", "captions_train2017.json"), "w") as f:
-        json.dump({"images": train, "annotations": caps}, f)
-
-
-def make_eval_tree(libs):
-    """The eval phase's tree: ``tools/synth_coco.py`` where PIL and cv2
-    are present, else ``write_ppm_tree``.  Returns the writer's name."""
+def make_eval_tree():
+    """The eval phase's tree, written by ``tools/synth_coco.py``."""
     import shutil
 
     shutil.rmtree(EVAL["tree"], ignore_errors=True)
-    if libs["PIL"] and libs["cv2"]:
-        subprocess.run([sys.executable, "tools/synth_coco.py", "--out", EVAL["tree"],
-                        "--train", str(EVAL["train"]), "--val", str(EVAL["val"])],
-                       check=True, timeout=600)
-        return "tools/synth_coco.py (JPEG, polygons)"
-    write_ppm_tree(EVAL["tree"], EVAL["train"], EVAL["val"])
-    return "chip_smoke.write_ppm_tree (PPM, uncompressed RLE)"
+    subprocess.run([sys.executable, "tools/synth_coco.py", "--out", EVAL["tree"],
+                    "--train", str(EVAL["train"]), "--val", str(EVAL["val"]),
+                    "--seed", str(EVAL["seed"])],
+                   check=True, timeout=600)
 
 
 def metrics_finite(metrics, dataset):
@@ -1288,31 +1220,36 @@ def phase_eval(dev, results):
     from cvpr22_cross_modal_pseudo_labeling_torch.ops import kernels
     from cvpr22_cross_modal_pseudo_labeling_torch.tools import test_net
 
-    libs = host_libs()
-    emit(dict(phase="host_libs", **libs))
+    emit(dict(phase="host_libs", **host_libs()))
     t = time.perf_counter()
-    writer = make_eval_tree(libs)
+    make_eval_tree()
     tree_s = time.perf_counter() - t
     os.environ["CMPL_TPU_DATA_DIR"] = EVAL["tree"]
     shutil.rmtree(EVAL["out"], ignore_errors=True)
     cfg = inf.load_cfg(CONFIG, EVAL["opts"])
     check(cfg.TPU.COMPUTE_DTYPE == "bfloat16", "the eval config must run in bfloat16")
     divisible = max(cfg.DATALOADER.SIZE_DIVISIBILITY, 64)
+    rungs = {tuple(hw) for hw in cfg.TPU.IMAGE_BUCKETS}
 
     checks, check_nms, check_roi, _ = launch_checks()
     batches, state = [], {}
     call, run_dataset = inf.Predictor.__call__, inf.compute_on_dataset
 
     def checked_call(self, images, image_sizes, class_embeddings):
+        # each dataset's first batch (a new class table) and the first
+        # batch of every launch shape are held against the plain version
         state["predictor"] = self
         first = state.pop("first", False)
-        kernels.NMS.on_launch = check_nms if first else None
-        kernels.ROI_ALIGN.on_launch = check_roi if first else None
+        shapes = state.setdefault("shapes", set())
+        checked = first or tuple(images.shape) not in shapes
+        shapes.add(tuple(images.shape))
+        kernels.NMS.on_launch = check_nms if checked else None
+        kernels.ROI_ALIGN.on_launch = check_roi if checked else None
         out = call(self, images, image_sizes, class_embeddings)
         kernels.NMS.on_launch = kernels.ROI_ALIGN.on_launch = None
         sizes = np.asarray(image_sizes)
         batches.append(dict(shape=list(images.shape), dtype=str(images.dtype),
-                            classes=int(class_embeddings.shape[0]), first=first,
+                            classes=int(class_embeddings.shape[0]), first=first, checked=checked,
                             bucket=list(select_bucket(int(sizes[:, 0].max()), int(sizes[:, 1].max()),
                                                       cfg.TPU.IMAGE_BUCKETS, divisible))))
         return out
@@ -1336,11 +1273,16 @@ def phase_eval(dev, results):
     n_sets = len(cfg.DATASETS.TEST)
     check(len(metrics) == n_sets == 3, f"eval: metrics for {list(metrics)}")
     check(sum(b["first"] for b in batches) == n_sets, f"eval: {len(batches)} batches, first flags wrong")
-    check(len(checks["nms"]) == 2 * n_sets and all(m == 0 for m, _ in checks["nms"]),
+    checked = [b for b in batches if b["checked"]]
+    check(len(checks["nms"]) == 2 * len(checked) and all(m == 0 for m, _ in checks["nms"]),
           f"eval: NMS launches differ from the plain version: {checks['nms']}")
-    check(len(checks["roi_align"]) == 2 * n_sets
+    check(len(checks["roi_align"]) == 2 * len(checked)
           and all(excess <= 0 for _, excess, _, _ in checks["roi_align"]),
           f"eval: RoIAlign launches over tolerance: {checks['roi_align']}")
+    check(any(b["shape"][0] < cfg.TEST.IMS_PER_BATCH for b in checked)
+          and any(tuple(b["shape"][1:3]) in rungs for b in checked)
+          and any(tuple(b["shape"][1:3]) not in rungs for b in checked),
+          f"eval: no checked batch that is ragged, on a rung or on the fallback: {checked}")
     off = [b for b in batches if b["shape"][1:3] != b["bucket"] or b["dtype"] != "uint8"]
     check(not off, f"eval: batches off their bucket: {off}")
     check(launches["nms"] > 0 and launches["roi_align"] > 0 and launches["roi_align_backward"] == 0,
@@ -1366,14 +1308,16 @@ def phase_eval(dev, results):
             bbox_AP50=m["bbox/AP50"], segm_AP50=m["segm/AP50"],
             **{k[5:]: m[k] for k in m if k.startswith("time/")})
     n_batches = len(batches)
-    rec = dict(phase="eval", config=CONFIG, dtype="bfloat16", tree=writer, tree_s=tree_s,
+    rec = dict(phase="eval", config=CONFIG, dtype="bfloat16", tree_s=tree_s,
                test_net_s=test_net_s, batches=n_batches,
                shapes=sorted({tuple(b["shape"]) for b in batches}),
+               checked_shapes=[b["shape"] for b in checked],
+               on_rung=[tuple(b["shape"][1:3]) in rungs for b in batches],
                launches=launches,
                launches_per_batch={k: v / n_batches for k, v in launches.items()},
                datasets=per_set,
                evaluate_s=sum(d["evaluate_s"] for d in per_set.values()),
-               first_batch_checks={
+               launch_checks={
                    "nms_mismatches": [m for m, _ in checks["nms"]],
                    "nms_shapes": [n for _, n in checks["nms"]],
                    "roi_align_max_abs_err": [e for e, _, _, _ in checks["roi_align"]],
@@ -1448,7 +1392,7 @@ def kernels_line(results):
                                    + train["first_step_checks"]["nms_mismatches"]
                                    + t_serving["first_batch_checks"]["nms_mismatches"]
                                    + t_train["first_step_checks"]["nms_mismatches"]
-                                   + ev["first_batch_checks"]["nms_mismatches"]
+                                   + ev["launch_checks"]["nms_mismatches"]
                                    + [results[f"nms_{c[0]}"]["mismatches"] for c in NMS_CASES]
                                    + [results["nms_rpn_dense"]["one_band_mismatches"]])),
              ms=nms_rpn["ms"], plain_ms=nms_rpn["plain_ms"],
@@ -1468,7 +1412,7 @@ def kernels_line(results):
                              + train["first_step_checks"]["roi_align_max_abs_err"]
                              + t_serving["first_batch_checks"]["roi_align_max_abs_err"]
                              + t_train["first_step_checks"]["roi_align_max_abs_err"]
-                             + ev["first_batch_checks"]["roi_align_max_abs_err"]
+                             + ev["launch_checks"]["roi_align_max_abs_err"]
                              + [results[("roi_align",) + c]["max_abs_err"] for c in ROI_CASES]),
              dtypes="bfloat16 features -> bfloat16 output",
              ms=roi_main["ms"], plain_ms=roi_main["plain_ms"],

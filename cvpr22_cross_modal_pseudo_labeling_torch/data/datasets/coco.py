@@ -1,8 +1,7 @@
 """COCO detection dataset (host-side).
 
 The port's copy of ``cvpr22_cross_modal_pseudo_labeling_tpu/data/
-datasets/coco.py``.  An RLE ground-truth mask is resized with cv2, or
-with its numpy counterpart where cv2 is missing; a polygon needs cv2.
+datasets/coco.py``.
 
 Re-design of reference data/datasets/coco.py:42-140: contiguous category
 ids, optional class-embedding matrix loaded from the preprocessed
@@ -20,7 +19,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from ...core.boxes import TO_REMOVE
-from ...utils.rle import coco_segmentation_to_mask, polygons_to_mask, resize_linear
+from ...utils.rle import coco_segmentation_to_mask, polygons_to_mask
 from ..coco_index import CocoIndex
 from ..parser import normalize_class_names
 
@@ -59,6 +58,8 @@ def rasterize_instance_mask(
             np.float32
         )
     # RLE: decode full, crop the box, resize
+    import cv2
+
     full = coco_segmentation_to_mask(seg, *[int(v) for v in image_hw])
     xi1, yi1 = max(int(x1), 0), max(int(y1), 0)
     xi2 = min(int(np.ceil(x2)) + 1, full.shape[1])
@@ -67,7 +68,11 @@ def rasterize_instance_mask(
     if crop.size == 0:
         return np.zeros((out_size, out_size), np.float32)
     return (
-        resize_linear(crop.astype(np.float32), out_size, out_size) >= 0.5
+        cv2.resize(
+            crop.astype(np.float32), (out_size, out_size),
+            interpolation=cv2.INTER_LINEAR,
+        )
+        >= 0.5
     ).astype(np.float32)
 
 

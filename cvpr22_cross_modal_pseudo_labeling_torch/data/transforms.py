@@ -1,9 +1,7 @@
 """Host-side image/target transforms (numpy/PIL).
 
 The port's copy of ``cvpr22_cross_modal_pseudo_labeling_tpu/data/
-transforms.py``.  PIL is imported where it resizes, and where PIL is
-missing too, its ``BILINEAR`` resize is computed in numpy
-(``utils/native_image.py::resize_bilinear_numpy``).
+transforms.py``, with PIL imported where it resizes.
 
 Re-design of reference data/transforms/transforms.py: Resize (random
 choice of min side, max-side cap), horizontal/vertical flip, color
@@ -59,18 +57,15 @@ def resize_image(img: np.ndarray, nh: int, nw: int) -> np.ndarray:
     Resize and the TTA variant runner (engine/inference.py)."""
     was_u8 = img.dtype == np.uint8
     src_u8 = img if was_u8 else (img * 255).astype(np.uint8)
-    from ..utils.native_image import resize_bilinear_native, resize_bilinear_numpy
+    from ..utils.native_image import resize_bilinear_native
 
     resized = resize_bilinear_native(src_u8, (nh, nw))
-    if resized is None:  # PIL fallback, then PIL's filter in numpy
-        try:
-            from PIL import Image
-        except ImportError:
-            resized = resize_bilinear_numpy(src_u8, (nh, nw))
-        else:
-            resized = np.asarray(
-                Image.fromarray(src_u8).resize((nw, nh), Image.BILINEAR)
-            )
+    if resized is None:  # PIL fallback
+        from PIL import Image
+
+        resized = np.asarray(
+            Image.fromarray(src_u8).resize((nw, nh), Image.BILINEAR)
+        )
     return resized if was_u8 else resized.astype(np.float32) / 255.0
 
 

@@ -140,7 +140,10 @@ def compute_on_dataset(
     launches' setup.  Keys: ``images``, ``device_s_per_img``,
     ``steady_device_s_per_img``, ``first_batch_s``, ``e2e_s_per_img``,
     ``e2e_images_per_s``, ``steady_images_per_s``,
-    ``device_busy_share`` (forward time over wall time) and
+    ``device_busy_share`` (the ``predictor`` calls' wall time over the
+    pass's wall time, as JAX's log line computes it: the forward, the
+    copy to the host and any wait on the host threads beside them, not
+    the device's occupancy) and
     ``conversion_wait_s`` (wall time spent waiting on the conversion
     pool)."""
     logger = logging.getLogger(__name__)

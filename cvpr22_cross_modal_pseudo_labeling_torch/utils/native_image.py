@@ -3,11 +3,7 @@
 The port's copy of ``cvpr22_cross_modal_pseudo_labeling_tpu/utils/
 native_image.py``: the native JPEG decode and triangle-filter resize
 (``native/imageops.cpp``, built into ``build/native/``), with PIL as the
-fallback.  Where PIL is missing too, two numpy counterparts take its
-place, and only then: a reader for binary PPM (P6) files and PIL's
-``BILINEAR`` resize, computed as PIL computes it for uint8 images
-(double-precision triangle-filter weights turned into 22-bit fixed
-point, a horizontal then a vertical pass, each rounded to uint8).
+fallback when the library or libjpeg is unavailable.
 """
 
 import ctypes
@@ -83,85 +79,9 @@ def resize_bilinear_native(
     return dst
 
 
-_PRECISION_BITS = 32 - 8 - 2  # PIL's Resample.c, 8 bits a channel
-
-
-def _triangle_taps(in_size: int, out_size: int):
-    """PIL's ``precompute_coeffs`` and ``normalize_coeffs_8bpc`` for the
-    bilinear (triangle, support 1) filter over the whole input: each
-    output index's first input index ``[out]`` and its fixed-point
-    weights ``[out, ksize]`` (zero past the taps it has)."""
-    scale = in_size / out_size
-    filterscale = max(scale, 1.0)
-    support = 1.0 * filterscale
-    ksize = int(np.ceil(support)) * 2 + 1
-    center = (np.arange(out_size) + 0.5) * scale
-    ss = 1.0 / filterscale
-    xmin = np.maximum((center - support + 0.5).astype(np.int64), 0)
-    xmax = np.minimum((center + support + 0.5).astype(np.int64), in_size) - xmin
-    taps = np.arange(ksize)
-    w = 1.0 - np.abs((taps[None, :] + xmin[:, None] - center[:, None] + 0.5) * ss)
-    w = np.where((taps[None, :] < xmax[:, None]) & (w > 0.0), w, 0.0)
-    ww = np.zeros(out_size)
-    for k in range(ksize):  # the C loop's summation order
-        ww = ww + w[:, k]
-    w = np.where(ww[:, None] != 0.0, w / np.where(ww == 0.0, 1.0, ww)[:, None], w)
-    fixed = np.trunc(w * (1 << _PRECISION_BITS) + 0.5).astype(np.int64)
-    return xmin, fixed
-
-
-def _resample_axis0(img: np.ndarray, out_size: int) -> np.ndarray:
-    """One PIL pass along axis 0 of a uint8 array, rounded to uint8."""
-    xmin, fixed = _triangle_taps(img.shape[0], out_size)
-    idx = np.minimum(xmin[:, None] + np.arange(fixed.shape[1])[None, :], img.shape[0] - 1)
-    src = img.astype(np.int64)
-    acc = np.full((out_size,) + img.shape[1:], 1 << (_PRECISION_BITS - 1), np.int64)
-    for k in range(fixed.shape[1]):
-        acc += src[idx[:, k]] * fixed[:, k].reshape((-1,) + (1,) * (img.ndim - 1))
-    return np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
-
-
-def resize_bilinear_numpy(image: np.ndarray, out_hw: Tuple[int, int]) -> np.ndarray:
-    """PIL's ``Image.resize((w, h), Image.BILINEAR)`` of a uint8 [H, W, 3]
-    image, for a machine without PIL: the horizontal pass first (on the
-    rows the vertical pass reads), then the vertical pass; an axis whose
-    size does not change is not resampled."""
-    dh, dw = out_hw
-    out = np.ascontiguousarray(image, np.uint8)
-    if dw != out.shape[1]:
-        out = _resample_axis0(out.transpose(1, 0, 2), dw).transpose(1, 0, 2)
-    if dh != out.shape[0]:
-        out = _resample_axis0(out, dh)
-    return np.ascontiguousarray(out)
-
-
-def read_ppm(path: str) -> np.ndarray:
-    """A binary PPM (P6, maxval 255) file as uint8 RGB [H, W, 3]."""
-    with open(path, "rb") as f:
-        data = f.read()
-    fields, pos = [], 0
-    while len(fields) < 4:
-        while data[pos:pos + 1].isspace():
-            pos += 1
-        if data[pos:pos + 1] == b"#":
-            pos = data.index(b"\n", pos) + 1
-            continue
-        end = pos
-        while not data[end:end + 1].isspace():
-            end += 1
-        fields.append(data[pos:end])
-        pos = end
-    magic, w, h, maxval = fields[0], int(fields[1]), int(fields[2]), int(fields[3])
-    if magic != b"P6" or maxval != 255:
-        raise ValueError(f"{path}: not a P6 PPM with maxval 255")
-    pixels = np.frombuffer(data, np.uint8, count=h * w * 3, offset=pos + 1)
-    return pixels.reshape(h, w, 3).copy()
-
-
 def load_image_rgb(path: str) -> np.ndarray:
     """Loads an image as uint8 RGB; native JPEG path with PIL fallback
-    (non-JPEG formats always go through PIL, or through ``read_ppm`` for
-    a PPM where PIL is missing).
+    (non-JPEG formats always go through PIL).
 
     uint8 end-to-end: the transform chain (Resize/flip/jitter) operates
     on uint8 and Normalize does the single float conversion — decode ->
@@ -175,12 +95,7 @@ def load_image_rgb(path: str) -> np.ndarray:
                 return arr
         except OSError:
             pass
-    try:
-        from PIL import Image
-    except ImportError:
-        if path.lower().endswith(".ppm"):
-            return read_ppm(path)
-        raise
+    from PIL import Image
 
     with Image.open(path) as im:
         return np.asarray(im.convert("RGB"), np.uint8)

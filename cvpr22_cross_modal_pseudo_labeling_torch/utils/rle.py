@@ -181,36 +181,6 @@ def encode_box_mask(
     return {"size": [H, W], "counts": compress_counts(counts)}
 
 
-def resize_linear_numpy(src: np.ndarray, h: int, w: int) -> np.ndarray:
-    """``cv2.resize(src, (w, h), interpolation=cv2.INTER_LINEAR)`` of a
-    2-d float32 array, for a machine without cv2: the half-pixel
-    (align_corners=False) source mapping, edges clamped, one separable
-    pass over rows then columns (the numpy branch of the JAX package's
-    ``paste_mask_box_local``)."""
-    ys = (np.arange(h) + 0.5) * src.shape[0] / h - 0.5
-    xs = (np.arange(w) + 0.5) * src.shape[1] / w - 0.5
-    y0 = np.floor(ys).astype(np.int32)
-    x0 = np.floor(xs).astype(np.int32)
-    ly = (ys - y0).astype(np.float32)
-    lx = (xs - x0).astype(np.float32)
-    y0c, y1c = np.clip(y0, 0, src.shape[0] - 1), np.clip(y0 + 1, 0, src.shape[0] - 1)
-    x0c, x1c = np.clip(x0, 0, src.shape[1] - 1), np.clip(x0 + 1, 0, src.shape[1] - 1)
-    rows = src[y0c] * (1 - ly)[:, None] + src[y1c] * ly[:, None]
-    return rows[:, x0c] * (1 - lx) + rows[:, x1c] * lx
-
-
-def resize_linear(src: np.ndarray, h: int, w: int) -> np.ndarray:
-    """Bilinear resize of a 2-d float32 array: cv2, or its numpy
-    counterpart where cv2 is missing."""
-    try:
-        # cv2 INTER_LINEAR uses the same align_corners=False half-pixel
-        # mapping as F.interpolate; SIMD beats the numpy path ~10x
-        import cv2
-    except ImportError:
-        return resize_linear_numpy(src, h, w)
-    return cv2.resize(src, (w, h), interpolation=cv2.INTER_LINEAR)
-
-
 def paste_mask_box_local(
     mask_probs: np.ndarray,
     box: np.ndarray,
@@ -246,7 +216,30 @@ def paste_mask_box_local(
 
     w = max(int(ebox[2] - ebox[0] + 1), 1)
     h = max(int(ebox[3] - ebox[1] + 1), 1)
-    binarized = (resize_linear(mask, h, w) > threshold).astype(np.uint8)
+
+    try:
+        # cv2 INTER_LINEAR uses the same align_corners=False half-pixel
+        # mapping as F.interpolate; SIMD beats the numpy path ~10x
+        import cv2
+
+        resized = cv2.resize(mask, (w, h), interpolation=cv2.INTER_LINEAR)
+    except ImportError:
+        ys = (np.arange(h) + 0.5) * mask.shape[0] / h - 0.5
+        xs = (np.arange(w) + 0.5) * mask.shape[1] / w - 0.5
+        y0 = np.floor(ys).astype(np.int32)
+        x0 = np.floor(xs).astype(np.int32)
+        ly = (ys - y0).astype(np.float32)
+        lx = (xs - x0).astype(np.float32)
+        y0c, y1c = np.clip(y0, 0, mask.shape[0] - 1), np.clip(
+            y0 + 1, 0, mask.shape[0] - 1
+        )
+        x0c, x1c = np.clip(x0, 0, mask.shape[1] - 1), np.clip(
+            x0 + 1, 0, mask.shape[1] - 1
+        )
+        # separable two-pass: rows [h, M+2] then columns [h, w]
+        rows = mask[y0c] * (1 - ly)[:, None] + mask[y1c] * ly[:, None]
+        resized = rows[:, x0c] * (1 - lx) + rows[:, x1c] * lx
+    binarized = (resized > threshold).astype(np.uint8)
 
     x_0 = max(int(ebox[0]), 0)
     x_1 = min(int(ebox[2]) + 1, im_w)
@@ -357,8 +350,7 @@ def polygons_to_mask(
     polygons: Sequence[Sequence[float]], h: int, w: int
 ) -> np.ndarray:
     """Rasterizes COCO polygon lists ([x0,y0,x1,y1,...] per part) to a
-    binary [H, W] mask (frPyObjects+merge equivalent).  Needs cv2: on a
-    machine without it this raises ImportError."""
+    binary [H, W] mask (frPyObjects+merge equivalent)."""
     import cv2
 
     mask = np.zeros((h, w), np.uint8)

@@ -9,11 +9,9 @@ The training loader draws its flips, scales and color jitter from
 ``visit_rng``, which seeds from the process and a visit counter; both
 packages' datasets get the same per-index generator instead.
 
-The numpy counterparts of PIL and cv2 (used only on a machine without
-them) are held against the libraries: the PPM reader and PIL's uint8
-``BILINEAR`` resize exactly (no pixel differs); the float bilinear resize
-within 1e-5 of ``cv2.resize`` and, thresholded at 0.5 as the mask paths
-do, with no differing pixel on these inputs.
+The host helpers under the loader (image decode, resize, instance-mask
+rasterization, mask paste and RLE encode) equal JAX's exactly, through
+the native library and through its PIL fallback.
 """
 
 import random
@@ -197,62 +195,49 @@ def test_native_library_first_use_from_threads_waits_for_the_build(tmp_path):
     ((480, 640), (800, 1066)), ((427, 640), (64, 96)), ((37, 53), (37, 90)),
     ((90, 41), (23, 41)), ((64, 64), (64, 64)),
 ])
-def test_numpy_resize_equals_pil(src_hw, out_hw):
-    from PIL import Image
-
+def test_resize_image_matches_jax(src_hw, out_hw):
     rng = np.random.default_rng(sum(src_hw))
     img = rng.integers(0, 256, (*src_hw, 3), dtype=np.uint8)
-    ref = np.asarray(Image.fromarray(img).resize(out_hw[::-1], Image.BILINEAR))
-    out = native_image.resize_bilinear_numpy(img, out_hw)
-    assert out.dtype == np.uint8 and out.shape == ref.shape
-    assert int((out != ref).sum()) == 0
+    out = torch_transforms.resize_image(img, *out_hw)
+    assert out.dtype == np.uint8 and out.shape == (*out_hw, 3)
+    np.testing.assert_array_equal(out, jax_transforms.resize_image(img, *out_hw))
 
 
-def test_ppm_reader_and_pil_free_paths(tmp_path, monkeypatch):
-    """Without PIL a PPM still decodes and resizes (the numpy
-    counterparts); a JPEG without the native decoder raises."""
+@pytest.mark.parametrize("path", ["native", "pil", "png"])
+def test_load_image_rgb_matches_jax(tree, tmp_path, monkeypatch, path):
+    """A JPEG of the tree through the native decoder (or PIL where it
+    does not build) and through PIL alone, and a PNG, which always takes
+    PIL."""
     from PIL import Image
 
-    img = np.random.default_rng(0).integers(0, 256, (37, 53, 3), dtype=np.uint8)
-    path = str(tmp_path / "im.ppm")
-    Image.fromarray(img).save(path)
-    np.testing.assert_array_equal(native_image.read_ppm(path), img)
-    ref = np.asarray(Image.fromarray(img).resize((90, 64), Image.BILINEAR))
-    monkeypatch.setitem(sys.modules, "PIL", None)
-    monkeypatch.setattr(native_image._loader, "_lib", None)
-    monkeypatch.setattr(native_image._loader, "_tried", True)
-    np.testing.assert_array_equal(native_image.load_image_rgb(path), img)
-    np.testing.assert_array_equal(torch_transforms.resize_image(img, 64, 90), ref)
-    with pytest.raises(ImportError):
-        native_image.load_image_rgb(str(tmp_path / "im.jpg"))
+    from cvpr22_cross_modal_pseudo_labeling_tpu.utils import native_image as jax_native_image
+
+    jpeg = str(sorted((tree / "coco" / "val2017").glob("*.jpg"))[0])
+    if path == "png":
+        jpeg = str(tmp_path / "im.png")
+        Image.fromarray(np.random.default_rng(0).integers(0, 256, (37, 53, 3), np.uint8)).save(jpeg)
+    if path == "pil":
+        for mod in (native_image, jax_native_image):
+            monkeypatch.setattr(mod._loader, "_lib", None)
+            monkeypatch.setattr(mod._loader, "_tried", True)
+    out = native_image.load_image_rgb(jpeg)
+    assert out.dtype == np.uint8 and out.ndim == 3 and out.shape[2] == 3
+    np.testing.assert_array_equal(out, jax_native_image.load_image_rgb(jpeg))
 
 
-@pytest.mark.parametrize("crop_hw,out", [((40, 31), 28), ((5, 9), 28), ((30, 30), 14), ((200, 90), 37)])
-def test_numpy_linear_resize_matches_cv2(crop_hw, out):
-    import cv2
-
-    rng = np.random.default_rng(out)
-    src = rng.uniform(0, 1, crop_hw).astype(np.float32)
-    ref = cv2.resize(src, (out, out + 3), interpolation=cv2.INTER_LINEAR)
-    got = torch_rle.resize_linear_numpy(src, out + 3, out)
-    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
-    assert int(((got >= 0.5) != (ref >= 0.5)).sum()) == 0
-
-
-def test_rle_gt_mask_without_cv2_and_polygon_refusal(monkeypatch):
-    """An RLE ground-truth mask rasterizes without cv2, as cv2 does; a
-    polygon needs cv2 and raises ImportError without it."""
+@pytest.mark.parametrize("kind", ["rle", "polygon"])
+def test_rasterize_instance_mask_matches_jax(kind):
     h, w = 60, 80
-    yy, xx = np.mgrid[:h, :w]
-    mask = (((xx - 40) / 25.0) ** 2 + ((yy - 30) / 18.0) ** 2 <= 1).astype(np.uint8)
-    seg = {"counts": torch_rle.mask_to_counts(mask).tolist(), "size": [h, w]}
     box = np.array([15.0, 12.0, 65.0, 48.0], np.float32)
-    ref = jax_coco.rasterize_instance_mask(seg, box, (h, w))
-    np.testing.assert_array_equal(torch_coco.rasterize_instance_mask(seg, box, (h, w)), ref)
-    monkeypatch.setitem(sys.modules, "cv2", None)
-    np.testing.assert_array_equal(torch_coco.rasterize_instance_mask(seg, box, (h, w)), ref)
-    with pytest.raises(ImportError):
-        torch_coco.rasterize_instance_mask([[15.0, 12.0, 65.0, 12.0, 40.0, 48.0]], box, (h, w))
+    if kind == "rle":
+        yy, xx = np.mgrid[:h, :w]
+        mask = (((xx - 40) / 25.0) ** 2 + ((yy - 30) / 18.0) ** 2 <= 1).astype(np.uint8)
+        seg = {"counts": torch_rle.mask_to_counts(mask).tolist(), "size": [h, w]}
+    else:
+        seg = [[15.0, 12.0, 65.0, 12.0, 40.0, 48.0]]
+    out = torch_coco.rasterize_instance_mask(seg, box, (h, w))
+    assert out.shape == (28, 28) and 0 < out.sum() < out.size
+    np.testing.assert_array_equal(out, jax_coco.rasterize_instance_mask(seg, box, (h, w)))
 
 
 @pytest.mark.parametrize("use_cv2", [True, False])
