@@ -114,7 +114,27 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                 Predictor calls' seconds an image and their share of the wall
                 time, the evaluator's seconds and the launches per batch; then one batch
                 of the train loader (COCOCapDetDataset), checked for shape and
-                dtype.  One line gives the seconds each phase from 7 on took.
+                dtype.
+14. train_net -- the port's training entry point, ``tools/train_net.main``, in
+                process at full width in bfloat16 with batches of 8 on the eval
+                phase's tree (its 8 train JPEGs; aspect-ratio grouping off, since
+                no orientation group of the 8 fills a batch): the teacher
+                (zeroshot_mask.yaml, 3 steps, a checkpoint every 2), every
+                kernel launch of its first step held against the plain version
+                and the launches of every step counted; a relaunch with
+                ``MODEL.LOAD_TRAINER_STATE`` that resumes at 3 and adds step 4
+                only; a relaunch that trains nothing and writes nothing; then
+                the student-teacher model from the teacher's OUTPUT_DIR
+                (``MODEL.WEIGHT``), 2 steps with the in-training evaluation and
+                the final test on coco_generalized_zeroshot_val: its teacher
+                bundle equal to the teacher checkpoint's, bit for bit, and every
+                metric finite; then ``tools/test_net.main --ckpt`` on the
+                student's checkpoint, whose metrics must equal the final test's.
+                Prints each run's sustained s/it and data-wait share beside the
+                ``Trainer.step`` latency of the train phases, the checkpoints'
+                bytes and save, stall and load seconds, the LVIS table's seconds
+                and each run's peak memory; deletes ``build/train_out``.
+One line gives the seconds each phase from 7 on took.
 
 Then the card's name and power limit, the per-kernel JSON line, and the last
 line ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when
@@ -124,6 +144,7 @@ no CUDA device is present or when run outside a checkout of the repository.
 import functools
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -168,6 +189,12 @@ TRAIN = dict(steps=3, batch=8, hw=(800, 1333), max_gt=100, nouns=32, noun_tokens
 # (8, mixed orientations) and 800 x 1216 (4, ragged)
 EVAL = dict(train=8, val=20, seed=2, opts=(), tree="build/synth_coco", out="build/eval_out",
             train_batch=2)
+# the train_net phase: the eval phase's tree, batches of 8, outputs under
+# build/train_out (deleted at the end of the phase; checkpoints are
+# hundreds of MB)
+TRAIN_NET = dict(out="build/train_out", dataset="coco_generalized_zeroshot_val",
+                 opts=("SOLVER.IMS_PER_BATCH", 8, "DATALOADER.ASPECT_RATIO_GROUPING", False,
+                       "SOLVER.LOG_PERIOD", 1))
 H100_BYTES_PER_S = 3.35e12
 H100_F32_OPS_PER_S = 67e12
 IOU_OPS = 16  # min/max, sub/add, mul, div and compare of one +1 IoU test
@@ -1347,6 +1374,210 @@ def phase_eval(dev, results):
               nouns_per_image=batch["cap_word_valid"].sum(1).tolist()))
 
 
+SUSTAINED = re.compile(r"sustained: (\d+) steps, ([\d.]+) s wall, ([\d.]+) s/it, ([\d.]+) imgs/s/host, "
+                       r"data-wait ([\d.]+)%")
+
+
+def train_net_run(argv, out_dir):
+    """One in-process ``train_net.main`` run: its record, the seconds it
+    took, its peak memory and what its log and metrics file say."""
+    from cvpr22_cross_modal_pseudo_labeling_torch.tools import train_net
+
+    log_path = os.path.join(out_dir, "log.txt.rank0")
+    offset = os.path.getsize(log_path) if os.path.exists(log_path) else 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    rec = train_net.main(argv + ["OUTPUT_DIR", out_dir])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    with open(log_path) as f:
+        f.seek(offset)
+        log = f.read()  # this run's lines
+    with open(os.path.join(out_dir, "tb", "metrics.jsonl")) as f:
+        logged = [json.loads(line) for line in f if line.strip()]
+    summary = dict(seconds=seconds, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   start_iter=rec["start_iter"], **rec["timing"])
+    sustained = SUSTAINED.findall(log)
+    if sustained:
+        steps, wall, s_it, imgs, wait = sustained[-1]
+        summary.update(steps=int(steps), wall_s=float(wall), s_per_it=float(s_it),
+                       images_per_s=float(imgs), data_wait_pct=float(wait))
+    return rec, summary, log, logged
+
+
+def saved(out_dir):
+    return {n: os.stat(os.path.join(out_dir, n)).st_mtime_ns
+            for n in sorted(os.listdir(out_dir)) if n.startswith("model_")}
+
+
+def checkpoint_costs(trainer, out_dir, iteration):
+    """Bytes of one save of ``trainer``, the seconds a pipelined save
+    stalls the loop (the copy to the host), the seconds its write takes,
+    and the seconds a load and restore take."""
+    from cvpr22_cross_modal_pseudo_labeling_torch.engine import checkpoint as ck
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    path = ck.save_checkpoint(out_dir, ck.checkpoint_state(trainer, iteration), iteration, block=False)
+    stall_s = time.perf_counter() - t
+    ck.flush_pending_checkpoint()
+    write_s = time.perf_counter() - t - stall_s
+    t = time.perf_counter()
+    ck.restore_trainer(trainer, ck.load_checkpoint(path), path)
+    torch.cuda.synchronize()
+    return dict(bytes=os.path.getsize(path), stall_s=stall_s, write_s=write_s,
+                load_s=time.perf_counter() - t)
+
+
+def same_metrics(a, b):
+    keys = [k for k in a if not k.startswith("time/") and k != "total_eval_seconds"]
+    return sorted(keys) == sorted(k for k in b if not k.startswith("time/") and k != "total_eval_seconds") and all(
+        a[k] == b[k] or (np.isnan(a[k]) and np.isnan(b[k])) for k in keys)
+
+
+def phase_train_net(dev, results):
+    """The port's train_net: the teacher (first step checked, a resume, a
+    finished relaunch), the student from the teacher's checkpoint with
+    the in-training eval and the final test, and test_net on the
+    student's checkpoint.  Runs on the eval phase's tree."""
+    import shutil
+
+    from cvpr22_cross_modal_pseudo_labeling_torch.data import make_data_loader
+    from cvpr22_cross_modal_pseudo_labeling_torch.engine import checkpoint as ck
+    from cvpr22_cross_modal_pseudo_labeling_torch.engine import inference as inf
+    from cvpr22_cross_modal_pseudo_labeling_torch.engine.train_step import Trainer
+    from cvpr22_cross_modal_pseudo_labeling_torch.models.detector.generalized_rcnn import TrainDraws
+    from cvpr22_cross_modal_pseudo_labeling_torch.ops import kernels
+    from cvpr22_cross_modal_pseudo_labeling_torch.tools import test_net
+
+    check(os.path.isdir(EVAL["tree"]), f"train_net: no tree at {EVAL['tree']} (the eval phase writes it)")
+    os.environ["CMPL_TPU_DATA_DIR"] = EVAL["tree"]
+    out = TRAIN_NET["out"]
+    t_dir, s_dir, e_dir = (os.path.join(out, d) for d in ("teacher", "st", "test_net"))
+    shutil.rmtree(out, ignore_errors=True)
+    common = ["--device", dev.type, "--seed", str(SEED), *map(str, TRAIN_NET["opts"])]
+    teacher_args = ["--config-file", TEACHER, "--skip-test", *common, "SOLVER.CHECKPOINT_PERIOD", "2",
+                    "SOLVER.TEST_PERIOD", "0"]
+    name = TRAIN_NET["dataset"]
+
+    # the first teacher step's launches against the plain versions, and
+    # every step's launches counted
+    checks, check_nms, check_roi, check_roi_bwd = launch_checks()
+    step, per_step = Trainer.train_step, []
+
+    def counted_step(self, b, draws=TrainDraws()):
+        first = not per_step
+        kernels.NMS.on_launch = check_nms if first else None
+        kernels.ROI_ALIGN.on_launch = check_roi if first else None
+        kernels.ROI_ALIGN_BACKWARD.on_launch = check_roi_bwd if first else None
+        before = {k.name: k.launches for k in kernels.ALL}
+        try:
+            return step(self, b, draws)
+        finally:
+            kernels.NMS.on_launch = kernels.ROI_ALIGN.on_launch = kernels.ROI_ALIGN_BACKWARD.on_launch = None
+            per_step.append({k.name: k.launches - before[k.name] for k in kernels.ALL})
+
+    kernels.reset_launches()
+    runs = {}
+    try:
+        Trainer.train_step = counted_step
+        try:
+            rec, runs["teacher"], log, logged = train_net_run(teacher_args + ["SOLVER.MAX_ITER", "3"], t_dir)
+        finally:
+            Trainer.train_step = step
+        check([r["step"] for r in logged] == [1, 2, 3] and all(np.isfinite(r["total_loss"]) for r in logged),
+              f"train_net teacher: logged {logged}")
+        check(list(saved(t_dir)) == ["model_0000002.pth", "model_0000003.pth"]
+              and ck.latest_checkpoint(t_dir).endswith("model_0000003.pth"),
+              f"train_net teacher: saves {list(saved(t_dir))}, tag {ck.latest_checkpoint(t_dir)}")
+        check(len(checks["nms"]) == 1 and all(m == 0 for m, _ in checks["nms"]),
+              f"train_net teacher: NMS launches differ from the plain version: {checks['nms']}")
+        for key in ("roi_align", "roi_align_backward"):
+            check(len(checks[key]) == 1 and all(excess <= 0 for _, excess, _, _ in checks[key]),
+                  f"train_net teacher: {key} launches over tolerance: {checks[key]}")
+        want = {k: v / TRAIN["steps"] for k, v in results["teacher_train"]["launches"].items()}
+        check(len(per_step) == 3 and all(p == want for p in per_step),
+              f"train_net teacher: launches per step {per_step}, teacher_train {want}")
+        teacher_trainer = rec["trainer"]
+        runs["teacher"]["checkpoint"] = checkpoint_costs(teacher_trainer, os.path.join(out, "costs_t"), 3)
+        del rec, teacher_trainer
+
+        # a resume adds the missing step only
+        resume_args = teacher_args + ["SOLVER.MAX_ITER", "4", "MODEL.LOAD_TRAINER_STATE", "True"]
+        rec, runs["resume"], log, logged = train_net_run(resume_args, t_dir)
+        check("resumed from " in log and f"{t_dir}/model_0000003.pth at iteration 3" in log
+              and rec["start_iter"] == 3 and [r["step"] for r in logged] == [1, 2, 3, 4],
+              f"train_net resume: start {rec['start_iter']}, logged {[r['step'] for r in logged]}")
+        before = saved(t_dir)
+        del rec
+        # a finished run relaunched trains nothing and writes nothing
+        rec, runs["finished"], log, logged = train_net_run(resume_args, t_dir)
+        check("training already complete" in log and rec["trainer"].optimizer.updates == 4
+              and [r["step"] for r in logged] == [1, 2, 3, 4] and saved(t_dir) == before,
+              f"train_net relaunch: updates {rec['trainer'].optimizer.updates}, saves {saved(t_dir)}")
+        del rec
+        torch.cuda.empty_cache()
+
+        # the student from the teacher's OUTPUT_DIR, with the in-training
+        # eval and the final test
+        st_args = ["--config-file", CONFIG, *common, "MODEL.WEIGHT", t_dir, "SOLVER.MAX_ITER", "2",
+                   "SOLVER.CHECKPOINT_PERIOD", "2", "SOLVER.TEST_PERIOD", "2", "DATASETS.TEST", f"('{name}',)"]
+        rec, runs["student"], log, logged = train_net_run(st_args, s_dir)
+        imported = re.search(r"imported (\d+) leaves from checkpoint \S+model_0000004.pth \((\d+) source", log)
+        copied = re.search(r"prepare_model: copied (\d+) teacher leaves", log)
+        check(imported and int(imported.group(2)) == 0 and copied and int(copied.group(1)) > 0,
+              "train_net student: the teacher's checkpoint was not imported whole, or no leaf was copied")
+        check([r["step"] for r in logged] == [1, 2] and all(np.isfinite(v) for r in logged for v in r.values()),
+              f"train_net student: logged {logged}")
+        teacher_ck = ck.load_checkpoint(os.path.join(t_dir, "model_0000004.pth"))["trainer"]["model"]
+        st_ck = ck.load_checkpoint(os.path.join(s_dir, "model_0000002.pth"))["trainer"]["model"]
+        bundle = [k for k in teacher_ck if k.startswith(("roi_extractor.", "box_predictor.", "mask_predictor."))]
+        check(bundle and all(torch.equal(st_ck["teacher." + k], teacher_ck[k]) for k in bundle),
+              "train_net student: its teacher bundle differs from the teacher checkpoint")
+        _, (val,) = make_data_loader(inf.load_cfg(CONFIG, ["DATASETS.TEST", f"('{name}',)"]), is_train=False)
+        for label, metrics in (("in-training eval", rec["evals"].get(2, {}).get(name)),
+                               ("run_test", rec["test"].get(name))):
+            check(metrics is not None, f"train_net student: no {label} metrics")
+            bad, _ = metrics_finite(metrics, val)
+            check(not bad, f"train_net student: {label} has non-finite metrics {bad[:5]}")
+        st_trainer, test_metrics = rec["trainer"], rec["test"][name]
+        eval_s = {k: v["time/e2e_images_per_s"] for k, v in (("in_training", rec["evals"][2][name]),
+                                                             ("run_test", test_metrics))}
+        del rec
+        runs["student"]["checkpoint"] = checkpoint_costs(st_trainer, os.path.join(out, "costs_s"), 2)
+        del st_trainer
+        torch.cuda.empty_cache()
+
+        # test_net on the student's checkpoint: the same weights, data and
+        # kernels as run_test
+        t = time.perf_counter()
+        got = test_net.main(["--config-file", CONFIG, "--device", dev.type, "--ckpt",
+                             os.path.join(s_dir, "model_0000002.pth"), *map(str, TRAIN_NET["opts"]),
+                             "DATASETS.TEST", f"('{name}',)", "OUTPUT_DIR", e_dir])
+        test_net_s = time.perf_counter() - t
+        check(same_metrics(got[name], test_metrics),
+              "train_net: test_net --ckpt metrics differ from run_test's: "
+              + str({k: (got[name][k], test_metrics.get(k)) for k in got[name]
+                     if not k.startswith("time/") and got[name][k] != test_metrics.get(k)}))
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    launches = {k.name: k.launches for k in kernels.ALL}
+    check(all(v > 0 for v in launches.values()), f"train_net: a kernel never launched: {launches}")
+    step_s = {"teacher_train": results["teacher_train"]["steady_step_s"], "train": results["train"]["steady_step_s"]}
+    rec = dict(phase="train_net", dtype="bfloat16", batch=8, runs=runs, launches=launches,
+               launches_per_teacher_step=per_step, trainer_step_alone_s=step_s,
+               eval_images_per_s=eval_s, test_net_s=test_net_s,
+               first_step_checks={
+                   "nms_mismatches": [m for m, _ in checks["nms"]],
+                   "nms_shapes": [n for _, n in checks["nms"]],
+                   **{f"{key}_{field}": [c[i] for c in checks[key]]
+                      for key in ("roi_align", "roi_align_backward")
+                      for i, field in enumerate(("max_abs_err", "excess_over_limit", "dtype", "rois"))}})
+    emit(rec)
+    results["train_net"] = rec
+
+
 def count_syncs(run):
     """The synchronizing CUDA calls one call of ``run`` makes (blocking
     copies, ``.item()``, ...), as ``torch.cuda.set_sync_debug_mode``
@@ -1371,7 +1602,7 @@ def kernels_line(results):
     nms_rpn, roi_main = results["nms_rpn"], results[("roi_align",) + ROI_MAIN]
     bwd_main = results[("roi_align_backward",) + ROI_BWD_MAIN]
     bwd_teacher = results["roi_align_backward_teacher_rois"]
-    ev = results["eval"]
+    ev, tn = results["eval"], results["train_net"]
 
     def shape_rec(rec):
         return {k: rec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
@@ -1386,6 +1617,7 @@ def kernels_line(results):
              teacher_train_launches=t_train["launches"]["nms"],
              eval_launches=ev["launches"]["nms"],
              eval_launches_per_batch=ev["launches_per_batch"]["nms"],
+             train_net_launches=tn["launches"]["nms"],
              launch_unit="one nms_forward call: a memset, then a mask and a scan "
                          "kernel per column band",
              max_abs_err=float(max(serving["first_batch_checks"]["nms_mismatches"]
@@ -1393,6 +1625,7 @@ def kernels_line(results):
                                    + t_serving["first_batch_checks"]["nms_mismatches"]
                                    + t_train["first_step_checks"]["nms_mismatches"]
                                    + ev["launch_checks"]["nms_mismatches"]
+                                   + tn["first_step_checks"]["nms_mismatches"]
                                    + [results[f"nms_{c[0]}"]["mismatches"] for c in NMS_CASES]
                                    + [results["nms_rpn_dense"]["one_band_mismatches"]])),
              ms=nms_rpn["ms"], plain_ms=nms_rpn["plain_ms"],
@@ -1408,11 +1641,13 @@ def kernels_line(results):
              teacher_train_launches=t_train["launches"]["roi_align"],
              eval_launches=ev["launches"]["roi_align"],
              eval_launches_per_batch=ev["launches_per_batch"]["roi_align"],
+             train_net_launches=tn["launches"]["roi_align"],
              max_abs_err=max(serving["first_batch_checks"]["roi_align_max_abs_err"]
                              + train["first_step_checks"]["roi_align_max_abs_err"]
                              + t_serving["first_batch_checks"]["roi_align_max_abs_err"]
                              + t_train["first_step_checks"]["roi_align_max_abs_err"]
                              + ev["launch_checks"]["roi_align_max_abs_err"]
+                             + tn["first_step_checks"]["roi_align_max_abs_err"]
                              + [results[("roi_align",) + c]["max_abs_err"] for c in ROI_CASES]),
              dtypes="bfloat16 features -> bfloat16 output",
              ms=roi_main["ms"], plain_ms=roi_main["plain_ms"],
@@ -1426,10 +1661,12 @@ def kernels_line(results):
                       "(its XLA-derived gradient; no Pallas kernel)",
              launches=t_train["launches"]["roi_align_backward"],
              launches_per_teacher_step=t_train["launches"]["roi_align_backward"] / TRAIN["steps"],
+             train_net_launches=tn["launches"]["roi_align_backward"],
              launch_unit="one roi_align_backward call: the plan kernel (each roi's tap "
                          "lists), then the tile kernel (each tile of dF summed in shared "
                          "memory, written once in bfloat16)",
              max_abs_err=max(t_train["first_step_checks"]["roi_align_backward_max_abs_err"]
+                             + tn["first_step_checks"]["roi_align_backward_max_abs_err"]
                              + [results[("roi_align_backward",) + c]["max_abs_err"]
                                 for c in ROI_BWD_CASES]
                              + [bwd_teacher["max_abs_err"]]),
@@ -1454,6 +1691,14 @@ def main():
     sys.path.insert(0, here)
     from cvpr22_cross_modal_pseudo_labeling_torch.ops import kernels
 
+    # the entry points' INFO logs go to their OUTPUT_DIR's log file; only
+    # warnings and errors reach this script's output
+    import logging
+
+    from cvpr22_cross_modal_pseudo_labeling_torch.utils.logger import setup_logger
+
+    for handler in setup_logger().handlers:
+        handler.setLevel(logging.WARNING)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
@@ -1493,6 +1738,8 @@ def main():
     timed("roi_align_backward_teacher_rois", phase_roi_align_backward_teacher_rois, dev, results)
     torch.cuda.empty_cache()
     timed("eval", phase_eval, dev, results)
+    torch.cuda.empty_cache()
+    timed("train_net", phase_train_net, dev, results)
     emit(dict(phase="timing", **seconds))
 
     smi = subprocess.run(

@@ -20,6 +20,13 @@ of the owning port module decide the layout change:
 
 Every flax leaf lands on exactly one port key and every port key is
 filled; an unmatched leaf, a missing key or a wrong shape raises.
+
+Each port key's layout (``conv``, ``conv_transpose``, ``dense``, ``bn``
+or ``plain``; :func:`port_layouts`) comes from the type of its module.
+A checkpoint stores the layouts beside its ``state_dict``, so that
+:func:`flax_tree_from_checkpoint` gives its flax-layout tree without
+building its model (the weight importers of ``engine/checkpoint.py`` run
+on flax-layout trees).
 """
 
 from typing import Any, Dict, Tuple
@@ -36,6 +43,8 @@ _BN_LEAVES = {
     "frozen_bn_mean": "running_mean",
     "frozen_bn_var": "running_var",
 }
+_FLAX_BN_LEAVES = {v: k for k, v in _BN_LEAVES.items()}
+_KERNEL_LAYOUTS = ("conv", "conv_transpose", "dense")
 
 
 def _flatten(tree, path=()) -> Dict[Tuple[str, ...], Any]:
@@ -65,7 +74,7 @@ def _port_key(modules: Dict[str, nn.Module], path: Tuple[str, ...]):
     if isinstance(owner, FrozenBatchNorm):
         if leaf not in _BN_LEAVES:
             raise KeyError(f"flax leaf {'/'.join(path)} is not a frozen-BN leaf")
-        return prefix + _BN_LEAVES[leaf], "plain"
+        return prefix + _BN_LEAVES[leaf], "bn"
     if leaf == "kernel":
         if isinstance(owner, nn.ConvTranspose2d):
             return prefix + "weight", "conv_transpose"
@@ -127,6 +136,34 @@ def load_flax_params(model: nn.Module, tree) -> None:
     model.load_state_dict(state_dict_from_flax(model, tree), strict=True)
 
 
+def _flax_path(modules: Dict[str, nn.Module], key: str):
+    """(flax leaf path, layout) of one port key."""
+    owner_name, _, leaf = key.rpartition(".")
+    owner = modules[owner_name]
+    if isinstance(owner, FrozenBatchNorm):
+        flax_leaf = _FLAX_BN_LEAVES[leaf]
+    elif leaf == "weight" and isinstance(owner, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+        flax_leaf = "kernel"
+    else:
+        flax_leaf = leaf
+    path = tuple(owner_name.split(".")) + (flax_leaf,) if owner_name else (flax_leaf,)
+    return path, _port_key(modules, path)[1]
+
+
+def port_layouts(model: nn.Module) -> Dict[str, str]:
+    """Each key of ``model.state_dict()`` and its layout: ``conv``,
+    ``conv_transpose``, ``dense``, ``bn`` or ``plain``."""
+    modules = dict(model.named_modules())
+    return {key: _flax_path(modules, key)[1] for key in model.state_dict()}
+
+
+def _set(tree: Dict[str, Any], path: Tuple[str, ...], value) -> None:
+    node = tree
+    for k in path[:-1]:
+        node = node.setdefault(k, {})
+    node[path[-1]] = value
+
+
 def flax_from_state_dict(model: nn.Module) -> Dict[str, Any]:
     """The inverse of :func:`state_dict_from_flax`: ``model``'s
     weights as a nested dict of float32 numpy arrays in the flax
@@ -134,21 +171,38 @@ def flax_from_state_dict(model: nn.Module) -> Dict[str, Any]:
     modules = dict(model.named_modules())
     tree: Dict[str, Any] = {}
     for key, value in model.state_dict().items():
-        owner_name, _, leaf = key.rpartition(".")
-        owner = modules[owner_name]
-        if isinstance(owner, FrozenBatchNorm):
-            flax_leaf = {v: k for k, v in _BN_LEAVES.items()}[leaf]
-        elif leaf == "weight" and isinstance(owner, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
-            flax_leaf = "kernel"
-        else:
-            flax_leaf = leaf
-        path = tuple(owner_name.split(".")) + (flax_leaf,) if owner_name else (flax_leaf,)
-        _, kind = _port_key(modules, path)
-        node = tree
-        for k in path[:-1]:
-            node = node.setdefault(k, {})
-        node[path[-1]] = np.ascontiguousarray(_to_flax(value.detach().cpu().numpy(), kind))
+        path, kind = _flax_path(modules, key)
+        _set(tree, path, np.ascontiguousarray(_to_flax(value.detach().cpu().numpy(), kind)))
     return tree
+
+
+def flax_tree_from_state_dict(state_dict: Dict[str, torch.Tensor], layouts: Dict[str, str]) -> Dict[str, Any]:
+    """The flax-layout tree of a port ``state_dict`` whose layouts are
+    known (see :func:`port_layouts`), without its model."""
+    if set(state_dict) != set(layouts):
+        raise KeyError("the state_dict and its layouts name different keys")
+    tree: Dict[str, Any] = {}
+    for key, value in state_dict.items():
+        kind = layouts[key]
+        owner_name, _, leaf = key.rpartition(".")
+        if kind == "bn":
+            leaf = _FLAX_BN_LEAVES[leaf]
+        elif kind in _KERNEL_LAYOUTS:
+            if leaf != "weight":
+                raise KeyError(f"{key}: a {kind} layout on a leaf other than weight")
+            leaf = "kernel"
+        elif kind != "plain":
+            raise KeyError(f"{key}: unknown layout {kind!r}")
+        path = tuple(owner_name.split(".")) + (leaf,) if owner_name else (leaf,)
+        _set(tree, path, np.ascontiguousarray(_to_flax(value.detach().cpu().numpy(), kind)))
+    return tree
+
+
+def flax_tree_from_checkpoint(ckpt: Dict[str, Any]) -> Dict[str, Any]:
+    """The flax-layout tree of the model in a port checkpoint
+    (``engine/checkpoint.py``: its ``trainer`` state's ``model`` and its
+    ``layouts``)."""
+    return flax_tree_from_state_dict(ckpt["trainer"]["model"], ckpt["layouts"])
 
 
 def seeded_flax_params(model: nn.Module, seed: int, emb_pred_std: float = 0.01):

@@ -139,11 +139,21 @@ class IterationBasedBatchSampler:
                 self.batch_sampler.sampler, "set_epoch"
             ):
                 self.batch_sampler.sampler.set_epoch(iteration)
+            start = iteration
             for batch in self.batch_sampler:
                 if iteration >= self.num_iterations:
                     return
                 yield batch
                 iteration += 1
+            if iteration == start:
+                # a grouped sampler that drops its partial batches yields
+                # nothing when no group holds a batch's worth of images:
+                # the next epoch would be as empty, for ever
+                raise ValueError(
+                    "the batch sampler yielded no batch in a whole epoch (no aspect-ratio or "
+                    "bucket group holds SOLVER.IMS_PER_BATCH images?); set "
+                    "DATALOADER.ASPECT_RATIO_GROUPING False or use more images"
+                )
 
     def __len__(self):
         return self.num_iterations - self.start_iter

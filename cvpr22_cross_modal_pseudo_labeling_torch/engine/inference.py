@@ -68,6 +68,17 @@ class Predictor:
         self.device = device
         self.model = build_detection_model(self.cfg).eval().to(device)
 
+    @classmethod
+    def from_model(cls, cfg, model) -> "Predictor":
+        """A ``Predictor`` that serves ``model`` (built from ``cfg``) on
+        the model's device, in eval mode; the weights are shared, not
+        copied (the in-training evaluation serves the trainer's model)."""
+        self = cls.__new__(cls)
+        self.cfg = cfg
+        self.model = model.eval()
+        self.device = next(model.parameters()).device
+        return self
+
     def load_flax_params(self, params) -> None:
         load_flax_params(self.model, params)
 

@@ -16,7 +16,9 @@ optimizer.py`` (``label_params`` :35, ``_freeze_after`` :59,
   ``requires_grad=False`` and no group;
 * optional global-norm clipping over the trainable gradients
   (``SOLVER.CLIP_GRAD_NORM_AT``) and gradient accumulation that averages
-  ``SOLVER.GRADIENT_ACCUMULATION_STEPS`` micro-steps before one update.
+  ``SOLVER.GRADIENT_ACCUMULATION_STEPS`` micro-steps before one update;
+* ``state_dict`` / ``load_state_dict`` carry what a resume needs besides
+  the weights: without ``updates`` a resumed run would restart warmup.
 
 Parameters are labelled by their ``/``-joined names, which are the flax
 paths (``bridge.py``), with the JAX function's substring rules.
@@ -92,14 +94,16 @@ class Optimizer:
                 s.UNCERTAINTY_LR_FACTOR * float(s.BIAS_LR_FACTOR), float(s.WEIGHT_DECAY_BIAS)
             ),
         }
-        groups = []
+        groups, self.names = [], []
         for label, (lr_factor, wd) in factors.items():
-            params = [p for n, p in named if self.labels[n] == label]
-            if params:
-                groups.append(dict(params=params, label=label, lr_factor=lr_factor,
-                                   weight_decay=wd, lr=0.0))
+            members = [(n, p) for n, p in named if self.labels[n] == label]
+            if members:
+                groups.append(dict(params=[p for _, p in members], label=label,
+                                   lr_factor=lr_factor, weight_decay=wd, lr=0.0))
+                self.names += [n for n, _ in members]
         for n, p in named:
             p.requires_grad_(self.labels[n] != "frozen")
+        # the trainable parameters, in group order, and their names
         self.params: List[nn.Parameter] = [p for g in groups for p in g["params"]]
         self.sgd = torch.optim.SGD(groups, lr=0.0, momentum=s.MOMENTUM)
         self.schedule = warmup_multistep_schedule(
@@ -154,6 +158,38 @@ class Optimizer:
         self.sgd.step()
         self.updates += 1
         return grad_norm
+
+    def state_dict(self) -> Dict:
+        """What a resume needs besides the weights, by parameter name:
+        the momentum buffers, ``updates`` (the schedule's count and the
+        uncertainty freeze's) and the accumulation's micro-step and
+        running mean.  Tensors, ints and dicts only."""
+        momentum = {}
+        for n, p in zip(self.names, self.params):
+            buf = self.sgd.state.get(p, {}).get("momentum_buffer")
+            if buf is not None:
+                momentum[n] = buf
+        acc = {} if self._acc is None else dict(zip(self.names, self._acc))
+        return {"momentum": momentum, "updates": self.updates, "micro": self._micro, "acc": acc}
+
+    def load_state_dict(self, state: Dict) -> None:
+        """Restores :meth:`state_dict`'s output onto the same
+        parameters; raises if the names differ."""
+        names = set(self.names)
+        for key in ("momentum", "acc"):
+            extra = sorted(set(state[key]) - names)
+            if extra:
+                raise KeyError(f"optimizer state {key} names parameters this model does not train: {extra[:5]}")
+        self.sgd.state.clear()
+        for n, p in zip(self.names, self.params):
+            if n in state["momentum"]:
+                self.sgd.state[p] = {"momentum_buffer": state["momentum"][n].to(p.device, p.dtype).clone()}
+        self.updates = int(state["updates"])
+        self._micro = int(state["micro"])
+        acc = state["acc"]
+        if acc and set(acc) != names:
+            raise KeyError("optimizer state: the accumulated gradients do not cover the trainable parameters")
+        self._acc = [acc[n].to(p.device, p.dtype).clone() for n, p in zip(self.names, self.params)] if acc else None
 
 
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:

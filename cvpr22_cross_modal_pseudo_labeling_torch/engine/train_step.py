@@ -11,17 +11,23 @@ parameters' gradients (the JAX step's norm also counts gradients of
 parameters that never update: frozen-BN leaves, frozen stages,
 ``emb_pred`` under ``FREEZE_EMB_PRED``).
 
-:func:`device_batch` takes the numpy batch of ``data/collate.py`` (plus
-the class tables) to device tensors; the port's data loader comes with a
-later slice.
+:func:`host_batch` turns the numpy batch of ``data/collate.py`` (plus
+the class tables) into CPU tensors of the step's dtypes and
+:func:`device_batch` puts them on the device; a ``Trainer`` may hold the
+class tables on the device already (:meth:`Trainer.set_class_tables`),
+and its :meth:`Trainer.train_step` takes a batch already on the device,
+so that ``engine/trainer.py``'s prefetcher can upload the next batch
+while a step runs.  :meth:`Trainer.state_dict` holds what a resume
+restores: the model, the optimizer and the generator.
 """
 
-from typing import Dict, Mapping, Sequence
+from typing import Dict, Mapping, Sequence, Union
 
 import numpy as np
 import torch
 
 from ..bridge import load_flax_params
+from ..config.cfg_node import CfgNode
 from ..models.detector import RCNN_FAMILY, build_detection_model
 from ..models.detector.generalized_rcnn import RCNNTrainOutput, TrainDraws
 from .inference import load_cfg
@@ -50,21 +56,31 @@ ST_BATCH_DTYPES = {
 }
 
 
-def device_batch(
-    batch: Mapping[str, np.ndarray], device, meta_arch: str = "STGeneralizedRCNN"
+def host_batch(
+    batch: Mapping[str, np.ndarray], meta_arch: str = "STGeneralizedRCNN", provided: Sequence[str] = ()
 ) -> Dict[str, torch.Tensor]:
-    """The keys ``meta_arch``'s training forward reads, as tensors on
-    ``device``; other collated keys (the caption token batch, image ids,
-    the other family's keys) are left out."""
+    """The keys ``meta_arch``'s training forward reads, as CPU tensors of
+    the step's dtypes; other collated keys (the caption token batch,
+    image ids, the other family's keys) and the keys in ``provided``
+    (tables already on the device) are left out."""
     dtypes = RCNN_BATCH_DTYPES if meta_arch in RCNN_FAMILY else ST_BATCH_DTYPES
-    missing = sorted(set(dtypes) - set(batch))
+    missing = sorted(set(dtypes) - set(batch) - set(provided))
     if missing:
         raise KeyError(f"the training batch lacks {missing}")
     out = {}
     for key, dtype in dtypes.items():
+        if key in provided:
+            continue
         t = torch.as_tensor(np.asarray(batch[key]))
-        out[key] = t.to(device=device, dtype=dtype or t.dtype, non_blocking=True)
+        out[key] = t.to(dtype=dtype or t.dtype)
     return out
+
+
+def device_batch(
+    batch: Mapping[str, np.ndarray], device, meta_arch: str = "STGeneralizedRCNN"
+) -> Dict[str, torch.Tensor]:
+    """:func:`host_batch` on ``device``."""
+    return {k: t.to(device, non_blocking=True) for k, t in host_batch(batch, meta_arch).items()}
 
 
 def training_forward(
@@ -86,20 +102,26 @@ def training_forward(
 class Trainer:
     """Builds the model and optimizer a config names and takes SGD steps.
 
-    ``device`` defaults to ``"cuda"`` and raises when no card is
+    ``config`` is a config file (``opts`` are merged into it) or a loaded
+    config.  ``device`` defaults to ``"cuda"`` and raises when no card is
     present; pass ``device="cpu"`` to run the plain versions of the
     kernels on the CPU.  ``seed`` seeds the generator of the step's
-    random draws.  Load weights with :meth:`load_flax_params` before the
-    first step.
+    random draws.  Load weights with :meth:`load_flax_params` (or
+    :meth:`load_state_dict`) before the first step.
     """
 
-    def __init__(self, config_file: str, opts: Sequence = (), device: str = "cuda", seed: int = 0):
+    def __init__(self, config: Union[str, CfgNode], opts: Sequence = (), device: str = "cuda", seed: int = 0):
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "Trainer: no CUDA device is available; pass device='cpu' to run on the CPU"
             )
-        self.cfg = load_cfg(config_file, opts)
+        if isinstance(config, str):
+            self.cfg = load_cfg(config, opts)
+        elif opts:
+            raise ValueError("Trainer: opts go with a config file; merge them into a loaded config")
+        else:
+            self.cfg = config
         self.meta_arch = self.cfg.MODEL.META_ARCHITECTURE
         if self.cfg.MODEL.LANGUAGE_BACKBONE.FT_EMB and self.meta_arch not in RCNN_FAMILY:
             raise NotImplementedError(
@@ -112,15 +134,36 @@ class Trainer:
         )
         self.generator = torch.Generator(device=device)
         self.generator.manual_seed(seed)
+        self.class_tables: Dict[str, torch.Tensor] = {}
 
     def load_flax_params(self, params) -> None:
         load_flax_params(self.model, params)
 
+    def set_class_tables(self, **tables: np.ndarray) -> None:
+        """Keeps batch-invariant tables (``class_embeddings``,
+        ``lvis_class_embeddings``) on the device; :meth:`device_batch`
+        adds them to every batch."""
+        self.class_tables = {
+            k: torch.as_tensor(np.asarray(v, np.float32)).to(self.device) for k, v in tables.items()
+        }
+
+    def host_batch(self, batch: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        """:func:`host_batch` without the tables this trainer holds."""
+        return host_batch(batch, self.meta_arch, tuple(self.class_tables))
+
+    def device_batch(self, batch: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        """A numpy batch on the device, with this trainer's tables."""
+        b = {k: t.to(self.device, non_blocking=True) for k, t in self.host_batch(batch).items()}
+        return {**b, **self.class_tables}
+
     def step(self, batch: Mapping[str, np.ndarray], draws: TrainDraws = TrainDraws()) -> Dict[str, torch.Tensor]:
-        """One training step on a numpy batch (see :func:`device_batch`).
+        """One training step on a numpy batch (see :func:`host_batch`).
         ``draws`` replaces the generator's draws of this step.  Returns
         the metrics as 0-d tensors on the device."""
-        b = device_batch(batch, self.device, self.meta_arch)
+        return self.train_step(self.device_batch(batch), draws)
+
+    def train_step(self, b: Dict[str, torch.Tensor], draws: TrainDraws = TrainDraws()) -> Dict[str, torch.Tensor]:
+        """One training step on a batch already on the device."""
         out = training_forward(self.model, self.meta_arch, b, draws, self.generator)
         total = sum(out.losses.values())
         self.optimizer.zero_grad()
@@ -130,3 +173,19 @@ class Trainer:
         metrics["total_loss"] = total.detach()
         metrics["grad_norm"] = grad_norm
         return metrics
+
+    def state_dict(self) -> Dict:
+        """The model's weights and buffers, the optimizer's state and the
+        generator's state (tensors, ints and dicts)."""
+        return {
+            "model": self.model.state_dict(),
+            "optimizer": self.optimizer.state_dict(),
+            "generator": self.generator.get_state(),
+        }
+
+    def load_state_dict(self, state: Mapping) -> None:
+        """Restores :meth:`state_dict`'s output (strict: every key of the
+        model must be there, and no other)."""
+        self.model.load_state_dict(state["model"], strict=True)
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.generator.set_state(state["generator"])

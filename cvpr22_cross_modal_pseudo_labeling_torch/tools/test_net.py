@@ -10,20 +10,20 @@ raises without a card) and the port's COCO evaluator, and writes
 ``predictions_{name}.json`` and ``metrics_{name}.json`` into
 ``OUTPUT_DIR``.  The datasets are found under ``CMPL_TPU_DATA_DIR``.
 
-The weights are drawn from ``--seed`` (``bridge.seeded_flax_params``):
-checkpoints are not ported yet, so ``--ckpt``, an ``OUTPUT_DIR/
-last_checkpoint`` or a ``MODEL.WEIGHT`` raises (ROADMAP.md queue A item
-3) rather than being ignored.
+The weights, as in ``tools/test_net.py``: a port checkpoint (``--ckpt``,
+or the save ``OUTPUT_DIR/last_checkpoint`` names) gives the model's
+weights and buffers; otherwise ``MODEL.WEIGHT``, resolved only then, is
+imported into weights drawn from ``--seed`` (``bridge.seeded_flax_params``;
+``engine/checkpoint.py::import_external_weights``); otherwise the drawn
+weights serve.  An orbax checkpoint of the JAX package raises
+(ROADMAP.md queue A item 9).
 """
 
 import argparse
 import json
-import logging
 import os
 import sys
 from typing import Dict, Optional, Sequence
-
-CHECKPOINTS_NOT_PORTED = "checkpoints are not ported yet (ROADMAP.md queue A item 3)"
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Dict[str, float]]:
@@ -33,38 +33,44 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Dict[str, float]]:
     p.add_argument("--config-file", default="", metavar="FILE")
     p.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
     p.add_argument("--seed", type=int, default=0, help="seed of the random weights")
-    p.add_argument("--ckpt", default=None, help="not ported yet: raises")
+    p.add_argument("--ckpt", default=None,
+                   help="checkpoint to evaluate (default: OUTPUT_DIR/last_checkpoint)")
     p.add_argument("opts", nargs=argparse.REMAINDER, default=None)
     args = p.parse_args(argv)
 
     from .. import bridge
     from ..data import make_data_loader
+    from ..engine.checkpoint import import_external_weights, latest_checkpoint, load_checkpoint
     from ..engine.inference import Predictor, check_eval_options, inference, load_cfg
+    from ..utils.logger import get_logger, setup_logger
+    from ..utils.model_zoo import resolve_weight_path
 
-    if not logging.getLogger().handlers:
-        logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s: %(message)s")
-    logger = logging.getLogger("cmpl_torch.test_net")
+    setup_logger()
+    logger = get_logger("test_net")
     opts = args.opts or []
     cfg = load_cfg(args.config_file, opts)
     if not cfg.DATASETS.TEST:
         # the reference loops over an empty cfg.DATASETS.TEST (test_net.py:95-113)
         logger.info("DATASETS.TEST is empty; nothing to evaluate")
         return {}
-    if args.ckpt:
-        raise NotImplementedError(f"--ckpt {args.ckpt}: {CHECKPOINTS_NOT_PORTED}")
-    last = os.path.join(cfg.OUTPUT_DIR, "last_checkpoint")
-    if os.path.exists(last):
-        raise NotImplementedError(f"{last} exists: {CHECKPOINTS_NOT_PORTED}")
-    if cfg.MODEL.WEIGHT:
-        raise NotImplementedError(f"MODEL.WEIGHT {cfg.MODEL.WEIGHT}: {CHECKPOINTS_NOT_PORTED}")
+    setup_logger(save_dir=cfg.OUTPUT_DIR)
     check_eval_options(cfg)
+    ckpt = args.ckpt or latest_checkpoint(cfg.OUTPUT_DIR)
+    blob = load_checkpoint(ckpt) if ckpt else None
+    if blob is not None and blob["meta_arch"] != cfg.MODEL.META_ARCHITECTURE:
+        raise RuntimeError(f"{ckpt} holds a {blob['meta_arch']} model, not {cfg.MODEL.META_ARCHITECTURE}")
 
     predictor = Predictor(args.config_file, opts, device=args.device)
-    predictor.load_flax_params(bridge.seeded_flax_params(predictor.model, args.seed))
-    logger.info("random weights from seed %d on %s", args.seed, predictor.device)
+    if blob is not None:
+        predictor.model.load_state_dict(blob["trainer"]["model"], strict=True)
+        logger.info("loaded checkpoint %s (iteration %d) on %s", ckpt, blob["iteration"], predictor.device)
+    else:
+        tree = bridge.seeded_flax_params(predictor.model, args.seed)
+        tree, msg = import_external_weights(tree, resolve_weight_path(cfg.MODEL.WEIGHT), cfg)
+        predictor.load_flax_params(tree)
+        logger.info("%s", msg or f"random weights from seed {args.seed} on {predictor.device}")
     loaders, datasets = make_data_loader(cfg, is_train=False)
     iou_types = ("bbox",) + (("segm",) if cfg.MODEL.MASK_ON else ())
-    os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
     out = {}
     for name, loader, dataset in zip(cfg.DATASETS.TEST, loaders, datasets):
         metrics = inference(

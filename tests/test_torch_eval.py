@@ -325,18 +325,24 @@ def test_test_net_on_cpu_writes_predictions_and_metrics(catalogs, tmp_path):
 
 @pytest.mark.parametrize("how", ["ckpt", "last_checkpoint", "weight"])
 def test_test_net_refuses_checkpoints(catalogs, tmp_path, how):
-    extra = []
+    """An orbax checkpoint of the JAX package, however it is named, raises
+    rather than being ignored: the port reads only its own checkpoints
+    (loaded by ``tests/test_torch_train_net.py``)."""
+    orbax = tmp_path / "jax_out" / "model_0000001"
+    orbax.mkdir(parents=True)
+    (orbax / "_CHECKPOINT_METADATA").write_text("{}")
+    extra, out = [], tmp_path / "eval"
     if how == "ckpt":
-        extra = ["--ckpt", str(tmp_path / "model")]
+        extra = ["--ckpt", str(orbax)]
     elif how == "last_checkpoint":
-        (tmp_path / "last_checkpoint").write_text("model_0001")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md queue A item 3"):
-        if how == "weight":
-            test_net.main(["--config-file", CONFIG, "--device", "cpu", "MODEL.WEIGHT", "x.pth",
-                           "OUTPUT_DIR", str(tmp_path)])
-        else:
-            test_net.main(["--config-file", CONFIG, "--device", "cpu", *extra,
-                           "OUTPUT_DIR", str(tmp_path)])
+        (tmp_path / "jax_out" / "last_checkpoint").write_text(str(orbax))
+        out = tmp_path / "jax_out"
+    else:
+        extra = ["MODEL.WEIGHT", str(tmp_path / "jax_out")]
+        (tmp_path / "jax_out" / "last_checkpoint").write_text(str(orbax))
+    with pytest.raises(NotImplementedError, match=r"ROADMAP.md queue A item 9"):
+        test_net.main(["--config-file", CONFIG, "--device", "cpu", *extra, *map(str, TINY_EVAL_OPTS),
+                       "OUTPUT_DIR", str(out)])
 
 
 def test_test_net_needs_a_card_unless_cpu_is_asked_for(catalogs, tmp_path):
