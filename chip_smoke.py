@@ -1461,8 +1461,8 @@ def phase_train_net(dev, results):
                     "SOLVER.TEST_PERIOD", "0"]
     name = TRAIN_NET["dataset"]
 
-    # the first teacher step's launches against the plain versions, and
-    # every step's launches counted
+    # the first teacher step's launches against the plain versions; every
+    # step's launches and batch shape recorded
     checks, check_nms, check_roi, check_roi_bwd = launch_checks()
     step, per_step = Trainer.train_step, []
 
@@ -1476,16 +1476,14 @@ def phase_train_net(dev, results):
             return step(self, b, draws)
         finally:
             kernels.NMS.on_launch = kernels.ROI_ALIGN.on_launch = kernels.ROI_ALIGN_BACKWARD.on_launch = None
-            per_step.append({k.name: k.launches - before[k.name] for k in kernels.ALL})
+            per_step.append({"images": list(b["images"].shape),
+                             **{k.name: k.launches - before[k.name] for k in kernels.ALL}})
 
     kernels.reset_launches()
     runs = {}
+    Trainer.train_step = counted_step
     try:
-        Trainer.train_step = counted_step
-        try:
-            rec, runs["teacher"], log, logged = train_net_run(teacher_args + ["SOLVER.MAX_ITER", "3"], t_dir)
-        finally:
-            Trainer.train_step = step
+        rec, runs["teacher"], log, logged = train_net_run(teacher_args + ["SOLVER.MAX_ITER", "3"], t_dir)
         check([r["step"] for r in logged] == [1, 2, 3] and all(np.isfinite(r["total_loss"]) for r in logged),
               f"train_net teacher: logged {logged}")
         check(list(saved(t_dir)) == ["model_0000002.pth", "model_0000003.pth"]
@@ -1497,8 +1495,9 @@ def phase_train_net(dev, results):
             check(len(checks[key]) == 1 and all(excess <= 0 for _, excess, _, _ in checks[key]),
                   f"train_net teacher: {key} launches over tolerance: {checks[key]}")
         want = {k: v / TRAIN["steps"] for k, v in results["teacher_train"]["launches"].items()}
-        check(len(per_step) == 3 and all(p == want for p in per_step),
-              f"train_net teacher: launches per step {per_step}, teacher_train {want}")
+        launched = [{k: p[k] for k in want} for p in per_step]
+        check(len(per_step) == 3 and all(p == want for p in launched),
+              f"train_net teacher: launches per step {launched}, teacher_train {want}")
         teacher_trainer = rec["trainer"]
         runs["teacher"]["checkpoint"] = checkpoint_costs(teacher_trainer, os.path.join(out, "costs_t"), 3)
         del rec, teacher_trainer
@@ -1507,8 +1506,10 @@ def phase_train_net(dev, results):
         resume_args = teacher_args + ["SOLVER.MAX_ITER", "4", "MODEL.LOAD_TRAINER_STATE", "True"]
         rec, runs["resume"], log, logged = train_net_run(resume_args, t_dir)
         check("resumed from " in log and f"{t_dir}/model_0000003.pth at iteration 3" in log
-              and rec["start_iter"] == 3 and [r["step"] for r in logged] == [1, 2, 3, 4],
-              f"train_net resume: start {rec['start_iter']}, logged {[r['step'] for r in logged]}")
+              and rec["start_iter"] == 3 and [r["step"] for r in logged] == [1, 2, 3, 4]
+              and len(per_step) == 4 and {k: per_step[3][k] for k in want} == want,
+              f"train_net resume: start {rec['start_iter']}, logged {[r['step'] for r in logged]}, "
+              f"steps {per_step[3:]}")
         before = saved(t_dir)
         del rec
         # a finished run relaunched trains nothing and writes nothing
@@ -1561,12 +1562,13 @@ def phase_train_net(dev, results):
               + str({k: (got[name][k], test_metrics.get(k)) for k in got[name]
                      if not k.startswith("time/") and got[name][k] != test_metrics.get(k)}))
     finally:
+        Trainer.train_step = step
         shutil.rmtree(out, ignore_errors=True)
     launches = {k.name: k.launches for k in kernels.ALL}
     check(all(v > 0 for v in launches.values()), f"train_net: a kernel never launched: {launches}")
     step_s = {"teacher_train": results["teacher_train"]["steady_step_s"], "train": results["train"]["steady_step_s"]}
     rec = dict(phase="train_net", dtype="bfloat16", batch=8, runs=runs, launches=launches,
-               launches_per_teacher_step=per_step, trainer_step_alone_s=step_s,
+               steps=per_step, trainer_step_alone_s=step_s,
                eval_images_per_s=eval_s, test_net_s=test_net_s,
                first_step_checks={
                    "nms_mismatches": [m for m, _ in checks["nms"]],

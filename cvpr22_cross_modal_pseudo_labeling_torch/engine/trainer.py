@@ -1,4 +1,4 @@
-"""Training driver.
+"""The training loop.
 
 Counterpart of ``cvpr22_cross_modal_pseudo_labeling_tpu/engine/
 trainer.py`` (reference engine/trainer.py:54-267, ``do_train``): the

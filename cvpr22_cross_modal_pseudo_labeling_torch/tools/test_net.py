@@ -40,7 +40,12 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Dict[str, float]]:
 
     from .. import bridge
     from ..data import make_data_loader
-    from ..engine.checkpoint import import_external_weights, latest_checkpoint, load_checkpoint
+    from ..engine.checkpoint import (
+        import_external_weights,
+        is_port_checkpoint,
+        latest_checkpoint,
+        load_checkpoint,
+    )
     from ..engine.inference import Predictor, check_eval_options, inference, load_cfg
     from ..utils.logger import get_logger, setup_logger
     from ..utils.model_zoo import resolve_weight_path
@@ -57,6 +62,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Dict[str, float]]:
     check_eval_options(cfg)
     ckpt = args.ckpt or latest_checkpoint(cfg.OUTPUT_DIR)
     blob = load_checkpoint(ckpt) if ckpt else None
+    if blob is not None and not is_port_checkpoint(blob):
+        raise ValueError(f"{ckpt} is no checkpoint of the port; import other weights through MODEL.WEIGHT")
     if blob is not None and blob["meta_arch"] != cfg.MODEL.META_ARCHITECTURE:
         raise RuntimeError(f"{ckpt} holds a {blob['meta_arch']} model, not {cfg.MODEL.META_ARCHITECTURE}")
 

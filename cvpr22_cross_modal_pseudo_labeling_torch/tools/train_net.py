@@ -93,9 +93,10 @@ def _summary(metrics):
 
 
 def train(cfg, logger, device: str = "cuda", seed: int = 0) -> Dict:
-    """Builds, restores or imports, and trains.  Returns ``{"trainer",
-    "start_iter", "evals"`` (iteration -> dataset -> metrics of the
-    in-training evaluation) ``, "timing"}``."""
+    """Builds, restores or imports, and trains.  Returns a dict: the
+    ``trainer``, the ``start_iter``, the in-training ``evals``
+    (iteration -> dataset -> metrics) and the set-up's ``timing`` in
+    seconds (``weights_s``, ``restore_s``, ``lvis_table_s``)."""
     from .. import bridge
     from ..data import make_data_loader
     from ..data.collate import build_tokenizer

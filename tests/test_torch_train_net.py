@@ -14,7 +14,8 @@
 - ``compute_class_name_embeddings`` equals JAX's on the same BERT table
   and tokenizer (the LVIS names, 1203 rows), within 1e-6;
 - the entry point needs a card unless the CPU is asked for, and refuses
-  the options it does not run.
+  the options it does not run; a train sampler that can never fill a
+  batch raises instead of hanging.
 """
 
 import json
@@ -37,6 +38,11 @@ from cvpr22_cross_modal_pseudo_labeling_tpu.models.detector import st_generalize
 from cvpr22_cross_modal_pseudo_labeling_torch import bridge
 from cvpr22_cross_modal_pseudo_labeling_torch.data.collate import build_tokenizer
 from cvpr22_cross_modal_pseudo_labeling_torch.data.parser import load_lvis_categories, normalize_class_names
+from cvpr22_cross_modal_pseudo_labeling_torch.data.samplers import (
+    DistributedSampler,
+    GroupedBatchSampler,
+    IterationBasedBatchSampler,
+)
 from cvpr22_cross_modal_pseudo_labeling_torch.engine import checkpoint as torch_ckpt
 from cvpr22_cross_modal_pseudo_labeling_torch.engine import trainer as torch_trainer
 from cvpr22_cross_modal_pseudo_labeling_torch.engine.train_step import Trainer
@@ -218,3 +224,16 @@ def test_train_net_needs_a_card_unless_cpu_is_asked_for(tmp_path):
 def test_unported_training_options_raise(tmp_path, opts, match):
     with pytest.raises(NotImplementedError, match=match):
         run(STUDENT, tmp_path, "SOLVER.MAX_ITER", 1, *opts)
+
+
+def test_a_sampler_that_never_fills_a_batch_raises():
+    """8 images in groups of 6, 1 and 1, batches of 8 with the partial
+    batches dropped: no epoch yields a batch, and the iteration-based
+    sampler raises instead of looping for ever."""
+    sampler = DistributedSampler(8, shuffle=True)
+    grouped = GroupedBatchSampler(sampler, [0, 0, 0, 3, 0, 0, 0, 4], 8, drop_last=True)
+    with pytest.raises(ValueError, match="no batch in a whole epoch"):
+        next(iter(IterationBasedBatchSampler(grouped, 4)))
+    # with groups that fill a batch it yields as before
+    grouped = GroupedBatchSampler(sampler, [0] * 6 + [3, 4], 2, drop_last=True)
+    assert len(list(IterationBasedBatchSampler(grouped, 5))) == 5
