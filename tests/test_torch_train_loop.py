@@ -98,7 +98,11 @@ def test_do_train_matches_jax_over_three_replayed_steps(tmp_path):
     s = cfg.SOLVER
     schedule = jax_lr.warmup_multistep_schedule(s.BASE_LR, s.STEPS, s.GAMMA, s.WARMUP_FACTOR,
                                                 s.WARMUP_ITERS, s.WARMUP_METHOD)
-    jstep = jax.jit(jax_train.build_train_step(model, tx, "STGeneralizedRCNN"))
+    # jitted as JAX's train_net jits it: fixed shardings on a one-device
+    # mesh, so the steps after the first reuse its program
+    mesh = make_mesh(("data",), (1,), devices=jax.devices()[:1])
+    jstep = jax_train.jit_train_step(
+        jax_train.build_train_step(model, tx, "STGeneralizedRCNN"), mesh, tiny_batch())
     draws, jax_lrs, jax_evals = [], [], []
 
     def jax_step(state, batch):
@@ -110,7 +114,6 @@ def test_do_train_matches_jax_over_three_replayed_steps(tmp_path):
         draws.append(rec.draws())
         return state, metrics
 
-    mesh = make_mesh(("data",), (1,), devices=jax.devices()[:1])
     jax_trainer.do_train(
         jax_step, jax_train.create_train_state(params, tx, jax.random.PRNGKey(0)), batches, mesh, cfg,
         eval_fn=lambda state, it: jax_evals.append(it), output_dir=cfg.OUTPUT_DIR,
