@@ -92,7 +92,29 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                 layer1 and emb_pred do not.  Step latency, images/s, steady
                 peak memory, host syncs of a step and one profiled step.  Then
                 the backward on that step's rois (phase 9).
-13. eval     -- the port's evaluation entry point, ``tools/test_net.main``, on
+13. small_mmss_train -- a narrow float32 MMSS-GCNN Trainer (configs/coco_cap_det/
+                mmss.yaml's optimizer; R-50-C5 at stem 8, res2 16; a 2-layer
+                BERT of width 64; a 2-layer transformer head) on 3 x 128 x 128
+                images with 12-token captions: one CUDA step against one CPU
+                step on the same weights, batch and draws (losses, gradient
+                norm, every trainable parameter's update; the frozen BERT bit
+                for bit).
+14. mmss_train -- a Trainer on mmss.yaml at full width in bfloat16 (R-50-C5
+                with the stem training, the frozen 12-layer BERT-Base over
+                30522 tokens, the tied v2l projection, the grounding head and
+                the 6-layer transformer head with MLM and the B^2 matching
+                loss; SPATIAL_DROPOUT 100), seeded weights, 3 SGD steps on
+                batches of 8 at 800 x 1333 with captions padded to 128
+                tokens (SOLVER.IMS_PER_BATCH 8, the per-device share of the
+                config's 64; MODEL.WEIGHT "": no ImageNet weights ship).
+                Losses and the gradient norm finite; the trunk, v2l and the
+                transformer head change, the BERT and every buffer do not; no
+                NMS or RoIAlign launch.  Step latency, images/s, steady peak
+                memory, host syncs of a step, one profiled step grouped as
+                conv, matmul, softmax, layer norm, elementwise ..., and the
+                device time of the step's attention blocks (fwd + bwd), each
+                profiled alone at its shapes.
+15. eval     -- the port's evaluation entry point, ``tools/test_net.main``, on
                 student_teacher_mask_rcnn_uncertainty.yaml at full width in
                 bfloat16 (seeded weights) over the config's three test datasets
                 of a synthetic COCO zero-shot tree written under
@@ -115,17 +137,25 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                 time, the evaluator's seconds and the launches per batch; then one batch
                 of the train loader (COCOCapDetDataset), checked for shape and
                 dtype.
-14. train_net -- the port's training entry point, ``tools/train_net.main``, in
+16. train_net -- the port's training entry point, ``tools/train_net.main``, in
                 process at full width in bfloat16 with batches of 8 on the eval
                 phase's tree (its 8 train JPEGs; aspect-ratio grouping off, since
-                no orientation group of the 8 fills a batch): the teacher
-                (zeroshot_mask.yaml, 3 steps, a checkpoint every 2), every
+                no orientation group of the 8 fills a batch), through the
+                paper's three stages: MMSS pretraining (mmss.yaml, 3 steps,
+                checkpoints at 2 and 3, the validation-loss pass at 2 over
+                coco_captions_val, whose captions file the phase writes into
+                the tree; no kernel launch); the teacher from the MMSS
+                OUTPUT_DIR with LOAD_EMB_PRED_FROM_MMSS_HEAD (zeroshot_mask.yaml,
+                3 steps, a checkpoint every 2: the imported leaf count, and the
+                trunk, the C5 layer4 on the RoI extractor and v2l on emb_pred
+                equal to the MMSS checkpoint's bit for bit), every
                 kernel launch of its first step held against the plain version
                 and the launches of every step counted; a relaunch with
                 ``MODEL.LOAD_TRAINER_STATE`` that resumes at 3 and adds step 4
                 only; a relaunch that trains nothing and writes nothing; then
                 the student-teacher model from the teacher's OUTPUT_DIR
-                (``MODEL.WEIGHT``), 2 steps with the in-training evaluation and
+                (``MODEL.WEIGHT``) with its BERT table from the MMSS OUTPUT_DIR
+                (``MODEL.LANGUAGE_WEIGHT``), 2 steps with the in-training evaluation and
                 the final test on coco_generalized_zeroshot_val: its teacher
                 bundle equal to the teacher checkpoint's, bit for bit, and every
                 metric finite; then ``tools/test_net.main --ckpt`` on the
@@ -134,7 +164,9 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                 ``Trainer.step`` latency of the train phases, the checkpoints'
                 bytes and save, stall and load seconds, the LVIS table's seconds
                 and each run's peak memory; deletes ``build/train_out``.
-One line gives the seconds each phase from 7 on took.
+One line gives the seconds each phase from 7 on took.  The per-kernel line
+gives, beside each kernel's launches on the earlier paths, its launches on
+the MMSS paths (phase 14 and the MMSS stage of phase 16): 0.
 
 Then the card's name and power limit, the per-kernel JSON line, and the last
 line ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when
@@ -195,6 +227,18 @@ EVAL = dict(train=8, val=20, seed=2, opts=(), tree="build/synth_coco", out="buil
 TRAIN_NET = dict(out="build/train_out", dataset="coco_generalized_zeroshot_val",
                  opts=("SOLVER.IMS_PER_BATCH", 8, "DATALOADER.ASPECT_RATIO_GROUPING", False,
                        "SOLVER.LOG_PERIOD", 1))
+# MMSS pretraining: configs/coco_cap_det/mmss.yaml at full width in
+# bfloat16, the per-device share (8) of its 64-image batch, captions
+# padded to TPU.MAX_CAP_TOKENS 128; no ImageNet weights ship
+MMSS_CONFIG = "configs/coco_cap_det/mmss.yaml"
+MMSS = dict(steps=3, batch=8, hw=(800, 1333), tokens=128, opts=())
+# what an MMSS step must change, and the frozen BERT it must not
+MMSS_TRAINED = ("backbone.body.stem.", "backbone.body.layer1.", "backbone.body.layer4.", "v2l_projection.",
+                "transformer_head.")
+MMSS_FROZEN = ("language_backbone.",)
+# trained, but its gradient is 0 (it shifts every pair's matching score
+# alike, which the softmax ignores) and biases have no weight decay
+MMSS_STILL = ("transformer_head.seq_relationship.bias",)
 H100_BYTES_PER_S = 3.35e12
 H100_F32_OPS_PER_S = 67e12
 IOU_OPS = 16  # min/max, sub/add, mul, div and compare of one +1 IoU test
@@ -676,7 +720,7 @@ KERNEL_GROUPS = (  # (group, substrings of device kernel names), first match win
 )
 
 
-def profile_groups(run):
+def profile_groups(run, kernel_groups=KERNEL_GROUPS):
     """One call of ``run`` under torch.profiler: device time by kernel
     group, the largest kernels, each copy and cast, and the device's busy
     share of the call's wall time.  Only device-side events count (the
@@ -695,7 +739,7 @@ def profile_groups(run):
         if "CUDA" not in str(ev.device_type) or ev.key.startswith("Activity Buffer"):
             continue
         ms = getattr(ev, "self_device_time_total", 0.0) / 1e3
-        group = next((g for g, keys in KERNEL_GROUPS if any(k in ev.key for k in keys)), "other")
+        group = next((g for g, keys in kernel_groups if any(k in ev.key for k in keys)), "other")
         groups[group] = groups.get(group, 0.0) + ms
         top.append((ms, ev.count, ev.key[:90]))
         if group == "copy / cast":
@@ -1158,6 +1202,214 @@ def phase_teacher_train(dev, results):
     emit(dict(phase="teacher_train_profile", **profile_groups(lambda: trainer.step(batches[-1]))))
 
 
+MMSS_KERNEL_GROUPS = (  # the MMSS step's device time: convs apart from the matmuls
+    ("port: nms", ("nms_mask_kernel", "nms_scan_kernel")),
+    ("port: roi_align", ("roi_align_fwd_kernel", "roi_align_bwd")),
+    ("conv", ("implicit", "fprop", "dgrad", "wgrad", "conv", "winograd", "cudnn")),
+    ("matmul", ("nvjet", "gemm", "cutlass", "xmma", "splitK")),
+    ("softmax", ("softmax", "SoftMax")),
+    ("layer norm", ("layer_norm", "LayerNorm")),
+    ("sort / select", ("sort", "radix", "scan", "topk", "index", "gather", "scatter")),
+    ("copy / cast", ("copy", "Memcpy", "Memset")),
+    ("elementwise", ("elementwise",)),
+    ("reduce", ("reduce",)),
+)
+
+
+def mmss_batch(rng, b, hw, tokens, vocab=30522):
+    """A collated MMSS batch (``data/collate.py``'s caption keys): uint8
+    images with sizes 3/4 to 1 of the bucket and captions of 8 to 40
+    hashed word ids between the tokenizer's CLS (2) and SEP (3), padded
+    to ``tokens``."""
+    h, w = hw
+    sizes = np.stack([rng.integers(3 * h // 4, h + 1, b), rng.integers(2 * w // 3, w + 1, b)],
+                     1).astype(np.int32)
+    sizes[0] = (h, w)
+    lengths = rng.integers(min(8, tokens - 2), min(40, tokens - 2) + 1, b) + 2
+    pos = np.arange(tokens)[None, :]
+    att = (pos < lengths[:, None]).astype(np.int32)
+    ids = np.where(att > 0, rng.integers(5, vocab, (b, tokens)), 0)
+    ids[:, 0] = 2
+    ids[np.arange(b), lengths - 1] = 3
+    special = 1 - att + (pos == 0) + (pos == lengths[:, None] - 1)
+    return dict(images=rng.integers(0, 256, (b, h, w, 3), dtype=np.uint8), image_sizes=sizes,
+                input_ids=ids.astype(np.int32), attention_mask=att,
+                special_tokens_mask=special.astype(np.int32))
+
+
+def small_mmss_trainer(device):
+    """An MMSS Trainer on mmss.yaml's optimizer with a narrow float32
+    model: the R-50-C5 body at stem 8, res2 16, width 4; a 2-layer BERT of
+    width 64 over a vocabulary of 128; a 2-layer transformer head."""
+    from cvpr22_cross_modal_pseudo_labeling_torch import bridge
+    from cvpr22_cross_modal_pseudo_labeling_torch.engine.inference import load_cfg
+    from cvpr22_cross_modal_pseudo_labeling_torch.engine.train_step import Trainer
+    from cvpr22_cross_modal_pseudo_labeling_torch.models.detector.mmss_gcnn import (
+        MMSSGridModel,
+        mmss_statics_from_cfg,
+    )
+
+    opts = ["MODEL.RESNETS.STEM_OUT_CHANNELS", 8, "MODEL.RESNETS.RES2_OUT_CHANNELS", 16,
+            "MODEL.RESNETS.WIDTH_PER_GROUP", 4, "TPU.COMPUTE_DTYPE", "float32", "MODEL.WEIGHT", ""]
+    s = mmss_statics_from_cfg(load_cfg(MMSS_CONFIG, opts))
+    s = s._replace(l_dim=64, spatial_dropout=14, vocab_size=128, bert_layers=2, bert_heads=4,
+                   bert_intermediate=128,
+                   transformer=s.transformer._replace(num_layers=2, num_heads=4, intermediate_size=64,
+                                                      hidden_size=64, vocab_size=128))
+    trainer = Trainer(MMSS_CONFIG, opts, device=device, seed=SEED, model=MMSSGridModel(s))
+    tree = bridge.seeded_flax_params(trainer.model, SEED)
+    tree["language_backbone"]["word_embeddings"] *= np.float32(30.0)  # O(1) grounding similarities
+    trainer.load_flax_params(tree)
+    return trainer
+
+
+def phase_small_mmss_train(devices=("cuda", "cpu")):
+    """The CUDA MMSS Trainer against the CPU one (whose plain PyTorch the
+    CPU tests hold against the JAX train step) on one narrow float32 step
+    with the same draws: losses and the gradient norm within 1e-4
+    relative, every trainable parameter's update within 1e-3 of its norm
+    plus an ulp of the weight per element, the frozen BERT bit for bit.
+    No NMS or RoIAlign kernel launches."""
+    from cvpr22_cross_modal_pseudo_labeling_torch.models.detector.mmss_gcnn import MMSSDraws
+    from cvpr22_cross_modal_pseudo_labeling_torch.ops import kernels
+
+    rng = np.random.default_rng(SEED + 11)
+    batch = mmss_batch(rng, 3, (128, 128), 12, vocab=128)
+    batch["image_sizes"][1:] = ((80, 100), (128, 96))
+    draws = MMSSDraws(
+        dropout=torch.from_numpy(rng.uniform(size=(3, 16)).astype(np.float32)),
+        mlm_select=torch.from_numpy(rng.uniform(size=(3, 12)).astype(np.float32)),
+        mlm_mask=torch.from_numpy(rng.uniform(size=(3, 12)).astype(np.float32)),
+        mlm_ids=torch.from_numpy(rng.integers(0, 128, (3, 12))),
+    )
+    out = []
+    kernels.reset_launches()
+    for device in devices:
+        trainer = small_mmss_trainer(device)
+        before = {n: p.detach().cpu().clone() for n, p in trainer.model.named_parameters()}
+        metrics = trainer.step(batch, draws._replace(**{k: getattr(draws, k).to(device) for k in (
+            "dropout", "mlm_select", "mlm_mask", "mlm_ids")}))
+        after = {n: p.detach().cpu() for n, p in trainer.model.named_parameters()}
+        out.append(({k: float(v) for k, v in metrics.items()}, before, after))
+    launches = {k.name: k.launches for k in kernels.ALL}
+    (gm, gb, ga), (cm, cb, ca) = out
+    loss_err = max(abs(gm[k] - cm[k]) / max(abs(cm[k]), 1e-6) for k in cm)
+    excess = {}
+    for n in ca:
+        if n.startswith(MMSS_FROZEN):
+            continue
+        gu, cu = ga[n] - gb[n], ca[n] - cb[n]
+        limit = 1e-3 * float(cu.norm()) + float(torch.from_numpy(np.spacing(cb[n].numpy())).norm())
+        excess[n] = float((gu - cu).norm()) - limit
+    worst = max(excess, key=excess.get)
+    moved = [n for n in ga if n.startswith(MMSS_FROZEN) and not torch.equal(ga[n], gb[n])]
+    check(all(np.isfinite(v) for v in gm.values()), f"small mmss train: non-finite metrics {gm}")
+    check(not moved, f"small mmss train: the frozen BERT moved: {moved[:5]}")
+    check(loss_err <= 1e-4 and excess[worst] <= 0,
+          f"small mmss train: CUDA vs CPU loss {loss_err}, update excess {excess[worst]} ({worst})")
+    check(all(v == 0 for v in launches.values()), f"small mmss train: a kernel launched: {launches}")
+    emit(dict(phase="small_mmss_train", loss_rel_err=loss_err, worst_update=worst,
+              worst_update_excess_over_limit=excess[worst], grad_norm_cuda=gm["grad_norm"],
+              grad_norm_cpu=cm["grad_norm"], losses_cuda={k: gm[k] for k in sorted(gm)}))
+
+
+def attention_ms(dev, statics, regions):
+    """The device time of one step's attention blocks (fwd + bwd), each
+    block run alone under the profiler at the step's shapes in bfloat16:
+    the BERT's layers over [B, W] tokens, the transformer head's over the
+    B matched pairs and, with its matching loss, over the B^2 pairs of
+    [W + R] tokens.  Device time, not wall: a block alone is host-bound."""
+    from cvpr22_cross_modal_pseudo_labeling_torch.models.language.bert import BertSelfAttention
+
+    b, w = MMSS["batch"], MMSS["tokens"]
+    s, t = statics, statics.transformer
+    cases = [(s.bert_layers, s.bert_heads, b, w)]
+    cases.append((t.num_layers, t.num_heads, b, w + regions))
+    if t.mmm_loss == "cross_entropy":
+        cases.append((t.num_layers, t.num_heads, b * b, w + regions))
+    torch.manual_seed(SEED)
+    total, parts = 0.0, []
+    for layers, heads, n, tokens in cases:
+        attn = BertSelfAttention(s.l_dim, heads, torch.bfloat16).to(dev)
+        x = torch.randn(n, tokens, s.l_dim, device=dev, requires_grad=True)
+        mask = torch.rand(n, tokens, device=dev) < 0.8
+        cot = torch.randn(n, tokens, s.l_dim, device=dev, dtype=torch.bfloat16)
+        prof = profile_groups(lambda: attn(x, mask).backward(cot), MMSS_KERNEL_GROUPS)
+        parts.append(dict(layers=layers, heads=heads, sequences=n, tokens=tokens,
+                          device_ms_per_layer=prof["device_ms"], groups_ms=prof["groups_ms"]))
+        total += layers * prof["device_ms"]
+    return total, parts
+
+
+def phase_mmss_train(dev, results):
+    """MMSS pretraining at full width in bfloat16: 3 SGD steps of 8 images
+    at 800 x 1333 with 128-token captions."""
+    from cvpr22_cross_modal_pseudo_labeling_torch import bridge
+    from cvpr22_cross_modal_pseudo_labeling_torch.engine.train_step import Trainer
+    from cvpr22_cross_modal_pseudo_labeling_torch.ops import kernels
+
+    t0 = time.perf_counter()
+    trainer = Trainer(MMSS_CONFIG, ["SOLVER.IMS_PER_BATCH", MMSS["batch"], "MODEL.WEIGHT", "", *MMSS["opts"]],
+                      device=dev, seed=SEED)
+    trainer.load_flax_params(bridge.seeded_flax_params(trainer.model, SEED))
+    model = trainer.model
+    s = model.statics
+    check(trainer.cfg.TPU.COMPUTE_DTYPE == "bfloat16", "mmss train: the config must run in bfloat16")
+    check(s.backbone.conv_body == "R-50-C5" and s.bert_layers == 12 and s.l_dim == 768
+          and s.vocab_size == 30522 and s.transformer.num_layers == 6 and s.tie_vl,
+          f"mmss train: not mmss.yaml's model: {s}")
+    setup_s = time.perf_counter() - t0
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+    buffers = {n: b.clone() for n, b in model.named_buffers()}
+    check(sorted(n for n, lab in trainer.optimizer.labels.items() if lab == "frozen")
+          == sorted(n for n in start if n.startswith(MMSS_FROZEN)),
+          "mmss train: the frozen parameters are not the language backbone")
+
+    rng = np.random.default_rng(SEED + 13)
+    batches = [mmss_batch(rng, MMSS["batch"], MMSS["hw"], MMSS["tokens"]) for _ in range(MMSS["steps"] + 1)]
+    kernels.reset_launches()
+    lat, metrics = [], []
+    for i, batch in enumerate(batches[:MMSS["steps"]]):
+        torch.cuda.synchronize()
+        if i == 1:
+            torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        m = trainer.step(batch)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t)
+        metrics.append({k: float(v) for k, v in m.items()})
+        check(all(np.isfinite(v) for v in metrics[-1].values()),
+              f"mmss train: step {i} has a non-finite metric: {metrics[-1]}")
+    launches = {k.name: k.launches for k in kernels.ALL}
+    peak = torch.cuda.max_memory_allocated()
+    params = dict(model.named_parameters())
+    unchanged = [n for n in start if n.startswith(MMSS_TRAINED) and n not in MMSS_STILL
+                 and torch.equal(params[n], start[n])]
+    moved = [n for n in start if n.startswith(MMSS_FROZEN) and not torch.equal(params[n], start[n])]
+    moved += [n for n, b in model.named_buffers() if not torch.equal(b, buffers[n])]
+    check(not unchanged, f"mmss train: trained parameters did not change: {unchanged[:5]}")
+    check(not moved, f"mmss train: the frozen BERT or a buffer changed: {moved[:5]}")
+    check(all(v == 0 for v in launches.values()), f"mmss train: a detector kernel launched: {launches}")
+    steady = lat[1:]
+    regions = min(s.spatial_dropout, -(-MMSS["hw"][0] // 32) * -(-MMSS["hw"][1] // 32))
+    attn_ms, attn_parts = attention_ms(dev, s, regions)
+    rec = dict(
+        phase="mmss_train", config=MMSS_CONFIG, dtype="bfloat16", batch=MMSS["batch"],
+        image_hw=list(MMSS["hw"]), caption_tokens=MMSS["tokens"], regions=regions, setup_s=setup_s,
+        params_m=sum(p.numel() for p in model.parameters()) / 1e6, step_latency_s=lat,
+        steady_step_s=sum(steady) / len(steady),
+        steady_images_per_s=MMSS["batch"] * len(steady) / sum(steady),
+        steady_peak_memory_gb=peak / 1e9, launches=launches, metrics=metrics,
+        caption_lengths=batches[0]["attention_mask"].sum(1).tolist(),
+        attention_device_ms=attn_ms, attention_parts=attn_parts,
+    )
+    rec["host_syncs_per_step"] = count_syncs(lambda: trainer.step(batches[-1]))
+    emit(rec)
+    results["mmss_train"] = rec
+    emit(dict(phase="mmss_train_profile",
+              **profile_groups(lambda: trainer.step(batches[-1]), MMSS_KERNEL_GROUPS)))
+
+
 def host_libs():
     """What the eval path's host code finds on this machine: PIL, cv2, the
     libjpeg header and library the native decoder links, and g++."""
@@ -1436,38 +1688,60 @@ def same_metrics(a, b):
         a[k] == b[k] or (np.isnan(a[k]) and np.isnan(b[k])) for k in keys)
 
 
+def write_val_captions(tree):
+    """``coco/annotations/captions_val2017.json`` over the tree's val
+    images, two captions of its class names each (``tools/synth_coco.py``
+    writes the train captions only); MMSS's validation-loss pass reads
+    them."""
+    coco = os.path.join(tree, "coco")
+    with open(os.path.join(coco, "zero-shot/instances_val2017_all_2.json")) as f:
+        blob = json.load(f)
+    names = [c["name"] for c in blob["categories"]]
+    anns = [{"id": 20_000_000 + 2 * i + k, "image_id": im["id"],
+             "caption": f"a {names[(i + k) % len(names)]} next to a {names[(i + 2 * k + 1) % len(names)]}"}
+            for i, im in enumerate(blob["images"]) for k in range(2)]
+    with open(os.path.join(coco, "annotations/captions_val2017.json"), "w") as f:
+        json.dump({"images": blob["images"], "annotations": anns}, f)
+
+
 def phase_train_net(dev, results):
-    """The port's train_net: the teacher (first step checked, a resume, a
-    finished relaunch), the student from the teacher's checkpoint with
-    the in-training eval and the final test, and test_net on the
-    student's checkpoint.  Runs on the eval phase's tree."""
+    """The port's train_net through the paper's three stages: MMSS
+    pretraining (a checkpoint and the validation-loss pass), the teacher
+    from the MMSS OUTPUT_DIR (first step checked, a resume, a finished
+    relaunch), the student from the teacher's checkpoint with its BERT
+    table from the MMSS OUTPUT_DIR, the in-training eval and the final
+    test, and test_net on the student's checkpoint.  Runs on the eval
+    phase's tree."""
     import shutil
 
     from cvpr22_cross_modal_pseudo_labeling_torch.data import make_data_loader
     from cvpr22_cross_modal_pseudo_labeling_torch.engine import checkpoint as ck
     from cvpr22_cross_modal_pseudo_labeling_torch.engine import inference as inf
     from cvpr22_cross_modal_pseudo_labeling_torch.engine.train_step import Trainer
-    from cvpr22_cross_modal_pseudo_labeling_torch.models.detector.generalized_rcnn import TrainDraws
     from cvpr22_cross_modal_pseudo_labeling_torch.ops import kernels
     from cvpr22_cross_modal_pseudo_labeling_torch.tools import test_net
 
     check(os.path.isdir(EVAL["tree"]), f"train_net: no tree at {EVAL['tree']} (the eval phase writes it)")
     os.environ["CMPL_TPU_DATA_DIR"] = EVAL["tree"]
+    write_val_captions(EVAL["tree"])
     out = TRAIN_NET["out"]
-    t_dir, s_dir, e_dir = (os.path.join(out, d) for d in ("teacher", "st", "test_net"))
+    m_dir, t_dir, s_dir, e_dir = (os.path.join(out, d) for d in ("mmss", "teacher", "st", "test_net"))
     shutil.rmtree(out, ignore_errors=True)
     common = ["--device", dev.type, "--seed", str(SEED), *map(str, TRAIN_NET["opts"])]
     teacher_args = ["--config-file", TEACHER, "--skip-test", *common, "SOLVER.CHECKPOINT_PERIOD", "2",
-                    "SOLVER.TEST_PERIOD", "0"]
+                    "SOLVER.TEST_PERIOD", "0", "MODEL.WEIGHT", m_dir, "MODEL.LOAD_EMB_PRED_FROM_MMSS_HEAD", "True"]
     name = TRAIN_NET["dataset"]
 
-    # the first teacher step's launches against the plain versions; every
-    # step's launches and batch shape recorded
+    # the first teacher step's launches against the plain versions, and
+    # the weights it starts from; every step's launches and batch shape
+    # recorded, with its model
     checks, check_nms, check_roi, check_roi_bwd = launch_checks()
-    step, per_step = Trainer.train_step, []
+    step, per_step, imported = Trainer.train_step, [], {}
 
-    def counted_step(self, b, draws=TrainDraws()):
-        first = not per_step
+    def counted_step(self, b, draws=None):
+        first = self.meta_arch == "GeneralizedRCNN" and not imported
+        if first:
+            imported.update({k: v.detach().cpu().clone() for k, v in self.model.state_dict().items()})
         kernels.NMS.on_launch = check_nms if first else None
         kernels.ROI_ALIGN.on_launch = check_roi if first else None
         kernels.ROI_ALIGN_BACKWARD.on_launch = check_roi_bwd if first else None
@@ -1476,14 +1750,55 @@ def phase_train_net(dev, results):
             return step(self, b, draws)
         finally:
             kernels.NMS.on_launch = kernels.ROI_ALIGN.on_launch = kernels.ROI_ALIGN_BACKWARD.on_launch = None
-            per_step.append({"images": list(b["images"].shape),
+            per_step.append({"arch": self.meta_arch, "images": list(b["images"].shape),
                              **{k.name: k.launches - before[k.name] for k in kernels.ALL}})
+
+    def steps_of(arch):
+        return [p for p in per_step if p["arch"] == arch]
 
     kernels.reset_launches()
     runs = {}
     Trainer.train_step = counted_step
     try:
+        # MMSS pretraining: 3 steps, a checkpoint at 2 and 3, the
+        # validation-loss pass at 2 over coco_captions_val
+        mmss_args = ["--config-file", MMSS_CONFIG, "--skip-test", *common, "MODEL.WEIGHT", "",
+                     "SOLVER.MAX_ITER", "3", "SOLVER.CHECKPOINT_PERIOD", "2", "SOLVER.TEST_PERIOD", "2",
+                     "TEST.IMS_PER_BATCH", "8"]
+        rec, runs["mmss"], log, logged = train_net_run(mmss_args, m_dir)
+        check([r["step"] for r in logged] == [1, 2, 3] and all(np.isfinite(v) for r in logged for v in r.values()),
+              f"train_net mmss: logged {logged}")
+        check(list(rec["val_losses"]) == [2] and np.isfinite(rec["val_losses"][2]) and "iter 2 val_loss" in log,
+              f"train_net mmss: validation losses {rec['val_losses']}")
+        check(list(saved(m_dir)) == ["model_0000002.pth", "model_0000003.pth"],
+              f"train_net mmss: saves {list(saved(m_dir))}")
+        mmss_steps = steps_of("MMSS-GCNN")
+        check(len(mmss_steps) == 3 and all(p[k.name] == 0 for p in mmss_steps for k in kernels.ALL),
+              f"train_net mmss: steps {mmss_steps}")
+        runs["mmss"]["val_losses"] = rec["val_losses"]
+        runs["mmss"]["checkpoint"] = checkpoint_costs(rec["trainer"], os.path.join(out, "costs_m"), 3)
+        mmss_launches = {k.name: k.launches for k in kernels.ALL}
+        del rec
+        torch.cuda.empty_cache()
+        mmss_ck = ck.load_checkpoint(os.path.join(m_dir, "model_0000003.pth"))["trainer"]["model"]
+
         rec, runs["teacher"], log, logged = train_net_run(teacher_args + ["SOLVER.MAX_ITER", "3"], t_dir)
+        # the import: the trunk through layer3, the C5 layer4 onto the RoI
+        # extractor and v2l onto emb_pred, bit for bit
+        n_imported = re.search(r"imported (\d+) leaves from checkpoint \S+model_0000003.pth", log)
+        trunk = [k for k in mmss_ck if k.startswith("backbone.body.") and not k.startswith("backbone.body.layer4.")
+                 and k in imported]
+        layer4 = {k.replace("backbone.body.", "roi_extractor."): v for k, v in mmss_ck.items()
+                  if k.startswith("backbone.body.layer4.")}
+        pairs = [(k, mmss_ck[k]) for k in trunk] + list(layer4.items()) + [
+            ("box_predictor.emb_pred.weight", mmss_ck["v2l_projection.weight"]),
+            ("box_predictor.emb_pred.bias", mmss_ck["v2l_projection.bias"])]
+        landed = [k for k, v in pairs if torch.equal(imported[k], v)]
+        check(n_imported and int(n_imported.group(1)) == len(pairs) == len(landed) and len(layer4) == 50,
+              f"train_net teacher: imported {n_imported and n_imported.group(1)} leaves, expected {len(pairs)}, "
+              f"{len(landed)} equal to the MMSS checkpoint's")
+        runs["teacher"]["imported_leaves"] = len(pairs)
+        teacher_steps = steps_of("GeneralizedRCNN")
         check([r["step"] for r in logged] == [1, 2, 3] and all(np.isfinite(r["total_loss"]) for r in logged),
               f"train_net teacher: logged {logged}")
         check(list(saved(t_dir)) == ["model_0000002.pth", "model_0000003.pth"]
@@ -1495,8 +1810,8 @@ def phase_train_net(dev, results):
             check(len(checks[key]) == 1 and all(excess <= 0 for _, excess, _, _ in checks[key]),
                   f"train_net teacher: {key} launches over tolerance: {checks[key]}")
         want = {k: v / TRAIN["steps"] for k, v in results["teacher_train"]["launches"].items()}
-        launched = [{k: p[k] for k in want} for p in per_step]
-        check(len(per_step) == 3 and all(p == want for p in launched),
+        launched = [{k: p[k] for k in want} for p in teacher_steps]
+        check(len(teacher_steps) == 3 and all(p == want for p in launched),
               f"train_net teacher: launches per step {launched}, teacher_train {want}")
         teacher_trainer = rec["trainer"]
         runs["teacher"]["checkpoint"] = checkpoint_costs(teacher_trainer, os.path.join(out, "costs_t"), 3)
@@ -1505,11 +1820,12 @@ def phase_train_net(dev, results):
         # a resume adds the missing step only
         resume_args = teacher_args + ["SOLVER.MAX_ITER", "4", "MODEL.LOAD_TRAINER_STATE", "True"]
         rec, runs["resume"], log, logged = train_net_run(resume_args, t_dir)
+        teacher_steps = steps_of("GeneralizedRCNN")
         check("resumed from " in log and f"{t_dir}/model_0000003.pth at iteration 3" in log
               and rec["start_iter"] == 3 and [r["step"] for r in logged] == [1, 2, 3, 4]
-              and len(per_step) == 4 and {k: per_step[3][k] for k in want} == want,
+              and len(teacher_steps) == 4 and {k: teacher_steps[3][k] for k in want} == want,
               f"train_net resume: start {rec['start_iter']}, logged {[r['step'] for r in logged]}, "
-              f"steps {per_step[3:]}")
+              f"steps {teacher_steps[3:]}")
         before = saved(t_dir)
         del rec
         # a finished run relaunched trains nothing and writes nothing
@@ -1522,13 +1838,16 @@ def phase_train_net(dev, results):
 
         # the student from the teacher's OUTPUT_DIR, with the in-training
         # eval and the final test
-        st_args = ["--config-file", CONFIG, *common, "MODEL.WEIGHT", t_dir, "SOLVER.MAX_ITER", "2",
-                   "SOLVER.CHECKPOINT_PERIOD", "2", "SOLVER.TEST_PERIOD", "2", "DATASETS.TEST", f"('{name}',)"]
+        st_args = ["--config-file", CONFIG, *common, "MODEL.WEIGHT", t_dir, "MODEL.LANGUAGE_WEIGHT", m_dir,
+                   "SOLVER.MAX_ITER", "2", "SOLVER.CHECKPOINT_PERIOD", "2", "SOLVER.TEST_PERIOD", "2",
+                   "DATASETS.TEST", f"('{name}',)"]
         rec, runs["student"], log, logged = train_net_run(st_args, s_dir)
-        imported = re.search(r"imported (\d+) leaves from checkpoint \S+model_0000004.pth \((\d+) source", log)
+        st_import = re.search(r"imported (\d+) leaves from checkpoint \S+model_0000004.pth \((\d+) source", log)
         copied = re.search(r"prepare_model: copied (\d+) teacher leaves", log)
-        check(imported and int(imported.group(2)) == 0 and copied and int(copied.group(1)) > 0,
+        check(st_import and int(st_import.group(2)) == 0 and copied and int(copied.group(1)) > 0,
               "train_net student: the teacher's checkpoint was not imported whole, or no leaf was copied")
+        check("language table: imported 1 leaves" in log,
+              "train_net student: the BERT table was not imported from the MMSS checkpoint")
         check([r["step"] for r in logged] == [1, 2] and all(np.isfinite(v) for r in logged for v in r.values()),
               f"train_net student: logged {logged}")
         teacher_ck = ck.load_checkpoint(os.path.join(t_dir, "model_0000004.pth"))["trainer"]["model"]
@@ -1536,6 +1855,9 @@ def phase_train_net(dev, results):
         bundle = [k for k in teacher_ck if k.startswith(("roi_extractor.", "box_predictor.", "mask_predictor."))]
         check(bundle and all(torch.equal(st_ck["teacher." + k], teacher_ck[k]) for k in bundle),
               "train_net student: its teacher bundle differs from the teacher checkpoint")
+        check(torch.equal(st_ck["bert.word_embeddings"], mmss_ck["language_backbone.word_embeddings"]),
+              "train_net student: its BERT table differs from the MMSS checkpoint's")
+        del mmss_ck
         _, (val,) = make_data_loader(inf.load_cfg(CONFIG, ["DATASETS.TEST", f"('{name}',)"]), is_train=False)
         for label, metrics in (("in-training eval", rec["evals"].get(2, {}).get(name)),
                                ("run_test", rec["test"].get(name))):
@@ -1566,8 +1888,10 @@ def phase_train_net(dev, results):
         shutil.rmtree(out, ignore_errors=True)
     launches = {k.name: k.launches for k in kernels.ALL}
     check(all(v > 0 for v in launches.values()), f"train_net: a kernel never launched: {launches}")
-    step_s = {"teacher_train": results["teacher_train"]["steady_step_s"], "train": results["train"]["steady_step_s"]}
+    step_s = {"teacher_train": results["teacher_train"]["steady_step_s"], "train": results["train"]["steady_step_s"],
+              "mmss_train": results["mmss_train"]["steady_step_s"]}
     rec = dict(phase="train_net", dtype="bfloat16", batch=8, runs=runs, launches=launches,
+               mmss_launches=mmss_launches,
                steps=per_step, trainer_step_alone_s=step_s,
                eval_images_per_s=eval_s, test_net_s=test_net_s,
                first_step_checks={
@@ -1605,6 +1929,12 @@ def kernels_line(results):
     bwd_main = results[("roi_align_backward",) + ROI_BWD_MAIN]
     bwd_teacher = results["roi_align_backward_teacher_rois"]
     ev, tn = results["eval"], results["train_net"]
+    mmss = results["mmss_train"]
+
+    def mmss_launches(kernel):
+        # the MMSS path runs none of the detector kernels
+        return dict(mmss_train_launches=mmss["launches"][kernel],
+                    train_net_mmss_launches=tn["mmss_launches"][kernel])
 
     def shape_rec(rec):
         return {k: rec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
@@ -1620,6 +1950,7 @@ def kernels_line(results):
              eval_launches=ev["launches"]["nms"],
              eval_launches_per_batch=ev["launches_per_batch"]["nms"],
              train_net_launches=tn["launches"]["nms"],
+             **mmss_launches("nms"),
              launch_unit="one nms_forward call: a memset, then a mask and a scan "
                          "kernel per column band",
              max_abs_err=float(max(serving["first_batch_checks"]["nms_mismatches"]
@@ -1644,6 +1975,7 @@ def kernels_line(results):
              eval_launches=ev["launches"]["roi_align"],
              eval_launches_per_batch=ev["launches_per_batch"]["roi_align"],
              train_net_launches=tn["launches"]["roi_align"],
+             **mmss_launches("roi_align"),
              max_abs_err=max(serving["first_batch_checks"]["roi_align_max_abs_err"]
                              + train["first_step_checks"]["roi_align_max_abs_err"]
                              + t_serving["first_batch_checks"]["roi_align_max_abs_err"]
@@ -1664,6 +1996,7 @@ def kernels_line(results):
              launches=t_train["launches"]["roi_align_backward"],
              launches_per_teacher_step=t_train["launches"]["roi_align_backward"] / TRAIN["steps"],
              train_net_launches=tn["launches"]["roi_align_backward"],
+             **mmss_launches("roi_align_backward"),
              launch_unit="one roi_align_backward call: the plan kernel (each roi's tap "
                          "lists), then the tile kernel (each tile of dF summed in shared "
                          "memory, written once in bfloat16)",
@@ -1738,6 +2071,9 @@ def main():
     timed("teacher_train", phase_teacher_train, dev, results)
     torch.cuda.empty_cache()
     timed("roi_align_backward_teacher_rois", phase_roi_align_backward_teacher_rois, dev, results)
+    torch.cuda.empty_cache()
+    timed("small_mmss_train", phase_small_mmss_train)
+    timed("mmss_train", phase_mmss_train, dev, results)
     torch.cuda.empty_cache()
     timed("eval", phase_eval, dev, results)
     torch.cuda.empty_cache()

@@ -13,16 +13,25 @@ of the owning port module decide the layout change:
   transposed conv is the gradient of conv, flax reads the kernel
   unflipped; the JAX checkpoint importer documents the same flip);
 * ``Dense`` kernel ``[in, out]`` -> ``Linear`` weight ``[out, in]``;
+* ``DenseGeneral`` (BERT's attention): the ``query``/``key``/``value``
+  kernel ``[in, H, D]`` -> ``Linear`` weight ``[H * D, in]`` and its bias
+  ``[H, D]`` -> ``[H * D]`` (layouts ``dense_heads_out:H`` and
+  ``heads:H``); the ``output`` kernel ``[H, D, out]`` -> ``[out, H * D]``
+  (``dense_heads_in:H``).  The layout names the head count, so a
+  checkpoint's tree is rebuilt without its model;
+* ``LayerNorm`` ``scale`` -> ``LayerNorm`` ``weight`` (``ln_scale``);
 * ``frozen_bn_{weight,bias,mean,var}`` -> the ``FrozenBatchNorm``
   buffers ``weight``, ``bias``, ``running_mean``, ``running_var``;
-* anything else (``bias``, ``word_embeddings``, ``lambda_exemplar``)
-  as it is.
+* anything else (``bias``, ``word_embeddings``, ``lambda_exemplar``,
+  ``mlm_bias``) as it is.
 
 Every flax leaf lands on exactly one port key and every port key is
 filled; an unmatched leaf, a missing key or a wrong shape raises.
 
-Each port key's layout (``conv``, ``conv_transpose``, ``dense``, ``bn``
-or ``plain``; :func:`port_layouts`) comes from the type of its module.
+Each port key's layout (``conv``, ``conv_transpose``, ``dense``,
+``dense_heads_out:H``, ``dense_heads_in:H``, ``heads:H``, ``ln_scale``,
+``bn`` or ``plain``; :func:`port_layouts`) comes from the type of its
+module.
 A checkpoint stores the layouts beside its ``state_dict``, so that
 :func:`flax_tree_from_checkpoint` gives its flax-layout tree without
 building its model (the weight importers of ``engine/checkpoint.py`` run
@@ -35,6 +44,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .models.layers import Linear
 from .models.resnet import FrozenBatchNorm
 
 _BN_LEAVES = {
@@ -44,7 +54,7 @@ _BN_LEAVES = {
     "frozen_bn_var": "running_var",
 }
 _FLAX_BN_LEAVES = {v: k for k, v in _BN_LEAVES.items()}
-_KERNEL_LAYOUTS = ("conv", "conv_transpose", "dense")
+_KERNEL_LAYOUTS = ("conv", "conv_transpose", "dense", "dense_heads_out", "dense_heads_in")
 
 
 def _flatten(tree, path=()) -> Dict[Tuple[str, ...], Any]:
@@ -75,34 +85,64 @@ def _port_key(modules: Dict[str, nn.Module], path: Tuple[str, ...]):
         if leaf not in _BN_LEAVES:
             raise KeyError(f"flax leaf {'/'.join(path)} is not a frozen-BN leaf")
         return prefix + _BN_LEAVES[leaf], "bn"
+    if isinstance(owner, nn.LayerNorm) and leaf == "scale":
+        return prefix + "weight", "ln_scale"
+    heads_out = getattr(owner, "heads_out", 0) if isinstance(owner, Linear) else 0
+    heads_in = getattr(owner, "heads_in", 0) if isinstance(owner, Linear) else 0
     if leaf == "kernel":
         if isinstance(owner, nn.ConvTranspose2d):
             return prefix + "weight", "conv_transpose"
         if isinstance(owner, nn.Conv2d):
             return prefix + "weight", "conv"
+        if heads_out:
+            return prefix + "weight", f"dense_heads_out:{heads_out}"
+        if heads_in:
+            return prefix + "weight", f"dense_heads_in:{heads_in}"
         if isinstance(owner, nn.Linear):
             return prefix + "weight", "dense"
         raise KeyError(f"flax kernel {'/'.join(path)} on a {type(owner).__name__}")
+    if leaf == "bias" and heads_out:
+        return prefix + leaf, f"heads:{heads_out}"
     return prefix + leaf, "plain"
 
 
+def _split(kind: str):
+    """(layout, head count) of a layout name such as ``heads:8``."""
+    name, _, heads = kind.partition(":")
+    return name, int(heads) if heads else 0
+
+
 def _to_port(value: np.ndarray, kind: str) -> np.ndarray:
+    kind, heads = _split(kind)
     if kind == "conv":
         return value.transpose(3, 2, 0, 1)
     if kind == "conv_transpose":
         return value.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
     if kind == "dense":
         return value.T
+    if kind == "dense_heads_out":  # [in, H, D] -> [H * D, in]
+        return value.reshape(value.shape[0], -1).T
+    if kind == "dense_heads_in":  # [H, D, out] -> [out, H * D]
+        return value.reshape(-1, value.shape[-1]).T
+    if kind == "heads":  # [H, D] -> [H * D]
+        return value.reshape(-1)
     return value
 
 
 def _to_flax(value: np.ndarray, kind: str) -> np.ndarray:
+    kind, heads = _split(kind)
     if kind == "conv":
         return value.transpose(2, 3, 1, 0)
     if kind == "conv_transpose":
         return value[:, :, ::-1, ::-1].transpose(2, 3, 0, 1)
     if kind == "dense":
         return value.T
+    if kind == "dense_heads_out":
+        return value.T.reshape(value.shape[1], heads, -1)
+    if kind == "dense_heads_in":
+        return value.T.reshape(heads, -1, value.shape[0])
+    if kind == "heads":
+        return value.reshape(heads, -1)
     return value
 
 
@@ -144,6 +184,8 @@ def _flax_path(modules: Dict[str, nn.Module], key: str):
         flax_leaf = _FLAX_BN_LEAVES[leaf]
     elif leaf == "weight" and isinstance(owner, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
         flax_leaf = "kernel"
+    elif leaf == "weight" and isinstance(owner, nn.LayerNorm):
+        flax_leaf = "scale"
     else:
         flax_leaf = leaf
     path = tuple(owner_name.split(".")) + (flax_leaf,) if owner_name else (flax_leaf,)
@@ -151,8 +193,8 @@ def _flax_path(modules: Dict[str, nn.Module], key: str):
 
 
 def port_layouts(model: nn.Module) -> Dict[str, str]:
-    """Each key of ``model.state_dict()`` and its layout: ``conv``,
-    ``conv_transpose``, ``dense``, ``bn`` or ``plain``."""
+    """Each key of ``model.state_dict()`` and its layout (the module
+    docstring lists them)."""
     modules = dict(model.named_modules())
     return {key: _flax_path(modules, key)[1] for key in model.state_dict()}
 
@@ -184,14 +226,17 @@ def flax_tree_from_state_dict(state_dict: Dict[str, torch.Tensor], layouts: Dict
     tree: Dict[str, Any] = {}
     for key, value in state_dict.items():
         kind = layouts[key]
+        name, heads = _split(kind)
         owner_name, _, leaf = key.rpartition(".")
-        if kind == "bn":
+        if name in ("dense_heads_out", "dense_heads_in", "heads") and heads < 1:
+            raise KeyError(f"{key}: layout {kind!r} lacks its head count")
+        if name == "bn":
             leaf = _FLAX_BN_LEAVES[leaf]
-        elif kind in _KERNEL_LAYOUTS:
+        elif name in _KERNEL_LAYOUTS + ("ln_scale",):
             if leaf != "weight":
                 raise KeyError(f"{key}: a {kind} layout on a leaf other than weight")
-            leaf = "kernel"
-        elif kind != "plain":
+            leaf = "scale" if name == "ln_scale" else "kernel"
+        elif name not in ("plain", "heads"):
             raise KeyError(f"{key}: unknown layout {kind!r}")
         path = tuple(owner_name.split(".")) + (leaf,) if owner_name else (leaf,)
         _set(tree, path, np.ascontiguousarray(_to_flax(value.detach().cpu().numpy(), kind)))
@@ -211,7 +256,9 @@ def seeded_flax_params(model: nn.Module, seed: int, emb_pred_std: float = 0.01):
     He-normal kernels, heads the JAX initializers' scales (RPN 0.01, box
     regression 0.001, ``emb_pred`` ``emb_pred_std``; the stem 1/64 of
     He, as pixels enter at O(100)), frozen BN a near-identity affine,
-    biases small noise."""
+    biases small noise.  The BERT and transformer-head kernels and every
+    embedding table draw BERT's N(0, 0.02), LayerNorm scales a
+    near-identity."""
     rng = np.random.default_rng(seed)
     tree = flax_from_state_dict(model)
 
@@ -219,6 +266,8 @@ def seeded_flax_params(model: nn.Module, seed: int, emb_pred_std: float = 0.01):
         leaf = path[-1]
         name = "/".join(path)
         if leaf == "kernel":
+            if "language_backbone" in path or "transformer_head" in path:
+                return rng.standard_normal(shape, np.float32) * np.float32(0.02)
             if "rpn_head" in path:
                 std = 0.01
             elif "bbox_pred" in path:
@@ -238,8 +287,10 @@ def seeded_flax_params(model: nn.Module, seed: int, emb_pred_std: float = 0.01):
             return rng.uniform(0.5, 1.5, shape).astype(np.float32)
         if leaf in ("frozen_bn_bias", "frozen_bn_mean", "bias"):
             return rng.standard_normal(shape, np.float32) * np.float32(0.1)
-        if leaf == "word_embeddings":
+        if leaf in ("word_embeddings", "position_embeddings", "token_type_embeddings", "mlm_bias"):
             return rng.standard_normal(shape, np.float32) * np.float32(0.02)
+        if leaf == "scale":
+            return rng.uniform(0.9, 1.1, shape).astype(np.float32)
         if leaf == "lambda_exemplar":
             return np.zeros(shape, np.float32)
         raise KeyError(f"no draw rule for {name}")

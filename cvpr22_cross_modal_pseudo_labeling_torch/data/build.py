@@ -25,7 +25,7 @@ import threading
 from typing import Iterator, Optional
 
 from .collate import BatchCollator
-from .datasets import COCOCapDetDataset, COCODataset, ConcatDataset
+from .datasets import COCOCapDetDataset, COCOCaptionsDataset, COCODataset, ConcatDataset
 from .samplers import (
     DistributedSampler,
     GroupedBatchSampler,
@@ -38,6 +38,7 @@ from .transforms import build_transforms
 DATASET_CLASSES = {
     "COCODataset": COCODataset,
     "COCOCapDetDataset": COCOCapDetDataset,
+    "COCOCaptionsDataset": COCOCaptionsDataset,
 }
 
 

@@ -12,10 +12,15 @@ optimizer.py`` (``label_params`` :35, ``_freeze_after`` :59,
   ``uncertain_pred`` gets lr x ``UNCERTAINTY_LR_FACTOR`` (its bias both
   factors) and stops updating after ``UNCERTAINTY_TRAIN_ITER`` updates;
 * frozen parameters (the backbone stages, the RPN under ``DONT_TRAIN``,
-  the teacher and the word table for the student-teacher model) get
-  ``requires_grad=False`` and no group;
+  the teacher and the word table for the student-teacher model, the
+  language backbone for MMSS) get ``requires_grad=False`` and no group,
+  except those named by ``counted_prefixes``: these keep their gradient,
+  which counts in the returned norm (JAX's logged ``grad_norm`` is the
+  norm of every gradient) and in nothing else;
 * optional global-norm clipping over the trainable gradients
-  (``SOLVER.CLIP_GRAD_NORM_AT``) and gradient accumulation that averages
+  (``SOLVER.CLIP_GRAD_NORM_AT``; JAX zeroes the frozen gradients before
+  its clip, ``tpu/engine/optimizer.py:126-137``) and gradient
+  accumulation that averages
   ``SOLVER.GRADIENT_ACCUMULATION_STEPS`` micro-steps before one update;
 * ``state_dict`` / ``load_state_dict`` carry what a resume needs besides
   the weights: without ``updates`` a resumed run would restart warmup.
@@ -80,7 +85,8 @@ class Optimizer:
     :meth:`step` after each ``backward``.  It owns a ``torch.optim.SGD`` whose groups carry the
     labels above; each update sets every group's lr from the schedule."""
 
-    def __init__(self, cfg, model: nn.Module, frozen_prefixes: Sequence[str] = ()):
+    def __init__(self, cfg, model: nn.Module, frozen_prefixes: Sequence[str] = (),
+                 counted_prefixes: Sequence[str] = ()):
         s = cfg.SOLVER
         named = list(model.named_parameters())
         self.labels = label_params([n for n, _ in named], frozen_prefixes)
@@ -101,8 +107,14 @@ class Optimizer:
                 groups.append(dict(params=[p for _, p in members], label=label,
                                    lr_factor=lr_factor, weight_decay=wd, lr=0.0))
                 self.names += [n for n, _ in members]
+        # frozen parameters whose gradient counts in the logged norm
+        self.counted: List[nn.Parameter] = [
+            p for n, p in named
+            if self.labels[n] == "frozen" and any(pre in n.replace(".", "/") for pre in counted_prefixes)
+        ]
+        counted = {id(p) for p in self.counted}
         for n, p in named:
-            p.requires_grad_(self.labels[n] != "frozen")
+            p.requires_grad_(self.labels[n] != "frozen" or id(p) in counted)
         # the trainable parameters, in group order, and their names
         self.params: List[nn.Parameter] = [p for g in groups for p in g["params"]]
         self.sgd = torch.optim.SGD(groups, lr=0.0, momentum=s.MOMENTUM)
@@ -121,14 +133,19 @@ class Optimizer:
 
     def zero_grad(self) -> None:
         self.sgd.zero_grad(set_to_none=True)
+        for p in self.counted:
+            p.grad = None
 
     def step(self) -> torch.Tensor:
         """Applies this micro-step's gradients (an update every
-        ``accumulate`` micro-steps) and returns their global norm.  A
-        trainable parameter without a gradient counts as a zero gradient,
-        as in the JAX transform, so weight decay still reaches it."""
+        ``accumulate`` micro-steps) and returns their global norm, the
+        counted frozen gradients included.  A trainable parameter without
+        a gradient counts as a zero gradient, as in the JAX transform, so
+        weight decay still reaches it."""
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
-        grad_norm = global_norm(grads)
+        grad_norm = global_norm(grads + [p.grad for p in self.counted if p.grad is not None])
+        for p in self.counted:
+            p.grad = None
         if self.accumulate > 1:
             # optax.MultiSteps' running mean over the micro-steps
             if self._acc is None:

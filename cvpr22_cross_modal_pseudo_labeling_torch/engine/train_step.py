@@ -1,15 +1,20 @@
 """Training entry point: a config file in, one SGD step per batch.
 
 Counterpart of ``cvpr22_cross_modal_pseudo_labeling_tpu/engine/
-train_step.py``: the ``GeneralizedRCNN`` and student-teacher branches of
-``build_loss_fn`` (:61) and ``build_train_step`` (:180).  One step is the
-training forward, the sum of its losses, the backward and one optimizer
-step; its metrics are each loss, the model's info (``avg_uncertain``,
-``adaptive_lamb`` for the student-teacher model), ``total_loss`` and
-``grad_norm``.  ``grad_norm`` is the global norm of the trainable
-parameters' gradients (the JAX step's norm also counts gradients of
-parameters that never update: frozen-BN leaves, frozen stages,
-``emb_pred`` under ``FREEZE_EMB_PRED``).
+train_step.py``: the ``GeneralizedRCNN``, student-teacher and MMSS
+branches of ``build_loss_fn`` (:61), ``build_train_step`` (:180) and
+``build_val_loss_step`` (:211).  One step is the training forward, the
+sum of its losses, the backward and one optimizer step; its metrics are
+each loss, the model's info (``avg_uncertain``, ``adaptive_lamb`` for the
+student-teacher model, the batch accuracies for MMSS), ``total_loss``
+and ``grad_norm``.  ``grad_norm`` is the global norm of the trainable
+parameters' gradients and, for MMSS, of the frozen language backbone's
+too, as JAX logs it (``Optimizer``'s ``counted_prefixes``).  The JAX
+norm also counts gradients that the port never computes: the frozen-BN
+leaves (buffers here), and for the detectors the frozen stages and
+``emb_pred`` under ``FREEZE_EMB_PRED``.  :meth:`Trainer.val_loss` is
+the validation-loss pass: the training branches on fixed draws, with no
+update.
 
 :func:`host_batch` turns the numpy batch of ``data/collate.py`` (plus
 the class tables) into CPU tensors of the step's dtypes and
@@ -28,10 +33,12 @@ import torch
 
 from ..bridge import load_flax_params
 from ..config.cfg_node import CfgNode
-from ..models.detector import RCNN_FAMILY, build_detection_model
+from ..models.detector import RCNN_FAMILY, ST_FAMILY, build_detection_model
 from ..models.detector.generalized_rcnn import RCNNTrainOutput, TrainDraws
 from .inference import load_cfg
 from .optimizer import Optimizer, frozen_prefixes_from_cfg
+
+MMSS = "MMSS-GCNN"
 
 # batch key -> device dtype (None: keep the array's own), per family: the
 # collated keys each training forward reads, and the class tables
@@ -54,6 +61,23 @@ ST_BATCH_DTYPES = {
     "cap_tok_mask": torch.float32,
     "lvis_class_embeddings": torch.float32,
 }
+MMSS_BATCH_DTYPES = {
+    "images": None,
+    "image_sizes": torch.int32,
+    "input_ids": torch.int64,
+    "attention_mask": torch.int32,
+    "special_tokens_mask": torch.int32,
+}
+
+
+def batch_dtypes(meta_arch: str) -> Dict[str, torch.dtype]:
+    if meta_arch in RCNN_FAMILY:
+        return RCNN_BATCH_DTYPES
+    if meta_arch in ST_FAMILY:
+        return ST_BATCH_DTYPES
+    if meta_arch == MMSS:
+        return MMSS_BATCH_DTYPES
+    raise ValueError(f"Unknown META_ARCHITECTURE {meta_arch}")
 
 
 def host_batch(
@@ -63,7 +87,7 @@ def host_batch(
     the step's dtypes; other collated keys (the caption token batch,
     image ids, the other family's keys) and the keys in ``provided``
     (tables already on the device) are left out."""
-    dtypes = RCNN_BATCH_DTYPES if meta_arch in RCNN_FAMILY else ST_BATCH_DTYPES
+    dtypes = batch_dtypes(meta_arch)
     missing = sorted(set(dtypes) - set(batch) - set(provided))
     if missing:
         raise KeyError(f"the training batch lacks {missing}")
@@ -84,10 +108,15 @@ def device_batch(
 
 
 def training_forward(
-    model, meta_arch: str, b: Dict[str, torch.Tensor], draws: TrainDraws,
-    generator: torch.Generator = None,
+    model, meta_arch: str, b: Dict[str, torch.Tensor], draws, generator: torch.Generator = None,
 ) -> RCNNTrainOutput:
-    """The model's training forward on a :func:`device_batch`."""
+    """The model's training forward on a :func:`device_batch`.  ``draws``
+    is a ``TrainDraws`` for the detectors, an ``MMSSDraws`` for MMSS."""
+    if meta_arch == MMSS:
+        captions = {k: b[k] for k in ("input_ids", "attention_mask", "special_tokens_mask")}
+        info, losses = model(b["images"], b["image_sizes"], captions, train=True, draws=draws,
+                             generator=generator)
+        return RCNNTrainOutput(losses, info)
     if meta_arch in RCNN_FAMILY:
         return model(
             b["images"], b["image_sizes"], b["class_embeddings"], train=True, batch=b,
@@ -106,11 +135,18 @@ class Trainer:
     config.  ``device`` defaults to ``"cuda"`` and raises when no card is
     present; pass ``device="cpu"`` to run the plain versions of the
     kernels on the CPU.  ``seed`` seeds the generator of the step's
-    random draws.  Load weights with :meth:`load_flax_params` (or
+    random draws.  ``model`` replaces the model the config names (built
+    from statics, e.g. at narrow widths); the optimizer still follows
+    the config.  Load weights with :meth:`load_flax_params` (or
     :meth:`load_state_dict`) before the first step.
     """
 
-    def __init__(self, config: Union[str, CfgNode], opts: Sequence = (), device: str = "cuda", seed: int = 0):
+    # the validation-loss pass draws from a generator seeded so, anew
+    # for every batch (JAX's ``build_val_loss_step`` uses PRNGKey(0))
+    VAL_SEED = 0
+
+    def __init__(self, config: Union[str, CfgNode], opts: Sequence = (), device: str = "cuda", seed: int = 0,
+                 model: torch.nn.Module = None):
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -128,10 +164,12 @@ class Trainer:
                 "MODEL.LANGUAGE_BACKBONE.FT_EMB: the in-step LVIS table is not ported"
             )
         self.device = device
-        self.model = build_detection_model(self.cfg).to(device)
-        self.optimizer = Optimizer(
-            self.cfg, self.model, frozen_prefixes_from_cfg(self.cfg, self.meta_arch)
-        )
+        self.model = (model if model is not None else build_detection_model(self.cfg)).to(device)
+        frozen = frozen_prefixes_from_cfg(self.cfg, self.meta_arch)
+        # JAX's logged norm counts the frozen BERT's gradient, which no
+        # stop_gradient cuts (tpu/models/detector/mmss_gcnn.py:248)
+        counted = ("language_backbone/",) if self.meta_arch == MMSS else ()
+        self.optimizer = Optimizer(self.cfg, self.model, frozen, counted_prefixes=counted)
         self.generator = torch.Generator(device=device)
         self.generator.manual_seed(seed)
         self.class_tables: Dict[str, torch.Tensor] = {}
@@ -156,15 +194,25 @@ class Trainer:
         b = {k: t.to(self.device, non_blocking=True) for k, t in self.host_batch(batch).items()}
         return {**b, **self.class_tables}
 
-    def step(self, batch: Mapping[str, np.ndarray], draws: TrainDraws = TrainDraws()) -> Dict[str, torch.Tensor]:
+    def _draws(self, draws):
+        if draws is not None:
+            return draws
+        if self.meta_arch == MMSS:
+            from ..models.detector.mmss_gcnn import MMSSDraws
+
+            return MMSSDraws()
+        return TrainDraws()
+
+    def step(self, batch: Mapping[str, np.ndarray], draws=None) -> Dict[str, torch.Tensor]:
         """One training step on a numpy batch (see :func:`host_batch`).
-        ``draws`` replaces the generator's draws of this step.  Returns
-        the metrics as 0-d tensors on the device."""
+        ``draws`` (a ``TrainDraws``, or an ``MMSSDraws`` for MMSS)
+        replaces the generator's draws of this step.  Returns the metrics
+        as 0-d tensors on the device."""
         return self.train_step(self.device_batch(batch), draws)
 
-    def train_step(self, b: Dict[str, torch.Tensor], draws: TrainDraws = TrainDraws()) -> Dict[str, torch.Tensor]:
+    def train_step(self, b: Dict[str, torch.Tensor], draws=None) -> Dict[str, torch.Tensor]:
         """One training step on a batch already on the device."""
-        out = training_forward(self.model, self.meta_arch, b, draws, self.generator)
+        out = training_forward(self.model, self.meta_arch, b, self._draws(draws), self.generator)
         total = sum(out.losses.values())
         self.optimizer.zero_grad()
         total.backward()
@@ -172,6 +220,18 @@ class Trainer:
         metrics = {k: v.detach() for k, v in {**out.losses, **out.info}.items()}
         metrics["total_loss"] = total.detach()
         metrics["grad_norm"] = grad_norm
+        return metrics
+
+    @torch.no_grad()
+    def val_loss(self, b: Dict[str, torch.Tensor], draws=None) -> Dict[str, torch.Tensor]:
+        """The validation loss of a batch on the device: each loss and
+        ``val_total_loss``, from the training branches on draws of a
+        generator seeded ``VAL_SEED`` anew (or ``draws``); no update."""
+        generator = torch.Generator(device=self.device)
+        generator.manual_seed(self.VAL_SEED)
+        out = training_forward(self.model, self.meta_arch, b, self._draws(draws), generator)
+        metrics = dict(out.losses)
+        metrics["val_total_loss"] = sum(out.losses.values())
         return metrics
 
     def state_dict(self) -> Dict:

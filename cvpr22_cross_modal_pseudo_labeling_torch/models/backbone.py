@@ -1,8 +1,8 @@
 """Image normalization on the device and the C4 ResNet backbone.
 
 Counterpart of ``cvpr22_cross_modal_pseudo_labeling_tpu/models/
-backbone.py`` (``device_normalize`` :19, ``ResNetBackbone`` :59), the C4
-body only (C5 and FPN come with later slices).
+backbone.py`` (``device_normalize`` :19, ``ResNetBackbone`` :59): the C4
+and C5 bodies (FPN comes with a later slice).
 """
 
 from typing import List, Tuple
@@ -44,20 +44,24 @@ def device_normalize(
 
 
 class ResNetBackbone(nn.Module):
-    """The C4 backbone (stem and stages 2-4); returns a one-element list
-    of ``[B, h, w, C]`` features."""
+    """The C4 (``num_stages`` 3: stem and stages 2-4) or C5 (4) backbone;
+    returns a one-element list of ``[B, h, w, C]`` features."""
 
-    def __init__(self, depth="R-50", stem_out_channels=64,
+    def __init__(self, depth="R-50", num_stages=3, stem_out_channels=64,
                  res2_out_channels=256, num_groups=1, width_per_group=64,
-                 stride_in_1x1=True, dtype=torch.float32):
+                 stride_in_1x1=True, res5_dilation=1, dtype=torch.float32):
         super().__init__()
+        if num_stages not in (3, 4):
+            raise ValueError(f"num_stages {num_stages}: 3 (C4) or 4 (C5)")
+        self.out_channels = res2_out_channels * 2 ** (num_stages - 1)
         self.body = ResNet(
-            RESNET_STAGES[depth][:3],
+            RESNET_STAGES[depth][:num_stages],
             stem_out_channels=stem_out_channels,
             res2_out_channels=res2_out_channels,
             num_groups=num_groups,
             width_per_group=width_per_group,
             stride_in_1x1=stride_in_1x1,
+            res5_dilation=res5_dilation,
             dtype=dtype,
         )
 

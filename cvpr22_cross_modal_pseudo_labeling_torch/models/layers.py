@@ -1,10 +1,14 @@
-"""Conv, transposed conv and dense layers that compute in a set dtype.
+"""Conv, transposed conv and dense layers that compute in a set dtype,
+and flax's LayerNorm.
 
-Flax's ``nn.Conv``/``nn.ConvTranspose``/``nn.Dense`` with
-``dtype=bfloat16`` keep float32 parameters and cast the input, kernel
-and bias to bfloat16 for the computation.  These subclasses do the same,
-so the port holds float32 weights (the JAX checkpoint's) and runs in the
-config's ``TPU.COMPUTE_DTYPE``.
+Flax's ``nn.Conv``/``nn.ConvTranspose``/``nn.Dense``/``nn.DenseGeneral``
+with ``dtype=bfloat16`` keep float32 parameters and cast the input,
+kernel and bias to bfloat16 for the computation.  These subclasses do
+the same, so the port holds float32 weights (the JAX checkpoint's) and
+runs in the config's ``TPU.COMPUTE_DTYPE``.  A ``Linear`` with
+``heads_out`` (or ``heads_in``) stands for a ``DenseGeneral`` whose
+flax kernel splits its output (or input) into that many heads:
+``[in, H, D]`` (or ``[H, D, out]``); ``bridge.py`` reshapes it.
 """
 
 import torch
@@ -38,10 +42,22 @@ class ConvTranspose2d(nn.ConvTranspose2d):
 
 
 class Linear(nn.Linear):
-    def __init__(self, *args, dtype: torch.dtype = torch.float32, **kwargs):
+    def __init__(self, *args, dtype: torch.dtype = torch.float32, heads_out: int = 0,
+                 heads_in: int = 0, **kwargs):
         super().__init__(*args, **kwargs)
         self.compute_dtype = dtype
+        self.heads_out = heads_out
+        self.heads_in = heads_in
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         d = self.compute_dtype
         return F.linear(x.to(d), self.weight.to(d), self.bias.to(d))
+
+
+class LayerNorm(nn.LayerNorm):
+    """Flax's ``nn.LayerNorm`` with float32 ``scale`` and ``bias`` and no
+    ``dtype``: the statistics and the result are float32 whatever the
+    input's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x.to(torch.float32), self.normalized_shape, self.weight, self.bias, self.eps)

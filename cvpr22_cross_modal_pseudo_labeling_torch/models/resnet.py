@@ -114,13 +114,14 @@ class ResNetStage(nn.Sequential):
 
 
 class ResNet(nn.Module):
-    """Stem and stages 2..N (N <= 4); ``stages`` counts blocks per
+    """Stem and stages 2..N (N <= 5); ``stages`` counts blocks per
     stage.  Takes and returns NCHW channels-last tensors; returns the
-    last stage."""
+    last stage.  Stage 5 runs at ``res5_dilation`` (stride 1 when
+    dilated)."""
 
     def __init__(self, stages: Sequence[int], stem_out_channels=64,
                  res2_out_channels=256, num_groups=1, width_per_group=64,
-                 stride_in_1x1=True, dtype=torch.float32):
+                 stride_in_1x1=True, res5_dilation=1, dtype=torch.float32):
         super().__init__()
         self.stem = Stem(stem_out_channels, dtype)
         in_ch = stem_out_channels
@@ -130,11 +131,12 @@ class ResNet(nn.Module):
             stage_num = idx + 2
             factor = 2 ** idx
             out_ch = res2_out_channels * factor
-            first_stride = 1 if stage_num == 2 else 2
+            dilation = res5_dilation if stage_num == 5 else 1
+            first_stride = 1 if stage_num == 2 or dilation > 1 else 2
             self.add_module(
                 f"layer{stage_num - 1}",
                 ResNetStage(block_count, in_ch, stage2_bottleneck * factor,
-                            out_ch, first_stride, 1, stride_in_1x1,
+                            out_ch, first_stride, dilation, stride_in_1x1,
                             num_groups, dtype),
             )
             in_ch = out_ch

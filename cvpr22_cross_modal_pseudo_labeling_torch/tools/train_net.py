@@ -4,13 +4,14 @@
     python -m cvpr22_cross_modal_pseudo_labeling_torch.tools.train_net \\
         --config-file X.yaml [--skip-test] [--device cuda|cpu] [--seed N] KEY VALUE ...
 
-It trains the model the config names (the teacher ``GeneralizedRCNN``
-or the student ``STGeneralizedRCNN``) on ``DATASETS.TRAIN`` with a
-``Trainer`` on ``--device`` (``cuda`` unless the CPU is asked for; it
-raises without a card), through ``engine/trainer.py::do_train``, and
-then evaluates it on ``DATASETS.TEST`` unless ``--skip-test`` or
-``TEST.DO_EVAL False``.  The datasets are found under
-``CMPL_TPU_DATA_DIR``.  In JAX's order:
+It trains the model the config names (MMSS pretraining ``MMSS-GCNN``,
+the teacher ``GeneralizedRCNN`` or the student ``STGeneralizedRCNN``)
+on ``DATASETS.TRAIN`` with a ``Trainer`` on ``--device`` (``cuda``
+unless the CPU is asked for; it raises without a card), through
+``engine/trainer.py::do_train``, and then evaluates a detector on
+``DATASETS.TEST`` unless ``--skip-test`` or ``TEST.DO_EVAL False``
+(MMSS has no detection test: it needs one of the two).  The datasets
+are found under ``CMPL_TPU_DATA_DIR``.  In JAX's order:
 
 * an ``OUTPUT_DIR/last_checkpoint`` with ``MODEL.LOAD_TRAINER_STATE``
   resumes: the loader starts at its iteration, and the checkpoint
@@ -23,22 +24,31 @@ then evaluates it on ``DATASETS.TEST`` unless ``--skip-test`` or
   ``MODEL.RESUME``;
 * the student-teacher model's LVIS class-name table comes from its BERT
   table; checkpoints are written every ``SOLVER.CHECKPOINT_PERIOD`` and
-  at the end, and ``DATASETS.TEST`` is evaluated every
-  ``SOLVER.TEST_PERIOD``.
+  at the end;
+* every ``SOLVER.TEST_PERIOD`` a detector is evaluated on each of
+  ``DATASETS.TEST``, and unless ``SOLVER.SKIP_VAL_LOSS`` the
+  validation-loss pass (``Trainer.val_loss``) runs over 8 batches of
+  ``DATASETS.TEST[0]`` and logs ``iter N val_loss X``.  MMSS runs the
+  pass only: JAX's in-training eval calls detection inference on it,
+  which ``MMSSGridModel`` cannot serve (ROADMAP.md section C).
 
 One process: the multi-process branches go with ROADMAP.md queue A
 item 8.
 """
 
 import argparse
+import itertools
 import os
 import sys
 import time
 from typing import Dict, Optional, Sequence
 
+import numpy as np
 import torch
 
-ROADMAP_VAL_LOSS = "the validation-loss pass is not ported yet (ROADMAP.md queue A item 10)"
+MMSS = "MMSS-GCNN"
+# batches of DATASETS.TEST[0] in one validation-loss pass
+VAL_LOSS_BATCHES = 8
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict:
@@ -63,13 +73,16 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
         cfg.merge_from_file(args.config_file)
     cfg.merge_from_list(list(args.opts or []))
     cfg.freeze()
+    test = not args.skip_test and cfg.TEST.DO_EVAL
+    if test and cfg.MODEL.META_ARCHITECTURE == MMSS and cfg.DATASETS.TEST:
+        raise ValueError("MMSS-GCNN pretraining has no detection test: pass --skip-test or TEST.DO_EVAL False")
     os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
     logger = setup_logger(save_dir=cfg.OUTPUT_DIR)
     logger.info("environment:\n%s", collect_env_info())
     logger.info("config:\n%s", cfg)
     record = train(cfg, logger, args.device, args.seed)
     record["test"] = {}
-    if not args.skip_test and cfg.TEST.DO_EVAL:
+    if test:
         record["test"] = run_test(cfg, record["trainer"], logger)
     return record
 
@@ -80,8 +93,6 @@ def check_train_options(cfg) -> None:
 
     if cfg.MODEL.EXEMPLARS_ENABLED and cfg.MODEL.META_ARCHITECTURE in ST_FAMILY:
         raise NotImplementedError("MODEL.EXEMPLARS_ENABLED: the exemplar table is not ported")
-    if cfg.DATASETS.TEST and cfg.SOLVER.TEST_PERIOD > 0 and not cfg.SOLVER.SKIP_VAL_LOSS:
-        raise NotImplementedError(f"SOLVER.SKIP_VAL_LOSS False: {ROADMAP_VAL_LOSS}")
 
 
 def _iou_types(cfg):
@@ -95,8 +106,9 @@ def _summary(metrics):
 def train(cfg, logger, device: str = "cuda", seed: int = 0) -> Dict:
     """Builds, restores or imports, and trains.  Returns a dict: the
     ``trainer``, the ``start_iter``, the in-training ``evals``
-    (iteration -> dataset -> metrics) and the set-up's ``timing`` in
-    seconds (``weights_s``, ``restore_s``, ``lvis_table_s``)."""
+    (iteration -> dataset -> metrics), the ``val_losses`` (iteration ->
+    mean ``val_total_loss``) and the set-up's ``timing`` in seconds
+    (``weights_s``, ``restore_s``, ``lvis_table_s``)."""
     from .. import bridge
     from ..data import make_data_loader
     from ..data.collate import build_tokenizer
@@ -166,7 +178,8 @@ def train(cfg, logger, device: str = "cuda", seed: int = 0) -> Dict:
             start_iter = restored_iter
         logger.info("resumed from %s at iteration %d", last, start_iter)
 
-    tables = {"class_embeddings": dataset.class_emb_mtx}
+    # MMSS reads no class table
+    tables = {} if meta_arch == MMSS else {"class_embeddings": dataset.class_emb_mtx}
     if meta_arch in ST_FAMILY:
         # the LVIS class-name table from the (frozen) BERT table: after a
         # restore it equals the fresh run's
@@ -181,29 +194,52 @@ def train(cfg, logger, device: str = "cuda", seed: int = 0) -> Dict:
     trainer.set_class_tables(**tables)
 
     evals: Dict[int, Dict[str, Dict[str, float]]] = {}
+    val_losses: Dict[int, float] = {}
     eval_fn = None
-    if cfg.DATASETS.TEST and cfg.SOLVER.TEST_PERIOD > 0:
-        check_eval_options(cfg)
+    detect = meta_arch != MMSS
+    val_loss = not cfg.SOLVER.SKIP_VAL_LOSS
+    if cfg.DATASETS.TEST and cfg.SOLVER.TEST_PERIOD > 0 and (detect or val_loss):
+        if detect:
+            check_eval_options(cfg)
         val_loaders, val_datasets = make_data_loader(cfg, is_train=False)
+        val_classes = getattr(val_datasets[0], "class_names", None)
+        if val_loss and val_classes is not None and val_classes != getattr(dataset, "class_names", None):
+            # the pass reads the training class table; JAX's gather past
+            # its end gives a NaN loss
+            raise ValueError(
+                f"the validation-loss pass runs {cfg.DATASETS.TEST[0]} against the training class table, "
+                "whose classes differ; put a dataset with the training classes first in DATASETS.TEST "
+                "or set SOLVER.SKIP_VAL_LOSS True"
+            )
 
         def eval_fn(trainer, iteration):
-            # the trainer's own model, in eval mode for the pass
-            predictor = Predictor.from_model(cfg, trainer.model)
-            try:
-                for name, loader_t, ds in zip(cfg.DATASETS.TEST, val_loaders, val_datasets):
-                    metrics = inference(
-                        predictor, loader_t, ds, iou_types=_iou_types(cfg),
-                        expected_results=cfg.TEST.EXPECTED_RESULTS,
-                        expected_results_sigma_tol=cfg.TEST.EXPECTED_RESULTS_SIGMA_TOL,
-                    )
-                    logger.info("iter %d eval[%s]: %s", iteration, name, _summary(metrics))
-                    evals.setdefault(iteration, {})[name] = metrics
-            finally:
-                trainer.model.train()
+            if detect:
+                # the trainer's own model, in eval mode for the pass
+                predictor = Predictor.from_model(cfg, trainer.model)
+                try:
+                    for name, loader_t, ds in zip(cfg.DATASETS.TEST, val_loaders, val_datasets):
+                        metrics = inference(
+                            predictor, loader_t, ds, iou_types=_iou_types(cfg),
+                            expected_results=cfg.TEST.EXPECTED_RESULTS,
+                            expected_results_sigma_tol=cfg.TEST.EXPECTED_RESULTS_SIGMA_TOL,
+                        )
+                        logger.info("iter %d eval[%s]: %s", iteration, name, _summary(metrics))
+                        evals.setdefault(iteration, {})[name] = metrics
+                finally:
+                    trainer.model.train()
+            if val_loss:
+                totals = [
+                    trainer.val_loss(trainer.device_batch(batch))["val_total_loss"]
+                    for batch, _ in itertools.islice(iter(val_loaders[0]), VAL_LOSS_BATCHES)
+                ]
+                if totals:
+                    val_losses[iteration] = float(np.mean(torch.stack(totals).cpu().numpy()))
+                    logger.info("iter %d val_loss %.4f", iteration, val_losses[iteration])
 
     do_train(trainer.train_step, trainer, loader, cfg, eval_fn=eval_fn, output_dir=cfg.OUTPUT_DIR,
              start_iter=start_iter)
-    return {"trainer": trainer, "start_iter": start_iter, "evals": evals, "timing": timing}
+    return {"trainer": trainer, "start_iter": start_iter, "evals": evals, "val_losses": val_losses,
+            "timing": timing}
 
 
 def run_test(cfg, trainer, logger) -> Dict[str, Dict[str, float]]:

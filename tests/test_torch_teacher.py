@@ -471,7 +471,7 @@ def test_teacher_optimizer_labels_match_jax():
 @pytest.mark.parametrize("opts,error", [
     (("MODEL.META_ARCHITECTURE", "SoftTeacher"), NotImplementedError),
     (("MODEL.META_ARCHITECTURE", "OMP"), NotImplementedError),
-    (("MODEL.META_ARCHITECTURE", "MMSS-GCNN"), NotImplementedError),
+    (("MODEL.META_ARCHITECTURE", "UnbiasedTeacher"), NotImplementedError),
     (("MODEL.RETINANET_ON", True), NotImplementedError),
     (("MODEL.BACKBONE.CONV_BODY", "R-50-FPN"), NotImplementedError),
     (("MODEL.KEYPOINT_ON", True), NotImplementedError),

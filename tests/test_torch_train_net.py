@@ -219,7 +219,7 @@ def test_train_net_needs_a_card_unless_cpu_is_asked_for(tmp_path):
 
 @pytest.mark.parametrize("opts,match", [
     (["MODEL.EXEMPLARS_ENABLED", True], "EXEMPLARS_ENABLED"),
-    (["SOLVER.SKIP_VAL_LOSS", False, "SOLVER.TEST_PERIOD", 2], "queue A item 10"),
+    (["DATALOADER.USE_GRAIN", True], "USE_GRAIN"),
 ])
 def test_unported_training_options_raise(tmp_path, opts, match):
     with pytest.raises(NotImplementedError, match=match):
@@ -237,3 +237,87 @@ def test_a_sampler_that_never_fills_a_batch_raises():
     # with groups that fill a batch it yields as before
     grouped = GroupedBatchSampler(sampler, [0] * 6 + [3, 4], 2, drop_last=True)
     assert len(list(IterationBasedBatchSampler(grouped, 5))) == 5
+
+
+MMSS_CONFIG = str(REPO / "configs/coco_cap_det/mmss.yaml")
+# the three stages share a trunk whose C5 has the RoI head's 2048
+# channels (res2 256), so that MMSS's layer4 and v2l land on the teacher
+WIDE = ["MODEL.RESNETS.RES2_OUT_CHANNELS", 256]
+MMSS_TINY = [
+    "MODEL.RESNETS.STEM_OUT_CHANNELS", 8, "MODEL.RESNETS.WIDTH_PER_GROUP", 4, *WIDE,
+    "MODEL.WEIGHT", "", "MODEL.MMSS_HEAD.TRANSFORMER.BERT_CONFIG.num_hidden_layers", 1,
+    "TPU.COMPUTE_DTYPE", "float32", "TPU.MAX_CAP_TOKENS", 16,
+    "INPUT.MIN_SIZE_TRAIN", (64,), "INPUT.MAX_SIZE_TRAIN", 96, "INPUT.MIN_SIZE_TEST", 64,
+    "INPUT.MAX_SIZE_TEST", 96, "TPU.IMAGE_BUCKETS", ((96, 96),),
+    "SOLVER.IMS_PER_BATCH", 2, "TEST.IMS_PER_BATCH", 2, "SOLVER.LOG_PERIOD", 1, "DATALOADER.NUM_WORKERS", 2,
+    "SOLVER.CHECKPOINT_PERIOD", 2, "SOLVER.TEST_PERIOD", 1,
+]
+
+
+def run_mmss(out_dir, *opts):
+    argv = ["--config-file", MMSS_CONFIG, "--device", "cpu", *map(str, MMSS_TINY), *map(str, opts),
+            "OUTPUT_DIR", str(out_dir)]
+    return train_net.main(argv)
+
+
+def test_mmss_then_teacher_then_student(tmp_path):
+    """The paper's three stages through the port's ``train_net`` (the
+    counterpart of ``tests/test_cli_pipeline.py``): MMSS pretraining
+    with its validation-loss pass at every step, a checkpoint and a
+    resume; the teacher from the MMSS ``OUTPUT_DIR`` with
+    ``LOAD_EMB_PRED_FROM_MMSS_HEAD`` (at learning rate 0, so that its
+    checkpoint holds the imported weights: the C5 ``layer4`` on the RoI
+    extractor and ``v2l_projection`` on ``emb_pred``, bit for bit); the
+    student from the teacher, with its BERT table from the MMSS
+    directory and the validation-loss pass beside its evaluation (on
+    the seen classes: the pass reads the training class table)."""
+    from tests.test_torch_mmss_train import write_val_captions
+
+    import os
+
+    write_val_captions(Path(os.environ["CMPL_TPU_DATA_DIR"]))
+    mmss_out, teacher_out, st_out = tmp_path / "mmss", tmp_path / "teacher", tmp_path / "st"
+    rec = run_mmss(mmss_out, "SOLVER.MAX_ITER", 2)
+    text = log_text(mmss_out)
+    assert list(rec["val_losses"]) == [1, 2] and all(math.isfinite(v) for v in rec["val_losses"].values())
+    assert "iter 1 val_loss" in text and "iter 2 val_loss" in text and rec["evals"] == {}
+    assert [r["step"] for r in logged(mmss_out)] == [1, 2]
+    assert all(math.isfinite(v) for r in logged(mmss_out) for v in r.values())
+    assert saves(mmss_out) == ["model_0000002.pth"]
+    rec = run_mmss(mmss_out, "SOLVER.MAX_ITER", 3, "MODEL.LOAD_TRAINER_STATE", True)
+    assert rec["start_iter"] == 2 and rec["trainer"].optimizer.updates == 3
+    assert f"resumed from {mmss_out}/model_0000002.pth at iteration 2" in log_text(mmss_out)
+    mmss = torch_ckpt.load_checkpoint(torch_ckpt.latest_checkpoint(str(mmss_out)))
+    assert mmss["iteration"] == 3 and mmss["meta_arch"] == "MMSS-GCNN"
+    with pytest.raises(ValueError, match="no detection test"):
+        run_mmss(tmp_path / "refused", "TEST.DO_EVAL", True)
+
+    run(TEACHER, teacher_out, *WIDE, "MODEL.WEIGHT", mmss_out, "MODEL.LOAD_EMB_PRED_FROM_MMSS_HEAD", True,
+        "SOLVER.BASE_LR", 0.0, "SOLVER.MAX_ITER", 1, "SOLVER.TEST_PERIOD", 0)
+    text = log_text(teacher_out)
+    n = int(text.split("imported ")[1].split()[0])
+    teacher = torch_ckpt.load_checkpoint(torch_ckpt.latest_checkpoint(str(teacher_out)))
+    src, got = mmss["trainer"]["model"], teacher["trainer"]["model"]
+    layer4 = {k: v for k, v in src.items() if k.startswith("backbone.body.layer4.")}
+    trunk = [k for k in src if k.startswith("backbone.body.") and not k.startswith("backbone.body.layer4.")]
+    # every trunk tensor through layer3, layer4 and the projection
+    assert n == len([k for k in trunk if k in got]) + len(layer4) + 2 and len(layer4) == 50
+    for k, v in layer4.items():
+        assert torch.equal(got[k.replace("backbone.body.", "roi_extractor.")], v), k
+    assert torch.equal(got["box_predictor.emb_pred.weight"], src["v2l_projection.weight"])
+    assert torch.equal(got["box_predictor.emb_pred.bias"], src["v2l_projection.bias"])
+    assert torch.equal(got["backbone.body.layer3.block5.conv2.weight"], src["backbone.body.layer3.block5.conv2.weight"])
+
+    student = [*WIDE, "MODEL.WEIGHT", teacher_out, "MODEL.LANGUAGE_WEIGHT", mmss_out, "SOLVER.MAX_ITER", 1,
+               "SOLVER.TEST_PERIOD", 1, "SOLVER.SKIP_VAL_LOSS", False]
+    # the pass reads the training class table: a test set of other
+    # classes first is refused before training
+    with pytest.raises(ValueError, match="training class table"):
+        run(STUDENT, tmp_path / "refused_st", *student)
+    rec = run(STUDENT, st_out, *student, "DATASETS.TEST", ("coco_not_zeroshot_val",))
+    text = log_text(st_out)
+    assert "language table: imported 1 leaves" in text and "prepare_model: copied" in text
+    assert "iter 1 val_loss" in text and list(rec["val_losses"]) == [1] and list(rec["evals"]) == [1]
+    assert math.isfinite(rec["val_losses"][1])
+    st = torch_ckpt.load_checkpoint(torch_ckpt.latest_checkpoint(str(st_out)))["trainer"]["model"]
+    assert torch.equal(st["bert.word_embeddings"], src["language_backbone.word_embeddings"])
