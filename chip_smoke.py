@@ -164,9 +164,37 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                 ``Trainer.step`` latency of the train phases, the checkpoints'
                 bytes and save, stall and load seconds, the LVIS table's seconds
                 and each run's peak memory; deletes ``build/train_out``.
+17. openimages -- the Conceptual Captions -> OpenImages pair
+                (configs/conceptual_openimages_det/) through the port's entry
+                points at full width in bfloat16 with batches of 8, on a tree
+                that ``tools/synth_openimages.py`` writes under
+                ``build/synth_openimages``: 16 OpenImages train and 16 val
+                JPEGs at 1024 x 768 and 768 x 1024, 200 seen and 300 unseen
+                classes with 768-d embeddings, long-tailed boxes, PNG and
+                inline masks, an image-level CSV that leaves a class of each
+                image out, and 32 Conceptual JPEGs at 640 x 480 and 480 x 640
+                whose captions hold LVIS nouns.  ``train_net`` trains the
+                teacher (zeroshot_mask.yaml, 201 classes) 3 steps through the
+                repeat-factor sampler, its first step's launches checked, then
+                the student (NUM_CLASSES -1) from the teacher's OUTPUT_DIR 3
+                steps on the mixture, every launch checked: a uint8 batch of
+                detection and caption images, finite losses,
+                loss_classifier_pseudo above 0 on each batch with caption
+                images, the teacher bundle equal to the teacher checkpoint's.
+                Then ``test_net`` on openimages_zeroshot_val (501 classes) with
+                the student's checkpoint, plain (first batch checked, the
+                labelled detection NMS among its launches) and with
+                TEST.BBOX_AUG at scales 800, 600 and 1000, each flipped (six
+                batch-1 calls an image; each new shape's first launches and
+                every merge's NMS checked): every image a result, at most 100,
+                every metric finite, the image-level filter dropping
+                detections.  The new launch shapes (the detection NMS over 500
+                labels, the merge's NMS, the pseudo boxes' pooling on caption
+                images) are timed on their captured inputs.
 One line gives the seconds each phase from 7 on took.  The per-kernel line
 gives, beside each kernel's launches on the earlier paths, its launches on
-the MMSS paths (phase 14 and the MMSS stage of phase 16): 0.
+the MMSS paths (phase 14 and the MMSS stage of phase 16): 0, and on the
+OpenImages paths of phase 17.
 
 Then the card's name and power limit, the per-kernel JSON line, and the last
 line ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when
@@ -230,6 +258,17 @@ TRAIN_NET = dict(out="build/train_out", dataset="coco_generalized_zeroshot_val",
 # MMSS pretraining: configs/coco_cap_det/mmss.yaml at full width in
 # bfloat16, the per-device share (8) of its 64-image batch, captions
 # padded to TPU.MAX_CAP_TOKENS 128; no ImageNet weights ship
+# the Conceptual Captions -> OpenImages pair on a tree written by
+# tools/synth_openimages.py: 16 OpenImages train and 16 val JPEGs at 1024 x
+# 768 and 768 x 1024, 32 Conceptual JPEGs at 640 x 480 and 480 x 640, 200
+# seen and 300 unseen classes; batches of 8; test-time augmentation at the
+# base scale and two more, each also flipped.  Outputs (checkpoints of
+# hundreds of MB) and the tree are deleted at the end of the phase.
+OI_TEACHER = "configs/conceptual_openimages_det/zeroshot_mask.yaml"
+OI_STUDENT = "configs/conceptual_openimages_det/student_teacher_mask_rcnn_uncertainty.yaml"
+OI_CLASSES = 501  # the val set's 200 seen and 300 unseen classes and the background
+OPENIMAGES = dict(tree="build/synth_openimages", out="build/oi_out", train=16, val=16, captions=32, seed=0,
+                  student_steps=3, scales=(600, 1000), opts=("SOLVER.IMS_PER_BATCH", 8, "SOLVER.LOG_PERIOD", 1))
 MMSS_CONFIG = "configs/coco_cap_det/mmss.yaml"
 MMSS = dict(steps=3, batch=8, hw=(800, 1333), tokens=128, opts=())
 # what an MMSS step must change, and the frozen BERT it must not
@@ -1437,12 +1476,19 @@ def make_eval_tree():
 
 def metrics_finite(metrics, dataset):
     """Every metric finite, except the AP50 of a class with no ground
-    truth in the dataset, which must be the evaluator's NaN."""
-    no_gt = {dataset.categories[c] for c in dataset.coco.get_cat_ids()
-             if not any(a["category_id"] == c for a in dataset.coco.anns.values())}
-    bad = [k for k, v in metrics.items()
-           if not (np.isfinite(v) or (np.isnan(v) and k.split("AP50_class_")[-1] in no_gt
-                                      and "AP50_class_" in k))]
+    truth in the dataset, which must be the evaluator's NaN.  For the segm
+    metrics a ground truth needs an inline segmentation: the evaluator
+    drops the others (an OpenImages instance whose mask is a PNG)."""
+    anns = list(dataset.coco.anns.values())
+    names = {c: dataset.categories[c] for c in dataset.coco.get_cat_ids()}
+    no_gt = {n for c, n in names.items() if not any(a["category_id"] == c for a in anns)}
+    no_segm_gt = {n for c, n in names.items()
+                  if not any(a["category_id"] == c and a.get("segmentation") for a in anns)}
+
+    def allowed(k):
+        return "AP50_class_" in k and k.split("AP50_class_")[-1] in (no_segm_gt if k.startswith("segm/") else no_gt)
+
+    bad = [k for k, v in metrics.items() if not (np.isfinite(v) or (np.isnan(v) and allowed(k)))]
     return bad, len(no_gt)
 
 
@@ -1904,6 +1950,325 @@ def phase_train_net(dev, results):
     results["train_net"] = rec
 
 
+def sampler_of(loader):
+    """The ``DistributedSampler`` under a loader's batch samplers."""
+    obj = loader.batch_sampler
+    while not hasattr(obj, "repeat_factors"):
+        obj = getattr(obj, "batch_sampler", None) or obj.sampler
+    return obj
+
+
+def phase_openimages(dev, results):
+    """The Conceptual Captions -> OpenImages config pair through the port's
+    entry points on a synthetic tree: the teacher (first step checked, the
+    repeat-factor sampler), the student from the teacher's OUTPUT_DIR on
+    the caption/detection mixture (every step checked), then test_net on
+    openimages_zeroshot_val with the image-level filter, plain and with
+    TEST.BBOX_AUG (each new bucket's first launches and each merge's NMS
+    checked)."""
+    import shutil
+
+    from cvpr22_cross_modal_pseudo_labeling_torch.data import make_data_loader
+    from cvpr22_cross_modal_pseudo_labeling_torch.data.evaluation import filter_predictions_imagelevel
+    from cvpr22_cross_modal_pseudo_labeling_torch.engine import bbox_aug
+    from cvpr22_cross_modal_pseudo_labeling_torch.engine import checkpoint as ck
+    from cvpr22_cross_modal_pseudo_labeling_torch.engine import inference as inf
+    from cvpr22_cross_modal_pseudo_labeling_torch.engine.train_step import Trainer
+    from cvpr22_cross_modal_pseudo_labeling_torch.ops import kernels
+    from cvpr22_cross_modal_pseudo_labeling_torch.ops import nms as nm
+    from cvpr22_cross_modal_pseudo_labeling_torch.ops import roi_align as ra
+    from cvpr22_cross_modal_pseudo_labeling_torch.tools import synth_openimages, test_net
+
+    O = OPENIMAGES
+    tree, out = O["tree"], O["out"]
+    for d in (tree, out):
+        shutil.rmtree(d, ignore_errors=True)
+    t = time.perf_counter()
+    wrote = synth_openimages.write_tree(tree, train=O["train"], val=O["val"], captions=O["captions"],
+                                        seed=O["seed"])
+    tree_s = time.perf_counter() - t
+    os.environ["CMPL_TPU_DATA_DIR"] = tree
+    t_dir, s_dir, e_dir, a_dir = (os.path.join(out, d) for d in ("teacher", "st", "test_net", "test_net_aug"))
+    common = ["--device", dev.type, "--seed", str(SEED), *map(str, O["opts"]), "SOLVER.TEST_PERIOD", "0"]
+    name = "openimages_zeroshot_val"
+
+    tcfg = inf.load_cfg(OI_TEACHER, [*map(str, O["opts"]), "SOLVER.MAX_ITER", "3"])
+    loader, t_ds = make_data_loader(tcfg, is_train=True)
+    rf = sampler_of(loader).repeat_factors
+    check(rf is not None and type(t_ds).__name__ == "OpenImagesDataset" and float(rf.max()) > 1,
+          f"openimages: the teacher's sampler has no repeat factors above 1: {rf}")
+    sampling = dict(images=len(t_ds), repeat_factor_max=float(rf.max()),
+                    images_repeated=int((rf > 1).sum()), expected_draws_per_epoch=float(rf.sum()))
+    del loader
+
+    checks, check_nms, check_roi, check_roi_bwd = launch_checks()
+    captured = {}
+    step, per_step = Trainer.train_step, []
+    nouns = tcfg.TPU.MAX_CAP_NOUNS
+
+    def capture_roi(inputs, out_):
+        # the pseudo boxes' pooling on a batch with caption images
+        if inputs[1].shape[1] == nouns and captured.get("caption_step") and "pseudo_roi" not in captured:
+            captured["pseudo_roi"] = inputs
+        check_roi(inputs, out_)
+
+    def counted_step(self, b, draws=None):
+        arch = self.meta_arch
+        det = b.get("det_mask")
+        caption_rows = 0 if det is None else int((~det).sum())
+        checked = arch == "STGeneralizedRCNN" or not any(p["arch"] == arch for p in per_step)
+        captured["caption_step"] = caption_rows > 0
+        kernels.NMS.on_launch = check_nms if checked else None
+        kernels.ROI_ALIGN.on_launch = capture_roi if checked else None
+        kernels.ROI_ALIGN_BACKWARD.on_launch = check_roi_bwd if checked else None
+        before = {k.name: k.launches for k in kernels.ALL}
+        try:
+            return step(self, b, draws)
+        finally:
+            kernels.NMS.on_launch = kernels.ROI_ALIGN.on_launch = kernels.ROI_ALIGN_BACKWARD.on_launch = None
+            per_step.append({"arch": arch, "images": list(b["images"].shape), "dtype": str(b["images"].dtype),
+                             "caption_rows": caption_rows, "checked": checked,
+                             **{k.name: k.launches - before[k.name] for k in kernels.ALL}})
+
+    def steps_of(arch):
+        return [p for p in per_step if p["arch"] == arch]
+
+    def launches_of(rows):
+        return {k.name: sum(p[k.name] for p in rows) for k in kernels.ALL}
+
+    runs = {}
+    Trainer.train_step = counted_step
+    call, merge = inf.Predictor.__call__, bbox_aug.merge_and_filter
+    try:
+        # the teacher on the 200 seen classes: 3 steps of 8, first checked
+        teacher_args = ["--config-file", OI_TEACHER, "--skip-test", *common, "SOLVER.MAX_ITER", "3",
+                        "SOLVER.CHECKPOINT_PERIOD", "3"]
+        rec, runs["teacher"], log, logged = train_net_run(teacher_args, t_dir)
+        teacher_steps = steps_of("GeneralizedRCNN")
+        check([r["step"] for r in logged] == [1, 2, 3] and all(np.isfinite(r["total_loss"]) for r in logged),
+              f"openimages teacher: logged {logged}")
+        check(rec["trainer"].class_tables["class_embeddings"].shape[0] == 201,
+              "openimages teacher: the class table is not the 200 seen classes and the background")
+        want = {k: v / TRAIN["steps"] for k, v in results["teacher_train"]["launches"].items()}
+        check(len(teacher_steps) == 3 and all({k: p[k] for k in want} == want for p in teacher_steps)
+              and all(p["images"][0] == 8 and p["dtype"] == "torch.uint8" for p in teacher_steps),
+              f"openimages teacher: steps {teacher_steps}, teacher_train {want}")
+        n_checked = dict(nms=len(checks["nms"]), roi_align=len(checks["roi_align"]),
+                         roi_align_backward=len(checks["roi_align_backward"]))
+        check(n_checked == {k: int(v) for k, v in want.items()},
+              f"openimages teacher: first step's checked launches {n_checked}")
+        runs["teacher"]["checkpoint"] = checkpoint_costs(rec["trainer"], os.path.join(out, "costs_t"), 3)
+        runs["teacher"]["loss"] = [r["total_loss"] for r in logged]
+        del rec
+        torch.cuda.empty_cache()
+
+        # the student from the teacher's OUTPUT_DIR on the mixture, every step checked
+        st_args = ["--config-file", OI_STUDENT, "--skip-test", *common, "MODEL.WEIGHT", t_dir,
+                   "SOLVER.MAX_ITER", str(O["student_steps"]), "SOLVER.CHECKPOINT_PERIOD", str(O["student_steps"])]
+        rec, runs["student"], log, logged = train_net_run(st_args, s_dir)
+        st_import = re.search(r"imported (\d+) leaves from checkpoint \S+model_0000003.pth \((\d+) source", log)
+        check(st_import and int(st_import.group(2)) == 0 and "prepare_model: copied " in log,
+              "openimages student: the teacher's checkpoint was not imported whole")
+        st_steps = steps_of("STGeneralizedRCNN")
+        check([r["step"] for r in logged] == list(range(1, O["student_steps"] + 1))
+              and all(np.isfinite(v) for r in logged for v in r.values()),
+              f"openimages student: logged {logged}")
+        check(all(p["images"][0] == 8 and p["dtype"] == "torch.uint8" for p in st_steps)
+              and any(0 < p["caption_rows"] < 8 for p in st_steps),
+              f"openimages student: no uint8 batch of detection and caption images: {st_steps}")
+        pseudo = [r["loss_classifier_pseudo"] for r, p in zip(logged, st_steps) if p["caption_rows"]]
+        check(pseudo and all(v > 0 for v in pseudo),
+              f"openimages student: loss_classifier_pseudo {pseudo} on the batches with caption images")
+        check(rec["trainer"].class_tables["class_embeddings"].shape[0] == 201,
+              "openimages student: the mixture's class table is not the detection set's")
+        teacher_ck = ck.load_checkpoint(os.path.join(t_dir, "model_0000003.pth"))["trainer"]["model"]
+        s_ckpt = os.path.join(s_dir, f"model_{O['student_steps']:07d}.pth")
+        st_ck = ck.load_checkpoint(s_ckpt)["trainer"]["model"]
+        bundle = [k for k in teacher_ck if k.startswith(("roi_extractor.", "box_predictor.", "mask_predictor."))]
+        check(bundle and all(torch.equal(st_ck["teacher." + k], teacher_ck[k]) for k in bundle),
+              "openimages student: its teacher bundle differs from the teacher checkpoint")
+        del teacher_ck, st_ck
+        runs["student"]["checkpoint"] = checkpoint_costs(rec["trainer"], os.path.join(out, "costs_s"), 3)
+        runs["student"]["imported_leaves"] = int(st_import.group(1))
+        runs["student"]["loss_classifier_pseudo"] = [r["loss_classifier_pseudo"] for r in logged]
+        runs["student"]["total_loss"] = [r["total_loss"] for r in logged]
+        del rec
+        torch.cuda.empty_cache()
+        train_checked = launches_of([p for p in per_step if p["checked"]])
+        check(len(checks["nms"]) == train_checked["nms"] and all(m == 0 for m, _ in checks["nms"]),
+              f"openimages train: NMS launches differ from the plain version: {checks['nms']}")
+        for key in ("roi_align", "roi_align_backward"):
+            check(len(checks[key]) == train_checked[key] and all(x <= 0 for _, x, _, _ in checks[key]),
+                  f"openimages train: {key} launches over tolerance: {checks[key]}")
+        check("pseudo_roi" in captured, "openimages student: no pseudo-box pooling on a batch with captions")
+        train_checks = checks
+
+        # test_net on the val set: the first batch and each new shape checked
+        evals = {}
+        for label, extra in (("plain", []), ("bbox_aug", [
+                "TEST.BBOX_AUG.ENABLED", "True", "TEST.BBOX_AUG.H_FLIP", "True",
+                "TEST.BBOX_AUG.SCALE_H_FLIP", "True", "TEST.BBOX_AUG.SCALES", str(O["scales"])])):
+            checks, check_nms, check_roi, _ = launch_checks()
+            merge_checks, check_merge, _, _ = launch_checks()
+            batches, state, merges = [], {"shapes": set()}, []
+
+            def checked_call(self, images, image_sizes, class_embeddings):
+                first = not batches
+                checked = first or tuple(images.shape) not in state["shapes"]
+                state["shapes"].add(tuple(images.shape))
+
+                def nms_hook(inputs, out_):
+                    if inputs[5] is not None and "det_nms" not in captured and first and label == "plain":
+                        captured["det_nms"] = inputs
+                    check_nms(inputs, out_)
+
+                kernels.NMS.on_launch = nms_hook if checked else None
+                kernels.ROI_ALIGN.on_launch = check_roi if checked else None
+                try:
+                    r = call(self, images, image_sizes, class_embeddings)
+                finally:
+                    kernels.NMS.on_launch = kernels.ROI_ALIGN.on_launch = None
+                batches.append(dict(shape=list(images.shape), dtype=str(images.dtype), checked=checked,
+                                    classes=int(class_embeddings.shape[0])))
+                return r
+
+            def checked_merge(*args, **kw):
+                def hook(inputs, out_):
+                    if "merge_nms" not in captured or inputs[0].shape[0] > captured["merge_nms"][0].shape[0]:
+                        captured["merge_nms"] = inputs
+                    check_merge(inputs, out_)
+
+                kernels.NMS.on_launch = hook
+                before = kernels.NMS.launches
+                try:
+                    r = merge(*args, **kw)
+                finally:
+                    kernels.NMS.on_launch = None
+                merges.append(dict(launches=kernels.NMS.launches - before, kept=len(r[0]),
+                                   merged=sum(len(x) for x in args[1])))
+                return r
+
+            inf.Predictor.__call__, bbox_aug.merge_and_filter = checked_call, checked_merge
+            before = {k.name: k.launches for k in kernels.ALL}
+            out_dir = e_dir if label == "plain" else a_dir
+            t = time.perf_counter()
+            got = test_net.main(["--config-file", OI_STUDENT, "--device", dev.type, "--ckpt", s_ckpt,
+                                 *map(str, O["opts"]), *extra, "OUTPUT_DIR", out_dir])
+            test_s = time.perf_counter() - t
+            inf.Predictor.__call__, bbox_aug.merge_and_filter = call, merge
+            launches = {k.name: k.launches - before[k.name] for k in kernels.ALL}
+            m = got[name]
+            _, (ds,) = make_data_loader(inf.load_cfg(OI_STUDENT, []), is_train=False)
+            with open(os.path.join(out_dir, f"predictions_{name}.json")) as f:
+                preds = json.load(f)
+            with open(os.path.join(out_dir, f"metrics_{name}.json")) as f:
+                saved_m = json.load(f)
+            per_image = {}
+            for pr in preds:
+                per_image[pr["image_id"]] = per_image.get(pr["image_id"], 0) + 1
+            ids = set(ds.id_to_img_map.values())
+            check(set(per_image) == ids and max(per_image.values()) <= 100,
+                  f"openimages {label}: {len(ids - set(per_image))} images without a result, "
+                  f"{max(per_image.values(), default=0)} results on one")
+            bad, no_gt = metrics_finite(saved_m, ds)
+            check(not bad, f"openimages {label}: non-finite metrics {bad[:5]}")
+            kept = filter_predictions_imagelevel(preds, ds.imagelevel)
+            dropped = len(preds) - len(kept)
+            check(dropped > 0, f"openimages {label}: the image-level filter dropped no detection")
+            checked = [b for b in batches if b["checked"]]
+            check(all(b["classes"] == OI_CLASSES for b in batches),
+                  f"openimages {label}: class tables {sorted({b['classes'] for b in batches})}")
+            check(len(checks["nms"]) == 2 * len(checked) and all(x == 0 for x, _ in checks["nms"]),
+                  f"openimages {label}: NMS launches differ from the plain version: {checks['nms']}")
+            check(len(checks["roi_align"]) == 2 * len(checked)
+                  and all(x <= 0 for _, x, _, _ in checks["roi_align"]),
+                  f"openimages {label}: RoIAlign launches over tolerance: {checks['roi_align']}")
+            rec_e = dict(test_net_s=test_s, batches=len(batches),
+                         shapes=sorted({tuple(b["shape"]) for b in batches}),
+                         checked_shapes=[b["shape"] for b in checked], launches=launches,
+                         results=len(preds), categories=len({pr["category_id"] for pr in preds}),
+                         results_per_image_min=min(per_image.values()),
+                         results_per_image_max=max(per_image.values()),
+                         imagelevel_dropped=dropped, imagelevel_kept=len(kept), classes_without_gt=no_gt,
+                         bbox_AP=m["bbox/AP"], bbox_AP50=m["bbox/AP50"],
+                         bbox_AP50_seen=m.get("bbox/AP50_split_seen"),
+                         bbox_AP50_unseen=m.get("bbox/AP50_split_unseen"),
+                         **{k[5:]: m[k] for k in m if k.startswith("time/")},
+                         launch_checks={
+                             "nms_mismatches": [x for x, _ in checks["nms"]],
+                             "nms_shapes": [n for _, n in checks["nms"]],
+                             "roi_align_max_abs_err": [e for e, _, _, _ in checks["roi_align"]],
+                             "roi_align_excess_over_limit": [x for _, x, _, _ in checks["roi_align"]],
+                             "roi_align_rois": [r for _, _, _, r in checks["roi_align"]]})
+            if label == "plain":
+                check("segm/AP" in m and "det_nms" in captured,
+                      "openimages plain: no segm metrics, or no labelled detection NMS checked")
+            else:
+                check(not any(k.startswith("segm/") for k in m) and len(merges) == len(ids)
+                      and all(x["launches"] == (1 if x["merged"] else 0) for x in merges)
+                      and all(x == 0 for x, _ in merge_checks["nms"])
+                      and len(merge_checks["nms"]) == sum(x["launches"] for x in merges)
+                      and len(batches) == 6 * len(ids) and all(b["shape"][0] == 1 for b in batches),
+                      f"openimages bbox_aug: merges {merges}, merge checks {merge_checks['nms']}, "
+                      f"{len(batches)} calls")
+                check(any(tuple(b["shape"][1:3]) not in {tuple(hw) for hw in tcfg.TPU.IMAGE_BUCKETS}
+                          for b in checked), "openimages bbox_aug: no checked call on the fallback bucket")
+                rec_e.update(merges=len(merges), merge_launches=sum(x["launches"] for x in merges),
+                             merged_per_image=[x["merged"] for x in merges],
+                             merge_nms_mismatches=[x for x, _ in merge_checks["nms"]])
+            evals[label] = rec_e
+            torch.cuda.empty_cache()
+    finally:
+        Trainer.train_step = step
+        inf.Predictor.__call__, bbox_aug.merge_and_filter = call, merge
+        kernels.NMS.on_launch = kernels.ROI_ALIGN.on_launch = kernels.ROI_ALIGN_BACKWARD.on_launch = None
+        shutil.rmtree(out, ignore_errors=True)
+    launches = {"teacher_train": launches_of(steps_of("GeneralizedRCNN")),
+                "student_train": launches_of(steps_of("STGeneralizedRCNN")),
+                "test_net": evals["plain"]["launches"], "test_net_bbox_aug": evals["bbox_aug"]["launches"]}
+    check(all(launches["teacher_train"][k] > 0 for k in launches["teacher_train"])
+          and launches["student_train"]["nms"] > 0 and launches["student_train"]["roi_align"] > 0
+          and all(v["nms"] > 0 and v["roi_align"] > 0 for k, v in launches.items() if k.startswith("test_net")),
+          f"openimages: a kernel of a path never launched: {launches}")
+
+    # the new launch shapes, timed on their captured inputs
+    shapes = {}
+    for key, inputs in (("nms_detections_501_labels", captured["det_nms"]),
+                        ("nms_bbox_aug_merge", captured["merge_nms"])):
+        boxes, scores, valid, thr, k, labels = inputs
+        idx, keep = nm.nms(*inputs)
+        bound_ms, bound_by, _ = nms_bound(scores if scores.dim() == 2 else scores[None],
+                                          valid if valid.dim() == 2 else valid[None],
+                                          labels if labels.dim() == 2 else labels[None],
+                                          idx if idx.dim() == 2 else idx[None],
+                                          keep if keep.dim() == 2 else keep[None], k)
+        shapes[key] = dict(shape=f"{'x'.join(map(str, boxes.shape[:-1]))} -> {k}, labels up to "
+                                 f"{int(labels.max())}", kept=int(keep.sum()),
+                           ms=cuda_ms(lambda: nm.nms(*inputs), 20),
+                           plain_ms=cuda_ms(lambda: nm.nms_plain(*inputs), 3),
+                           bound_ms=bound_ms, bound_by=bound_by)
+    feats, rois, output_size, _, _, _, bin_stride = captured["pseudo_roi"]
+    bound_ms, bound_by, _, _ = roi_bound(feats, rois, output_size, bin_stride)
+    shapes["roi_align_pseudo_boxes"] = dict(
+        shape=f"{rois.shape[0]} x {rois.shape[1]} on {list(feats.shape)} {feats.dtype}",
+        ms=cuda_ms(lambda: ra.roi_align(*captured["pseudo_roi"]), 20),
+        plain_ms=cuda_ms(lambda: ra.roi_align_plain(*captured["pseudo_roi"]), 3),
+        bound_ms=bound_ms, bound_by=bound_by)
+    captured.clear()
+    rec = dict(phase="openimages", teacher=OI_TEACHER, student=OI_STUDENT, dtype="bfloat16", batch=8,
+               tree=wrote, tree_s=tree_s, sampling=sampling, runs=runs, steps=per_step, evals=evals,
+               launches=launches, new_shapes=shapes,
+               train_checks={
+                   "nms_mismatches": [x for x, _ in train_checks["nms"]],
+                   "nms_shapes": [n for _, n in train_checks["nms"]],
+                   **{f"{key}_{field}": [c[i] for c in train_checks[key]]
+                      for key in ("roi_align", "roi_align_backward")
+                      for i, field in enumerate(("max_abs_err", "excess_over_limit", "dtype", "rois"))}})
+    emit(rec)
+    results["openimages"] = rec
+    shutil.rmtree(tree, ignore_errors=True)
+
+
 def count_syncs(run):
     """The synchronizing CUDA calls one call of ``run`` makes (blocking
     copies, ``.item()``, ...), as ``torch.cuda.set_sync_debug_mode``
@@ -1930,6 +2295,12 @@ def kernels_line(results):
     bwd_teacher = results["roi_align_backward_teacher_rois"]
     ev, tn = results["eval"], results["train_net"]
     mmss = results["mmss_train"]
+    oi = results["openimages"]
+    oi_evals = oi["evals"].values()
+
+    def oi_launches(kernel):
+        # the Conceptual/OpenImages pair's paths (phase 17)
+        return {f"openimages_{path}_launches": n[kernel] for path, n in oi["launches"].items()}
 
     def mmss_launches(kernel):
         # the MMSS path runs none of the detector kernels
@@ -1951,6 +2322,8 @@ def kernels_line(results):
              eval_launches_per_batch=ev["launches_per_batch"]["nms"],
              train_net_launches=tn["launches"]["nms"],
              **mmss_launches("nms"),
+             **oi_launches("nms"),
+             openimages_bbox_aug_merge_launches=oi["evals"]["bbox_aug"]["merge_launches"],
              launch_unit="one nms_forward call: a memset, then a mask and a scan "
                          "kernel per column band",
              max_abs_err=float(max(serving["first_batch_checks"]["nms_mismatches"]
@@ -1959,12 +2332,17 @@ def kernels_line(results):
                                    + t_train["first_step_checks"]["nms_mismatches"]
                                    + ev["launch_checks"]["nms_mismatches"]
                                    + tn["first_step_checks"]["nms_mismatches"]
+                                   + oi["train_checks"]["nms_mismatches"]
+                                   + [x for e in oi_evals for x in e["launch_checks"]["nms_mismatches"]]
+                                   + oi["evals"]["bbox_aug"]["merge_nms_mismatches"]
                                    + [results[f"nms_{c[0]}"]["mismatches"] for c in NMS_CASES]
                                    + [results["nms_rpn_dense"]["one_band_mismatches"]])),
              ms=nms_rpn["ms"], plain_ms=nms_rpn["plain_ms"],
              bound_ms=nms_rpn["bound_ms"], bound_by=nms_rpn["bound_by"],
              library_ms=None,
-             train_shapes={"8 x 12000 -> 2000": shape_rec(results["nms_rpn_train"])}),
+             train_shapes={"8 x 12000 -> 2000": shape_rec(results["nms_rpn_train"])},
+             openimages_shapes={v["shape"]: shape_rec(v) for k, v in oi["new_shapes"].items()
+                                if k.startswith("nms_")}),
         dict(name="roi_align", route="cuda",
              source="cvpr22_cross_modal_pseudo_labeling_torch/csrc/roi_align.cu",
              replaces="tools/proto_pallas_roialign.py:146",
@@ -1976,19 +2354,24 @@ def kernels_line(results):
              eval_launches_per_batch=ev["launches_per_batch"]["roi_align"],
              train_net_launches=tn["launches"]["roi_align"],
              **mmss_launches("roi_align"),
+             **oi_launches("roi_align"),
              max_abs_err=max(serving["first_batch_checks"]["roi_align_max_abs_err"]
                              + train["first_step_checks"]["roi_align_max_abs_err"]
                              + t_serving["first_batch_checks"]["roi_align_max_abs_err"]
                              + t_train["first_step_checks"]["roi_align_max_abs_err"]
                              + ev["launch_checks"]["roi_align_max_abs_err"]
                              + tn["first_step_checks"]["roi_align_max_abs_err"]
+                             + oi["train_checks"]["roi_align_max_abs_err"]
+                             + [x for e in oi_evals for x in e["launch_checks"]["roi_align_max_abs_err"]]
                              + [results[("roi_align",) + c]["max_abs_err"] for c in ROI_CASES]),
              dtypes="bfloat16 features -> bfloat16 output",
              ms=roi_main["ms"], plain_ms=roi_main["plain_ms"],
              bound_ms=roi_main["bound_ms"], bound_by=roi_main["bound_by"],
              library_ms=None,
              train_shapes={f"8 x {c[0]} bf16": shape_rec(results[("roi_align",) + c])
-                           for c in ROI_TRAIN}),
+                           for c in ROI_TRAIN},
+             openimages_shapes={"pseudo boxes, " + oi["new_shapes"]["roi_align_pseudo_boxes"]["shape"]:
+                                shape_rec(oi["new_shapes"]["roi_align_pseudo_boxes"])}),
         dict(name="roi_align_backward", route="cuda",
              source="cvpr22_cross_modal_pseudo_labeling_torch/csrc/roi_align.cu",
              replaces="cvpr22_cross_modal_pseudo_labeling_tpu/ops/roi_align_mxu.py:91 "
@@ -1997,11 +2380,13 @@ def kernels_line(results):
              launches_per_teacher_step=t_train["launches"]["roi_align_backward"] / TRAIN["steps"],
              train_net_launches=tn["launches"]["roi_align_backward"],
              **mmss_launches("roi_align_backward"),
+             **oi_launches("roi_align_backward"),
              launch_unit="one roi_align_backward call: the plan kernel (each roi's tap "
                          "lists), then the tile kernel (each tile of dF summed in shared "
                          "memory, written once in bfloat16)",
              max_abs_err=max(t_train["first_step_checks"]["roi_align_backward_max_abs_err"]
                              + tn["first_step_checks"]["roi_align_backward_max_abs_err"]
+                             + oi["train_checks"]["roi_align_backward_max_abs_err"]
                              + [results[("roi_align_backward",) + c]["max_abs_err"]
                                 for c in ROI_BWD_CASES]
                              + [bwd_teacher["max_abs_err"]]),
@@ -2078,6 +2463,8 @@ def main():
     timed("eval", phase_eval, dev, results)
     torch.cuda.empty_cache()
     timed("train_net", phase_train_net, dev, results)
+    torch.cuda.empty_cache()
+    timed("openimages", phase_openimages, dev, results)
     emit(dict(phase="timing", **seconds))
 
     smi = subprocess.run(

@@ -4,9 +4,9 @@ The port's copy of ``cvpr22_cross_modal_pseudo_labeling_tpu/data/
 build.py``, on its threaded path.  The loader yields the numpy batches
 that ``engine/inference.py::Predictor`` and ``engine/train_step.py::
 device_batch`` take; its producer thread and decode pool touch numpy
-only, so every CUDA call stays on the caller's thread.  Only the ported
-datasets are built: another catalog factory, and
-``DATALOADER.USE_GRAIN``, raise (ROADMAP.md queue A).
+only, so every CUDA call stays on the caller's thread.  The VOC and
+Cityscapes factories raise (ROADMAP.md queue A item 6), and so does
+``DATALOADER.USE_GRAIN`` (item 11).
 
 Re-design of reference data/build.py:18-192 (make_data_loader): catalog
 lookup -> dataset factory -> transforms -> sampler stack (distributed
@@ -25,7 +25,17 @@ import threading
 from typing import Iterator, Optional
 
 from .collate import BatchCollator
-from .datasets import COCOCapDetDataset, COCOCaptionsDataset, COCODataset, ConcatDataset
+from .datasets import (
+    COCOCapDetDataset,
+    COCOCaptionsDataset,
+    COCODataset,
+    ConCapDetDataset,
+    ConcatDataset,
+    ConceptualCaptionsDataset,
+    ConceptualOpenImagesDetDataset,
+    ListDataset,
+    OpenImagesDataset,
+)
 from .samplers import (
     DistributedSampler,
     GroupedBatchSampler,
@@ -39,7 +49,14 @@ DATASET_CLASSES = {
     "COCODataset": COCODataset,
     "COCOCapDetDataset": COCOCapDetDataset,
     "COCOCaptionsDataset": COCOCaptionsDataset,
+    "ConCapDetDataset": ConCapDetDataset,
+    "ConceptualCaptionsDataset": ConceptualCaptionsDataset,
+    "ListDataset": ListDataset,
+    "OpenImagesDataset": OpenImagesDataset,
 }
+# the JAX package's factories that wait: their classes have no embedding
+# table, which needs the class-specific heads
+UNPORTED_DATASETS = ("PascalVOCDataset", "CityScapesDataset")
 
 
 def load_paths_catalog(cfg):
@@ -69,22 +86,36 @@ def load_paths_catalog(cfg):
 
 def build_dataset(cfg, dataset_names, transforms, is_train: bool):
     """data/build.py:18-63: catalog entries -> dataset instances,
-    concatenated for training."""
+    concatenated for training.  The Conceptual/OpenImages mixture builds
+    the two catalog entries it names (JAX's :85-88)."""
+    import inspect
+
     paths_catalog = load_paths_catalog(cfg)
 
     def instantiate(name):
         entry = paths_catalog.DatasetCatalog.get(name)
         factory_name = entry["factory"]
+        args = dict(entry["args"])
+        if factory_name == "ConceptualOpenImagesDetDataset":
+            det = instantiate(args.pop("det_name"))
+            cap = instantiate(args.pop("cap_name"))
+            return ConceptualOpenImagesDetDataset(det, cap)
         factory = DATASET_CLASSES.get(factory_name)
         if factory is None:
-            raise KeyError(
-                f"dataset {name}: the {factory_name} factory is not ported yet "
-                f"(ROADMAP.md queue A); the port builds {sorted(DATASET_CLASSES)}"
+            waits = (
+                " waits with the class-specific heads (ROADMAP.md queue A item 6)"
+                if factory_name in UNPORTED_DATASETS else " is no dataset of the JAX package"
             )
-        args = dict(entry["args"])
+            raise KeyError(
+                f"dataset {name}: the {factory_name} factory{waits}; the port builds "
+                f"{sorted(DATASET_CLASSES)} and ConceptualOpenImagesDetDataset"
+            )
         args["transforms"] = transforms
         args["extra_args"] = dict(cfg.DATASETS.DATASET_ARGS)
-        args.setdefault("remove_images_without_annotations", is_train)
+        # a factory without the empty-image filter does not take it
+        # (JAX's per-factory arg plumbing, data/build.py:95-104)
+        if "remove_images_without_annotations" in inspect.signature(factory.__init__).parameters:
+            args.setdefault("remove_images_without_annotations", is_train)
         return factory(**args)
 
     datasets = [instantiate(name) for name in dataset_names]
@@ -211,7 +242,7 @@ def make_data_loader(
     if cfg.DATALOADER.USE_GRAIN:
         raise NotImplementedError(
             "DATALOADER.USE_GRAIN: the grain loader is not ported yet "
-            "(ROADMAP.md queue A); the port runs the threaded loader"
+            "(ROADMAP.md queue A item 11); the port runs the threaded loader"
         )
     num_hosts = num_replicas if is_distributed else 1
     if is_train:

@@ -11,9 +11,11 @@ the host as numpy, for the model the config's
 the JAX package's ``compute_on_dataset`` and ``inference`` (:25-211,
 :389-442) over a ``Predictor``: the port's
 loader feeds it, a thread pool converts each batch to COCO results while
-the card computes the next, and the port's evaluator scores them.  One
-process; test-time augmentation and proposal evaluation are not ported
-yet (ROADMAP.md queue A item 2).
+the card computes the next, and the port's evaluator scores them.
+``compute_on_dataset_bbox_aug`` ports JAX's test-time augmentation
+(:214-318, ``TEST.BBOX_AUG``) over the same ``Predictor``.  One
+process; proposal evaluation (``MODEL.RPN_ONLY``) is not ported yet
+(ROADMAP.md queue A item 2).
 """
 
 import concurrent.futures as cf
@@ -89,7 +91,8 @@ class Predictor:
         image_sizes: np.ndarray,
         class_embeddings: np.ndarray,
     ):
-        """images ``[B, H, W, 3]`` uint8 padded batch; image_sizes
+        """images ``[B, H, W, 3]`` padded batch, uint8 (normalized on the
+        device) or float32 already normalized on the host; image_sizes
         ``[B, 2]`` (h, w); class_embeddings ``[C, emb_dim]`` (row 0 is
         the background), passed to the model as it is: the
         student-teacher model normalizes its rows, the teacher scores
@@ -233,16 +236,141 @@ def compute_on_dataset(
 
 def check_eval_options(cfg) -> None:
     """Refuses the eval options the port does not run yet."""
-    if cfg.TEST.BBOX_AUG.ENABLED:
-        raise NotImplementedError(
-            "TEST.BBOX_AUG: test-time augmentation is not ported yet "
-            "(ROADMAP.md queue A item 2)"
-        )
     if cfg.MODEL.RPN_ONLY:
         raise NotImplementedError(
             "MODEL.RPN_ONLY: proposal evaluation is not ported yet "
             "(ROADMAP.md queue A item 2)"
         )
+
+
+def bbox_aug_options(cfg) -> Optional[dict]:
+    """The ``bbox_aug`` dict of ``tools/test_net.py:128-163`` when
+    ``TEST.BBOX_AUG.ENABLED``, else None."""
+    if not cfg.TEST.BBOX_AUG.ENABLED:
+        return None
+    return {
+        "scales": cfg.TEST.BBOX_AUG.SCALES,
+        "max_size": cfg.TEST.BBOX_AUG.MAX_SIZE,
+        "h_flip": cfg.TEST.BBOX_AUG.H_FLIP,
+        "scale_h_flip": cfg.TEST.BBOX_AUG.SCALE_H_FLIP,
+        "base_scale": cfg.INPUT.MIN_SIZE_TEST,
+        "pixel_mean": cfg.INPUT.PIXEL_MEAN,
+        "pixel_std": cfg.INPUT.PIXEL_STD,
+        "to_bgr255": cfg.INPUT.TO_BGR255,
+        "buckets": cfg.TPU.IMAGE_BUCKETS,
+        "size_divisible": cfg.DATALOADER.SIZE_DIVISIBILITY,
+        "nms_thresh": cfg.MODEL.ROI_HEADS.NMS,
+        "detections_per_img": cfg.MODEL.ROI_HEADS.DETECTIONS_PER_IMG,
+    }
+
+
+def compute_on_dataset_bbox_aug(
+    predictor: Predictor,
+    dataset,
+    class_embeddings: np.ndarray,
+    bbox_aug: dict,
+) -> Tuple[List[dict], Dict[str, float]]:
+    """Multi-scale + flip test-time augmentation (JAX's
+    ``compute_on_dataset_bbox_aug``, ``tpu/engine/inference.py:214``):
+    for each image of ``dataset`` (its untransformed ``raw_sample``),
+    one ``predictor`` call per (scale, flip) variant at batch 1, the
+    image resized, flipped and normalized on the host as JAX's
+    ``run_variant`` does (:244-262) and padded to the bucket
+    ``select_bucket`` gives it; the variants' detections merge through
+    ``engine/bbox_aug.py`` with the NMS on the predictor's device.
+    Box-only, as in JAX (:228).  ``bbox_aug`` holds the keys of
+    :func:`bbox_aug_options`.  Returns the COCO-format results and the
+    pass's timing: ``images``, ``variants_per_img``,
+    ``device_s_per_img`` (the ``predictor`` calls), ``host_s_per_img``
+    (the rest of each image's variants and merge: resize,
+    normalization, padding, the merge), ``e2e_s_per_img`` and
+    ``e2e_images_per_s``."""
+    from ..data.collate import select_bucket
+    from ..data.transforms import Normalize, resize_image
+    from .bbox_aug import im_detect_bbox_aug
+
+    normalize = Normalize(
+        bbox_aug["pixel_mean"],
+        bbox_aug["pixel_std"],
+        bbox_aug.get("to_bgr255", True),
+    )
+    calls: List[float] = []
+
+    def run_variant(image, hw, flipped):
+        h, w = image.shape[:2]
+        nh, nw = hw
+        img = image
+        if (nh, nw) != (h, w):
+            img = resize_image(img, nh, nw)
+        if flipped:
+            img = img[:, ::-1]
+        img = normalize({"image": img}, None)["image"]
+        hb, wb = select_bucket(
+            nh, nw, bbox_aug["buckets"],
+            bbox_aug.get("size_divisible", 32),
+        )
+        padded = np.zeros((1, hb, wb, 3), np.float32)
+        padded[0, :nh, :nw] = img
+        t = time.perf_counter()
+        dets, _ = predictor(padded, np.asarray([[nh, nw]], np.int32), class_embeddings)
+        calls.append(time.perf_counter() - t)
+        keep = dets.valid[0]
+        # input frame -> original frame (a flip stays; im_detect_bbox_aug
+        # unflips in the original frame)
+        boxes = dets.boxes[0][keep] * np.array(
+            [w / nw, h / nh, w / nw, h / nh], np.float32
+        )
+        return boxes, dets.scores[0][keep], dets.labels[0][keep]
+
+    results: List[dict] = []
+    contig_to_json = getattr(dataset, "contiguous_category_id_to_json_id", {})
+    wall_start = time.perf_counter()
+    host_s = 0.0
+    for index in range(len(dataset)):
+        raw = dataset.raw_sample(index)
+        n_calls = len(calls)
+        t = time.perf_counter()
+        boxes, scores, labels = im_detect_bbox_aug(
+            run_variant,
+            raw["image"],
+            scales=bbox_aug["scales"],
+            max_size=bbox_aug["max_size"],
+            h_flip=bbox_aug["h_flip"],
+            scale_h_flip=bbox_aug["scale_h_flip"],
+            base_scale=bbox_aug["base_scale"],
+            nms_thresh=bbox_aug.get("nms_thresh", 0.5),
+            detections_per_img=bbox_aug.get("detections_per_img", 100),
+            device=predictor.device,
+        )
+        host_s += time.perf_counter() - t - sum(calls[n_calls:])
+        img_id = raw.get(
+            "image_id",
+            dataset.id_to_img_map[index]
+            if hasattr(dataset, "id_to_img_map")
+            else index,
+        )
+        for b, s, lbl in zip(boxes, scores, labels):
+            x1, y1, x2, y2 = [float(v) for v in b]
+            results.append(
+                {
+                    "image_id": int(img_id),
+                    "category_id": int(contig_to_json.get(int(lbl), int(lbl))),
+                    "bbox": [x1, y1, x2 - x1 + 1.0, y2 - y1 + 1.0],
+                    "score": float(s),
+                }
+            )
+    wall = time.perf_counter() - wall_start
+    n = len(dataset)
+    if not n:
+        return results, {"images": 0}
+    return results, {
+        "images": n,
+        "variants_per_img": len(calls) / n,
+        "device_s_per_img": sum(calls) / n,
+        "host_s_per_img": host_s / n,
+        "e2e_s_per_img": wall / n,
+        "e2e_images_per_s": n / wall,
+    }
 
 
 def inference(
@@ -253,6 +381,7 @@ def inference(
     expected_results=(),
     expected_results_sigma_tol: float = 4.0,
     output_file: Optional[str] = None,
+    bbox_aug: Optional[dict] = None,
 ) -> Dict[str, float]:
     """Full eval pass over one dataset: the forward, the COCO results
     (written to ``output_file``) and the metrics dict.  Besides the
@@ -260,10 +389,18 @@ def inference(
     and the pass's timing under ``time/`` (``compute_on_dataset``'s
     keys, and ``time/evaluate_s``, the evaluator's seconds).  The
     dataset's class table goes to the model raw: the student-teacher
-    model normalizes its rows, the teacher does not."""
+    model normalizes its rows, the teacher does not.  ``bbox_aug``
+    (:func:`bbox_aug_options`) switches to the test-time augmentation
+    path, which is box-only and reads the dataset, not ``loader``."""
     check_eval_options(predictor.cfg)
     start = time.time()
-    results, stats = compute_on_dataset(predictor, loader, dataset, dataset.class_emb_mtx)
+    if bbox_aug:
+        results, stats = compute_on_dataset_bbox_aug(
+            predictor, dataset, dataset.class_emb_mtx, bbox_aug
+        )
+        iou_types = tuple(t for t in iou_types if t == "bbox")
+    else:
+        results, stats = compute_on_dataset(predictor, loader, dataset, dataset.class_emb_mtx)
     if output_file:
         import json
 

@@ -9,6 +9,9 @@ For each of the config's ``DATASETS.TEST`` it runs the port's loader, a
 raises without a card) and the port's COCO evaluator, and writes
 ``predictions_{name}.json`` and ``metrics_{name}.json`` into
 ``OUTPUT_DIR``.  The datasets are found under ``CMPL_TPU_DATA_DIR``.
+With ``TEST.BBOX_AUG.ENABLED`` the detections come from the test-time
+augmentation (``engine/inference.py::compute_on_dataset_bbox_aug``),
+box-only, as in ``tools/test_net.py``.
 
 The weights, as in ``tools/test_net.py``: a port checkpoint (``--ckpt``,
 or the save ``OUTPUT_DIR/last_checkpoint`` names) gives the model's
@@ -46,7 +49,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Dict[str, float]]:
         latest_checkpoint,
         load_checkpoint,
     )
-    from ..engine.inference import Predictor, check_eval_options, inference, load_cfg
+    from ..engine.inference import Predictor, bbox_aug_options, check_eval_options, inference, load_cfg
     from ..utils.logger import get_logger, setup_logger
     from ..utils.model_zoo import resolve_weight_path
 
@@ -88,6 +91,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Dict[str, float]]:
             expected_results=cfg.TEST.EXPECTED_RESULTS,
             expected_results_sigma_tol=cfg.TEST.EXPECTED_RESULTS_SIGMA_TOL,
             output_file=os.path.join(cfg.OUTPUT_DIR, f"predictions_{name}.json"),
+            bbox_aug=bbox_aug_options(cfg),
         )
         logger.info(
             "eval[%s]: %s",

@@ -124,9 +124,6 @@ def test_train_loader_batches_equal_jax(both_catalogs, monkeypatch):
 
 @pytest.mark.parametrize("name,factory", [
     ("voc_2007_train", "PascalVOCDataset"),
-    ("openimages_zeroshot_val", "OpenImagesDataset"),
-    ("conceptual_openimages_train", "ConceptualOpenImagesDetDataset"),
-    ("conceptual_cap_train", "ConCapDetDataset"),
 ])
 def test_unported_datasets_raise(tree, monkeypatch, name, factory):
     monkeypatch.setenv("CMPL_TPU_DATA_DIR", str(tree))

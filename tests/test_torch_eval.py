@@ -23,7 +23,8 @@ JPEGs, 3 seen and 2 unseen classes with 768-d embeddings):
   so this holds the pass's wiring into the evaluator; the evaluator's
   numerics are held at nonzero AP by ``test_evaluate_matches_jax``);
 - the port's ``test_net`` runs on the CPU and writes its two JSON files,
-  and refuses what it does not run yet.
+  and refuses what it does not run yet (``MODEL.RPN_ONLY``; test-time
+  augmentation is held in ``tests/test_torch_bbox_aug.py``).
 """
 
 import json
@@ -358,7 +359,7 @@ def test_test_net_without_test_datasets_returns_early(tmp_path):
     assert not (tmp_path / "none").exists()
 
 
-@pytest.mark.parametrize("opts", [["TEST.BBOX_AUG.ENABLED", True], ["MODEL.RPN_ONLY", True]])
+@pytest.mark.parametrize("opts", [["MODEL.RPN_ONLY", True]])
 def test_unported_eval_options_raise(opts):
     _, tc = cfg_pair(opts)
     with pytest.raises(NotImplementedError, match=r"ROADMAP.md queue A item 2"):

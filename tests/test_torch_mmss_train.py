@@ -238,6 +238,16 @@ def _same(a, b, what):
 
 
 def test_captions_dataset_samples_and_batches_equal_jax(captions_tree, monkeypatch):
+    import random
+
+    from cvpr22_cross_modal_pseudo_labeling_tpu.data.datasets import coco_captions as jax_captions_mod
+    from cvpr22_cross_modal_pseudo_labeling_torch.data.datasets import coco_captions as captions_mod
+
+    # the train loader's flips come from visit_rng, seeded from a visit
+    # counter of each package, which earlier tests in the process advance
+    # apart: both datasets get the same per-index generator instead
+    for mod in (jax_captions_mod, captions_mod):
+        monkeypatch.setattr(mod, "visit_rng", lambda index: random.Random(1000 + index))
     monkeypatch.setenv("CMPL_TPU_DATA_DIR", str(captions_tree))
     # the JAX catalog reads the variable once, when it is imported
     monkeypatch.setattr(jax_catalog, "DATA_DIR", str(captions_tree))

@@ -61,7 +61,12 @@ def tiny_batch(variant="both_branches", seed=1):
     """A collated batch of 2 images (``data/collate.py`` keys) plus the
     two class tables.  ``image_in_neither_branch``: image 1 is neither a
     caption nor a detection image.  ``no_valid_pseudo_word``: no caption
-    noun is valid, so the caption branch has no positive."""
+    noun is valid, so the caption branch has no positive.  The
+    Conceptual/OpenImages mixture's rows: ``detection_and_caption_images``
+    (image 0 a detection image without caption, image 1 a caption image,
+    ``det_mask`` False, with ``ConCapDetDataset``'s one dummy box over the
+    image labelled 0), ``no_caption_image`` and ``no_detection_image``
+    (both images of one kind)."""
     rng = np.random.default_rng(seed)
     b = 2
     gt = np.array([[4, 4, 30, 30], [10, 20, 50, 40], [30, 8, 60, 44], [0, 0, 0, 0]], np.float32)
@@ -87,6 +92,20 @@ def tiny_batch(variant="both_branches", seed=1):
         batch["det_mask"] = np.array([True, False])
     elif variant == "no_valid_pseudo_word":
         batch["cap_word_valid"][:] = False
+    elif variant in ("detection_and_caption_images", "no_caption_image", "no_detection_image"):
+        caption = {"detection_and_caption_images": [False, True], "no_caption_image": [False, False],
+                   "no_detection_image": [True, True]}[variant]
+        for i, is_caption in enumerate(caption):
+            batch["cap_mask"][i], batch["det_mask"][i] = is_caption, not is_caption
+            if is_caption:
+                h, w = batch["image_sizes"][i]
+                batch["gt_boxes"][i] = 0
+                batch["gt_boxes"][i, 0] = [0, 0, w - 1, h - 1]
+                batch["gt_labels"][i] = 0
+                batch["gt_valid"][i] = [True, False, False, False]
+                batch["gt_masks"][i] = 0
+            else:
+                batch["cap_word_valid"][i] = False
     else:
         assert variant == "both_branches", variant
     return batch
@@ -195,7 +214,8 @@ def _grad_tol(name):
     return 2e-3 if "roi_extractor" in name else 1e-5
 
 
-@pytest.mark.parametrize("variant", ["both_branches", "image_in_neither_branch", "no_valid_pseudo_word"])
+@pytest.mark.parametrize("variant", ["both_branches", "image_in_neither_branch", "no_valid_pseudo_word",
+                                     "detection_and_caption_images", "no_caption_image", "no_detection_image"])
 def test_train_forward_loss_dict_matches_jax(f32, variant):
     batch = tiny_batch(variant)
     _, losses, info, draws = jax_grads(f32, batch)
@@ -208,7 +228,7 @@ def test_train_forward_loss_dict_matches_jax(f32, variant):
     for k in out.info:
         np.testing.assert_allclose(out.info[k].numpy(), np.asarray(info[k]), rtol=1e-5, err_msg=k)
     assert all(torch.isfinite(v) for v in out.losses.values())
-    if variant == "no_valid_pseudo_word":
+    if variant in ("no_valid_pseudo_word", "no_caption_image"):
         # no positive: avg_uncertain 0 and the adaptive weight 0, not inf
         assert float(out.info["avg_uncertain"]) == 0.0 and float(out.info["adaptive_lamb"]) == 0.0
         assert float(out.losses["loss_classifier_pseudo"]) == 0.0
@@ -412,3 +432,57 @@ def test_trainer_needs_a_card_unless_cpu_is_asked_for():
         Trainer(CONFIG, TRAIN_OPTS + ["MODEL.LANGUAGE_BACKBONE.FT_EMB", True], device="cpu")
     with pytest.raises(KeyError, match="cap_mask"):
         device_batch({k: v for k, v in tiny_batch().items() if k != "cap_mask"}, "cpu")
+
+
+def mixture_batch(tmp_path, monkeypatch):
+    """A collated batch of 2 of the Conceptual/OpenImages mixture's
+    loader (the port's, on the tiny tree of
+    ``tests/test_torch_openimages.py``), one detection and one caption
+    image, uint8, with this file's class tables: 13 rows (12 seen classes
+    and the background) and the 1203 LVIS rows the caption nouns index.
+    Its binary gt masks take the values 0.2 and 0.9, as ``tiny_batch``'s
+    do: resampled at the sampled boxes, a 0/1 mask lands on the 0.5
+    binarization threshold, where the last bit of either package's
+    bilinear weights decides the target pixel."""
+    from cvpr22_cross_modal_pseudo_labeling_torch.config import get_default_cfg
+    from cvpr22_cross_modal_pseudo_labeling_torch.data import make_data_loader
+    from tests.test_torch_openimages import STUDENT as OI_STUDENT
+    from tests.test_torch_openimages import write_tiny_tree
+
+    monkeypatch.setenv("CMPL_TPU_DATA_DIR", str(write_tiny_tree(tmp_path)))
+    cfg = get_default_cfg()
+    cfg.merge_from_file(OI_STUDENT)
+    cfg.merge_from_list(["INPUT.MIN_SIZE_TRAIN", (64,), "INPUT.MAX_SIZE_TRAIN", 96, "TPU.IMAGE_BUCKETS", ((96, 96),),
+                         "TPU.MAX_GT", 4, "TPU.MAX_CAP_NOUNS", 3, "SOLVER.IMS_PER_BATCH", 2,
+                         "SOLVER.MAX_ITER", 20, "DATALOADER.NUM_WORKERS", 1])
+    loader, _ = make_data_loader(cfg, is_train=True)
+    batch = next(b for b, _ in loader if b["det_mask"].sum() == 1)
+    rng = np.random.default_rng(5)
+    keys = set(tiny_batch()) - {"class_embeddings", "lvis_class_embeddings"}
+    batch["gt_masks"] = np.where(batch["gt_masks"] > 0.5, np.float32(0.9), np.float32(0.2))
+    return dict({k: batch[k] for k in keys},
+                class_embeddings=rng.standard_normal((13, 16)).astype(np.float32),
+                lvis_class_embeddings=rng.standard_normal((1203, 16)).astype(np.float32))
+
+
+def test_mixture_batch_loss_dict_and_gradients_match_jax(f32, tmp_path, monkeypatch):
+    """A real batch of the mixture (a caption image with its dummy box,
+    ``det_mask`` False, beside a detection image): every loss and the
+    student's gradients against JAX's, at this file's tolerances."""
+    batch = mixture_batch(tmp_path, monkeypatch)
+    assert batch["images"].dtype == np.uint8 and batch["cap_word_valid"][~batch["det_mask"]].any()
+    grads, losses, info, draws = jax_grads(f32, batch)
+    trainer = f32["trainer"]
+    trainer.model.zero_grad(set_to_none=True)
+    out = port_forward(trainer, batch, draws)
+    for k in LOSSES:
+        np.testing.assert_allclose(out.losses[k].detach().numpy(), np.asarray(losses[k]), rtol=1e-5, atol=1e-7,
+                                   err_msg=k)
+        assert torch.isfinite(out.losses[k])
+    assert float(out.losses["loss_classifier_pseudo"].detach()) > 0 and float(out.losses["loss_classifier"].detach()) > 0
+    sum(out.losses.values()).backward()
+    ref = bridge.state_dict_from_flax(trainer.model, jax.tree_util.tree_map(np.asarray, grads))
+    for name, p in trainer.model.student.named_parameters():
+        if name != "lambda_exemplar":
+            assert _rel_norm(p.grad.numpy(), ref["student." + name].numpy()) <= _grad_tol(name), name
+    trainer.model.zero_grad(set_to_none=True)

@@ -321,3 +321,72 @@ def test_mmss_then_teacher_then_student(tmp_path):
     assert math.isfinite(rec["val_losses"][1])
     st = torch_ckpt.load_checkpoint(torch_ckpt.latest_checkpoint(str(st_out)))["trainer"]["model"]
     assert torch.equal(st["bert.word_embeddings"], src["language_backbone.word_embeddings"])
+
+
+OI_TEACHER = str(REPO / "configs/conceptual_openimages_det/zeroshot_mask.yaml")
+OI_STUDENT = str(REPO / "configs/conceptual_openimages_det/student_teacher_mask_rcnn_uncertainty.yaml")
+OI_NAME = "openimages_zeroshot_val"
+OI = ["DATASETS.TEST", f"('{OI_NAME}',)", "SOLVER.CHECKPOINT_PERIOD", 2, "SOLVER.TEST_PERIOD", 0]
+
+
+def test_openimages_teacher_then_student_then_test_net_plain_and_augmented(tmp_path, monkeypatch):
+    """The Conceptual/OpenImages pair on the tiny tree of
+    ``tests/test_torch_openimages.py`` (12 seen and 4 unseen classes):
+    the teacher (``NUM_CLASSES 201``, the repeat-factor sampler) 2 steps;
+    the student (``NUM_CLASSES -1``) from the teacher's ``OUTPUT_DIR`` 3
+    steps on the mixture, batches of detection and caption images
+    (``det_mask`` False) among them, its teacher bundle the teacher's bit
+    for bit, the pseudo-label loss nonzero on a batch with a caption
+    image; ``run_test`` and ``test_net --ckpt`` equal on the val set with
+    the image-level filter, and ``test_net`` with ``TEST.BBOX_AUG``
+    box-only."""
+    from tests.test_torch_openimages import write_tiny_tree
+
+    tree = write_tiny_tree(tmp_path / "oi")
+    monkeypatch.setenv("CMPL_TPU_DATA_DIR", str(tree))
+    step, batches = Trainer.train_step, []
+
+    def recording_step(self, b, draws=None):
+        out = step(self, b, draws)
+        det = b.get("det_mask")
+        batches.append({"arch": self.meta_arch, "det_mask": None if det is None else det.cpu().numpy().tolist(),
+                        "dtype": str(b["images"].dtype), "classes": int(self.class_tables["class_embeddings"].shape[0])})
+        return out
+
+    monkeypatch.setattr(Trainer, "train_step", recording_step)
+    t_out, s_out = tmp_path / "teacher", tmp_path / "st"
+    rec = run(OI_TEACHER, t_out, "SOLVER.MAX_ITER", 2, *OI)
+    assert [r["step"] for r in logged(t_out)] == [1, 2]
+    assert all(math.isfinite(r["total_loss"]) for r in logged(t_out))
+    assert len(batches) == 2 and batches[0]["classes"] == 13
+    teacher = torch_ckpt.load_checkpoint(str(t_out / "model_0000002.pth"))
+
+    rec = run(OI_STUDENT, s_out, "MODEL.WEIGHT", t_out, "SOLVER.MAX_ITER", 3, *OI, skip_test=False)
+    st_batches = batches[2:]
+    assert len(st_batches) == 3 and all(b["dtype"] == "torch.uint8" and b["classes"] == 13 for b in st_batches)
+    assert any(not all(b["det_mask"]) for b in st_batches) and any(any(b["det_mask"]) for b in st_batches)
+    steps = logged(s_out)
+    assert [r["step"] for r in steps] == [1, 2, 3] and all(math.isfinite(v) for r in steps for v in r.values())
+    assert any(r["loss_classifier_pseudo"] > 0 for r, b in zip(steps, st_batches) if not all(b["det_mask"]))
+    st = torch_ckpt.load_checkpoint(str(s_out / "model_0000003.pth"))
+    for part in ("roi_extractor.", "box_predictor.", "mask_predictor."):
+        got, want = _bundle(st, "teacher." + part), _bundle(teacher, part)
+        assert got.keys() == want.keys() and got and all(torch.equal(got[k], want[k]) for k in want)
+
+    test = rec["test"][OI_NAME]
+    assert {"bbox/AP50_split_seen", "bbox/AP50_split_unseen", "segm/AP"} <= set(test)
+    assert all(math.isfinite(v) or "AP50" in k for k, v in test.items())
+    ckpt = ["--config-file", OI_STUDENT, "--device", "cpu", "--ckpt", str(s_out / "model_0000003.pth"),
+            *map(str, TINY), *map(str, OI)]
+    got = test_net.main(ckpt + ["OUTPUT_DIR", str(tmp_path / "eval")])[OI_NAME]
+    a, b = _without_time(got), _without_time(test)
+    assert a.keys() == b.keys() and all(a[k] == b[k] or (math.isnan(a[k]) and math.isnan(b[k])) for k in a)
+    aug = test_net.main(ckpt + ["TEST.BBOX_AUG.ENABLED", "True", "TEST.BBOX_AUG.H_FLIP", "True",
+                                "TEST.BBOX_AUG.SCALES", "(48, 80)", "OUTPUT_DIR", str(tmp_path / "aug")])[OI_NAME]
+    assert aug["time/variants_per_img"] == 4 and not any(k.startswith("segm/") for k in aug)
+    with open(tmp_path / "aug" / f"predictions_{OI_NAME}.json") as f:
+        preds = json.load(f)
+    per_image = {}
+    for p in preds:
+        per_image[p["image_id"]] = per_image.get(p["image_id"], 0) + 1
+    assert preds and max(per_image.values()) <= 100 and all("segmentation" not in p for p in preds)
