@@ -191,10 +191,36 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                 detections.  The new launch shapes (the detection NMS over 500
                 labels, the merge's NMS, the pseudo boxes' pooling on caption
                 images) are timed on their captured inputs.
+18. supervised -- the class-specific R-50-C4 detectors over the default
+                config (no YAML; ``cls_score`` over the classes, a box and a mask
+                channel per class, no class table) and the top-k teachers, at full
+                width in bfloat16: (a) maskrcnn_benchmark's COCO Mask R-CNN (81
+                classes, ``MODEL.MASK_ON``) through ``train_net``, 3 steps of 8 on
+                the eval tree's 8 seen-split train JPEGs (aspect-ratio grouping
+                off), every launch of the first step checked, then ``test_net
+                --ckpt`` on coco_not_zeroshot_val (20 images; each batch shape's
+                first batch checked): every image a result, every metric finite
+                (NaN AP50 only without ground truth), a checked detection NMS
+                with one roi's candidates under two labels on different boxes;
+                (b) the VOC Faster R-CNN (21 classes, RPN 6000 -> 300 at test,
+                anchors 128-512) at batch 1 on a ``tools/synth_voc.py`` tree under
+                ``build/synth_voc`` (8 train and 8 test JPEGs at 500 x 375, 375 x
+                500 and 500 x 333, some objects difficult): 3 steps, the first
+                checked, then ``test_net`` at batch 1, each shape's first call
+                checked, both VOC metrics finite; (c) SoftTeacher and
+                UnbiasedTeacher (the ST config), 2 ``Trainer`` steps each on phase
+                8's batches from the same weights, the first step's launches
+                checked: finite losses, and their ``loss_classifier_pseudo``
+                differ.  Random weights put every class's probability near 1/C,
+                under the 0.05 threshold: the runs set ``ROI_HEADS.SCORE_THRESH``
+                0.0.  Each path's launches are counted from 0; the new launch
+                shapes (the 81-class detection NMS, VOC's batch-1 NMS, RoIAlign
+                and backward, the top-2 pseudo boxes' pooling) are timed on their
+                captured inputs.  Deletes its outputs and the VOC tree.
 One line gives the seconds each phase from 7 on took.  The per-kernel line
 gives, beside each kernel's launches on the earlier paths, its launches on
-the MMSS paths (phase 14 and the MMSS stage of phase 16): 0, and on the
-OpenImages paths of phase 17.
+the MMSS paths (phase 14 and the MMSS stage of phase 16): 0, on the
+OpenImages paths of phase 17 and on the supervised paths of phase 18.
 
 Then the card's name and power limit, the per-kernel JSON line, and the last
 line ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when
@@ -269,6 +295,28 @@ OI_STUDENT = "configs/conceptual_openimages_det/student_teacher_mask_rcnn_uncert
 OI_CLASSES = 501  # the val set's 200 seen and 300 unseen classes and the background
 OPENIMAGES = dict(tree="build/synth_openimages", out="build/oi_out", train=16, val=16, captions=32, seed=0,
                   student_steps=3, scales=(600, 1000), opts=("SOLVER.IMS_PER_BATCH", 8, "SOLVER.LOG_PERIOD", 1))
+# the class-specific R-50-C4 detectors over the defaults (no YAML) at
+# full width in bfloat16: maskrcnn_benchmark's e2e_mask_rcnn_R_50_C4_1x
+# (81 classes) on the eval tree's seen split, batches of 8, and
+# pascal_voc/e2e_faster_rcnn_R_50_C4_1x_1_gpu_voc (21 classes) at batch 1
+# on a tools/synth_voc.py tree of 8 train and 8 test JPEGs; random
+# weights put every class's probability near 1/C, under the 0.05 score
+# threshold, so the runs set it to 0.0 (a trained model fills the 1000
+# candidates as this does).  Then SoftTeacher and UnbiasedTeacher steps on
+# phase 8's batches.  Outputs and the VOC tree are deleted at the end.
+SUPERVISED = dict(
+    out="build/supervised_out", voc_tree="build/synth_voc", voc_train=8, voc_test=8, steps=3,
+    baseline_steps=2,
+    common=("TPU.COMPUTE_DTYPE", "bfloat16", "MODEL.ROI_HEADS.SCORE_THRESH", 0.0, "SOLVER.LOG_PERIOD", 1,
+            "SOLVER.TEST_PERIOD", 0),
+    coco_opts=("MODEL.MASK_ON", True, "DATASETS.TRAIN", ("coco_zeroshot_train",),
+               "DATASETS.TEST", ("coco_not_zeroshot_val",), "SOLVER.IMS_PER_BATCH", 8,
+               "TEST.IMS_PER_BATCH", 8, "SOLVER.BASE_LR", 0.01, "DATALOADER.ASPECT_RATIO_GROUPING", False),
+    voc_opts=("MODEL.ROI_BOX_HEAD.NUM_CLASSES", 21, "MODEL.RPN.PRE_NMS_TOP_N_TEST", 6000,
+              "MODEL.RPN.POST_NMS_TOP_N_TEST", 300, "MODEL.RPN.ANCHOR_SIZES", (128, 256, 512),
+              "DATASETS.TRAIN", ("voc_2007_train",), "DATASETS.TEST", ("voc_2007_test",),
+              "SOLVER.IMS_PER_BATCH", 1, "TEST.IMS_PER_BATCH", 1, "SOLVER.BASE_LR", 0.001),
+)
 MMSS_CONFIG = "configs/coco_cap_det/mmss.yaml"
 MMSS = dict(steps=3, batch=8, hw=(800, 1333), tokens=128, opts=())
 # what an MMSS step must change, and the frozen BERT it must not
@@ -2269,6 +2317,336 @@ def phase_openimages(dev, results):
     shutil.rmtree(tree, ignore_errors=True)
 
 
+def supervised_test(label, argv, out_dir, name, captured):
+    """One in-process ``test_net.main`` run with the first batch of each
+    batch shape's launches held against the plain versions, the launch
+    counts set to 0 just before and read just after, and the first
+    checked detection NMS's inputs (and its candidates' rois, from the
+    postprocessing's top-k) captured under ``captured[label]``.  Returns
+    (metrics, launches, batches, checks, predictions, the metrics file)."""
+    from cvpr22_cross_modal_pseudo_labeling_torch.engine import inference as inf
+    from cvpr22_cross_modal_pseudo_labeling_torch.models.roi_heads import box_head
+    from cvpr22_cross_modal_pseudo_labeling_torch.ops import kernels
+    from cvpr22_cross_modal_pseudo_labeling_torch.tools import test_net
+
+    checks, check_nms, check_roi, _ = launch_checks()
+    batches, shapes = [], set()
+    call, top_k = inf.Predictor.__call__, box_head.top_k
+    state = {}
+
+    def stable_top_k(x, k):
+        # the detection candidates' order: roi = index // (C - 1)
+        out = top_k(x, k)
+        state["top_idx"] = out[1]
+        return out
+
+    def checked_call(self, images, image_sizes, class_embeddings=None, **kw):
+        checked = tuple(images.shape) not in shapes
+        shapes.add(tuple(images.shape))
+
+        def nms_hook(inputs, out_):
+            if inputs[5] is not None and label not in captured:
+                captured[label] = (inputs, state.get("top_idx"), self.model.statics.num_classes)
+            elif inputs[5] is None and f"{label}_rpn" not in captured:
+                captured[f"{label}_rpn"] = inputs
+            check_nms(inputs, out_)
+
+        def roi_hook(inputs, out_):
+            captured.setdefault(f"{label}_roi", inputs)
+            check_roi(inputs, out_)
+
+        kernels.NMS.on_launch = nms_hook if checked else None
+        kernels.ROI_ALIGN.on_launch = roi_hook if checked else None
+        try:
+            r = call(self, images, image_sizes, class_embeddings, **kw)
+        finally:
+            kernels.NMS.on_launch = kernels.ROI_ALIGN.on_launch = None
+        batches.append(dict(shape=list(images.shape), dtype=str(images.dtype), checked=checked,
+                            classes=None if class_embeddings is None else int(class_embeddings.shape[0])))
+        return r
+
+    inf.Predictor.__call__, box_head.top_k = checked_call, stable_top_k
+    kernels.reset_launches()
+    t = time.perf_counter()
+    try:
+        got = test_net.main(argv + ["OUTPUT_DIR", out_dir])
+    finally:
+        inf.Predictor.__call__, box_head.top_k = call, top_k
+    seconds = time.perf_counter() - t
+    launches = {k.name: k.launches for k in kernels.ALL}
+    with open(os.path.join(out_dir, f"predictions_{name}.json")) as f:
+        preds = json.load(f)
+    with open(os.path.join(out_dir, f"metrics_{name}.json")) as f:
+        saved_m = json.load(f)
+    # per batch: the RPN's and the detections' NMS; the proposals' pooling
+    # and, with masks, the detections'
+    n_checked = sum(b["checked"] for b in batches)
+    pools = 2 if "segm/AP" in got[name] else 1
+    check(launches == {"nms": 2 * len(batches), "roi_align": pools * len(batches), "roi_align_backward": 0},
+          f"supervised {label}: launches {launches} over {len(batches)} batches")
+    check(len(checks["nms"]) == 2 * n_checked and all(x == 0 for x, _ in checks["nms"]),
+          f"supervised {label}: NMS launches differ from the plain version: {checks['nms']}")
+    check(len(checks["roi_align"]) == pools * n_checked and all(x <= 0 for _, x, _, _ in checks["roi_align"]),
+          f"supervised {label}: RoIAlign launches over tolerance: {checks['roi_align']}")
+    return got[name], launches, batches, checks, preds, saved_m, seconds
+
+
+def two_labels_one_roi(captured):
+    """(candidate pairs, pairs with different boxes): the checked
+    detection NMS's candidates that share a roi under two labels, whose
+    class-specific boxes differ."""
+    inputs, top_idx, num_classes = captured
+    boxes, _, valid, _, _, labels = (x.cpu() if torch.is_tensor(x) else x for x in inputs)
+    roi = (top_idx.cpu() // (num_classes - 1))
+    pairs = differ = 0
+    for b in range(boxes.shape[0]):
+        for r in torch.unique(roi[b][valid[b]]):
+            sel = (roi[b] == r) & valid[b]
+            if int(sel.sum()) < 2 or len(torch.unique(labels[b][sel])) < 2:
+                continue
+            pairs += 1
+            bx = boxes[b][sel]
+            differ += int(not bool((bx == bx[:1]).all()))
+    return pairs, differ
+
+
+def phase_supervised(dev, results):
+    """The class-specific R-50-C4 detectors and the top-k teachers:
+    (a) the COCO Mask R-CNN through train_net and test_net on the eval
+    phase's tree, (b) the VOC Faster R-CNN at batch 1 on a synth_voc
+    tree, (c) SoftTeacher and UnbiasedTeacher Trainer steps on phase 8's
+    batches; each path's launches counted from 0, the first step's or
+    batch's (and each new batch shape's) held against the plain
+    versions, and the new launch shapes timed on their captured inputs."""
+    import shutil
+
+    from cvpr22_cross_modal_pseudo_labeling_torch import bridge
+    from cvpr22_cross_modal_pseudo_labeling_torch.data import make_data_loader
+    from cvpr22_cross_modal_pseudo_labeling_torch.engine import inference as inf
+    from cvpr22_cross_modal_pseudo_labeling_torch.engine.train_step import Trainer
+    from cvpr22_cross_modal_pseudo_labeling_torch.ops import kernels
+    from cvpr22_cross_modal_pseudo_labeling_torch.ops import nms as nm
+    from cvpr22_cross_modal_pseudo_labeling_torch.ops import roi_align as ra
+    from cvpr22_cross_modal_pseudo_labeling_torch.tools import synth_voc
+
+    S = SUPERVISED
+    out, voc_tree = S["out"], S["voc_tree"]
+    for d in (out, voc_tree):
+        shutil.rmtree(d, ignore_errors=True)
+    check(os.path.isdir(EVAL["tree"]), f"supervised: no tree at {EVAL['tree']} (the eval phase writes it)")
+    common = ["--device", dev.type, "--seed", str(SEED), *map(str, S["common"])]
+    coco = [*common, *map(str, S["coco_opts"])]
+    voc = [*common, *map(str, S["voc_opts"])]
+    steps = str(S["steps"])
+    captured, runs, launches, evals, all_checks = {}, {}, {}, {}, {}
+
+    # every launch of the first training step checked, each step's counted
+    step = Trainer.train_step
+    per_step = []
+    state = {"checks": None}
+
+    def counted_step(self, b, draws=None):
+        first = not per_step
+        checks = state["checks"]
+        kernels.NMS.on_launch = checks[1] if first else None
+        kernels.ROI_ALIGN.on_launch = checks[2] if first else None
+        kernels.ROI_ALIGN_BACKWARD.on_launch = checks[3] if first else None
+        before = {k.name: k.launches for k in kernels.ALL}
+        try:
+            return step(self, b, draws)
+        finally:
+            kernels.NMS.on_launch = kernels.ROI_ALIGN.on_launch = kernels.ROI_ALIGN_BACKWARD.on_launch = None
+            per_step.append({"images": list(b["images"].shape), "dtype": str(b["images"].dtype),
+                             **{k.name: k.launches - before[k.name] for k in kernels.ALL}})
+
+    def train(label, argv, out_dir, classes):
+        per_step.clear()
+        state["checks"] = launch_checks()
+        kernels.reset_launches()
+        rec, summary, _, logged = train_net_run(argv + ["SOLVER.MAX_ITER", steps], out_dir)
+        path = {k.name: k.launches for k in kernels.ALL}
+        trainer = rec["trainer"]
+        checks = state["checks"][0]
+        check(trainer.class_tables == {} and trainer.model.box_predictor.cls_score.weight.shape[0] == classes,
+              f"supervised {label}: not a class-specific {classes}-class model without a class table")
+        check([r["step"] for r in logged] == list(range(1, S["steps"] + 1))
+              and all(np.isfinite(v) for r in logged for v in r.values()),
+              f"supervised {label}: logged {logged}")
+        check(len(per_step) == S["steps"] and all(p["dtype"] == "torch.uint8" for p in per_step)
+              and all(path[k] == sum(p[k] for p in per_step) > 0 for k in path),
+              f"supervised {label}: steps {per_step}, launches {path}")
+        first = per_step[0]
+        check(len(checks["nms"]) == first["nms"] and all(x == 0 for x, _ in checks["nms"]),
+              f"supervised {label}: NMS launches differ from the plain version: {checks['nms']}")
+        for key in ("roi_align", "roi_align_backward"):
+            check(len(checks[key]) == first[key] and all(x <= 0 for _, x, _, _ in checks[key]),
+                  f"supervised {label}: {key} launches over tolerance: {checks[key]}")
+        summary.update(loss=[r["total_loss"] for r in logged], steps=list(per_step),
+                       class_specific={k: list(v.shape) for k, v in trainer.model.state_dict().items()
+                                       if k.startswith(("box_predictor.", "mask_predictor.mask_fcn_logits"))})
+        runs[label], launches[f"{label}_train"], all_checks[f"{label}_train"] = summary, path, checks
+        del rec, trainer
+        torch.cuda.empty_cache()
+
+    Trainer.train_step = counted_step
+    try:
+        # (a) COCO Mask R-CNN, 81 classes, on the eval tree's seen split
+        os.environ["CMPL_TPU_DATA_DIR"] = EVAL["tree"]
+        c_dir = os.path.join(out, "coco")
+        train("coco", ["--skip-test", *coco], c_dir, 81)
+        del all_checks["coco_train"]["roi_align_backward_inputs"]
+        c_ckpt = os.path.join(c_dir, f"model_{S['steps']:07d}.pth")
+        name = "coco_not_zeroshot_val"
+        m, launches["coco_test"], batches, checks, preds, saved_m, test_s = supervised_test(
+            "coco", ["--ckpt", c_ckpt, *coco], os.path.join(out, "coco_test"), name, captured)
+        _, (ds,) = make_data_loader(inf.load_cfg("", [*map(str, S["coco_opts"])]), is_train=False)
+        per_image = {}
+        for pr in preds:
+            per_image[pr["image_id"]] = per_image.get(pr["image_id"], 0) + 1
+        ids = set(ds.id_to_img_map.values())
+        check(set(per_image) == ids and max(per_image.values()) <= 100 and all("segmentation" in p for p in preds),
+              f"supervised coco: {len(ids - set(per_image))} images without a result")
+        bad, no_gt = metrics_finite(saved_m, ds)
+        check(not bad and "segm/AP" in saved_m, f"supervised coco: non-finite metrics {bad[:5]}")
+        check(batches[0]["classes"] is None and all(b["dtype"] == "uint8" for b in batches),
+              f"supervised coco: batches {batches}")
+        pairs, differ = two_labels_one_roi(captured["coco"])
+        check(differ > 0, f"supervised coco: no checked detection NMS has one roi under two labels with "
+                          f"different boxes ({pairs} shared rois)")
+        evals["coco"] = dict(test_net_s=test_s, batches=len(batches), shapes=sorted({tuple(b["shape"]) for b in batches}),
+                             results=len(preds), categories=len({p["category_id"] for p in preds}),
+                             classes_without_gt=no_gt, rois_under_two_labels=pairs,
+                             rois_under_two_labels_with_different_boxes=differ,
+                             bbox_AP=m["bbox/AP"], bbox_AP50=m["bbox/AP50"], segm_AP=m["segm/AP"],
+                             **{k[5:]: m[k] for k in m if k.startswith("time/")})
+        all_checks["coco_test"] = checks
+
+        # (b) VOC Faster R-CNN, 21 classes, batch 1, on a synth_voc tree
+        t = time.perf_counter()
+        wrote = synth_voc.write_tree(voc_tree, train=S["voc_train"], test=S["voc_test"], seed=SEED)
+        tree_s = time.perf_counter() - t
+        os.environ["CMPL_TPU_DATA_DIR"] = voc_tree
+        v_dir = os.path.join(out, "voc")
+        train("voc", ["--skip-test", *voc], v_dir, 21)
+        captured["voc_backward"] = all_checks["voc_train"].pop("roi_align_backward_inputs")
+        name = "voc_2007_test"
+        m, launches["voc_test"], batches, checks, preds, saved_m, test_s = supervised_test(
+            "voc", ["--ckpt", os.path.join(v_dir, f"model_{S['steps']:07d}.pth"), *voc], os.path.join(out, "voc_test"),
+            name, captured)
+        check(len(batches) == S["voc_test"] and all(b["shape"][0] == 1 for b in batches)
+              and len({tuple(b["shape"]) for b in batches}) == sum(b["checked"] for b in batches) > 1,
+              f"supervised voc: batches {batches}")
+        check(all(np.isfinite(saved_m[k]) and saved_m[k] == m[k] for k in ("bbox/mAP", "bbox/mAP_07metric")),
+              f"supervised voc: VOC metrics {saved_m.get('bbox/mAP')} {saved_m.get('bbox/mAP_07metric')}")
+        evals["voc"] = dict(test_net_s=test_s, tree=wrote, tree_s=tree_s, batches=len(batches),
+                            shapes=sorted({tuple(b["shape"]) for b in batches}), results=len(preds),
+                            mAP=m["bbox/mAP"], mAP_07metric=m["bbox/mAP_07metric"],
+                            **{k[5:]: m[k] for k in m if k.startswith("time/")})
+        all_checks["voc_test"] = checks
+    finally:
+        Trainer.train_step = step
+        kernels.NMS.on_launch = kernels.ROI_ALIGN.on_launch = kernels.ROI_ALIGN_BACKWARD.on_launch = None
+        shutil.rmtree(out, ignore_errors=True)
+        shutil.rmtree(voc_tree, ignore_errors=True)
+
+    # (c) the top-k teachers on phase 8's batches, the same weights
+    rng = np.random.default_rng(SEED + 4)
+    emb_dim = inf.load_cfg(CONFIG, TRAIN["opts"]).MODEL.ROI_BOX_HEAD.EMB_DIM
+    batches = [train_batch(rng, TRAIN["batch"], TRAIN["hw"], TRAIN["max_gt"], TRAIN["nouns"], TRAIN["noun_tokens"],
+                           TRAIN["lvis"], TRAIN["classes"], emb_dim) for _ in range(S["baseline_steps"])]
+    first_losses = {}
+    for arch in ("SoftTeacher", "UnbiasedTeacher"):
+        trainer = Trainer(CONFIG, [*TRAIN["opts"], "MODEL.META_ARCHITECTURE", arch], device=dev, seed=SEED)
+        trainer.load_flax_params(bridge.seeded_flax_params(trainer.model, SEED, EMB_PRED_STD))
+        check(type(trainer.model).__name__ == f"{arch}RCNN" and trainer.cfg.TPU.COMPUTE_DTYPE == "bfloat16",
+              f"supervised {arch}: built {type(trainer.model).__name__}")
+        checks, check_nms, check_roi, _ = launch_checks()
+        key = "pseudo_roi"
+
+        def roi_hook(inputs, out_):
+            # the teacher masks' pooling of the 2 pseudo boxes an image
+            if inputs[1].shape[1] == 2 and key not in captured:
+                captured[key] = inputs
+            check_roi(inputs, out_)
+
+        kernels.reset_launches()
+        lat, metrics = [], []
+        torch.cuda.reset_peak_memory_stats()
+        for i, batch in enumerate(batches):
+            kernels.NMS.on_launch = check_nms if i == 0 else None
+            kernels.ROI_ALIGN.on_launch = roi_hook if i == 0 else None
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            try:
+                m = trainer.step(batch)
+                torch.cuda.synchronize()
+            finally:
+                kernels.NMS.on_launch = kernels.ROI_ALIGN.on_launch = None
+            lat.append(time.perf_counter() - t)
+            metrics.append({k: float(v) for k, v in m.items()})
+            if i == 0:
+                first = {k.name: k.launches for k in kernels.ALL}
+        path = {k.name: k.launches for k in kernels.ALL}
+        check(all(np.isfinite(v) for r in metrics for v in r.values()),
+              f"supervised {arch}: a non-finite metric {metrics}")
+        check(len(checks["nms"]) == first["nms"] > 0 and all(x == 0 for x, _ in checks["nms"]),
+              f"supervised {arch}: NMS launches differ from the plain version: {checks['nms']}")
+        check(len(checks["roi_align"]) == first["roi_align"] > 0 and all(x <= 0 for _, x, _, _ in checks["roi_align"]),
+              f"supervised {arch}: RoIAlign launches over tolerance: {checks['roi_align']}")
+        check(path["roi_align_backward"] == 0 and key in captured,
+              f"supervised {arch}: launches {path}, pseudo boxes pooled: {key in captured}")
+        first_losses[arch] = metrics[0]
+        label = {"SoftTeacher": "soft_teacher", "UnbiasedTeacher": "unbiased_teacher"}[arch]
+        runs[label] = dict(step_latency_s=lat, steady_step_s=lat[-1], peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                           metrics=metrics)
+        launches[f"{label}_train"], all_checks[f"{label}_train"] = path, checks
+        del trainer
+        torch.cuda.empty_cache()
+    soft, unbiased = (first_losses[a]["loss_classifier_pseudo"] for a in ("SoftTeacher", "UnbiasedTeacher"))
+    check(soft != unbiased, f"supervised: loss_classifier_pseudo {soft} equal for both teachers")
+
+    # the new launch shapes, timed on their captured inputs
+    shapes = {}
+    for key, inputs in (("nms_detections_81_classes", captured["coco"][0]), ("nms_voc_rpn_test", captured["voc_rpn"]),
+                        ("nms_voc_detections", captured["voc"][0])):
+        inputs = tuple(x.to(dev) if torch.is_tensor(x) else x for x in inputs)
+        boxes, scores, valid, thr, k, labels = inputs
+        idx, keep = nm.nms(*inputs)
+        bound_ms, bound_by, _ = nms_bound(scores, valid, labels, idx, keep, k)
+        shapes[key] = dict(shape=f"{'x'.join(map(str, boxes.shape[:-1]))} -> {k}"
+                                 + (f", labels up to {int(labels.max())}" if labels is not None else ""),
+                           kept=int(keep.sum()), ms=cuda_ms(lambda: nm.nms(*inputs), 20),
+                           plain_ms=cuda_ms(lambda: nm.nms_plain(*inputs), 3), bound_ms=bound_ms, bound_by=bound_by)
+    for key, inputs in (("roi_align_voc_test", captured["voc_roi"]), ("roi_align_pseudo_boxes_top2", captured["pseudo_roi"])):
+        inputs = tuple(x.to(dev) if torch.is_tensor(x) else x for x in inputs)
+        feats, rois, output_size, _, _, _, bin_stride = inputs
+        bound_ms, bound_by, _, _ = roi_bound(feats, rois, output_size, bin_stride)
+        shapes[key] = dict(shape=f"{rois.shape[0]} x {rois.shape[1]} on {list(feats.shape)} {feats.dtype}",
+                           ms=cuda_ms(lambda: ra.roi_align(*inputs), 20),
+                           plain_ms=cuda_ms(lambda: ra.roi_align_plain(*inputs), 3),
+                           bound_ms=bound_ms, bound_by=bound_by)
+    args = tuple(x.to(dev) if torch.is_tensor(x) else x for x in captured["voc_backward"])
+    grad, rois, shape, _, output_size, _, _, _, bin_stride = args
+    bound_ms, bound_by, _ = roi_bwd_bound(grad, rois, shape, output_size, bin_stride)
+    shapes["roi_align_backward_voc_train"] = dict(
+        shape=f"{rois.shape[0]} x {rois.shape[1]} on {list(shape)} {grad.dtype}",
+        ms=cuda_ms(lambda: ra.roi_align_backward(*args), 20),
+        plain_ms=cuda_ms(lambda: ra.roi_align_backward_plain(*args), 3), bound_ms=bound_ms, bound_by=bound_by)
+    captured.clear()
+
+    def check_lists(checks):
+        return {"nms_mismatches": [x for x, _ in checks["nms"]], "nms_shapes": [n for _, n in checks["nms"]],
+                **{f"{key}_{field}": [c[i] for c in checks[key]]
+                   for key in ("roi_align", "roi_align_backward")
+                   for i, field in enumerate(("max_abs_err", "excess_over_limit", "dtype", "rois"))}}
+
+    rec = dict(phase="supervised", dtype="bfloat16", coco_batch=8, voc_batch=1, runs=runs, evals=evals,
+               launches=launches, new_shapes=shapes, checks={k: check_lists(v) for k, v in all_checks.items()},
+               loss_classifier_pseudo={"SoftTeacher": soft, "UnbiasedTeacher": unbiased})
+    emit(rec)
+    results["supervised"] = rec
+
+
 def count_syncs(run):
     """The synchronizing CUDA calls one call of ``run`` makes (blocking
     copies, ``.item()``, ...), as ``torch.cuda.set_sync_debug_mode``
@@ -2297,6 +2675,17 @@ def kernels_line(results):
     mmss = results["mmss_train"]
     oi = results["openimages"]
     oi_evals = oi["evals"].values()
+    sup = results["supervised"]
+
+    def sup_launches(kernel):
+        # the class-specific detectors' and the top-k teachers' paths (phase 18)
+        return {f"supervised_{path}_launches": n[kernel] for path, n in sup["launches"].items()}
+
+    def sup_errs(field):
+        return [x for c in sup["checks"].values() for x in c[field]]
+
+    def sup_shapes(prefix):
+        return {v["shape"]: shape_rec(v) for k, v in sup["new_shapes"].items() if k.startswith(prefix)}
 
     def oi_launches(kernel):
         # the Conceptual/OpenImages pair's paths (phase 17)
@@ -2324,6 +2713,7 @@ def kernels_line(results):
              **mmss_launches("nms"),
              **oi_launches("nms"),
              openimages_bbox_aug_merge_launches=oi["evals"]["bbox_aug"]["merge_launches"],
+             **sup_launches("nms"),
              launch_unit="one nms_forward call: a memset, then a mask and a scan "
                          "kernel per column band",
              max_abs_err=float(max(serving["first_batch_checks"]["nms_mismatches"]
@@ -2335,6 +2725,7 @@ def kernels_line(results):
                                    + oi["train_checks"]["nms_mismatches"]
                                    + [x for e in oi_evals for x in e["launch_checks"]["nms_mismatches"]]
                                    + oi["evals"]["bbox_aug"]["merge_nms_mismatches"]
+                                   + sup_errs("nms_mismatches")
                                    + [results[f"nms_{c[0]}"]["mismatches"] for c in NMS_CASES]
                                    + [results["nms_rpn_dense"]["one_band_mismatches"]])),
              ms=nms_rpn["ms"], plain_ms=nms_rpn["plain_ms"],
@@ -2342,7 +2733,8 @@ def kernels_line(results):
              library_ms=None,
              train_shapes={"8 x 12000 -> 2000": shape_rec(results["nms_rpn_train"])},
              openimages_shapes={v["shape"]: shape_rec(v) for k, v in oi["new_shapes"].items()
-                                if k.startswith("nms_")}),
+                                if k.startswith("nms_")},
+             supervised_shapes=sup_shapes("nms_")),
         dict(name="roi_align", route="cuda",
              source="cvpr22_cross_modal_pseudo_labeling_torch/csrc/roi_align.cu",
              replaces="tools/proto_pallas_roialign.py:146",
@@ -2355,6 +2747,7 @@ def kernels_line(results):
              train_net_launches=tn["launches"]["roi_align"],
              **mmss_launches("roi_align"),
              **oi_launches("roi_align"),
+             **sup_launches("roi_align"),
              max_abs_err=max(serving["first_batch_checks"]["roi_align_max_abs_err"]
                              + train["first_step_checks"]["roi_align_max_abs_err"]
                              + t_serving["first_batch_checks"]["roi_align_max_abs_err"]
@@ -2363,6 +2756,7 @@ def kernels_line(results):
                              + tn["first_step_checks"]["roi_align_max_abs_err"]
                              + oi["train_checks"]["roi_align_max_abs_err"]
                              + [x for e in oi_evals for x in e["launch_checks"]["roi_align_max_abs_err"]]
+                             + sup_errs("roi_align_max_abs_err")
                              + [results[("roi_align",) + c]["max_abs_err"] for c in ROI_CASES]),
              dtypes="bfloat16 features -> bfloat16 output",
              ms=roi_main["ms"], plain_ms=roi_main["plain_ms"],
@@ -2371,7 +2765,10 @@ def kernels_line(results):
              train_shapes={f"8 x {c[0]} bf16": shape_rec(results[("roi_align",) + c])
                            for c in ROI_TRAIN},
              openimages_shapes={"pseudo boxes, " + oi["new_shapes"]["roi_align_pseudo_boxes"]["shape"]:
-                                shape_rec(oi["new_shapes"]["roi_align_pseudo_boxes"])}),
+                                shape_rec(oi["new_shapes"]["roi_align_pseudo_boxes"])},
+             supervised_shapes=sup_shapes("roi_align_voc") | {
+                 "top-2 pseudo boxes, " + sup["new_shapes"]["roi_align_pseudo_boxes_top2"]["shape"]:
+                 shape_rec(sup["new_shapes"]["roi_align_pseudo_boxes_top2"])}),
         dict(name="roi_align_backward", route="cuda",
              source="cvpr22_cross_modal_pseudo_labeling_torch/csrc/roi_align.cu",
              replaces="cvpr22_cross_modal_pseudo_labeling_tpu/ops/roi_align_mxu.py:91 "
@@ -2381,12 +2778,14 @@ def kernels_line(results):
              train_net_launches=tn["launches"]["roi_align_backward"],
              **mmss_launches("roi_align_backward"),
              **oi_launches("roi_align_backward"),
+             **sup_launches("roi_align_backward"),
              launch_unit="one roi_align_backward call: the plan kernel (each roi's tap "
                          "lists), then the tile kernel (each tile of dF summed in shared "
                          "memory, written once in bfloat16)",
              max_abs_err=max(t_train["first_step_checks"]["roi_align_backward_max_abs_err"]
                              + tn["first_step_checks"]["roi_align_backward_max_abs_err"]
                              + oi["train_checks"]["roi_align_backward_max_abs_err"]
+                             + sup_errs("roi_align_backward_max_abs_err")
                              + [results[("roi_align_backward",) + c]["max_abs_err"]
                                 for c in ROI_BWD_CASES]
                              + [bwd_teacher["max_abs_err"]]),
@@ -2395,7 +2794,8 @@ def kernels_line(results):
              bound_ms=bwd_main["bound_ms"], bound_by=bwd_main["bound_by"],
              library_ms=None,
              shared_g_adds_per_s=bwd_main["shared_g_adds_per_s"],
-             teacher_step_rois=shape_rec(bwd_teacher)),
+             teacher_step_rois=shape_rec(bwd_teacher),
+             supervised_shapes=sup_shapes("roi_align_backward")),
     ]}
 
 
@@ -2465,6 +2865,8 @@ def main():
     timed("train_net", phase_train_net, dev, results)
     torch.cuda.empty_cache()
     timed("openimages", phase_openimages, dev, results)
+    torch.cuda.empty_cache()
+    timed("supervised", phase_supervised, dev, results)
     emit(dict(phase="timing", **seconds))
 
     smi = subprocess.run(

@@ -253,10 +253,10 @@ def flax_tree_from_checkpoint(ckpt: Dict[str, Any]) -> Dict[str, Any]:
 def seeded_flax_params(model: nn.Module, seed: int, emb_pred_std: float = 0.01):
     """A flax-layout param tree for ``model`` drawn with numpy from
     ``seed`` (no pretrained weights ship with the repo).  Convs draw
-    He-normal kernels, heads the JAX initializers' scales (RPN 0.01, box
-    regression 0.001, ``emb_pred`` ``emb_pred_std``; the stem 1/64 of
-    He, as pixels enter at O(100)), frozen BN a near-identity affine,
-    biases small noise.  The BERT and transformer-head kernels and every
+    He-normal kernels, heads the JAX initializers' scales (RPN and the
+    class-specific ``cls_score`` 0.01, box regression 0.001, ``emb_pred``
+    ``emb_pred_std``; the stem 1/64 of He, as pixels enter at O(100)),
+    frozen BN a near-identity affine, biases small noise.  The BERT and transformer-head kernels and every
     embedding table draw BERT's N(0, 0.02), LayerNorm scales a
     near-identity."""
     rng = np.random.default_rng(seed)
@@ -272,6 +272,8 @@ def seeded_flax_params(model: nn.Module, seed: int, emb_pred_std: float = 0.01):
                 std = 0.01
             elif "bbox_pred" in path:
                 std = 0.001
+            elif "cls_score" in path:
+                std = 0.01
             elif "emb_pred" in path:
                 std = emb_pred_std
             else:

@@ -4,9 +4,9 @@ The port's copy of ``cvpr22_cross_modal_pseudo_labeling_tpu/data/
 build.py``, on its threaded path.  The loader yields the numpy batches
 that ``engine/inference.py::Predictor`` and ``engine/train_step.py::
 device_batch`` take; its producer thread and decode pool touch numpy
-only, so every CUDA call stays on the caller's thread.  The VOC and
-Cityscapes factories raise (ROADMAP.md queue A item 6), and so does
-``DATALOADER.USE_GRAIN`` (item 11).
+only, so every CUDA call stays on the caller's thread.  Every factory
+of the JAX package is built, the VOC and Cityscapes ones included;
+``DATALOADER.USE_GRAIN`` raises (ROADMAP.md queue A item 11).
 
 Re-design of reference data/build.py:18-192 (make_data_loader): catalog
 lookup -> dataset factory -> transforms -> sampler stack (distributed
@@ -26,6 +26,7 @@ from typing import Iterator, Optional
 
 from .collate import BatchCollator
 from .datasets import (
+    CityScapesDataset,
     COCOCapDetDataset,
     COCOCaptionsDataset,
     COCODataset,
@@ -35,6 +36,7 @@ from .datasets import (
     ConceptualOpenImagesDetDataset,
     ListDataset,
     OpenImagesDataset,
+    PascalVOCDataset,
 )
 from .samplers import (
     DistributedSampler,
@@ -53,10 +55,9 @@ DATASET_CLASSES = {
     "ConceptualCaptionsDataset": ConceptualCaptionsDataset,
     "ListDataset": ListDataset,
     "OpenImagesDataset": OpenImagesDataset,
+    "PascalVOCDataset": PascalVOCDataset,
+    "CityScapesDataset": CityScapesDataset,
 }
-# the JAX package's factories that wait: their classes have no embedding
-# table, which needs the class-specific heads
-UNPORTED_DATASETS = ("PascalVOCDataset", "CityScapesDataset")
 
 
 def load_paths_catalog(cfg):
@@ -102,13 +103,9 @@ def build_dataset(cfg, dataset_names, transforms, is_train: bool):
             return ConceptualOpenImagesDetDataset(det, cap)
         factory = DATASET_CLASSES.get(factory_name)
         if factory is None:
-            waits = (
-                " waits with the class-specific heads (ROADMAP.md queue A item 6)"
-                if factory_name in UNPORTED_DATASETS else " is no dataset of the JAX package"
-            )
             raise KeyError(
-                f"dataset {name}: the {factory_name} factory{waits}; the port builds "
-                f"{sorted(DATASET_CLASSES)} and ConceptualOpenImagesDetDataset"
+                f"dataset {name}: the {factory_name} factory is no dataset of the JAX package; "
+                f"the port builds {sorted(DATASET_CLASSES)} and ConceptualOpenImagesDetDataset"
             )
         args["transforms"] = transforms
         args["extra_args"] = dict(cfg.DATASETS.DATASET_ARGS)

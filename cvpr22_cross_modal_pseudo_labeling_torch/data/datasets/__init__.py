@@ -1,10 +1,9 @@
 """Dataset registry: the port's counterpart of ``cvpr22_cross_modal_
-pseudo_labeling_tpu/data/datasets/__init__.py``.  Every dataset of the
-JAX package is ported except ``PascalVOCDataset`` and
-``CityScapesDataset``: their classes have no embedding table, so they
-wait with the class-specific heads (ROADMAP.md queue A item 6), and
-``data/build.py`` refuses their catalog entries."""
+pseudo_labeling_tpu/data/datasets/__init__.py``, every dataset of the
+JAX package.  ``PascalVOCDataset`` and ``CityScapesDataset`` have no
+class-embedding table: they serve the class-specific detectors."""
 
+from .cityscapes import CityScapesDataset
 from .coco import COCODataset
 from .coco_cap_det import COCOCapDetDataset
 from .coco_captions import COCOCaptionsDataset
@@ -12,8 +11,10 @@ from .concat import ConcatDataset
 from .conceptual import ConCapDetDataset, ConceptualOpenImagesDetDataset
 from .list_dataset import ConceptualCaptionsDataset, ListDataset
 from .openimages import OpenImagesDataset
+from .voc import PascalVOCDataset
 
 __all__ = [
+    "CityScapesDataset",
     "COCODataset",
     "COCOCapDetDataset",
     "COCOCaptionsDataset",
@@ -23,4 +24,5 @@ __all__ = [
     "OpenImagesDataset",
     "ListDataset",
     "ConceptualCaptionsDataset",
+    "PascalVOCDataset",
 ]

@@ -2,11 +2,14 @@
 
 The port's copy of ``cvpr22_cross_modal_pseudo_labeling_tpu/data/
 evaluation/__init__.py``.  COCO-style datasets (COCODataset,
-COCOCapDetDataset) evaluate through the COCO protocol; a dataset with an
-``imagelevel`` table gets the OpenImages image-level-verified-class
-prediction filter (openimages_coco_eval.py:92-163) before the same
-protocol.  The VOC protocol waits with its dataset (ROADMAP.md queue A
-item 7).
+COCOCapDetDataset, CityScapesDataset) evaluate through the COCO
+protocol; a dataset with an ``imagelevel`` table gets the OpenImages
+image-level-verified-class prediction filter (openimages_coco_eval.py:
+92-163) before the same protocol; a dataset marked ``eval_protocol =
+"voc"`` (PascalVOCDataset) gets the VOC metric of ``voc_eval.py``
+(:45-58 of the JAX module): ``bbox/mAP`` and ``bbox/AP_class_<id>`` by
+the area under the curve, the same with ``_07metric`` by the 11-point
+interpolation.
 """
 
 from typing import Dict, List, Optional
@@ -38,8 +41,21 @@ def evaluate(
     expected_results_sigma_tol: float = 4.0,
 ) -> Dict[str, float]:
     """Runs the COCO-style evaluation for the given dataset + COCO-format
-    detections. Returns a flat metric dict including per-split AP50."""
+    detections. Returns a flat metric dict including per-split AP50, or
+    the VOC metrics for a VOC-protocol dataset (box-only, whatever
+    ``iou_types`` asks)."""
     coco = dataset.coco
+    if getattr(dataset, "eval_protocol", "coco") == "voc":
+        from .voc_eval import eval_detection_voc_all_metrics
+
+        results = {}
+        cont, points11 = eval_detection_voc_all_metrics(detections, coco)
+        for tag, out in (("", cont), ("_07metric", points11)):
+            for k, v in out.items():
+                results[f"bbox/{k}{tag}"] = v
+        failures = check_expected_results(results, expected_results, expected_results_sigma_tol)
+        results["expected_results_failures"] = len(failures)
+        return results
     imagelevel = getattr(dataset, "imagelevel", None)
     if imagelevel:
         detections = filter_predictions_imagelevel(detections, imagelevel)

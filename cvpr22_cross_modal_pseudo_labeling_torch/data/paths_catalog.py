@@ -3,8 +3,7 @@
 The port's copy of ``cvpr22_cross_modal_pseudo_labeling_tpu/data/
 paths_catalog.py``; one ``CMPL_TPU_DATA_DIR`` tree serves both packages.
 The port reads the variable when a name is looked up, not when the
-module is imported.  Entries whose factory is not ported yet stay in the
-catalog; ``data/build.py`` refuses them.
+module is imported.
 
 Re-design of reference config/paths_catalog.py:7-340 (DatasetCatalog /
 ModelCatalog).  The data root can be overridden with the

@@ -4,10 +4,10 @@ masks and COCO metrics out.
 ``Predictor`` is the counterpart of the ``forward`` that
 ``cvpr22_cross_modal_pseudo_labeling_tpu/engine/inference.py::
 compute_on_dataset`` runs per batch (:49-59, :149-159): the eval forward
-on a padded uint8 batch with the dataset's class table, brought back to
-the host as numpy, for the model the config's
-``MODEL.META_ARCHITECTURE`` names (``GeneralizedRCNN``, the teacher, or
-``STGeneralizedRCNN``).  ``compute_on_dataset`` and ``inference`` port
+on a padded uint8 batch with the dataset's class table (none for a
+class-specific detector), brought back to the host as numpy, for the
+model the config's ``MODEL.META_ARCHITECTURE`` names (a member of the
+``GeneralizedRCNN`` or ``STGeneralizedRCNN`` family).  ``compute_on_dataset`` and ``inference`` port
 the JAX package's ``compute_on_dataset`` and ``inference`` (:25-211,
 :389-442) over a ``Predictor``: the port's
 loader feeds it, a thread pool converts each batch to COCO results while
@@ -31,7 +31,7 @@ from ..bridge import load_flax_params
 from ..config import get_default_cfg
 from ..data.evaluation import evaluate
 from ..data.evaluation.prepare import detections_to_coco_results
-from ..models.detector import build_detection_model
+from ..models.detector import RCNN_FAMILY, build_detection_model
 
 
 class NumpyDetections(NamedTuple):
@@ -42,8 +42,11 @@ class NumpyDetections(NamedTuple):
 
 
 def load_cfg(config_file: str, opts: Sequence = ()):
+    """The defaults, ``config_file`` (none when empty) and ``opts``,
+    frozen."""
     cfg = get_default_cfg()
-    cfg.merge_from_file(config_file)
+    if config_file:
+        cfg.merge_from_file(config_file)
     cfg.merge_from_list(list(opts))
     cfg.freeze()
     return cfg
@@ -89,21 +92,32 @@ class Predictor:
         self,
         images: np.ndarray,
         image_sizes: np.ndarray,
-        class_embeddings: np.ndarray,
+        class_embeddings: Optional[np.ndarray] = None,
+        gt_eval: Optional[Dict[str, np.ndarray]] = None,
     ):
         """images ``[B, H, W, 3]`` padded batch, uint8 (normalized on the
         device) or float32 already normalized on the host; image_sizes
         ``[B, 2]`` (h, w); class_embeddings ``[C, emb_dim]`` (row 0 is
         the background), passed to the model as it is: the
         student-teacher model normalizes its rows, the teacher scores
-        against them unnormalized, as their JAX counterparts do.
-        Returns ``(NumpyDetections, mask_probs [B, D, M, M] float32 or
-        None)``."""
+        against them unnormalized, as their JAX counterparts do; a
+        class-specific detector takes none.  ``gt_eval``
+        (``MODEL.GT_BOX_EVAL``): ``boxes`` ``[B, G, 4]``, ``labels`` and
+        ``valid`` ``[B, G]`` in the input frame, scored in place of the
+        proposals (``GeneralizedRCNN`` only).  Returns
+        ``(NumpyDetections, mask_probs [B, D, M, M] float32 or None)``."""
         dev = self.device
+        table = None
+        if class_embeddings is not None:
+            table = torch.as_tensor(class_embeddings, dtype=torch.float32).to(dev)
+        kw = {}
+        if gt_eval is not None:
+            kw["gt_eval"] = {k: torch.as_tensor(np.asarray(v)).to(dev) for k, v in gt_eval.items()}
         out = self.model(
             torch.as_tensor(images).to(dev),
             torch.as_tensor(image_sizes).to(dev),
-            torch.as_tensor(class_embeddings, dtype=torch.float32).to(dev),
+            table,
+            **kw,
         )
         d = out.detections
         dets = NumpyDetections(
@@ -132,7 +146,7 @@ def _convert_batch(dataset, dets, mask_probs, indices, image_sizes) -> List[dict
                 image_id=dataset.id_to_img_map[ds_index],
                 input_hw=image_sizes[bi],
                 original_hw=(info["height"], info["width"]),
-                contiguous_to_json=dataset.contiguous_category_id_to_json_id,
+                contiguous_to_json=getattr(dataset, "contiguous_category_id_to_json_id", {}),
             )
         )
     return out
@@ -142,10 +156,13 @@ def compute_on_dataset(
     predictor: Predictor,
     loader,
     dataset,
-    class_embeddings: np.ndarray,
+    class_embeddings: Optional[np.ndarray],
+    gt_box_eval: bool = False,
 ) -> Tuple[List[dict], Dict[str, float]]:
     """Runs the eval forward over the loader; returns the COCO-format
-    results and the pass's timing.
+    results and the pass's timing.  With ``gt_box_eval``
+    (``MODEL.GT_BOX_EVAL``) each batch's gt boxes are scored in place of
+    the proposals.
 
     The device figures time ``predictor`` (the forward and the copy of
     its outputs to the host); the end-to-end ones add the loader's
@@ -177,8 +194,12 @@ def compute_on_dataset(
     with cf.ThreadPoolExecutor(max_workers=workers) as pool:
         for batch, indices in loader:
             t = time.perf_counter()
+            kw = {}
+            if gt_box_eval:
+                kw["gt_eval"] = {"boxes": batch["gt_boxes"], "labels": batch["gt_labels"],
+                                 "valid": batch["gt_valid"]}
             dets, mask_probs = predictor(
-                batch["images"], batch["image_sizes"], class_embeddings
+                batch["images"], batch["image_sizes"], class_embeddings, **kw
             )
             batch_times.append((time.perf_counter() - t, len(indices)))
             futures.append(
@@ -241,6 +262,11 @@ def check_eval_options(cfg) -> None:
             "MODEL.RPN_ONLY: proposal evaluation is not ported yet "
             "(ROADMAP.md queue A item 2)"
         )
+    if cfg.MODEL.GT_BOX_EVAL and cfg.MODEL.META_ARCHITECTURE not in RCNN_FAMILY:
+        raise ValueError(
+            f"MODEL.GT_BOX_EVAL: {cfg.MODEL.META_ARCHITECTURE} scores no given boxes; "
+            "the GeneralizedRCNN family does"
+        )
 
 
 def bbox_aug_options(cfg) -> Optional[dict]:
@@ -267,7 +293,7 @@ def bbox_aug_options(cfg) -> Optional[dict]:
 def compute_on_dataset_bbox_aug(
     predictor: Predictor,
     dataset,
-    class_embeddings: np.ndarray,
+    class_embeddings: Optional[np.ndarray],
     bbox_aug: dict,
 ) -> Tuple[List[dict], Dict[str, float]]:
     """Multi-scale + flip test-time augmentation (JAX's
@@ -391,16 +417,19 @@ def inference(
     dataset's class table goes to the model raw: the student-teacher
     model normalizes its rows, the teacher does not.  ``bbox_aug``
     (:func:`bbox_aug_options`) switches to the test-time augmentation
-    path, which is box-only and reads the dataset, not ``loader``."""
+    path, which is box-only and reads the dataset, not ``loader``.  A
+    dataset without class embeddings (VOC, Cityscapes) serves a
+    class-specific detector only."""
     check_eval_options(predictor.cfg)
     start = time.time()
+    table = getattr(dataset, "class_emb_mtx", None)
     if bbox_aug:
-        results, stats = compute_on_dataset_bbox_aug(
-            predictor, dataset, dataset.class_emb_mtx, bbox_aug
-        )
+        results, stats = compute_on_dataset_bbox_aug(predictor, dataset, table, bbox_aug)
         iou_types = tuple(t for t in iou_types if t == "bbox")
     else:
-        results, stats = compute_on_dataset(predictor, loader, dataset, dataset.class_emb_mtx)
+        results, stats = compute_on_dataset(
+            predictor, loader, dataset, table, gt_box_eval=predictor.cfg.MODEL.GT_BOX_EVAL
+        )
     if output_file:
         import json
 

@@ -61,6 +61,10 @@ ST_BATCH_DTYPES = {
     "cap_tok_mask": torch.float32,
     "lvis_class_embeddings": torch.float32,
 }
+# keys the GeneralizedRCNN family reads when the batch has them: the class
+# table of the embedding-based detector (the class-specific one reads
+# none, and a dataset without embeddings, such as VOC, gives none)
+RCNN_OPTIONAL_KEYS = ("class_embeddings",)
 MMSS_BATCH_DTYPES = {
     "images": None,
     "image_sizes": torch.int32,
@@ -85,15 +89,17 @@ def host_batch(
 ) -> Dict[str, torch.Tensor]:
     """The keys ``meta_arch``'s training forward reads, as CPU tensors of
     the step's dtypes; other collated keys (the caption token batch,
-    image ids, the other family's keys) and the keys in ``provided``
-    (tables already on the device) are left out."""
+    image ids, the other family's keys), the keys in ``provided``
+    (tables already on the device) and absent optional keys (the class
+    table of a ``GeneralizedRCNN``) are left out."""
     dtypes = batch_dtypes(meta_arch)
-    missing = sorted(set(dtypes) - set(batch) - set(provided))
+    optional = RCNN_OPTIONAL_KEYS if meta_arch in RCNN_FAMILY else ()
+    missing = sorted(set(dtypes) - set(batch) - set(provided) - set(optional))
     if missing:
         raise KeyError(f"the training batch lacks {missing}")
     out = {}
     for key, dtype in dtypes.items():
-        if key in provided:
+        if key in provided or key not in batch:
             continue
         t = torch.as_tensor(np.asarray(batch[key]))
         out[key] = t.to(dtype=dtype or t.dtype)
@@ -119,7 +125,7 @@ def training_forward(
         return RCNNTrainOutput(losses, info)
     if meta_arch in RCNN_FAMILY:
         return model(
-            b["images"], b["image_sizes"], b["class_embeddings"], train=True, batch=b,
+            b["images"], b["image_sizes"], b.get("class_embeddings"), train=True, batch=b,
             draws=draws, generator=generator,
         )
     return model(
@@ -180,9 +186,11 @@ class Trainer:
     def set_class_tables(self, **tables: np.ndarray) -> None:
         """Keeps batch-invariant tables (``class_embeddings``,
         ``lvis_class_embeddings``) on the device; :meth:`device_batch`
-        adds them to every batch."""
+        adds them to every batch.  A None table (a dataset without class
+        embeddings) is left out."""
         self.class_tables = {
-            k: torch.as_tensor(np.asarray(v, np.float32)).to(self.device) for k, v in tables.items()
+            k: torch.as_tensor(np.asarray(v, np.float32)).to(self.device)
+            for k, v in tables.items() if v is not None
         }
 
     def host_batch(self, batch: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:

@@ -2,12 +2,13 @@
 
 Counterpart of ``cvpr22_cross_modal_pseudo_labeling_tpu/models/detector/
 __init__.py`` (``RCNN_FAMILY``, ``ST_FAMILY``, ``build_detection_model``
-:11-15): the model a config's ``MODEL.META_ARCHITECTURE`` names.  The
-port builds ``GeneralizedRCNN``, ``STGeneralizedRCNN`` and
-``MMSS-GCNN`` (``MMSSGridModel``); the other members of both families
-and RetinaNet raise.  The detector
-modules are imported when a model is built, since the RoI-head modules
-import this package's ``statics``.
+:11-74): the model a config's ``MODEL.META_ARCHITECTURE`` names, every
+member of both families (``GeneralizedRCNN`` and its three baseline
+skeletons, ``STGeneralizedRCNN`` and its two top-k teachers) and
+``MMSS-GCNN`` (``MMSSGridModel``).  ``GeneralizedRCNN`` with
+``MODEL.RETINANET_ON`` and unknown names raise.  The detector modules
+are imported when a model is built, since the RoI-head modules import
+this package's ``statics``.
 """
 
 # meta-architecture families: the training step's shape follows the
@@ -17,23 +18,27 @@ ST_FAMILY = ("STGeneralizedRCNN", "SoftTeacher", "UnbiasedTeacher")
 
 
 def build_detection_model(cfg):
-    """``GeneralizedRCNN``, ``STGeneralizedRCNN`` or ``MMSSGridModel``
-    for ``cfg``."""
+    """The module of ``cfg.MODEL.META_ARCHITECTURE``."""
     arch = cfg.MODEL.META_ARCHITECTURE
-    if arch == "GeneralizedRCNN" and not cfg.MODEL.RETINANET_ON:
+    if arch in RCNN_FAMILY:
+        if arch == "GeneralizedRCNN" and cfg.MODEL.RETINANET_ON:
+            raise NotImplementedError("MODEL.RETINANET_ON is not ported yet")
+        from . import baselines
         from .generalized_rcnn import GeneralizedRCNN
         from .statics import statics_from_cfg
 
-        return GeneralizedRCNN(statics_from_cfg(cfg))
-    if arch == "STGeneralizedRCNN":
+        cls = {"GeneralizedRCNN": GeneralizedRCNN, "SBBaseline": baselines.SBBaseline,
+               "OMP": baselines.OMPBaseline, "BA_RPN": baselines.BARPNBaseline}[arch]
+        return cls(statics_from_cfg(cfg))
+    if arch in ST_FAMILY:
+        from . import baselines
         from .st_generalized_rcnn import STGeneralizedRCNN, st_statics_from_cfg
 
-        return STGeneralizedRCNN(st_statics_from_cfg(cfg))
+        cls = {"STGeneralizedRCNN": STGeneralizedRCNN, "SoftTeacher": baselines.SoftTeacherRCNN,
+               "UnbiasedTeacher": baselines.UnbiasedTeacherRCNN}[arch]
+        return cls(st_statics_from_cfg(cfg))
     if arch == "MMSS-GCNN":
         from .mmss_gcnn import MMSSGridModel, mmss_statics_from_cfg
 
         return MMSSGridModel(mmss_statics_from_cfg(cfg))
-    if arch in RCNN_FAMILY + ST_FAMILY:
-        what = "MODEL.RETINANET_ON" if arch == "GeneralizedRCNN" else f"META_ARCHITECTURE {arch}"
-        raise NotImplementedError(f"{what} is not ported yet")
     raise ValueError(f"Unknown META_ARCHITECTURE {arch}")

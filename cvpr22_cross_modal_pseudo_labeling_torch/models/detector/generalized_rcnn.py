@@ -4,16 +4,21 @@ Counterpart of ``cvpr22_cross_modal_pseudo_labeling_tpu/models/detector/
 generalized_rcnn.py`` (``RCNNTrainOutput`` :55, ``RCNNEvalOutput`` :60,
 ``GeneralizedRCNN`` :78 with ``_rpn_forward`` :164,
 ``_extract_box_features`` :195, ``forward_train`` :241 and
-``forward_eval`` :410) for the configuration the port runs: the C4 body,
-the embedding-based box predictor with class-agnostic regression and a
-class-agnostic mask head.  It trains in the paper's first stage
-(``configs/coco_cap_det/zeroshot_mask.yaml``): the RPN loss, RoI
+``forward_eval`` :410) on the C4 body, with either box predictor: the
+embedding-based one with class-agnostic regression, which the paper's
+first stage trains (``configs/coco_cap_det/zeroshot_mask.yaml``), or
+maskrcnn_benchmark's class-specific one (``cls_score`` over
+``NUM_CLASSES``, a box per class unless ``CLS_AGNOSTIC_BBOX_REG``), the
+JAX defaults and the supervised R-50-C4 Mask and Faster R-CNN; masks
+class-agnostic or a channel per class.  Training: the RPN loss, RoI
 sampling over the proposals plus the gt boxes, the box loss and the
-mask loss on the positives-first slots.  The backbone runs with
+mask loss on the positives-first slots.  ``MODEL.GT_BOX_EVAL`` scores
+given gt boxes in place of the proposals (``gt_eval``).  The backbone runs with
 autograd; the optimizer's frozen prefixes (``FREEZE_CONV_BODY_AT``) set
 which stages train, and a stage whose parameters and input need no
 gradient saves nothing.  The class table is used as it is given (the
-student-teacher model normalizes its tables; this model does not).
+student-teacher model normalizes its tables; this model does not); the
+class-specific predictor reads none.
 
 The module's attributes are the flax scopes (``backbone``, ``rpn_head``,
 ``roi_extractor``, ``box_predictor``, ``mask_predictor`` at the top
@@ -25,9 +30,11 @@ random draws of a training forward (:class:`TrainDraws`) and the pieces
 of the forward both detectors run (:func:`check_ported`,
 :func:`c4_backbone`, :class:`AnchorCache`, :func:`select_proposals`,
 :func:`detect`).  Not ported, and refused: the FPN and C5 bodies,
-``KEYPOINT_ON``, ``WSDDN``, ``RPN_ONLY``, ``GT_BOX_EVAL``, the
-``class_valid`` row mask, and ``run_teacher_pseudo_branch`` /
-``predict_masks_for_boxes`` (no caller in the JAX package).
+``KEYPOINT_ON``, ``WSDDN``, ``RPN_ONLY``, the ``class_valid`` row mask
+(it serves only class tables padded to a TPU mesh axis), the
+``pseudo_sample_weights`` argument of the training forward, and
+``run_teacher_pseudo_branch`` / ``predict_masks_for_boxes`` (no caller
+in the JAX package).
 """
 
 from typing import Dict, NamedTuple, Optional, Tuple
@@ -71,18 +78,19 @@ class TrainDraws(NamedTuple):
 
 def check_ported(s: RCNNStatics) -> None:
     """Raises NotImplementedError for a configuration the port does not
-    run yet."""
+    run yet, and ValueError for one that JAX cannot run either."""
     if not s.conv_body.endswith("-C4"):
         raise NotImplementedError(f"CONV_BODY {s.conv_body}: only the C4 body is ported yet")
-    if not (s.embedding_based and s.cls_agnostic_bbox_reg
-            and (s.cls_agnostic_mask or not s.mask_on)):
-        raise NotImplementedError(
-            "only the embedding-based, class-agnostic box and mask heads are ported yet"
-        )
     for on, key in ((s.keypoint_on, "MODEL.KEYPOINT_ON"), (s.wsddn, "MODEL.ROI_BOX_HEAD.WSDDN"),
-                    (s.rpn_only, "MODEL.RPN_ONLY"), (s.gt_box_eval, "MODEL.GT_BOX_EVAL")):
+                    (s.rpn_only, "MODEL.RPN_ONLY")):
         if on:
             raise NotImplementedError(f"{key} is not ported yet")
+    if s.embedding_based and not s.cls_agnostic_bbox_reg:
+        # the JAX predictor regresses one box: its per-class reshape fails
+        raise ValueError(
+            "the embedding-based box predictor regresses one class-agnostic box: "
+            "set MODEL.CLS_AGNOSTIC_BBOX_REG True"
+        )
 
 
 def c4_backbone(s: RCNNStatics) -> ResNetBackbone:
@@ -129,9 +137,11 @@ def select_proposals(s: RCNNStatics, anchors, objectness, box_reg, image_sizes, 
 
 
 def detect(heads: RoIHeadsBundle, feats, proposals: RPNProposals, image_sizes,
-           class_embeddings) -> RCNNEvalOutput:
-    """The eval RoI heads: box scores against ``class_embeddings`` (used
-    as given), ``postprocess_boxes``, then the masks of the detections."""
+           class_embeddings=None, override_labels=None) -> RCNNEvalOutput:
+    """The eval RoI heads: box scores (against ``class_embeddings``, used
+    as given, for the embedding-based predictor), ``postprocess_boxes``
+    (with ``GT_BOX_EVAL``'s ``override_labels``), then the masks of the
+    detections."""
     s = heads.statics
     x = heads.extract(feats, proposals.boxes)
     logits, deltas, _ = heads.box_outputs(x, class_embeddings)
@@ -147,12 +157,16 @@ def detect(heads: RoIHeadsBundle, feats, proposals: RPNProposals, image_sizes,
         s.detections_per_img,
         pre_nms_candidates=min(10 * s.detections_per_img, p * max(logits.shape[-1] - 1, 1)),
         reg_weights=s.reg_weights,
+        cls_agnostic_bbox_reg=s.cls_agnostic_bbox_reg,
+        gt_override_labels=override_labels,
     )
     mask_probs = None
     if s.mask_on:
         x2 = heads.extract(feats, dets.boxes)
         mask_logits, _ = heads.mask_outputs(x2)
-        probs = mask_head_inference(mask_logits.to(torch.float32))
+        probs = mask_head_inference(
+            mask_logits.to(torch.float32), dets.labels.reshape(-1), s.cls_agnostic_mask
+        )
         m = probs.shape[-1]
         mask_probs = probs.reshape(b, -1, m, m)
     return RCNNEvalOutput(dets, mask_probs)
@@ -173,18 +187,23 @@ class GeneralizedRCNN(RoIHeadsBundle):
         self,
         images: torch.Tensor,
         image_sizes: torch.Tensor,
-        class_embeddings: torch.Tensor,
+        class_embeddings: Optional[torch.Tensor] = None,
         train: bool = False,
         batch: Optional[Dict[str, torch.Tensor]] = None,
         compute_uncertain: bool = False,
         draws: TrainDraws = TrainDraws(),
         generator: Optional[torch.Generator] = None,
+        gt_eval: Optional[Dict[str, torch.Tensor]] = None,
     ):
         """images ``[B, H, W, 3]`` uint8 (or already-normalized float);
         image_sizes ``[B, 2]`` (h, w); class_embeddings ``[C, emb_dim]``
-        with the background row 0.
+        with the background row 0 (the embedding-based predictor's table;
+        the class-specific one reads none).
 
-        Eval returns :class:`RCNNEvalOutput`.  Training (``train=True``)
+        Eval returns :class:`RCNNEvalOutput`; with ``gt_eval``
+        (``MODEL.GT_BOX_EVAL``: ``boxes`` ``[B, G, 4]``, ``labels`` and
+        ``valid`` ``[B, G]``) the gt boxes replace the proposals and each
+        keeps its own label only.  Training (``train=True``)
         returns :class:`RCNNTrainOutput` and reads the targets from
         ``batch``: ``gt_boxes`` ``[B, G, 4]``, ``gt_labels``, ``gt_valid``
         ``[B, G]`` and ``gt_masks`` ``[B, G, Mr, Mr]``.
@@ -194,7 +213,7 @@ class GeneralizedRCNN(RoIHeadsBundle):
         s = self.statics
         images = device_normalize(images, image_sizes, s.pixel_mean, s.pixel_std, s.to_bgr255)
         if not train:
-            return self.forward_eval(images, image_sizes, class_embeddings)
+            return self.forward_eval(images, image_sizes, class_embeddings, gt_eval)
         if batch is None:
             raise ValueError("GeneralizedRCNN training needs `batch`")
         if "class_valid" in batch:
@@ -254,7 +273,8 @@ class GeneralizedRCNN(RoIHeadsBundle):
         x = self.extract(feats, sampled.boxes)
         logits, deltas, _ = self.box_outputs(x, class_embeddings)
         losses["loss_classifier"], losses["loss_box_reg"] = box_head_loss(
-            logits.to(torch.float32), deltas.to(torch.float32), sampled, s.bg_weight
+            logits.to(torch.float32), deltas.to(torch.float32), sampled, s.bg_weight,
+            cls_agnostic_bbox_reg=s.cls_agnostic_bbox_reg,
         )
         if s.mask_on:
             # the mask head on the positives-first slots (SampledRoIs.head)
@@ -268,7 +288,7 @@ class GeneralizedRCNN(RoIHeadsBundle):
             )
             losses["loss_mask"] = mask_head_loss(
                 mask_logits.to(torch.float32), sampled_mask, batch["gt_masks"], gt_boxes,
-                estimator=s.uncertainty_estimator,
+                estimator=s.uncertainty_estimator, cls_agnostic_mask=s.cls_agnostic_mask,
             )
             if scale is not None:
                 # the mean sigma over the positive mask slots (the JAX
@@ -280,9 +300,15 @@ class GeneralizedRCNN(RoIHeadsBundle):
                 ) / pos.sum().clamp(min=1.0)
         return RCNNTrainOutput(losses, info)
 
-    def forward_eval(self, images, image_sizes, class_embeddings) -> RCNNEvalOutput:
+    def forward_eval(self, images, image_sizes, class_embeddings=None, gt_eval=None) -> RCNNEvalOutput:
         feats, _, _, _, proposals = self._rpn_forward(images, image_sizes, train=False)
-        return detect(self, feats, proposals, image_sizes, class_embeddings)
+        override = None
+        if gt_eval is not None:
+            valid = gt_eval["valid"].to(torch.bool)
+            boxes = gt_eval["boxes"].to(torch.float32)
+            proposals = RPNProposals(boxes, torch.ones(boxes.shape[:2], device=boxes.device), valid)
+            override = torch.where(valid, gt_eval["labels"].to(torch.int64), -1)
+        return detect(self, feats, proposals, image_sizes, class_embeddings, override)
 
     def run_teacher_pseudo_branch(self, *args, **kwargs):
         raise NotImplementedError(

@@ -4,9 +4,12 @@ Counterpart of ``cvpr22_cross_modal_pseudo_labeling_tpu/models/detector/
 st_generalized_rcnn.py`` (``STStatics`` :62, ``st_statics_from_cfg``
 :74, ``normalize_rows`` :87, ``extract_word_embeddings`` :213,
 ``combine_embs`` :226, ``_teacher_region_scores`` :292,
-``_teacher_masks`` :322, ``generate_pseudo_labels`` :336,
-``_student_branch_losses`` :387, ``__call__`` :501, ``forward_eval``
-:678).
+``_pseudo_loss_extras`` :241, ``_teacher_masks`` :322,
+``generate_pseudo_labels`` :336, ``_student_branch_losses`` :387,
+``__call__`` :501, ``forward_eval`` :678).  The paper's comparison
+baselines (``baselines.py``) subclass it: they override
+``generate_pseudo_labels`` and ``_pseudo_loss_extras``, whose per-target
+weights and focal exponent reach the caption branch's box loss.
 
 Training runs two student branches over the whole padded batch, each
 masked per image.  The caption branch takes the teacher's pseudo-labels:
@@ -91,6 +94,7 @@ class PseudoLabels(NamedTuple):
     valid: torch.Tensor  # [B, W] bool
     labels: torch.Tensor  # [B, W] int64 LVIS ids of the nouns
     masks: Optional[torch.Tensor]  # [B, W, M, M] binarized teacher masks
+    weights: Optional[torch.Tensor] = None  # [B, W] per-target loss weights (SoftTeacher)
 
 
 class STGeneralizedRCNN(nn.Module):
@@ -98,6 +102,11 @@ class STGeneralizedRCNN(nn.Module):
         super().__init__()
         s = statics.base
         check_ported(s)
+        if not s.embedding_based:
+            raise ValueError(
+                "the student-teacher model scores regions against caption nouns: "
+                "it needs MODEL.ROI_BOX_HEAD.EMBEDDING_BASED True"
+            )
         self.statics = statics
         self.backbone = c4_backbone(s)
         self.rpn_head = RPNHead(
@@ -202,7 +211,11 @@ class STGeneralizedRCNN(nn.Module):
         b = pseudo_boxes.shape[0]
         x2 = self.teacher.extract(feats, pseudo_boxes)
         mask_logits, _ = self.teacher.mask_outputs(x2)
-        probs = mask_head_inference(mask_logits.to(torch.float32))
+        # the class-specific head's channel 1, as the JAX function reads it
+        probs = mask_head_inference(
+            mask_logits.to(torch.float32), torch.ones(x2.shape[0], dtype=torch.int64, device=x2.device),
+            self.statics.base.cls_agnostic_mask,
+        )
         m = probs.shape[-1]
         return (probs.reshape(b, -1, m, m) >= 0.5).to(torch.float32)
 
@@ -233,15 +246,24 @@ class STGeneralizedRCNN(nn.Module):
             masks=masks,
         )
 
+    def _pseudo_loss_extras(self, pseudo: PseudoLabels) -> Dict:
+        """Keyword arguments of the caption branch's
+        :meth:`_student_branch_losses`; the baselines override it."""
+        return {}
+
     # ------------------------------------------------------------------
     def _student_branch_losses(
         self, feats, proposals: RPNProposals, gt_boxes, gt_labels, gt_valid,
         gt_masks, gt_mask_boxes, class_embeddings, image_mask,
         compute_uncertain, append_gt, rand=None, eps=None, generator=None,
+        sample_weight_table=None, focal_gamma=None,
     ):
         """One student branch: sample rois, then the box and mask losses,
-        over the images of ``image_mask`` only.  Returns (classification,
-        box, mask, avg_uncertain)."""
+        over the images of ``image_mask`` only.  ``sample_weight_table``
+        ``[B, G]``: each positive roi's classification weight is its
+        matched target's (negatives 1); ``focal_gamma``: the focal
+        reweighting of the classification loss.  Returns
+        (classification, box, mask, avg_uncertain)."""
         sb = self.statics.base
         pvalid = proposals.valid & image_mask[:, None]
         gvalid = gt_valid & image_mask[:, None]
@@ -263,8 +285,15 @@ class STGeneralizedRCNN(nn.Module):
         )
         x = self.student.extract(feats, sampled.boxes)
         logits, deltas, _ = self.student.box_outputs(x, class_embeddings)
+        sample_weights = None
+        if sample_weight_table is not None:
+            g = sample_weight_table.shape[1]
+            per_roi = torch.gather(sample_weight_table, 1, sampled.matched_gt.clamp(0, g - 1))
+            sample_weights = torch.where(sampled.is_pos, per_roi, torch.ones_like(per_roi))
         cls_loss, box_loss = box_head_loss(
-            logits.to(torch.float32), deltas.to(torch.float32), sampled, sb.bg_weight
+            logits.to(torch.float32), deltas.to(torch.float32), sampled, sb.bg_weight,
+            cls_agnostic_bbox_reg=sb.cls_agnostic_bbox_reg, sample_weights=sample_weights,
+            focal_gamma=focal_gamma,
         )
         mask_loss = torch.zeros((), device=x.device)
         avg_uncertain = torch.ones((), device=x.device)
@@ -280,7 +309,7 @@ class STGeneralizedRCNN(nn.Module):
             )
             mask_loss = mask_head_loss(
                 mask_logits.to(torch.float32), sampled_mask, gt_masks, gt_mask_boxes,
-                estimator=sb.uncertainty_estimator,
+                estimator=sb.uncertainty_estimator, cls_agnostic_mask=sb.cls_agnostic_mask,
             )
             if scale is not None:
                 pos = (sampled_mask.is_pos & sampled_mask.valid).reshape(-1).to(torch.float32)
@@ -314,6 +343,7 @@ class STGeneralizedRCNN(nn.Module):
             masks, pseudo.boxes, self.combine_embs(lvis_class_embeddings),
             cap_mask, compute_uncertain=s.uncertainty, append_gt=False,
             rand=draws.pseudo_sampler, eps=draws.mask_eps, generator=generator,
+            **self._pseudo_loss_extras(pseudo),
         )
         info["avg_uncertain"] = avg_unc
         if s.uncertainty and s.reweight:

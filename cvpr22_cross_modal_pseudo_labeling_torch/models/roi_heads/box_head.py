@@ -3,12 +3,16 @@
 Counterpart of ``cvpr22_cross_modal_pseudo_labeling_tpu/models/
 roi_heads/box_head.py`` (``BoxPredictor`` :45, ``SampledRoIs`` :145,
 ``subsample_rois`` :161, ``box_head_loss`` :210, ``Detections`` :263,
-``postprocess_boxes`` :270) for the configuration the port runs: the
-embedding-based predictor, which scores RoI embeddings against a class
-table passed as an argument, with class-agnostic box regression.  The
-``class_valid`` mask of the JAX predictor (class tables padded for a TPU
-model mesh axis) has no counterpart, nor have the baselines' per-sample
-weights and focal reweighting of the box loss.
+``postprocess_boxes`` :270).  Both predictors: the embedding-based one,
+which scores RoI embeddings against a class table passed as an argument
+and regresses one class-agnostic box, and maskrcnn_benchmark's
+class-specific ``FastRCNNPredictor`` (``cls_score`` over
+``NUM_CLASSES``, one box per class unless ``CLS_AGNOSTIC_BBOX_REG``).
+The box loss takes the baselines' per-roi sample weights and focal
+reweighting; the postprocessing decodes per class and takes the
+``GT_BOX_EVAL`` label override.  The ``class_valid`` mask of the JAX
+predictor (class tables padded for a TPU model mesh axis) has no
+counterpart.
 """
 
 from typing import NamedTuple, Optional, Tuple
@@ -28,16 +32,34 @@ from ..rpn.rpn import top_k
 
 
 class BoxPredictor(nn.Module):
-    """The embedding-based FastRCNNPredictor on avg-pooled ``[N, 2048]``
-    RoI vectors: logits against a ``[C, emb_dim]`` class table, and one
-    class-agnostic box (background + foreground deltas, 8 outputs)."""
+    """FastRCNNPredictor on avg-pooled ``[N, 2048]`` RoI vectors.
 
-    def __init__(self, in_channels=2048, emb_dim=768, dtype=torch.float32):
+    Embedding-based: ``emb_pred`` projects to ``emb_dim`` and the logits
+    are the products with a ``[C, emb_dim]`` class table; ``bbox_pred``
+    gives one class-agnostic box (background and foreground deltas, 8
+    outputs).  Otherwise ``cls_score`` gives ``num_classes`` logits and
+    ``bbox_pred`` ``4 * num_classes`` deltas (8 when
+    ``cls_agnostic_bbox_reg``); the class table is not read."""
+
+    def __init__(self, in_channels=2048, emb_dim=768, dtype=torch.float32, embedding_based=True,
+                 num_classes=81, cls_agnostic_bbox_reg=True):
         super().__init__()
-        self.emb_pred = Linear(in_channels, emb_dim, dtype=dtype)
-        self.bbox_pred = Linear(in_channels, 2 * 4, dtype=dtype)
+        self.embedding_based = embedding_based
+        if embedding_based:
+            self.emb_pred = Linear(in_channels, emb_dim, dtype=dtype)
+            num_reg = 2
+        else:
+            self.cls_score = Linear(in_channels, num_classes, dtype=dtype)
+            num_reg = 2 if cls_agnostic_bbox_reg else num_classes
+        self.bbox_pred = Linear(in_channels, num_reg * 4, dtype=dtype)
 
-    def forward(self, pooled_vec, class_embeddings):
+    def forward(self, pooled_vec, class_embeddings=None):
+        """``(logits [N, C], deltas [N, 4 * num_reg], emb [N, emb_dim]
+        or None)``."""
+        if not self.embedding_based:
+            return self.cls_score(pooled_vec), self.bbox_pred(pooled_vec), None
+        if class_embeddings is None:
+            raise ValueError("the embedding-based box predictor needs a class-embedding table")
         emb = self.emb_pred(pooled_vec)
         logits = emb @ class_embeddings.to(emb.dtype).T
         return logits, self.bbox_pred(pooled_vec), emb
@@ -105,12 +127,20 @@ def box_head_loss(
     box_deltas: torch.Tensor,
     sampled: SampledRoIs,
     bg_weight: float = 1.0,
+    cls_agnostic_bbox_reg: bool = True,
+    sample_weights: Optional[torch.Tensor] = None,
+    focal_gamma: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """class_logits ``[B*S, C]``, box_deltas ``[B*S, 8]`` (class-agnostic).
+    """class_logits ``[B*S, C]``, box_deltas ``[B*S, 4 * num_reg]``.
 
-    classification = sum_i w_{y_i} CE_i / N_valid (``bg_weight`` for the
-    background); box = sum over positives of smooth-L1 (beta 1) on the
-    foreground deltas / N_valid."""
+    classification = sum_i w_{y_i} s_i f_i CE_i / N_valid (``bg_weight``
+    for the background; ``sample_weights`` ``[B, S]`` give s_i, else 1;
+    with ``focal_gamma``, f_i = (1 - exp(-w_{y_i} CE_i))^gamma with the
+    factor detached, else 1); box = sum over positives of smooth-L1
+    (beta 1) on the foreground deltas / N_valid.  The foreground deltas
+    are columns 4:8 when ``cls_agnostic_bbox_reg``, else the four
+    columns of each roi's label (a background roi reads class 0's, which
+    its zero weight masks out)."""
     labels = sampled.labels.reshape(-1)
     valid = sampled.valid.reshape(-1)
     is_pos = sampled.is_pos.reshape(-1)
@@ -121,9 +151,18 @@ def box_head_loss(
     ce = -torch.gather(logp, 1, labels.clamp(min=0)[:, None])[:, 0]
     class_w = torch.where(labels == 0, bg_weight, 1.0)
     w = class_w * valid.to(ce.dtype)
+    if focal_gamma is not None:
+        w = w * (1.0 - torch.exp(-(ce * class_w).detach())) ** focal_gamma
+    if sample_weights is not None:
+        w = w * sample_weights.reshape(-1)
     classification_loss = torch.sum(ce * w) / n
 
-    box_l = smooth_l1_loss(box_deltas[:, 4:8], reg_targets, beta=1.0)
+    if cls_agnostic_bbox_reg:
+        pos_deltas = box_deltas[:, 4:8]
+    else:
+        cols = 4 * labels.clamp(min=0)[:, None] + torch.arange(4, device=labels.device)[None, :]
+        pos_deltas = torch.gather(box_deltas, 1, cols)
+    box_l = smooth_l1_loss(pos_deltas, reg_targets, beta=1.0)
     box_loss = torch.sum(box_l * is_pos.to(box_l.dtype)[:, None]) / n
     return classification_loss, box_loss
 
@@ -146,19 +185,32 @@ def postprocess_boxes(
     detections_per_img: int = 100,
     pre_nms_candidates: int = 1000,
     reg_weights: Tuple[float, float, float, float] = (10.0, 10.0, 5.0, 5.0),
+    cls_agnostic_bbox_reg: bool = True,
+    gt_override_labels: Optional[torch.Tensor] = None,
 ) -> Detections:
-    """Softmax, class-agnostic decode, the top ``pre_nms_candidates``
-    (roi, class >= 1) pairs by score above ``score_thresh``, then one
-    per-class NMS pass keeping ``detections_per_img``; batched over
-    images.
+    """Softmax, decode (one box, or one per class), the top
+    ``pre_nms_candidates`` (roi, class >= 1) pairs by score above
+    ``score_thresh``, then one per-class NMS pass keeping
+    ``detections_per_img``; batched over images.
 
-    class_logits ``[B, S, C]``; box_deltas ``[B, S, 8]`` (the last 4 are
-    the foreground box); proposals ``[B, S, 4]``; proposal_valid
-    ``[B, S]``."""
+    class_logits ``[B, S, C]``; box_deltas ``[B, S, 4 * num_reg]`` (the
+    last 4 are the foreground box when class-agnostic, else class c's
+    box is columns 4c:4c+4); proposals ``[B, S, 4]``; proposal_valid
+    ``[B, S]``.  ``gt_override_labels`` ``[B, S]`` (``GT_BOX_EVAL``; -1
+    for none): in an image with any override, each roi keeps only its
+    own label's probability plus 1.1 and every other score is 0."""
     b, s, num_classes = class_logits.shape
     probs = torch.softmax(class_logits, dim=-1)
-    boxes = decode_boxes(box_deltas[..., -4:], proposals, reg_weights)
-    boxes = clip_to_image(boxes, image_sizes)
+    if gt_override_labels is not None:
+        active = gt_override_labels >= 0
+        onehot = F.one_hot(gt_override_labels.clamp(min=0).to(torch.int64), num_classes).to(probs.dtype)
+        onehot = onehot * active[..., None]
+        probs = torch.where(active.any(dim=1)[:, None, None], onehot * (probs + 1.1), probs)
+    if cls_agnostic_bbox_reg:
+        boxes = clip_to_image(decode_boxes(box_deltas[..., -4:], proposals, reg_weights), image_sizes)
+    else:
+        boxes = decode_boxes(box_deltas, proposals, reg_weights).reshape(b, s, num_classes, 4)
+        boxes = clip_to_image(boxes, image_sizes[:, None])
 
     cand_scores = probs[..., 1:]
     cand_valid = (cand_scores > score_thresh) & proposal_valid[..., None]
@@ -170,7 +222,10 @@ def postprocess_boxes(
     roi_idx = top_idx // (num_classes - 1)
     cls_idx = top_idx % (num_classes - 1) + 1
     bi = torch.arange(b, device=top_idx.device)[:, None]
-    top_boxes = boxes[bi, roi_idx]
+    if cls_agnostic_bbox_reg:
+        top_boxes = boxes[bi, roi_idx]
+    else:
+        top_boxes = boxes[bi, roi_idx, cls_idx]
     top_valid = top_scores > score_thresh
 
     keep_idx, keep_valid = batched_nms(

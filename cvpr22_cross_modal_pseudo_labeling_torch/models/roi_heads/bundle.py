@@ -34,10 +34,13 @@ class RoIHeadsBundle(nn.Module):
             prestrided=s.pool_prestride,
             dtype=dtype,
         )
-        self.box_predictor = BoxPredictor(emb_dim=s.emb_dim, dtype=dtype)
+        self.box_predictor = BoxPredictor(
+            emb_dim=s.emb_dim, dtype=dtype, embedding_based=s.embedding_based,
+            num_classes=s.num_classes, cls_agnostic_bbox_reg=s.cls_agnostic_bbox_reg,
+        )
         if s.mask_on:
             self.mask_predictor = MaskPredictor(
-                num_classes=2,
+                num_classes=2 if s.cls_agnostic_mask else s.num_classes,
                 dim_reduced=s.mask_dim_reduced,
                 uncertainty=uncertainty,
                 sigma_max=s.uncertainty_sigma_max,
@@ -61,7 +64,10 @@ class RoIHeadsBundle(nn.Module):
         )
         return self.roi_extractor(pooled)
 
-    def box_outputs(self, x, class_embeddings):
+    def box_outputs(self, x, class_embeddings=None):
+        """``(logits, deltas, emb)`` of the box predictor on the pooled
+        RoI vectors; ``class_embeddings`` only for the embedding-based
+        predictor."""
         return self.box_predictor(x.mean(dim=(1, 2)), class_embeddings)
 
     def mask_outputs(self, x, compute_uncertain=False, train=False, eps=None, generator=None):

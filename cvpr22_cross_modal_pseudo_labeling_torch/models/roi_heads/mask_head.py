@@ -3,7 +3,9 @@ mask probabilities.
 
 Counterpart of ``cvpr22_cross_modal_pseudo_labeling_tpu/models/
 roi_heads/mask_head.py`` (``MaskPredictor`` :27, ``mask_head_loss`` :103,
-``mask_head_inference`` :177) for class-agnostic masks.  In training the
+``mask_head_inference`` :177), class-agnostic (2 channels, the
+foreground in channel 1) or class-specific (a channel per class,
+maskrcnn_benchmark's ``MaskRCNNC4Predictor``).  In training the
 uncertainty branch predicts a per-pixel sigma from the detached
 upsampled features and perturbs the logits with ``num_samples``
 reparameterized draws; the loss collapses the sample axis with the
@@ -92,9 +94,11 @@ def mask_head_loss(
     gt_masks: torch.Tensor,
     gt_boxes: torch.Tensor,
     estimator: str = "sampled_bce",
+    cls_agnostic_mask: bool = True,
 ) -> torch.Tensor:
-    """Mean BCE over the mask pixels of positive rois (class-agnostic:
-    channel 1).
+    """Mean BCE over the mask pixels of positive rois, on channel 1
+    (class-agnostic) or on each roi's label channel (class-specific;
+    a background roi reads channel 0, which its zero weight masks out).
 
     mask_logits ``[B*S, M, M, C]`` or ``[n_s, B*S, M, M, C]``; gt_masks
     ``[B, G, Mr, Mr]`` rasterized over gt_boxes ``[B, G, 4]``.  The sample
@@ -111,8 +115,14 @@ def mask_head_loss(
     ).reshape(n, m, m)
     targets = (targets >= 0.5).to(mask_logits.dtype)
 
+    if cls_agnostic_mask:
+        logits = mask_logits[..., 1]
+    else:
+        sel = sampled.labels.reshape(-1).clamp(min=0)
+        idx = sel[None, :, None, None, None].expand(n_s, n, m, m, 1)
+        logits = torch.gather(mask_logits, -1, idx)[..., 0]
     pos = (sampled.is_pos & sampled.valid).reshape(-1)
-    per_pix = binary_cross_entropy_with_logits(mask_logits[..., 1], targets[None])
+    per_pix = binary_cross_entropy_with_logits(logits, targets[None])
     if estimator == "logmeanexp" and n_s > 1:
         per_pix = -(torch.logsumexp(-per_pix, dim=0, keepdim=True) - math.log(n_s))
         n_s = 1
@@ -121,7 +131,17 @@ def mask_head_loss(
     return torch.sum(per_pix * w) / denom
 
 
-def mask_head_inference(mask_logits: torch.Tensor) -> torch.Tensor:
-    """Class-agnostic ``[N, M, M, 2]`` logits -> ``[N, M, M]``
-    foreground probabilities (channel 1)."""
-    return torch.sigmoid(mask_logits[..., 1])
+def mask_head_inference(
+    mask_logits: torch.Tensor,
+    det_labels: Optional[torch.Tensor] = None,
+    cls_agnostic_mask: bool = True,
+) -> torch.Tensor:
+    """``[N, M, M, C]`` logits -> ``[N, M, M]`` probabilities: channel 1
+    when class-agnostic, else the channel of each detection's label
+    ``det_labels [N]`` clipped into ``[0, C - 1]`` (padded detections
+    included)."""
+    if cls_agnostic_mask:
+        return torch.sigmoid(mask_logits[..., 1])
+    sel = det_labels.to(torch.int64).clamp(0, mask_logits.shape[-1] - 1)
+    idx = sel[:, None, None, None].expand(*mask_logits.shape[:3], 1)
+    return torch.sigmoid(torch.gather(mask_logits, -1, idx)[..., 0])

@@ -6,9 +6,11 @@
 
 For each of the config's ``DATASETS.TEST`` it runs the port's loader, a
 ``Predictor`` on ``--device`` (``cuda`` unless the CPU is asked for; it
-raises without a card) and the port's COCO evaluator, and writes
-``predictions_{name}.json`` and ``metrics_{name}.json`` into
-``OUTPUT_DIR``.  The datasets are found under ``CMPL_TPU_DATA_DIR``.
+raises without a card) for any detector of the ``GeneralizedRCNN`` and
+``STGeneralizedRCNN`` families, and the port's evaluator (the COCO
+protocol, or VOC's ``bbox/mAP`` and ``bbox/mAP_07metric`` on a VOC
+dataset), and writes ``predictions_{name}.json`` and
+``metrics_{name}.json`` into ``OUTPUT_DIR``.  The datasets are found under ``CMPL_TPU_DATA_DIR``.
 With ``TEST.BBOX_AUG.ENABLED`` the detections come from the test-time
 augmentation (``engine/inference.py::compute_on_dataset_bbox_aug``),
 box-only, as in ``tools/test_net.py``.
@@ -97,7 +99,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Dict[str, float]]:
             "eval[%s]: %s",
             name,
             {k: round(v, 4) for k, v in metrics.items()
-             if isinstance(v, float) and "AP50_class" not in k},
+             if isinstance(v, float) and "_class_" not in k},
         )
         with open(os.path.join(cfg.OUTPUT_DIR, f"metrics_{name}.json"), "w") as f:
             json.dump(

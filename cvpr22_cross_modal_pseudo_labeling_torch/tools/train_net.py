@@ -4,9 +4,11 @@
     python -m cvpr22_cross_modal_pseudo_labeling_torch.tools.train_net \\
         --config-file X.yaml [--skip-test] [--device cuda|cpu] [--seed N] KEY VALUE ...
 
-It trains the model the config names (MMSS pretraining ``MMSS-GCNN``,
-the teacher ``GeneralizedRCNN`` or the student ``STGeneralizedRCNN``)
-on ``DATASETS.TRAIN`` with a ``Trainer`` on ``--device`` (``cuda``
+It trains the model the config names (MMSS pretraining ``MMSS-GCNN``;
+``GeneralizedRCNN``, the teacher or a class-specific supervised
+detector, or one of its baseline skeletons ``SBBaseline``, ``OMP`` and
+``BA_RPN``; the student ``STGeneralizedRCNN`` or one of its baselines
+``SoftTeacher`` and ``UnbiasedTeacher``) on ``DATASETS.TRAIN`` with a ``Trainer`` on ``--device`` (``cuda``
 unless the CPU is asked for; it raises without a card), through
 ``engine/trainer.py::do_train``, and then evaluates a detector on
 ``DATASETS.TEST`` unless ``--skip-test`` or ``TEST.DO_EVAL False``
@@ -100,7 +102,9 @@ def _iou_types(cfg):
 
 
 def _summary(metrics):
-    return {k: round(v, 4) for k, v in metrics.items() if isinstance(v, float) and "AP50_class" not in k}
+    """The metrics of a log line: no per-class AP (COCO's ``AP50_class_``,
+    VOC's ``AP_class_``)."""
+    return {k: round(v, 4) for k, v in metrics.items() if isinstance(v, float) and "_class_" not in k}
 
 
 def train(cfg, logger, device: str = "cuda", seed: int = 0) -> Dict:
@@ -178,8 +182,9 @@ def train(cfg, logger, device: str = "cuda", seed: int = 0) -> Dict:
             start_iter = restored_iter
         logger.info("resumed from %s at iteration %d", last, start_iter)
 
-    # MMSS reads no class table
-    tables = {} if meta_arch == MMSS else {"class_embeddings": dataset.class_emb_mtx}
+    # MMSS reads no class table, nor does a class-specific detector, whose
+    # datasets (VOC, Cityscapes) may have none
+    tables = {} if meta_arch == MMSS else {"class_embeddings": getattr(dataset, "class_emb_mtx", None)}
     if meta_arch in ST_FAMILY:
         # the LVIS class-name table from the (frozen) BERT table: after a
         # restore it equals the fresh run's

@@ -125,11 +125,24 @@ def test_train_loader_batches_equal_jax(both_catalogs, monkeypatch):
 @pytest.mark.parametrize("name,factory", [
     ("voc_2007_train", "PascalVOCDataset"),
 ])
-def test_unported_datasets_raise(tree, monkeypatch, name, factory):
-    monkeypatch.setenv("CMPL_TPU_DATA_DIR", str(tree))
-    _, tc = cfgs(["DATASETS.TEST", (name,)])
-    with pytest.raises(KeyError, match=f"{factory}.*ROADMAP.md"):
-        torch_build.make_data_loader(tc, is_train=False)
+def test_class_specific_datasets_build_as_in_jax(tmp_path, monkeypatch, name, factory):
+    """A catalog entry of a dataset without class embeddings (refused
+    until the port had the class-specific heads): both packages build
+    it, and their first eval batches hold the same gt."""
+    from cvpr22_cross_modal_pseudo_labeling_torch.tools import synth_voc
+
+    synth_voc.write_tree(str(tmp_path), train=3, test=3, sizes=((100, 75), (75, 100)))
+    monkeypatch.setenv("CMPL_TPU_DATA_DIR", str(tmp_path))
+    monkeypatch.setattr(jax_catalog, "DATA_DIR", str(tmp_path))
+    jc, tc = cfgs(EVAL_OPTS + ["DATASETS.TEST", (name,)])
+    ((jl,), (jd,)), ((tl,), (td,)) = (jax_build.make_data_loader(jc, is_train=False),
+                                      torch_build.make_data_loader(tc, is_train=False))
+    assert type(td).__name__ == type(jd).__name__ == factory and getattr(td, "class_emb_mtx", None) is None
+    (jb, ji), (tb, ti) = next(iter(jl)), next(iter(tl))
+    assert list(ji) == list(ti) and tb["images"].dtype == np.uint8
+    for k in ("gt_boxes", "gt_labels", "gt_valid", "image_sizes"):
+        np.testing.assert_array_equal(tb[k], jb[k], err_msg=k)
+    assert tb["gt_valid"].any()
 
 
 def test_grain_loader_raises(tree, monkeypatch):

@@ -469,20 +469,51 @@ def test_teacher_optimizer_labels_match_jax():
 
 
 @pytest.mark.parametrize("opts,error", [
-    (("MODEL.META_ARCHITECTURE", "SoftTeacher"), NotImplementedError),
-    (("MODEL.META_ARCHITECTURE", "OMP"), NotImplementedError),
-    (("MODEL.META_ARCHITECTURE", "UnbiasedTeacher"), NotImplementedError),
     (("MODEL.RETINANET_ON", True), NotImplementedError),
     (("MODEL.BACKBONE.CONV_BODY", "R-50-FPN"), NotImplementedError),
     (("MODEL.KEYPOINT_ON", True), NotImplementedError),
     (("MODEL.ROI_BOX_HEAD.WSDDN", True), NotImplementedError),
     (("MODEL.RPN_ONLY", True), NotImplementedError),
-    (("MODEL.GT_BOX_EVAL", True), NotImplementedError),
     (("MODEL.META_ARCHITECTURE", "NoSuchRCNN"), ValueError),
 ])
 def test_registry_refuses_what_is_not_ported(opts, error):
     with pytest.raises(error):
         build_detection_model(_port_cfg(TEACHER, TRAIN_OPTS + list(opts)))
+
+
+@pytest.mark.parametrize("opts", [
+    ("MODEL.META_ARCHITECTURE", "SoftTeacher"),
+    ("MODEL.META_ARCHITECTURE", "OMP"),
+    ("MODEL.META_ARCHITECTURE", "UnbiasedTeacher"),
+    ("MODEL.GT_BOX_EVAL", True),
+])
+def test_registry_builds_and_runs_what_it_once_refused(opts):
+    """The baselines and ``GT_BOX_EVAL``, refused before the port had
+    them: the registry builds them and they run, a train step for the
+    baselines (the top-k teachers on the student-teacher config and
+    batch), the eval forward on the gt boxes for ``GT_BOX_EVAL``."""
+    from tests import test_torch_st_train as st
+
+    key, value = opts
+    if value in ("SoftTeacher", "UnbiasedTeacher"):
+        trainer = Trainer(ST_CONFIG, st.TRAIN_OPTS + list(opts), device="cpu", seed=0)
+        assert isinstance(trainer.model, STGeneralizedRCNN) and type(trainer.model).__name__.startswith(value)
+        batch = st.tiny_batch()
+    else:
+        trainer = Trainer(TEACHER, TRAIN_OPTS + list(opts), device="cpu", seed=0)
+        assert isinstance(trainer.model, GeneralizedRCNN)
+        batch = tiny_batch()
+    trainer.load_flax_params(bridge.seeded_flax_params(trainer.model, seed=0))
+    if key == "MODEL.GT_BOX_EVAL":
+        pred = Predictor.from_model(trainer.cfg, trainer.model)
+        gt_eval = {"boxes": batch["gt_boxes"], "labels": batch["gt_labels"], "valid": batch["gt_valid"]}
+        dets, masks = pred(batch["images"], batch["image_sizes"], batch["class_embeddings"], gt_eval)
+        assert dets.valid.sum(axis=1).tolist() == [3, 3] and masks.shape[:2] == (2, 100)
+        for i in range(2):
+            np.testing.assert_array_equal(np.sort(dets.labels[i][dets.valid[i]]), np.sort(batch["gt_labels"][i][:3]))
+        return
+    metrics = trainer.step(batch)
+    assert all(torch.isfinite(v) for v in metrics.values()) and float(metrics["total_loss"]) > 0
 
 
 def test_registry_builds_both_detectors_and_the_teacher_checks_its_batch():
