@@ -346,6 +346,8 @@ def roi_err(out, ref, fmax):
     float32 result, plus one bfloat16 ulp of the larger of the two values
     for a bfloat16 one."""
     diff = (out.float() - ref.float()).abs()
+    if diff.numel() == 0:  # a level-filtered launch whose level has no roi
+        return 0.0, 0.0
     limit = torch.full_like(diff, 1e-5 * fmax)
     if out.dtype == torch.bfloat16:
         mag = torch.maximum(out.float().abs(), ref.float().abs())
@@ -864,9 +866,15 @@ def launch_checks():
 
     def check_roi(inputs, out):
         ref = ra.roi_align_plain(*inputs)  # at the launch's own dtype
+        rois = f"{inputs[1].shape[0]} x {inputs[1].shape[1]}"
+        if len(inputs) > 7:
+            # a level-filtered launch (the FPN pooler) writes its level's
+            # rows of an output the other levels' launches share
+            mine = inputs[7] == inputs[8]
+            out, ref = out[mine], ref[mine]
+            rois += f", level {inputs[8]}: {int(mine.sum())}"
         checks["roi_align"].append(
-            roi_err(out, ref, float(inputs[0].float().abs().max()))
-            + (str(out.dtype), f"{inputs[1].shape[0]} x {inputs[1].shape[1]}")
+            roi_err(out, ref, float(inputs[0].float().abs().max())) + (str(out.dtype), rois)
         )
 
     def check_roi_bwd(inputs, out):
@@ -874,9 +882,11 @@ def launch_checks():
         checks.setdefault("roi_align_backward_inputs", tuple(
             x.cpu() if torch.is_tensor(x) else x for x in inputs))
         ref = ra.roi_align_backward_plain(*inputs)
+        rois = f"{inputs[1].shape[0]} x {inputs[1].shape[1]}"
+        if len(inputs) > 9:
+            rois += f", level {inputs[10]}: {int((inputs[9] == inputs[10]).sum())}"
         checks["roi_align_backward"].append(
-            roi_err(out, ref, float(ref.float().abs().max()))
-            + (str(out.dtype), f"{inputs[1].shape[0]} x {inputs[1].shape[1]}")
+            roi_err(out, ref, float(ref.float().abs().max())) + (str(out.dtype), rois)
         )
 
     return checks, check_nms, check_roi, check_roi_bwd
@@ -2634,17 +2644,471 @@ def phase_supervised(dev, results):
         plain_ms=cuda_ms(lambda: ra.roi_align_backward_plain(*args), 3), bound_ms=bound_ms, bound_by=bound_by)
     captured.clear()
 
-    def check_lists(checks):
-        return {"nms_mismatches": [x for x, _ in checks["nms"]], "nms_shapes": [n for _, n in checks["nms"]],
-                **{f"{key}_{field}": [c[i] for c in checks[key]]
-                   for key in ("roi_align", "roi_align_backward")
-                   for i, field in enumerate(("max_abs_err", "excess_over_limit", "dtype", "rois"))}}
-
     rec = dict(phase="supervised", dtype="bfloat16", coco_batch=8, voc_batch=1, runs=runs, evals=evals,
                launches=launches, new_shapes=shapes, checks={k: check_lists(v) for k, v in all_checks.items()},
                loss_classifier_pseudo={"SoftTeacher": soft, "UnbiasedTeacher": unbiased})
     emit(rec)
     results["supervised"] = rec
+
+
+# the R-50-FPN body over the shipped teacher and student-teacher configs
+# (the port's config.R50_FPN_OPTS) at full width in bfloat16, batches of 8
+# at 800 x 1333; train_net and test_net on the eval phase's tree, outputs
+# under build/fpn_out (deleted at the end of the phase)
+FPN_PHASE = dict(batches=3, steps=3, student_steps=2, out="build/fpn_out", timing_iters=10)
+FPN_SCALES = (0.25, 0.125, 0.0625, 0.03125)
+FPN_TRAINED = ("backbone.fpn.", "backbone.body.layer2.", "backbone.body.layer3.", "backbone.body.layer4.",
+               "rpn_head.", "roi_extractor.", "box_predictor.bbox_pred.", "mask_predictor.")
+
+
+def roi_level_taps(feature_shapes, rois, levels, output_size, scales, sampling_ratio):
+    """Per level, (taps, distinct positions) of the rois on that level: a
+    tap is a (nonzero A_y entry, nonzero A_x entry) pair of a bin (as
+    ``roi_taps``); the distinct positions are the union, over the level's
+    rois of each image, of the feature cells they read (all a pooling of
+    those rois needs of the map)."""
+    from cvpr22_cross_modal_pseudo_labeling_torch.ops import roi_align as ra
+
+    P, Q = output_size
+    out = []
+    for lvl, ((B, H, W, _), scale) in enumerate(zip(feature_shapes, scales)):
+        (sh, bh, gh, ch), (sw, bw, gw, cw) = ra._roi_geometry(rois, scale, P, Q, H, W, sampling_ratio, 8)
+        taps = cells = 0.0
+        for bi in range(B):
+            r = torch.nonzero(levels[bi] == lvl).flatten()
+            if r.numel() == 0:
+                continue
+            ay = ra._axis_interp_matrix(sh[bi, r], bh[bi, r], gh[bi, r], H, P, ch, 1) != 0  # [S, P, H]
+            ax = ra._axis_interp_matrix(sw[bi, r], bw[bi, r], gw[bi, r], W, Q, cw, 1) != 0  # [S, Q, W]
+            taps += float((ay.sum((1, 2)).double() * ax.sum((1, 2)).double()).sum())
+            # a roi reads the cells (y, x) of every row y and column x it taps
+            rows, cols = ay.any(1).float(), ax.any(1).float()  # [S, H], [S, W]
+            cells += float(((rows.T @ cols) > 0).sum())
+        out.append((taps, cells))
+    return out
+
+
+def bound_of(byts, ops):
+    """(ms, bound_by): the larger of bytes over the memory rate and
+    float32 operations over the peak rate."""
+    t_bytes, t_ops = byts / H100_BYTES_PER_S, ops / H100_F32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def roi_levels_bound(features, rois, levels, output_size, scales, sampling_ratio):
+    """The multi-level forward's bound: of each level's map the cells its
+    rois read (the union over each image's rois on that level, once each),
+    the rois and levels read once, the one output written once; two flops
+    per (tap, channel) of each roi on its own level."""
+    C, es = features[0].shape[3], features[0].element_size()
+    per_level = roi_level_taps([f.shape for f in features], rois, levels, output_size, scales, sampling_ratio)
+    taps = sum(t for t, _ in per_level)
+    cells = sum(c for _, c in per_level)
+    out_el = rois.shape[0] * rois.shape[1] * output_size[0] * output_size[1] * C
+    byts = (cells * C + out_el) * es + rois.numel() * 4 + levels.numel() * 4
+    return bound_of(byts, 2.0 * taps * C)
+
+
+def roi_level_bwd_work(grad, rois, levels, level, feature_shape, output_size, scale, sampling_ratio):
+    """One level's backward (bytes, operations): the cotangent rows of its
+    rois, its rois and levels read once, its dF (the whole map) written
+    once; two flops per (tap, channel)."""
+    C, es = feature_shape[3], grad.element_size()
+    mine = int((levels == level).sum())
+    per_row = output_size[0] * output_size[1] * C
+    ((taps, _),) = roi_level_taps([feature_shape], rois, torch.where(levels == level, 0, -1), output_size,
+                                  (scale,), sampling_ratio)
+    byts = (mine * per_row + int(np.prod(feature_shape))) * es + rois.numel() * 4 + levels.numel() * 4
+    return byts, 2.0 * taps * C
+
+
+def fpn_capture(checks, check_nms, check_roi, check_roi_bwd, captured, tag):
+    """Launch hooks that check every launch against its plain version and
+    keep, under ``captured[tag]``, the inputs of each NMS shape and of
+    each level-filtered RoIAlign launch (forward by roi count, backward
+    by level)."""
+    def nms(inputs, out):
+        key = (inputs[0].shape[0], inputs[0].shape[1], inputs[4])
+        captured.setdefault(tag, {}).setdefault(("nms",) + key, inputs)
+        check_nms(inputs, out)
+
+    def roi(inputs, out):
+        if len(inputs) > 7:
+            group = captured.setdefault(tag, {}).setdefault(("roi_align", inputs[1].shape[1]), {})
+            group.setdefault(inputs[8], inputs)
+        check_roi(inputs, out)
+
+    def bwd(inputs, out):
+        if len(inputs) > 9:
+            captured.setdefault(tag, {}).setdefault(("roi_align_backward", inputs[10]), inputs)
+        check_roi_bwd(inputs, out)
+
+    return nms, roi, bwd
+
+
+def fpn_steps(run, batches, checked, hooks):
+    """Runs ``run`` over ``batches`` with the launch hooks on for the
+    first ``checked``; returns (latencies, outputs, launches of the first
+    call, peak memory of the steady calls)."""
+    from cvpr22_cross_modal_pseudo_labeling_torch.ops import kernels
+
+    lat, outs, first = [], [], None
+    kernels.reset_launches()
+    for i, batch in enumerate(batches):
+        on = i < checked
+        kernels.NMS.on_launch, kernels.ROI_ALIGN.on_launch, kernels.ROI_ALIGN_BACKWARD.on_launch = (
+            hooks if on else (None, None, None))
+        torch.cuda.synchronize()
+        if i == 1:
+            torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        try:
+            outs.append(run(batch))
+            torch.cuda.synchronize()
+        finally:
+            kernels.NMS.on_launch = kernels.ROI_ALIGN.on_launch = kernels.ROI_ALIGN_BACKWARD.on_launch = None
+        lat.append(time.perf_counter() - t)
+        if i == 0:
+            first = {k.name: k.launches for k in kernels.ALL}
+    launches = {k.name: k.launches for k in kernels.ALL}
+    return lat, outs, first, launches, torch.cuda.max_memory_allocated() / 1e9
+
+
+def check_lists(checks):
+    return {"nms_mismatches": [x for x, _ in checks["nms"]], "nms_shapes": [n for _, n in checks["nms"]],
+            **{f"{key}_{field}": [c[i] for c in checks[key]]
+               for key in ("roi_align", "roi_align_backward")
+               for i, field in enumerate(("max_abs_err", "excess_over_limit", "dtype", "rois"))}}
+
+
+def check_all_passed(label, checks, first, nms, roi, bwd):
+    check(len(checks["nms"]) == first["nms"] == nms and all(x == 0 for x, _ in checks["nms"]),
+          f"fpn {label}: NMS launches {first['nms']} (want {nms}) or mismatches {checks['nms']}")
+    check(len(checks["roi_align"]) == first["roi_align"] == roi
+          and all(x <= 0 for _, x, _, _ in checks["roi_align"]),
+          f"fpn {label}: RoIAlign launches {first['roi_align']} (want {roi}) or errors {checks['roi_align']}")
+    check(len(checks["roi_align_backward"]) == first["roi_align_backward"] == bwd
+          and all(x <= 0 for _, x, _, _ in checks["roi_align_backward"]),
+          f"fpn {label}: backward launches {first['roi_align_backward']} (want {bwd}) "
+          f"or errors {checks['roi_align_backward']}")
+
+
+def plain_levels(feats, rois, levels, output_size, sampling_ratio, max_samples):
+    """The multi-level pooling's plain version on the card: each level's
+    rows from the level-filtered plain version, summed."""
+    from cvpr22_cross_modal_pseudo_labeling_torch.ops import roi_align as ra
+
+    out = None
+    for lvl, (f, scale) in enumerate(zip(feats, FPN_SCALES)):
+        part = ra.roi_align_plain(f, rois, output_size, scale, sampling_ratio, max_samples, 1, levels, lvl)
+        out = part if out is None else out + part
+    return out
+
+
+def phase_fpn(dev, results):
+    """(a) FPN teacher serving, (b) FPN teacher train, (c) FPN
+    student-teacher serving and train, (d) train_net (teacher, then the
+    student from its checkpoint) and test_net; then the new launch shapes
+    timed on their captured inputs."""
+    import shutil
+
+    from cvpr22_cross_modal_pseudo_labeling_torch import bridge
+    from cvpr22_cross_modal_pseudo_labeling_torch.config import R50_FPN_OPTS
+    from cvpr22_cross_modal_pseudo_labeling_torch.data import make_data_loader
+    from cvpr22_cross_modal_pseudo_labeling_torch.engine import checkpoint as ck
+    from cvpr22_cross_modal_pseudo_labeling_torch.engine import inference as inf
+    from cvpr22_cross_modal_pseudo_labeling_torch.engine.inference import Predictor
+    from cvpr22_cross_modal_pseudo_labeling_torch.engine.train_step import Trainer
+    from cvpr22_cross_modal_pseudo_labeling_torch.models.backbone import ResNetFPNBackbone
+    from cvpr22_cross_modal_pseudo_labeling_torch.ops import kernels
+    from cvpr22_cross_modal_pseudo_labeling_torch.tools import test_net
+
+    fpn = [str(x) for x in R50_FPN_OPTS]
+    captured, runs, launches, all_checks = {}, {}, {}, {}
+    b, (h, w) = SERVING["batch"], SERVING["hw"]
+
+    def serving(config, classes, seed, label):
+        pred = Predictor(config, fpn + list(SERVING["opts"]), device=dev)
+        pred.load_flax_params(bridge.seeded_flax_params(pred.model, SEED, EMB_PRED_STD))
+        check(isinstance(pred.model.backbone, ResNetFPNBackbone) and pred.cfg.TPU.COMPUTE_DTYPE == "bfloat16",
+              f"fpn {label}: built {type(pred.model.backbone).__name__} in {pred.cfg.TPU.COMPUTE_DTYPE}")
+        rng = np.random.default_rng(seed)
+        emb_dim = getattr(pred.model.statics, "base", pred.model.statics).emb_dim
+        table = rng.standard_normal((classes, emb_dim)).astype(np.float32)
+        table[0] = 0.0
+        batches = []
+        for _ in range(FPN_PHASE["batches"]):
+            sizes = np.stack([rng.integers(3 * h // 4, h + 1, b), rng.integers(2 * w // 3, w + 1, b)], 1)
+            sizes[0] = (h, w)
+            batches.append((rng.integers(0, 256, (b, h, w, 3), dtype=np.uint8), sizes.astype(np.int32)))
+        checks, *hooks = launch_checks()
+        lat, outs, first, path, peak = fpn_steps(lambda x: pred(x[0], x[1], table), batches, 1,
+                                                 fpn_capture(checks, *hooks, captured, label))
+        for i, (dets, masks) in enumerate(outs):
+            check(dets.boxes.shape == (b, 100, 4) and masks.shape == (b, 100, 28, 28),
+                  f"fpn {label}: shapes {dets.boxes.shape} {masks.shape} (28 x 28 masks expected)")
+            check(np.isfinite(dets.boxes).all() and np.isfinite(dets.scores).all() and np.isfinite(masks).all(),
+                  f"fpn {label}: non-finite output")
+            check(bool(dets.valid.any()), f"fpn {label}: batch {i} has no detection")
+        # 5 RPN levels and the detections; 4 levels for the proposals and
+        # 4 for the detections' masks
+        check_all_passed(label, checks, first, 6, 8, 0)
+        steady = lat[1:]
+        runs[label] = dict(batch_latency_s=lat, steady_images_per_s=b * len(steady) / sum(steady),
+                           steady_peak_memory_gb=peak,
+                           valid_detections=[d.valid.sum(1).tolist() for d, _ in outs])
+        launches[label], all_checks[label] = path, checks
+        emit(dict(phase=f"fpn_{label}", launches=path, first_launches=first, **runs[label]))
+        return pred, batches[-1], table
+
+    def training(config, classes, seed, label, nms_per_step, roi_per_step, bwd_per_step, trained, frozen_ok):
+        trainer = Trainer(config, fpn + list(TRAIN["opts"]), device=dev, seed=SEED)
+        trainer.load_flax_params(bridge.seeded_flax_params(trainer.model, SEED, EMB_PRED_STD))
+        model = trainer.model
+        start = {n: p.detach().clone() for n, p in model.named_parameters()}
+        frozen = [n for n, p in model.named_parameters() if not p.requires_grad]
+        check(frozen_ok(frozen, list(start)), f"fpn {label}: unexpected frozen parameters {frozen[:5]}")
+        buffers = {n: x.clone() for n, x in model.named_buffers()}
+        rng = np.random.default_rng(seed)
+        batches = [train_batch(rng, TRAIN["batch"], TRAIN["hw"], TRAIN["max_gt"], TRAIN["nouns"],
+                               TRAIN["noun_tokens"], TRAIN["lvis"], classes,
+                               getattr(model.statics, "base", model.statics).emb_dim)
+                   for _ in range(FPN_PHASE["steps"])]
+        if label == "teacher_train":
+            batches = [rcnn_batch(x) for x in batches]
+        checks, *hooks = launch_checks()
+        lat, outs, first, path, peak = fpn_steps(trainer.step, batches, 1,
+                                                 fpn_capture(checks, *hooks, captured, label))
+        metrics = [{k: float(v) for k, v in m.items()} for m in outs]
+        check(all(np.isfinite(v) for m in metrics for v in m.values()),
+              f"fpn {label}: non-finite metrics {metrics}, step latency {lat}, peak {peak} GB")
+        params = dict(model.named_parameters())
+        unchanged = [n for n in start if n.startswith(trained) and torch.equal(params[n], start[n])]
+        moved = [n for n in frozen if not torch.equal(params[n], start[n])]
+        moved += [n for n, x in model.named_buffers() if not torch.equal(x, buffers[n])]
+        check(not unchanged, f"fpn {label}: trained parameters did not change: {unchanged[:5]}")
+        check(not moved, f"fpn {label}: frozen parameters or buffers changed: {moved[:5]}")
+        check_all_passed(label, checks, first, nms_per_step, roi_per_step, bwd_per_step)
+        check(path == {k: v * FPN_PHASE["steps"] for k, v in first.items()},
+              f"fpn {label}: launches {path} over {FPN_PHASE['steps']} steps, first {first}")
+        steady = lat[1:]
+        runs[label] = dict(step_latency_s=lat, steady_step_s=sum(steady) / len(steady),
+                           steady_images_per_s=TRAIN["batch"] * len(steady) / sum(steady),
+                           steady_peak_memory_gb=peak, metrics=metrics,
+                           gt_per_image=[int(v.sum()) for v in batches[0]["gt_valid"]])
+        launches[label], all_checks[label] = path, checks
+        emit(dict(phase=f"fpn_{label}", launches=path, first_launches=first, **runs[label]))
+        return trainer, batches[-1]
+
+    profiles = {}
+    # (a) the FPN teacher's serving
+    pred, batch, table = serving(TEACHER, TEACHER_CLASSES, SEED + 8, "teacher_serving")
+    profiles["teacher_serving"] = profile_groups(lambda: pred(*batch, table))
+    del pred
+    torch.cuda.empty_cache()
+    # (b) the FPN teacher's training: the RPN loss over the five levels,
+    # the backward over P2..P5; its FPN trains
+    trainer, batch = training(
+        TEACHER, TEACHER_CLASSES, SEED + 9, "teacher_train", 5, 4, 4, FPN_TRAINED,
+        lambda fr, names: sorted(fr) == sorted(n for n in names if n.startswith(TEACHER_FROZEN)))
+    profiles["teacher_train"] = profile_groups(lambda: trainer.step(batch))
+    del trainer
+    torch.cuda.empty_cache()
+    # (c) the FPN student-teacher model: serving, then training with its
+    # backbone (FPN included), RPN, teacher and BERT frozen
+    pred, _, _ = serving(CONFIG, TRAIN["classes"], SEED + 3, "st_serving")
+    del pred
+    torch.cuda.empty_cache()
+    trainer, batch = training(
+        CONFIG, TRAIN["classes"], SEED + 4, "st_train", 10, 16, 0, ("student.",),
+        lambda fr, names: any(n.startswith("backbone.fpn.") for n in fr)
+        and set(fr) >= {n for n in names if n.split(".")[0] in FROZEN_MODULES})
+    profiles["st_train"] = profile_groups(lambda: trainer.step(batch))
+    del trainer
+    torch.cuda.empty_cache()
+
+    # (d) train_net: the teacher 3 steps (its first step checked), the
+    # student 2 steps from its OUTPUT_DIR, test_net on the student
+    check(os.path.isdir(EVAL["tree"]), f"fpn: no tree at {EVAL['tree']} (the eval phase writes it)")
+    os.environ["CMPL_TPU_DATA_DIR"] = EVAL["tree"]
+    out = FPN_PHASE["out"]
+    t_dir, s_dir, e_dir = (os.path.join(out, d) for d in ("teacher", "st", "test_net"))
+    shutil.rmtree(out, ignore_errors=True)
+    name = TRAIN_NET["dataset"]
+    common = ["--device", dev.type, "--seed", str(SEED), *map(str, TRAIN_NET["opts"]), *fpn]
+    try:
+        checks, check_nms, check_roi, check_roi_bwd = launch_checks()
+
+        def first_step_bwd(inputs, out_):
+            check_roi_bwd(inputs, out_)
+            if len(checks["roi_align_backward"]) == 4:  # the first step's last launch
+                kernels.NMS.on_launch = kernels.ROI_ALIGN.on_launch = kernels.ROI_ALIGN_BACKWARD.on_launch = None
+
+        kernels.reset_launches()
+        kernels.NMS.on_launch, kernels.ROI_ALIGN.on_launch = check_nms, check_roi
+        kernels.ROI_ALIGN_BACKWARD.on_launch = first_step_bwd
+        try:
+            rec, runs["train_net_teacher"], log, logged = train_net_run(
+                ["--config-file", TEACHER, "--skip-test", *common, "SOLVER.MAX_ITER", str(FPN_PHASE["steps"]),
+                 "SOLVER.CHECKPOINT_PERIOD", str(FPN_PHASE["steps"]), "SOLVER.TEST_PERIOD", "0"], t_dir)
+        finally:
+            kernels.NMS.on_launch = kernels.ROI_ALIGN.on_launch = kernels.ROI_ALIGN_BACKWARD.on_launch = None
+        launches["train_net_teacher"] = {k.name: k.launches for k in kernels.ALL}
+        all_checks["train_net_teacher"] = checks
+        check_all_passed("train_net teacher", checks, {"nms": 5, "roi_align": 4, "roi_align_backward": 4}, 5, 4, 4)
+        check([r["step"] for r in logged] == list(range(1, FPN_PHASE["steps"] + 1))
+              and all(np.isfinite(v) for r in logged for v in r.values()),
+              f"fpn train_net teacher: logged {logged}")
+        del rec
+        torch.cuda.empty_cache()
+        t_ckpt = os.path.join(t_dir, f"model_{FPN_PHASE['steps']:07d}.pth")
+        teacher_ck = ck.load_checkpoint(t_ckpt)
+        leaves = bridge._flatten(bridge.flax_tree_from_checkpoint(teacher_ck))
+        fpn_leaves = sum(p[:2] == ("backbone", "fpn") for p in leaves)
+
+        kernels.reset_launches()
+        rec, runs["train_net_student"], log, logged = train_net_run(
+            ["--config-file", CONFIG, "--skip-test", *common, "MODEL.WEIGHT", t_dir,
+             "SOLVER.MAX_ITER", str(FPN_PHASE["student_steps"]),
+             "SOLVER.CHECKPOINT_PERIOD", str(FPN_PHASE["student_steps"]), "SOLVER.TEST_PERIOD", "0"], s_dir)
+        launches["train_net_student"] = {k.name: k.launches for k in kernels.ALL}
+        imported = re.search(r"imported (\d+) leaves from checkpoint \S+ \((\d+) source", log)
+        copied = re.search(r"prepare_model: copied (\d+) teacher leaves", log)
+        check(imported and int(imported.group(1)) == len(leaves) and int(imported.group(2)) == 0,
+              f"fpn train_net student: imported {imported and imported.groups()} of {len(leaves)} leaves")
+        check(copied and int(copied.group(1)) == sum(p[0] in ("roi_extractor", "box_predictor", "mask_predictor")
+                                                     for p in leaves),
+              f"fpn train_net student: copied {copied and copied.group(1)} teacher leaves")
+        check([r["step"] for r in logged] == list(range(1, FPN_PHASE["student_steps"] + 1))
+              and all(np.isfinite(v) for r in logged for v in r.values()),
+              f"fpn train_net student: logged {logged}")
+        s_ckpt = os.path.join(s_dir, f"model_{FPN_PHASE['student_steps']:07d}.pth")
+        st_ck = ck.load_checkpoint(s_ckpt)["trainer"]["model"]
+        t_model = teacher_ck["trainer"]["model"]
+        same = [k for k in t_model if k.startswith(("backbone.", "rpn_head."))]
+        heads = [k for k in t_model if k.startswith(("roi_extractor.", "box_predictor.", "mask_predictor."))]
+        check(same and all(torch.equal(st_ck[k], t_model[k]) for k in same)
+              and heads and all(torch.equal(st_ck["teacher." + k], t_model[k]) for k in heads),
+              "fpn train_net student: its backbone, FPN, RPN or teacher bundle differs from the teacher's")
+        del rec, st_ck, teacher_ck, t_model
+        torch.cuda.empty_cache()
+
+        kernels.reset_launches()
+        t = time.perf_counter()
+        got = test_net.main(["--config-file", CONFIG, "--device", dev.type, "--ckpt", s_ckpt,
+                             *map(str, TRAIN_NET["opts"]), *fpn, "DATASETS.TEST", f"('{name}',)",
+                             "OUTPUT_DIR", e_dir])
+        test_s = time.perf_counter() - t
+        launches["test_net"] = {k.name: k.launches for k in kernels.ALL}
+        _, (val,) = make_data_loader(inf.load_cfg(CONFIG, fpn + ["DATASETS.TEST", f"('{name}',)"]), is_train=False)
+        with open(os.path.join(e_dir, f"predictions_{name}.json")) as f:
+            preds = json.load(f)
+        covered = {p["image_id"] for p in preds}
+        check(covered == set(val.id_to_img_map.values()),
+              f"fpn test_net: {len(set(val.id_to_img_map.values()) - covered)} images without a result")
+        bad, _ = metrics_finite(got[name], val)
+        check(not bad and "segm/AP" in got[name], f"fpn test_net: non-finite metrics {bad[:5]}")
+        runs["test_net"] = dict(seconds=test_s, images=len(val), results=len(preds),
+                                images_per_s=len(val) / test_s, bbox_AP=got[name]["bbox/AP"],
+                                segm_AP=got[name]["segm/AP"], fpn_leaves_imported=fpn_leaves)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    check(all(v["nms"] > 0 and v["roi_align"] > 0 for v in launches.values())
+          and launches["teacher_train"]["roi_align_backward"] > 0
+          and launches["train_net_teacher"]["roi_align_backward"] > 0,
+          f"fpn: a kernel of a path never launched: {launches}")
+
+    # the new launch shapes, timed on the inputs their first launch had
+    with torch.no_grad():
+        shapes = fpn_shapes_timed(dev, captured)
+    captured.clear()
+    rec = dict(phase="fpn", opts=fpn, dtype="bfloat16", batch=b, image_hw=[h, w], runs=runs,
+               launches=launches, new_shapes=shapes, profiles=profiles,
+               checks={k: check_lists(v) for k, v in all_checks.items()})
+    emit(rec)
+    results["fpn"] = rec
+
+
+def fpn_shapes_timed(dev, captured):
+    """The fpn phase's new launch shapes on their captured inputs: each
+    NMS shape, the multi-level forward on the proposals, sampled rois,
+    detections and pseudo boxes (run once into an output of NaN, which
+    every row must overwrite), and the backward on each level."""
+    from cvpr22_cross_modal_pseudo_labeling_torch.ops import nms as nm
+    from cvpr22_cross_modal_pseudo_labeling_torch.ops import roi_align as ra
+
+    iters = FPN_PHASE["timing_iters"]
+    shapes = {}
+    nms_seen = {}
+    for tag in ("teacher_serving", "teacher_train"):
+        for key, inputs in captured[tag].items():
+            if key[0] == "nms" and key[1:] not in nms_seen:
+                nms_seen[key[1:]] = inputs
+    for (bb, n, k), inputs in sorted(nms_seen.items()):
+        boxes, scores, valid, thr, _, labels = inputs
+        idx, keep = nm.nms(*inputs)
+        bound_ms, bound_by, _ = nms_bound(scores, valid, labels, idx, keep, k)
+        shapes[f"nms {bb} x {n} -> {k}"] = dict(
+            kept=int(keep.sum()), ms=cuda_ms(lambda: nm.nms(*inputs), 2 * iters),
+            plain_ms=cuda_ms(lambda: nm.nms_plain(*inputs), 2), bound_ms=bound_ms, bound_by=bound_by)
+    def roi_counts(tag):
+        # in the order of their first launch: serving pools the proposals,
+        # then the detections; the student-teacher step the teacher's
+        # proposals, then the pseudo boxes, then each branch's samples
+        return [k[1] for k in captured[tag] if k[0] == "roi_align"]
+
+    for tag, count, what in (("teacher_serving", roi_counts("teacher_serving")[0], "proposals"),
+                             ("teacher_train", roi_counts("teacher_train")[0], "sampled rois"),
+                             ("teacher_serving", roi_counts("teacher_serving")[-1], "detections"),
+                             ("st_train", roi_counts("st_train")[1], "pseudo boxes")):
+        group = captured[tag][("roi_align", count)]
+        check(sorted(group) == [0, 1, 2, 3], f"fpn: {what} pooled on levels {sorted(group)}")
+        feats = [group[lvl][0].detach() for lvl in range(4)]
+        _, rois, output_size, _, sr, ms_, _, levels, _ = group[0]
+        fmax = max(float(f.float().abs().max()) for f in feats)
+        # every row written: one launch a level into an output of NaN
+        nan_out = torch.full((rois.shape[0], rois.shape[1], 14, 14, feats[0].shape[3]), float("nan"),
+                             dtype=feats[0].dtype, device=dev)
+        ra._forward_levels_cuda(feats, rois, levels, output_size, FPN_SCALES, sr, ms_, out=nan_out)
+        plain = functools.partial(plain_levels, feats, rois, levels, output_size, sr, ms_)
+        ref = plain()
+        err, excess = roi_err(nan_out, ref, fmax)
+        check(not torch.isnan(nan_out).any() and excess <= 0,
+              f"fpn roi_align {what}: NaN left {bool(torch.isnan(nan_out).any())}, error {err} ({excess} over)")
+        del nan_out, ref
+        bound_ms, bound_by = roi_levels_bound(feats, rois, levels, output_size, FPN_SCALES, sr)
+        run = functools.partial(ra._forward_levels_cuda, feats, rois, levels, output_size, FPN_SCALES, sr, ms_)
+        shapes[f"roi_align {what} {rois.shape[0]} x {rois.shape[1]}, P2..P5 C {feats[0].shape[3]} "
+               f"{feats[0].dtype}"] = dict(
+            rois_per_level=[int((levels == lvl).sum()) for lvl in range(4)],
+            maps=[list(f.shape) for f in feats], max_abs_err=err, every_row_written=True,
+            ms=cuda_ms(run, iters), plain_ms=cuda_ms(plain, 1), bound_ms=bound_ms, bound_by=bound_by,
+            level_ms=[cuda_ms(functools.partial(ra._forward_cuda, *group[lvl][:7], levels, lvl), iters)
+                      for lvl in range(4)])
+        torch.cuda.empty_cache()
+    # the backward as the autograd route runs it: one launch a level
+    bwd_args = [captured["teacher_train"][("roi_align_backward", lvl)] for lvl in range(4)]
+    total_bytes = total_ops = 0.0
+    for lvl, args in enumerate(bwd_args):
+        grad, rois, shape, dtype, output_size, scale, sr, _, _, levels, _ = args
+        byts, ops = roi_level_bwd_work(grad, rois, levels, lvl, shape, output_size, scale, sr)
+        total_bytes, total_ops = total_bytes + byts, total_ops + ops
+        bound_ms, bound_by = bound_of(byts, ops)
+        shapes[f"roi_align_backward P{lvl + 2} {list(shape)} from {rois.shape[0]} x {rois.shape[1]} {dtype}"] = dict(
+            rois=int((levels == lvl).sum()), ms=cuda_ms(lambda: ra.roi_align_backward(*args), iters),
+            plain_ms=cuda_ms(lambda: ra.roi_align_backward_plain(*args), 1), bound_ms=bound_ms,
+            bound_by=bound_by)
+        torch.cuda.empty_cache()
+    # together: each level's cotangent rows and dF as above, the rois and
+    # levels read once rather than once a launch
+    total_bytes -= 3 * (bwd_args[0][1].numel() + bwd_args[0][9].numel()) * 4
+    bound_ms, bound_by = bound_of(total_bytes, total_ops)
+    shapes["roi_align_backward P2..P5, the four launches"] = dict(
+        ms=cuda_ms(lambda: [ra.roi_align_backward(*a) for a in bwd_args], iters),
+        plain_ms=cuda_ms(lambda: [ra.roi_align_backward_plain(*a) for a in bwd_args], 1),
+        bound_ms=bound_ms, bound_by=bound_by)
+    return shapes
+
 
 
 def count_syncs(run):
@@ -2676,6 +3140,18 @@ def kernels_line(results):
     oi = results["openimages"]
     oi_evals = oi["evals"].values()
     sup = results["supervised"]
+    fp = results["fpn"]
+
+    def fpn_launches(kernel):
+        # the R-50-FPN models' paths (phase 19)
+        return {f"fpn_{path}_launches": n[kernel] for path, n in fp["launches"].items()}
+
+    def fpn_errs(field):
+        return [x for c in fp["checks"].values() for x in c[field]]
+
+    def fpn_shapes(prefix):
+        return {k[len(prefix) + 1:]: shape_rec(v) for k, v in fp["new_shapes"].items()
+                if k.split(" ")[0] == prefix}
 
     def sup_launches(kernel):
         # the class-specific detectors' and the top-k teachers' paths (phase 18)
@@ -2714,6 +3190,7 @@ def kernels_line(results):
              **oi_launches("nms"),
              openimages_bbox_aug_merge_launches=oi["evals"]["bbox_aug"]["merge_launches"],
              **sup_launches("nms"),
+             **fpn_launches("nms"),
              launch_unit="one nms_forward call: a memset, then a mask and a scan "
                          "kernel per column band",
              max_abs_err=float(max(serving["first_batch_checks"]["nms_mismatches"]
@@ -2726,6 +3203,7 @@ def kernels_line(results):
                                    + [x for e in oi_evals for x in e["launch_checks"]["nms_mismatches"]]
                                    + oi["evals"]["bbox_aug"]["merge_nms_mismatches"]
                                    + sup_errs("nms_mismatches")
+                                   + fpn_errs("nms_mismatches")
                                    + [results[f"nms_{c[0]}"]["mismatches"] for c in NMS_CASES]
                                    + [results["nms_rpn_dense"]["one_band_mismatches"]])),
              ms=nms_rpn["ms"], plain_ms=nms_rpn["plain_ms"],
@@ -2734,7 +3212,8 @@ def kernels_line(results):
              train_shapes={"8 x 12000 -> 2000": shape_rec(results["nms_rpn_train"])},
              openimages_shapes={v["shape"]: shape_rec(v) for k, v in oi["new_shapes"].items()
                                 if k.startswith("nms_")},
-             supervised_shapes=sup_shapes("nms_")),
+             supervised_shapes=sup_shapes("nms_"),
+             fpn_shapes=fpn_shapes("nms")),
         dict(name="roi_align", route="cuda",
              source="cvpr22_cross_modal_pseudo_labeling_torch/csrc/roi_align.cu",
              replaces="tools/proto_pallas_roialign.py:146",
@@ -2748,6 +3227,9 @@ def kernels_line(results):
              **mmss_launches("roi_align"),
              **oi_launches("roi_align"),
              **sup_launches("roi_align"),
+             **fpn_launches("roi_align"),
+             fpn_launch_unit="the FPN pooler launches the kernel once a level (P2..P5) into one output; "
+                             "each launch counts one",
              max_abs_err=max(serving["first_batch_checks"]["roi_align_max_abs_err"]
                              + train["first_step_checks"]["roi_align_max_abs_err"]
                              + t_serving["first_batch_checks"]["roi_align_max_abs_err"]
@@ -2757,6 +3239,8 @@ def kernels_line(results):
                              + oi["train_checks"]["roi_align_max_abs_err"]
                              + [x for e in oi_evals for x in e["launch_checks"]["roi_align_max_abs_err"]]
                              + sup_errs("roi_align_max_abs_err")
+                             + fpn_errs("roi_align_max_abs_err")
+                             + [v["max_abs_err"] for k, v in fp["new_shapes"].items() if k.startswith("roi_align ")]
                              + [results[("roi_align",) + c]["max_abs_err"] for c in ROI_CASES]),
              dtypes="bfloat16 features -> bfloat16 output",
              ms=roi_main["ms"], plain_ms=roi_main["plain_ms"],
@@ -2768,7 +3252,8 @@ def kernels_line(results):
                                 shape_rec(oi["new_shapes"]["roi_align_pseudo_boxes"])},
              supervised_shapes=sup_shapes("roi_align_voc") | {
                  "top-2 pseudo boxes, " + sup["new_shapes"]["roi_align_pseudo_boxes_top2"]["shape"]:
-                 shape_rec(sup["new_shapes"]["roi_align_pseudo_boxes_top2"])}),
+                 shape_rec(sup["new_shapes"]["roi_align_pseudo_boxes_top2"])},
+             fpn_shapes=fpn_shapes("roi_align")),
         dict(name="roi_align_backward", route="cuda",
              source="cvpr22_cross_modal_pseudo_labeling_torch/csrc/roi_align.cu",
              replaces="cvpr22_cross_modal_pseudo_labeling_tpu/ops/roi_align_mxu.py:91 "
@@ -2779,6 +3264,7 @@ def kernels_line(results):
              **mmss_launches("roi_align_backward"),
              **oi_launches("roi_align_backward"),
              **sup_launches("roi_align_backward"),
+             **fpn_launches("roi_align_backward"),
              launch_unit="one roi_align_backward call: the plan kernel (each roi's tap "
                          "lists), then the tile kernel (each tile of dF summed in shared "
                          "memory, written once in bfloat16)",
@@ -2786,6 +3272,7 @@ def kernels_line(results):
                              + tn["first_step_checks"]["roi_align_backward_max_abs_err"]
                              + oi["train_checks"]["roi_align_backward_max_abs_err"]
                              + sup_errs("roi_align_backward_max_abs_err")
+                             + fpn_errs("roi_align_backward_max_abs_err")
                              + [results[("roi_align_backward",) + c]["max_abs_err"]
                                 for c in ROI_BWD_CASES]
                              + [bwd_teacher["max_abs_err"]]),
@@ -2795,7 +3282,8 @@ def kernels_line(results):
              library_ms=None,
              shared_g_adds_per_s=bwd_main["shared_g_adds_per_s"],
              teacher_step_rois=shape_rec(bwd_teacher),
-             supervised_shapes=sup_shapes("roi_align_backward")),
+             supervised_shapes=sup_shapes("roi_align_backward"),
+             fpn_shapes=fpn_shapes("roi_align_backward")),
     ]}
 
 
@@ -2867,6 +3355,8 @@ def main():
     timed("openimages", phase_openimages, dev, results)
     torch.cuda.empty_cache()
     timed("supervised", phase_supervised, dev, results)
+    torch.cuda.empty_cache()
+    timed("fpn", phase_fpn, dev, results)
     emit(dict(phase="timing", **seconds))
 
     smi = subprocess.run(

@@ -253,12 +253,14 @@ def flax_tree_from_checkpoint(ckpt: Dict[str, Any]) -> Dict[str, Any]:
 def seeded_flax_params(model: nn.Module, seed: int, emb_pred_std: float = 0.01):
     """A flax-layout param tree for ``model`` drawn with numpy from
     ``seed`` (no pretrained weights ship with the repo).  Convs draw
-    He-normal kernels, heads the JAX initializers' scales (RPN and the
-    class-specific ``cls_score`` 0.01, box regression 0.001, ``emb_pred``
+    He-normal kernels (the FPN's, which no ReLU follows, 1 / fan_in
+    variance), heads the JAX initializers' scales (RPN and the
+    class-specific ``cls_score`` 0.01, box regression and the mask
+    uncertainty's ``uncertain_pred`` 0.001, ``emb_pred``
     ``emb_pred_std``; the stem 1/64 of He, as pixels enter at O(100)),
-    frozen BN a near-identity affine, biases small noise.  The BERT and transformer-head kernels and every
-    embedding table draw BERT's N(0, 0.02), LayerNorm scales a
-    near-identity."""
+    frozen BN a near-identity affine, biases small noise.  The BERT and
+    transformer-head kernels and every embedding table draw BERT's N(0,
+    0.02), LayerNorm scales a near-identity."""
     rng = np.random.default_rng(seed)
     tree = flax_from_state_dict(model)
 
@@ -276,6 +278,15 @@ def seeded_flax_params(model: nn.Module, seed: int, emb_pred_std: float = 0.01):
                 std = 0.01
             elif "emb_pred" in path:
                 std = emb_pred_std
+            elif "uncertain_pred" in path:
+                # the log-variance head: sigma = exp(logit / 2), so a
+                # He-scale draw makes sigma span orders of magnitude
+                std = 0.001
+            elif "fpn" in path:
+                # no ReLU follows the FPN's convs: the reference's
+                # kaiming_uniform(a=1) variance, 1 / fan_in (JAX's
+                # lecun_normal too), keeps the levels at the trunk's scale
+                std = float(np.sqrt(1.0 / np.prod(shape[:-1])))
             else:
                 std = float(np.sqrt(2.0 / np.prod(shape[:-1])))
                 if "stem" in path:

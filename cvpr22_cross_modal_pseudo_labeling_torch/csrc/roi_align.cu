@@ -110,6 +110,19 @@
 // bytes of spill stores, 20 of loads; bfloat16: none), the plan kernel
 // 50, no spills.
 
+// Level filter (the FPN pooler): both entries take an optional levels
+// array [B, S] int32 and a level.  With levels null they behave as above.
+// With it, the forward's CTAs of rois on another level return at once and
+// write nothing, so one output [B, S, P', Q', C] is filled by one launch a
+// level, each writing its own rows; the backward's plan marks the rois of
+// other levels empty (no row or column meets any tile), so the tiles of
+// one level's map sum that level's rois only and still write every
+// position of its dF.  Nothing else changes: the same CTAs, the same
+// workspace, no atomics.  A filtered-out CTA costs a launch slot and one
+// load; the tile kernel still scans the other levels' (empty) entries.
+// Tuning the split (one launch over the levels, or rois compacted by
+// level) is left for later.
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -288,6 +301,7 @@ template <typename T>
 __global__ void __launch_bounds__(kMaxThreads)
     roi_align_fwd_kernel(const T* __restrict__ feat,
                          const float* __restrict__ rois,
+                         const int* __restrict__ levels, int level,
                          T* __restrict__ out, int H, int W, int C, int S,
                          int P, int Q, float scale, int sampling_ratio,
                          int cap_h, int cap_w, int bin_stride, int out_p,
@@ -297,6 +311,8 @@ __global__ void __launch_bounds__(kMaxThreads)
   constexpr int kUnroll = V::taps;
   extern __shared__ int smem[];
   const int roi_id = blockIdx.x;  // b * S + s
+  // a roi of another level: the whole CTA leaves before any barrier
+  if (levels != nullptr && __ldg(levels + roi_id) != level) return;
   const int b = roi_id / S;
   const int p0 = blockIdx.y * rows;  // this CTA's rows of bins
   const int p1 = min(out_p, p0 + rows);
@@ -377,13 +393,28 @@ constexpr int kEmpty = 1 << 30;
 constexpr int kMaxRoisPerImage = 65535;  // what a staged record holds
 
 __global__ void __launch_bounds__(kPlanThreads)
-    roi_align_bwd_plan_kernel(const float* __restrict__ rois, Plan plan,
-                              int H, int W, int P, int Q, float scale,
-                              int sampling_ratio, int cap_h, int cap_w,
-                              int bin_stride, int out_p, int out_q,
+    roi_align_bwd_plan_kernel(const float* __restrict__ rois,
+                              const int* __restrict__ levels, int level,
+                              Plan plan, int H, int W, int P, int Q,
+                              float scale, int sampling_ratio, int cap_h,
+                              int cap_w, int bin_stride, int out_p, int out_q,
                               int nqc) {
   extern __shared__ int smem[];
   const size_t roi = blockIdx.x;
+  if (levels != nullptr && __ldg(levels + roi) != level) {
+    // a roi of another level: no tap, and ranges that meet no tile
+    for (int p = threadIdx.x; p < out_p; p += blockDim.x) {
+      plan.ny[roi * out_p + p] = 0;
+      plan.yr[roi * out_p + p] = make_int2(kEmpty, -1);
+    }
+    for (int q = threadIdx.x; q < out_q; q += blockDim.x) {
+      plan.nx[roi * out_q + q] = 0;
+      plan.xr[roi * out_q + q] = make_int2(kEmpty, -1);
+    }
+    for (int qc = threadIdx.x; qc < nqc; qc += blockDim.x)
+      plan.xc[roi * nqc + qc] = make_int2(kEmpty, -1);
+    return;
+  }
   const TapLists t = build_tap_lists(
       smem, rois + roi * 4, H, W, P, Q, scale, sampling_ratio, cap_h, cap_w,
       bin_stride, out_p, out_q, 0, out_p);
@@ -887,7 +918,8 @@ Geometry geometry(int B, int C, int S, int P, int Q, int cap_h, int cap_w,
 }
 
 template <typename T>
-cudaError_t launch(const void* features, const void* rois, void* out, int B,
+cudaError_t launch(const void* features, const void* rois, const int* levels,
+                   int level, void* out, int B,
                    int H, int W, int C, int S, int P, int Q, float scale,
                    int sampling_ratio, int cap_h, int cap_w, int bin_stride,
                    cudaStream_t st) {
@@ -895,8 +927,8 @@ cudaError_t launch(const void* features, const void* rois, void* out, int B,
   if (g.smem > 48 * 1024) return cudaErrorInvalidValue;
   roi_align_fwd_kernel<T><<<g.grid, g.threads, g.smem, st>>>(
       static_cast<const T*>(features), static_cast<const float*>(rois),
-      static_cast<T*>(out), H, W, C, S, P, Q, scale, sampling_ratio, cap_h,
-      cap_w, bin_stride, g.out_p, g.out_q, g.rows);
+      levels, level, static_cast<T*>(out), H, W, C, S, P, Q, scale,
+      sampling_ratio, cap_h, cap_w, bin_stride, g.out_p, g.out_q, g.rows);
   return cudaGetLastError();
 }
 
@@ -923,6 +955,7 @@ size_t plan_layout(char* base, size_t nr, int out_p, int out_q, int ly,
 
 template <typename T>
 cudaError_t launch_backward(const void* grad, const void* rois,
+                            const int* levels, int level,
                             void* workspace, long long workspace_bytes,
                             void* out, int B, int H, int W, int C, int S,
                             int P, int Q, float scale, int sampling_ratio,
@@ -947,7 +980,7 @@ cudaError_t launch_backward(const void* grad, const void* rois,
       g.out_p > 64 || nqc > 8)
     return cudaErrorInvalidValue;
   roi_align_bwd_plan_kernel<<<(unsigned)nr, kPlanThreads, g.smem, st>>>(
-      static_cast<const float*>(rois), plan, H, W, P, Q, scale,
+      static_cast<const float*>(rois), levels, level, plan, H, W, P, Q, scale,
       sampling_ratio, cap_h, cap_w, bin_stride, g.out_p, g.out_q, nqc);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -981,22 +1014,26 @@ void sample_caps(int H, int W, int P, int Q, int sampling_ratio,
 }  // namespace
 
 // features [B, H, W, C] float32 (C % 4 == 0) or bfloat16 (C % 8 == 0),
-// 16-byte aligned; rois [B, S, 4] float32 xyxy in image pixels; out
-// [B, S, ceil(P/bin_stride), ceil(Q/bin_stride), C] in the features' type.
-// bf16 selects the type.
+// 16-byte aligned; rois [B, S, 4] float32 xyxy in image pixels; levels
+// null, or [B, S] int32 (only the rois whose entry equals level are
+// pooled, the other rows of out are left as they are); out [B, S,
+// ceil(P/bin_stride), ceil(Q/bin_stride), C] in the features' type.  bf16
+// selects the type.
 extern "C" int roi_align_forward(const void* features, const void* rois,
-                                 void* out, int B, int H, int W, int C, int S,
+                                 const void* levels, int level, void* out,
+                                 int B, int H, int W, int C, int S,
                                  int P, int Q, float spatial_scale,
                                  int sampling_ratio, int max_samples,
                                  int bin_stride, int bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* lv = static_cast<const int*>(levels);
   int cap_h, cap_w;
   sample_caps(H, W, P, Q, sampling_ratio, max_samples, &cap_h, &cap_w);
   const cudaError_t err =
-      bf16 ? launch<__nv_bfloat16>(features, rois, out, B, H, W, C, S, P, Q,
-                                   spatial_scale, sampling_ratio, cap_h, cap_w,
-                                   bin_stride, st)
-           : launch<float>(features, rois, out, B, H, W, C, S, P, Q,
+      bf16 ? launch<__nv_bfloat16>(features, rois, lv, level, out, B, H, W, C,
+                                   S, P, Q, spatial_scale, sampling_ratio,
+                                   cap_h, cap_w, bin_stride, st)
+           : launch<float>(features, rois, lv, level, out, B, H, W, C, S, P, Q,
                            spatial_scale, sampling_ratio, cap_h, cap_w,
                            bin_stride, st);
   return static_cast<int>(err);
@@ -1004,7 +1041,8 @@ extern "C" int roi_align_forward(const void* features, const void* rois,
 
 // grad [B, S, ceil(P/bin_stride), ceil(Q/bin_stride), C] in the features'
 // type (float32 with C % 4 == 0, or bfloat16 with C % 8 == 0), 16-byte
-// aligned; rois as for the forward; workspace of workspace_bytes (the
+// aligned; rois and levels as for the forward (with levels, dF sums the
+// rois of that level only); workspace of workspace_bytes (the
 // plan, at least what ops/roi_align.py::_plan_bytes gives); out [B, H, W,
 // C] in the features' type (bf16 = 1 selects bfloat16) receives dF, every
 // element written.  The tile: tile_h (1 to 4) rows by tile_w columns by
@@ -1012,6 +1050,7 @@ extern "C" int roi_align_forward(const void* features, const void* rois,
 // 256), slabs_per_cta slabs a CTA; a CTA's shared memory at most 227 KB;
 // at most 65535 rois an image and 64 x 56 emitted bins.
 extern "C" int roi_align_backward(const void* grad, const void* rois,
+                                  const void* levels, int level,
                                   void* workspace, long long workspace_bytes,
                                   void* out, int B, int H, int W, int C,
                                   int S, int P, int Q, float spatial_scale,
@@ -1020,16 +1059,17 @@ extern "C" int roi_align_backward(const void* grad, const void* rois,
                                   int slab, int slabs_per_cta, int bf16,
                                   void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* lv = static_cast<const int*>(levels);
   int cap_h, cap_w;
   sample_caps(H, W, P, Q, sampling_ratio, max_samples, &cap_h, &cap_w);
   const cudaError_t err =
       bf16 ? launch_backward<__nv_bfloat16>(
-                 grad, rois, workspace, workspace_bytes, out, B, H, W, C, S,
-                 P, Q, spatial_scale, sampling_ratio, cap_h, cap_w,
+                 grad, rois, lv, level, workspace, workspace_bytes, out, B,
+                 H, W, C, S, P, Q, spatial_scale, sampling_ratio, cap_h, cap_w,
                  bin_stride, tile_h, tile_w, slab, slabs_per_cta, st)
            : launch_backward<float>(
-                 grad, rois, workspace, workspace_bytes, out, B, H, W, C, S,
-                 P, Q, spatial_scale, sampling_ratio, cap_h, cap_w,
+                 grad, rois, lv, level, workspace, workspace_bytes, out, B,
+                 H, W, C, S, P, Q, spatial_scale, sampling_ratio, cap_h, cap_w,
                  bin_stride, tile_h, tile_w, slab, slabs_per_cta, st);
   return static_cast<int>(err);
 }

@@ -18,13 +18,15 @@ and utils/model_serialization.py:10-67).
   staged sidecar files) by the next save or :func:`flush_pending_checkpoint`,
   never earlier; :func:`discard_pending_checkpoint` deletes an unpublished
   save (the divergence abort of ``engine/trainer.py::do_train``).
-* **Importers**, copied from the JAX package as they are (numpy, on
+* **Importers**, copied from the JAX package (numpy, on
   flax-layout trees: ``bridge.flax_from_state_dict`` of a model, or
   ``bridge.flax_tree_from_checkpoint`` of a checkpoint; the result goes
   back through ``bridge.load_flax_params``): the reference key surgery,
   the longest-suffix torch ``state_dict`` import, the cross-stage import
   between the port's own checkpoints, the language-table import and the
-  student's start from the teacher.
+  student's start from the teacher.  One change: the cross-stage import
+  routes a source trunk's ``layer4`` to the RoI extractor only when the
+  target's trunk has none (:func:`import_flax_params`).
 * :func:`import_external_weights` is the ``MODEL.WEIGHT`` chain of both
   entry points: a port checkpoint (a file, or an ``OUTPUT_DIR`` whose tag
   names one), a Caffe2 ``.pkl`` or a reference ``.pth``.  An orbax
@@ -500,7 +502,9 @@ def import_flax_params(
       LOAD_EMB_PRED_FROM_MMSS_HEAD (reference checkpoint.py:120-122);
     * an MMSS C5 backbone's ``backbone/body/layer4`` -> the C4 RoI
       extractor's ``layer4`` (the reference reaches the same routing
-      via suffix matching, model_serialization.py:10-67);
+      via suffix matching, model_serialization.py:10-67), unless the
+      target's trunk has a ``layer4`` of its own (the FPN body), which
+      takes it (a divergence from JAX, see the comment below);
     * a GeneralizedRCNN source routes ``roi_extractor`` /
       ``*_predictor`` onto the ST ``teacher`` bundle (the student is
       then populated by prepare_model, st_generalized_rcnn.py:197-199);
@@ -534,8 +538,12 @@ def import_flax_params(
             base = emb_pred_base()
             if base is not None:
                 candidates.append(base + spath[1:])
-        if spath[:3] == ("backbone", "body", "layer4"):
-            # C5 pretraining backbone -> C4 detector's RoI extractor
+        if spath[:3] == ("backbone", "body", "layer4") and spath not in tflat:
+            # C5 pretraining backbone -> C4 detector's RoI extractor.  A
+            # target whose trunk has its own C5 stage (the FPN body) takes
+            # it there: JAX tries the extractor first, so it puts the
+            # same-shaped leaves of an FPN teacher's trunk on the student's
+            # teacher head and leaves the student's trunk stage unfilled
             for root in (("roi_extractor",), ("teacher", "roi_extractor")):
                 candidates.append(root + spath[2:])
         if spath[0] == "language_backbone" and "bert" in t_tops:

@@ -1,8 +1,8 @@
 """Image normalization on the device and the C4 ResNet backbone.
 
 Counterpart of ``cvpr22_cross_modal_pseudo_labeling_tpu/models/
-backbone.py`` (``device_normalize`` :19, ``ResNetBackbone`` :59): the C4
-and C5 bodies (FPN comes with a later slice).
+backbone.py`` (``device_normalize`` :19, ``ResNetBackbone`` :59,
+``ResNetFPNBackbone`` :101): the C4, C5 and FPN bodies.
 """
 
 from typing import List, Tuple
@@ -10,6 +10,7 @@ from typing import List, Tuple
 import torch
 from torch import nn
 
+from .fpn import FPN
 from .resnet import RESNET_STAGES, ResNet
 
 
@@ -67,5 +68,38 @@ class ResNetBackbone(nn.Module):
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         # NHWC storage viewed as NCHW is channels_last, which the convs keep
-        y = self.body(x.permute(0, 3, 1, 2))
+        (y,) = self.body(x.permute(0, 3, 1, 2))
         return [y.permute(0, 2, 3, 1)]
+
+
+class ResNetFPNBackbone(nn.Module):
+    """The whole trunk (C2..C5) under an :class:`FPN` neck: returns the
+    levels P2..P6 (``retinanet``: P3..P7, with C2 left out and the
+    ``p6p7`` top block on C5, or on P5 without ``retinanet_use_c5``), each
+    ``[B, h, w, out_channels]``."""
+
+    def __init__(self, depth="R-50", out_channels=256, retinanet=False,
+                 retinanet_use_c5=True, stem_out_channels=64, res2_out_channels=256,
+                 num_groups=1, width_per_group=64, stride_in_1x1=True, dtype=torch.float32):
+        super().__init__()
+        self.out_channels = out_channels
+        self.body = ResNet(
+            RESNET_STAGES[depth],
+            stem_out_channels=stem_out_channels,
+            res2_out_channels=res2_out_channels,
+            num_groups=num_groups,
+            width_per_group=width_per_group,
+            stride_in_1x1=stride_in_1x1,
+            dtype=dtype,
+            return_stages=("C3", "C4", "C5") if retinanet else ("C2", "C3", "C4", "C5"),
+        )
+        c = res2_out_channels
+        in_list = [c * 2, c * 4, c * 8] if retinanet else [c, c * 2, c * 4, c * 8]
+        self.fpn = FPN(
+            in_list, out_channels, top_block="p6p7" if retinanet else "maxpool",
+            p6p7_on_c5=retinanet_use_c5, dtype=dtype,
+        )
+
+    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+        feats = self.body(x.permute(0, 3, 1, 2))
+        return self.fpn([f.permute(0, 2, 3, 1) for f in feats])

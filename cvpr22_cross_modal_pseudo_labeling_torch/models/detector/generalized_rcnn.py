@@ -4,9 +4,9 @@ Counterpart of ``cvpr22_cross_modal_pseudo_labeling_tpu/models/detector/
 generalized_rcnn.py`` (``RCNNTrainOutput`` :55, ``RCNNEvalOutput`` :60,
 ``GeneralizedRCNN`` :78 with ``_rpn_forward`` :164,
 ``_extract_box_features`` :195, ``forward_train`` :241 and
-``forward_eval`` :410) on the C4 body, with either box predictor: the
-embedding-based one with class-agnostic regression, which the paper's
-first stage trains (``configs/coco_cap_det/zeroshot_mask.yaml``), or
+``forward_eval`` :410) on the C4 or the FPN body, with either box
+predictor: the embedding-based one with class-agnostic regression, which
+the paper's first stage trains (``configs/coco_cap_det/zeroshot_mask.yaml``), or
 maskrcnn_benchmark's class-specific one (``cls_score`` over
 ``NUM_CLASSES``, a box per class unless ``CLS_AGNOSTIC_BBOX_REG``), the
 JAX defaults and the supervised R-50-C4 Mask and Faster R-CNN; masks
@@ -25,11 +25,23 @@ The module's attributes are the flax scopes (``backbone``, ``rpn_head``,
 level), so ``bridge.py`` maps the JAX parameter tree by path: the RoI
 heads come from :class:`RoIHeadsBundle`, which this class extends.
 
+The FPN body (``CONV_BODY`` ``R-50-FPN`` and the other depths) is JAX's,
+not maskrcnn_benchmark's R-50-FPN Mask R-CNN: the RPN runs on P2..P6 with
+one anchor size a level and selects proposals per level
+(``select_proposals_multi_level``), and the C5 head of the C4 model
+(``ResNetRoIHead``) runs on 14 x 14 RoI features pooled from P2..P5, each
+roi from its own level, at every bin whatever ``TPU.POOL_PRESTRIDE`` says
+(JAX's multi-level pooler ignores ``bin_stride``): with the prestrided
+head (the default) res5 runs at stride 1 on 14 x 14 maps and the mask
+head emits 28 x 28 masks.  ``MODEL.FPN.USE_GN`` and ``USE_RELU`` do not
+reach the body, as in JAX.
+
 Also here, shared with the student-teacher model: the output types, the
 random draws of a training forward (:class:`TrainDraws`) and the pieces
 of the forward both detectors run (:func:`check_ported`,
-:func:`c4_backbone`, :class:`AnchorCache`, :func:`select_proposals`,
-:func:`detect`).  Not ported, and refused: the FPN and C5 bodies,
+:func:`detector_backbone`, :func:`num_cell_anchors`, :class:`AnchorCache`,
+:func:`select_proposals`, :func:`detect`).  Not ported, and refused: the
+C5 and RetinaNet bodies,
 ``KEYPOINT_ON``, ``WSDDN``, ``RPN_ONLY``, the ``class_valid`` row mask
 (it serves only class tables padded to a TPU mesh axis), the
 ``pseudo_sample_weights`` argument of the training forward, and
@@ -37,16 +49,16 @@ of the forward both detectors run (:func:`check_ported`,
 in the JAX package).
 """
 
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
-from ..backbone import ResNetBackbone, device_normalize
+from ..backbone import ResNetBackbone, ResNetFPNBackbone, device_normalize
 from ..roi_heads.box_head import Detections, box_head_loss, postprocess_boxes, subsample_rois
 from ..roi_heads.bundle import RoIHeadsBundle, compute_dtype
 from ..roi_heads.mask_head import mask_head_inference, mask_head_loss
 from ..rpn.anchors import anchor_visibility, build_anchors_for_levels
-from ..rpn.rpn import RPNHead, RPNProposals, flatten_rpn_outputs, rpn_loss, select_proposals_single_level
+from ..rpn.rpn import RPNHead, RPNProposals, flatten_rpn_outputs, rpn_loss, select_proposals_multi_level
 from .statics import RCNNStatics
 
 
@@ -79,8 +91,10 @@ class TrainDraws(NamedTuple):
 def check_ported(s: RCNNStatics) -> None:
     """Raises NotImplementedError for a configuration the port does not
     run yet, and ValueError for one that JAX cannot run either."""
-    if not s.conv_body.endswith("-C4"):
-        raise NotImplementedError(f"CONV_BODY {s.conv_body}: only the C4 body is ported yet")
+    if s.conv_body.endswith("-FPN-RETINANET") or not s.conv_body.endswith(("-C4", "-FPN")):
+        raise NotImplementedError(
+            f"CONV_BODY {s.conv_body}: only the C4 and FPN bodies are ported yet"
+        )
     for on, key in ((s.keypoint_on, "MODEL.KEYPOINT_ON"), (s.wsddn, "MODEL.ROI_BOX_HEAD.WSDDN"),
                     (s.rpn_only, "MODEL.RPN_ONLY")):
         if on:
@@ -93,9 +107,10 @@ def check_ported(s: RCNNStatics) -> None:
         )
 
 
-def c4_backbone(s: RCNNStatics) -> ResNetBackbone:
-    return ResNetBackbone(
-        depth=s.conv_body[:-3],
+def detector_backbone(s: RCNNStatics):
+    """The C4 body, or the FPN body (the trunk's options and
+    ``out_channels`` only, as the JAX detectors build it)."""
+    common = dict(
         stem_out_channels=s.stem_out_channels,
         res2_out_channels=s.res2_out_channels,
         num_groups=s.num_groups,
@@ -103,29 +118,47 @@ def c4_backbone(s: RCNNStatics) -> ResNetBackbone:
         stride_in_1x1=s.stride_in_1x1,
         dtype=compute_dtype(s),
     )
+    if s.conv_body.endswith("-FPN"):
+        return ResNetFPNBackbone(
+            depth=s.conv_body[: -len("-FPN")], out_channels=s.backbone_out_channels, **common
+        )
+    return ResNetBackbone(depth=s.conv_body[:-3], **common)
+
+
+def num_cell_anchors(s: RCNNStatics) -> int:
+    """Anchors a feature cell: every size on the one level of a C4 RPN,
+    one size a level with several strides (FPN)."""
+    return len(s.aspect_ratios) * (len(s.anchor_sizes) if len(s.anchor_stride) == 1 else 1)
 
 
 class AnchorCache:
-    """The C4 level's anchors, built once per feature shape and device."""
+    """Each level's anchors and their concatenation, built once per
+    shape of every level and device."""
 
     def __init__(self, s: RCNNStatics):
         self.statics = s
-        self._anchors: Dict[Tuple, torch.Tensor] = {}
+        self._anchors: Dict[Tuple, Tuple[List[torch.Tensor], torch.Tensor]] = {}
 
-    def __call__(self, feat: torch.Tensor) -> torch.Tensor:
-        key = (tuple(feat.shape[1:3]), feat.device)
+    def __call__(self, feats) -> Tuple[List[torch.Tensor], torch.Tensor]:
+        """``(anchor_list, anchors)``: ``[H_l*W_l*A, 4]`` a level, in the
+        order of ``flatten_rpn_outputs``, and all of them concatenated."""
+        key = (tuple(tuple(f.shape[1:3]) for f in feats), feats[0].device)
         if key not in self._anchors:
             s = self.statics
-            (self._anchors[key],) = build_anchors_for_levels(
-                [key[0]], s.anchor_stride, s.anchor_sizes, s.aspect_ratios, feat.device
+            anchor_list = build_anchors_for_levels(
+                list(key[0]), s.anchor_stride, s.anchor_sizes, s.aspect_ratios, key[1]
             )
+            self._anchors[key] = (anchor_list, torch.cat(anchor_list, dim=0))
         return self._anchors[key]
 
 
-def select_proposals(s: RCNNStatics, anchors, objectness, box_reg, image_sizes, train: bool) -> RPNProposals:
-    """The train or test selector of the config on float32 inputs."""
-    return select_proposals_single_level(
-        anchors,
+def select_proposals(s: RCNNStatics, anchor_list, objectness, box_reg, image_sizes,
+                     train: bool) -> RPNProposals:
+    """The train or test selector of the config on float32 inputs: one
+    level, or each level then the FPN top-N (with the per-batch quirk
+    in training under ``FPN_POST_NMS_PER_BATCH``)."""
+    return select_proposals_multi_level(
+        anchor_list,
         objectness.to(torch.float32),
         box_reg.to(torch.float32),
         image_sizes,
@@ -133,6 +166,9 @@ def select_proposals(s: RCNNStatics, anchors, objectness, box_reg, image_sizes, 
         s.rpn_post_nms_train if train else s.rpn_post_nms_test,
         s.rpn_nms_thresh,
         s.rpn_min_size,
+        fpn_post_nms_top_n=s.fpn_post_nms_train if train else s.fpn_post_nms_test,
+        fpn_post_nms_per_batch=train and s.fpn_post_nms_per_batch,
+        per_batch_groups=s.fpn_per_batch_groups,
     )
 
 
@@ -177,10 +213,8 @@ class GeneralizedRCNN(RoIHeadsBundle):
         check_ported(statics)
         super().__init__(statics, uncertainty=statics.uncertainty)
         s = statics
-        self.backbone = c4_backbone(s)
-        self.rpn_head = RPNHead(
-            s.backbone_out_channels, len(s.aspect_ratios) * len(s.anchor_sizes), compute_dtype(s)
-        )
+        self.backbone = detector_backbone(s)
+        self.rpn_head = RPNHead(s.backbone_out_channels, num_cell_anchors(s), compute_dtype(s))
         self.anchors = AnchorCache(s)
 
     def forward(
@@ -226,8 +260,8 @@ class GeneralizedRCNN(RoIHeadsBundle):
         feats = self.backbone(images)
         obj_l, reg_l = self.rpn_head(feats)
         objectness, box_reg = flatten_rpn_outputs(obj_l, reg_l)
-        anchors = self.anchors(feats[0])
-        proposals = select_proposals(self.statics, anchors, objectness, box_reg, image_sizes, train)
+        anchor_list, anchors = self.anchors(feats)
+        proposals = select_proposals(self.statics, anchor_list, objectness, box_reg, image_sizes, train)
         return feats, objectness, box_reg, anchors, proposals
 
     def forward_train(

@@ -20,7 +20,11 @@ avg_uncertain`` (detached).  The GT branch trains on the detection
 annotations against the dataset's class table.  The backbone, the RPN
 and the teacher run under ``torch.no_grad()``: their parameters are
 frozen, and the JAX module stops the gradient at their outputs.
-Eval serves the student RoI heads with the dataset's class table.
+Eval serves the student RoI heads with the dataset's class table.  The
+FPN body (``-FPN``) is the teacher's (``generalized_rcnn.py``): both of
+its selectors, the eval selector of the caption branch and of eval and
+the train selector of the GT branch, select per level, and the frozen
+FPN runs under ``torch.no_grad()`` with the rest of the backbone.
 
 The random draws (the RoI sampler's priorities and the mask
 uncertainty's normal samples) come from a ``torch.Generator`` or, to
@@ -48,9 +52,10 @@ from .generalized_rcnn import (
     RCNNEvalOutput,
     RCNNTrainOutput,
     TrainDraws,
-    c4_backbone,
     check_ported,
     detect,
+    detector_backbone,
+    num_cell_anchors,
     select_proposals,
 )
 from .statics import RCNNStatics, statics_from_cfg
@@ -108,10 +113,8 @@ class STGeneralizedRCNN(nn.Module):
                 "it needs MODEL.ROI_BOX_HEAD.EMBEDDING_BASED True"
             )
         self.statics = statics
-        self.backbone = c4_backbone(s)
-        self.rpn_head = RPNHead(
-            s.backbone_out_channels, len(s.aspect_ratios) * len(s.anchor_sizes), compute_dtype(s)
-        )
+        self.backbone = detector_backbone(s)
+        self.rpn_head = RPNHead(s.backbone_out_channels, num_cell_anchors(s), compute_dtype(s))
         self.teacher = RoIHeadsBundle(s, uncertainty=False)
         self.student = RoIHeadsBundle(s, uncertainty=statics.uncertainty)
         self.bert = WordEmbeddingBackbone(statics.vocab_size, s.emb_dim)
@@ -184,7 +187,7 @@ class STGeneralizedRCNN(nn.Module):
 
     def _proposals(self, feats, objectness, box_reg, image_sizes, train_selector):
         return select_proposals(
-            self.statics.base, self.anchors(feats[0]), objectness, box_reg, image_sizes,
+            self.statics.base, self.anchors(feats)[0], objectness, box_reg, image_sizes,
             train_selector,
         )
 

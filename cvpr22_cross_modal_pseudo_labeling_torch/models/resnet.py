@@ -115,14 +115,17 @@ class ResNetStage(nn.Sequential):
 
 class ResNet(nn.Module):
     """Stem and stages 2..N (N <= 5); ``stages`` counts blocks per
-    stage.  Takes and returns NCHW channels-last tensors; returns the
-    last stage.  Stage 5 runs at ``res5_dilation`` (stride 1 when
-    dilated)."""
+    stage.  Takes NCHW channels-last tensors and returns the list of the
+    stages named in ``return_stages`` (``"C2"`` .. ``"C5"``, in that
+    order; default the last stage alone), as JAX's ``return_stages``.
+    Stage 5 runs at ``res5_dilation`` (stride 1 when dilated)."""
 
     def __init__(self, stages: Sequence[int], stem_out_channels=64,
                  res2_out_channels=256, num_groups=1, width_per_group=64,
-                 stride_in_1x1=True, res5_dilation=1, dtype=torch.float32):
+                 stride_in_1x1=True, res5_dilation=1, dtype=torch.float32,
+                 return_stages: Sequence[str] = ()):
         super().__init__()
+        self.return_stages = tuple(return_stages) or (f"C{len(stages) + 1}",)
         self.stem = Stem(stem_out_channels, dtype)
         in_ch = stem_out_channels
         stage2_bottleneck = num_groups * width_per_group
@@ -143,9 +146,11 @@ class ResNet(nn.Module):
 
     def forward(self, x):
         x = self.stem(x)
+        out = {}
         for i in range(self.num_stages):
             x = getattr(self, f"layer{i + 1}")(x)
-        return x
+            out[f"C{i + 2}"] = x
+        return [out[k] for k in self.return_stages]
 
 
 class ResNetRoIHead(nn.Module):

@@ -48,8 +48,11 @@ class RoIHeadsBundle(nn.Module):
             )
 
     def extract(self, feats, boxes):
-        """Pools ``[B, S, 4]`` boxes and runs the C5 extractor.  Returns
-        ``[B*S, 7, 7, 2048]`` in the compute dtype.  The pooler reads the
+        """Pools ``[B, S, 4]`` boxes from every level of ``feats`` at the
+        config's ``POOLER_SCALES`` and runs the C5 extractor.  Returns
+        ``[B*S, 7, 7, 2048]`` in the compute dtype on the C4 body, ``[B*S,
+        14, 14, 2048]`` on the FPN body with the prestrided head (the
+        multi-level pooler emits every bin, as JAX's).  The pooler reads the
         compute-dtype features and writes their dtype with float32
         arithmetic in between, which is the JAX bundle's float32 pooling
         followed by its cast, without the two casting passes."""

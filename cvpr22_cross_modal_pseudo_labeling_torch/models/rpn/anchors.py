@@ -95,14 +95,26 @@ def build_anchors_for_levels(
     aspect_ratios: Sequence[float],
     device: torch.device,
 ) -> List[torch.Tensor]:
-    """``[H*W*A, 4]`` anchors of the one level of a C4 RPN, every
-    size on it, on ``device`` (as a one-element list, the JAX shape of
-    the result).  The FPN assignment of one size per level comes with the
-    FPN slice."""
-    if len(feature_shapes) != 1 or len(strides) != 1:
-        raise NotImplementedError(
-            f"{len(feature_shapes)} feature levels / {len(strides)} anchor "
-            "strides: only single-level anchors are ported yet"
+    """One ``[H*W*A, 4]`` anchor tensor per feature level, on ``device``.
+    One stride (C4, C5): every size on the one level.  Several strides
+    (FPN): one size per level, as JAX's function assigns them; a size
+    may also be a tuple of sizes for its level.  The levels and strides
+    must pair up, and so must strides and sizes (JAX's checks)."""
+    if len(feature_shapes) != len(strides):
+        raise ValueError(
+            f"{len(feature_shapes)} feature levels but {len(strides)} anchor strides: "
+            "set MODEL.RPN.ANCHOR_STRIDE to one stride per FPN level"
         )
-    cell = generate_cell_anchors(strides[0], sizes, aspect_ratios)
-    return [torch.from_numpy(grid_anchors(feature_shapes[0], strides[0], cell)).to(device)]
+    if len(strides) == 1:
+        cells = [generate_cell_anchors(strides[0], sizes, aspect_ratios)]
+    else:
+        if len(strides) != len(sizes):
+            raise ValueError(f"FPN: {len(strides)} anchor strides but {len(sizes)} anchor sizes")
+        cells = [
+            generate_cell_anchors(s, sz if isinstance(sz, (tuple, list)) else (sz,), aspect_ratios)
+            for s, sz in zip(strides, sizes)
+        ]
+    return [
+        torch.from_numpy(grid_anchors(shape, stride, cell)).to(device)
+        for shape, stride, cell in zip(feature_shapes, strides, cells)
+    ]

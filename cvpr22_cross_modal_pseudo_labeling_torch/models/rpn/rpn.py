@@ -2,12 +2,13 @@
 
 Counterpart of ``cvpr22_cross_modal_pseudo_labeling_tpu/models/rpn/
 rpn.py`` (``RPNHead`` :28, ``flatten_rpn_outputs`` :61,
-``select_proposals_single_level`` :76, the branch of
-``select_proposals_multi_level`` that the C4 body takes, ``rpn_loss``
-:229).  FPN selection belongs to a later slice.
+``select_proposals_single_level`` :76, ``select_proposals_multi_level``
+:116, ``rpn_loss`` :229).
 """
 
-from typing import NamedTuple, Optional, Sequence, Tuple
+import logging
+import math
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -98,6 +99,81 @@ def select_proposals_single_level(
         boxes=torch.gather(boxes, 1, idx[..., None].expand(-1, -1, 4)),
         scores=torch.gather(scores, 1, idx),
         valid=keep_valid,
+    )
+
+
+def select_proposals_multi_level(
+    anchor_list: List[torch.Tensor],
+    objectness: torch.Tensor,
+    box_regression: torch.Tensor,
+    image_sizes: torch.Tensor,
+    pre_nms_top_n: int,
+    post_nms_top_n: int,
+    nms_thresh: float,
+    min_size: float,
+    fpn_post_nms_top_n: int = 0,
+    fpn_post_nms_per_batch: bool = False,
+    per_batch_groups: int = 1,
+) -> RPNProposals:
+    """Proposal selection over any number of levels.  One level is
+    :func:`select_proposals_single_level`.  Several (FPN): each level's
+    top-k, decode, NMS and ``post_nms_top_n``, then the top
+    ``fpn_post_nms_top_n`` (else ``post_nms_top_n``) by objectness over
+    the concatenated levels, invalid slots keyed ``-inf``.
+
+    ``fpn_post_nms_per_batch`` (training) keeps JAX's per-batch quirk:
+    the top-N runs over the whole batch's concatenated scores, in
+    ``per_batch_groups`` contiguous groups of images (the gcd of the
+    batch and the group count when they do not divide), as a scatter
+    mask that keeps the padded per-image layout; a slot the mask cuts
+    is invalid.  Every top-k is the stable :func:`top_k` of
+    ``lax.top_k``: the ``-inf`` keys tie in bulk.
+
+    ``anchor_list`` holds each level's ``[N_l, 4]`` anchors in the order
+    of ``objectness`` ``[B, sum N_l]`` and ``box_regression``."""
+    if len(anchor_list) == 1:
+        return select_proposals_single_level(
+            anchor_list[0], objectness, box_regression, image_sizes,
+            pre_nms_top_n, post_nms_top_n, nms_thresh, min_size,
+        )
+    parts = []
+    offset = 0
+    for anchors in anchor_list:
+        n = anchors.shape[0]
+        parts.append(select_proposals_single_level(
+            anchors, objectness[:, offset:offset + n], box_regression[:, offset:offset + n],
+            image_sizes, pre_nms_top_n, post_nms_top_n, nms_thresh, min_size,
+        ))
+        offset += n
+    boxes = torch.cat([p.boxes for p in parts], dim=1)
+    scores = torch.cat([p.scores for p in parts], dim=1)
+    valid = torch.cat([p.valid for p in parts], dim=1)
+    neg_inf = torch.full((), -float("inf"), device=scores.device)
+    keyed = torch.where(valid, scores, neg_inf)
+    fpn_top_n = fpn_post_nms_top_n or post_nms_top_n
+    k = min(fpn_top_n, boxes.shape[1])
+    if fpn_post_nms_per_batch:
+        b, p = keyed.shape
+        groups = max(per_batch_groups, 1)
+        g = math.gcd(b, groups)
+        if g != groups:
+            logging.getLogger(__name__).warning(
+                "FPN_POST_NMS_PER_BATCH: batch %d not divisible by %d groups; "
+                "falling back to gcd grouping g=%d", b, per_batch_groups, g,
+            )
+        flat = keyed.reshape(g, (b // g) * p)
+        _, flat_idx = top_k(flat, min(fpn_top_n, flat.shape[1]))
+        keep = torch.zeros(flat.shape, dtype=torch.bool, device=flat.device)
+        keep.scatter_(1, flat_idx, True)
+        keyed = torch.where(keep.reshape(b, p), keyed, neg_inf)
+    top, idx = top_k(keyed, k)
+    out_valid = torch.gather(valid, 1, idx)
+    if fpn_post_nms_per_batch:
+        out_valid = out_valid & (top > -float("inf"))
+    return RPNProposals(
+        torch.gather(boxes, 1, idx[..., None].expand(-1, -1, 4)),
+        torch.gather(scores, 1, idx),
+        out_valid,
     )
 
 

@@ -162,10 +162,11 @@ NMS = Kernel(
 ROI_ALIGN = Kernel(
     "roi_align",
     {
-        # features, rois, out, B, H, W, C, S, P, Q, spatial_scale,
-        # sampling_ratio, max_samples, bin_stride, bf16, stream
+        # features, rois, levels, level, out, B, H, W, C, S, P, Q,
+        # spatial_scale, sampling_ratio, max_samples, bin_stride, bf16,
+        # stream
         "roi_align_forward": (
-            VP, VP, VP, I32, I32, I32, I32, I32, I32, I32, F32,
+            VP, VP, VP, I32, VP, I32, I32, I32, I32, I32, I32, I32, F32,
             I32, I32, I32, I32, VP,
         ),
     },
@@ -173,12 +174,12 @@ ROI_ALIGN = Kernel(
 ROI_ALIGN_BACKWARD = Kernel(
     "roi_align_backward",
     {
-        # grad, rois, workspace, workspace_bytes, out, B, H, W, C, S, P, Q,
-        # spatial_scale, sampling_ratio, max_samples, bin_stride, tile_h,
-        # tile_w, slab, slabs_per_cta, bf16, stream
+        # grad, rois, levels, level, workspace, workspace_bytes, out, B, H,
+        # W, C, S, P, Q, spatial_scale, sampling_ratio, max_samples,
+        # bin_stride, tile_h, tile_w, slab, slabs_per_cta, bf16, stream
         "roi_align_backward": (
-            VP, VP, VP, I64, VP, I32, I32, I32, I32, I32, I32, I32, F32,
-            I32, I32, I32, I32, I32, I32, I32, I32, VP,
+            VP, VP, VP, I32, VP, I64, VP, I32, I32, I32, I32, I32, I32, I32,
+            F32, I32, I32, I32, I32, I32, I32, I32, I32, VP,
         ),
     },
     source="roi_align",

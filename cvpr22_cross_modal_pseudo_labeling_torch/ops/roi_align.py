@@ -36,9 +36,20 @@ runs the kernel's backward entry (a plan of each roi's tap lists, then
 one CTA per tile of dF summing every roi's taps in shared memory and
 writing the tile once in the features' dtype), counted in
 ``kernels.ROI_ALIGN_BACKWARD``.
+
+:func:`roi_align_levels` pools each roi from its own level of a feature
+pyramid (the FPN pooler, ``models/roi_heads/pooler.py``).  JAX pools every
+roi on every level with ``ops/roi_align.py::roi_align`` and sums the
+results masked by level (``models/roi_heads/pooler.py:86-100``); each roi
+has one level and ``x * 0 + y`` is exact, so pooling each roi on its own
+level gives the same numbers.  Both kernels take a level filter (a ``[B,
+S]`` int32 level per roi, and the level to run): the forward is launched
+once a level into one output, each launch writing its own rows; the
+backward once a level, each giving that level's dF from its rois only.
+The plain versions take the same filter (rows of other levels are zero).
 """
 
-from typing import Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -135,10 +146,13 @@ def roi_align_plain(
     sampling_ratio: int = 0,
     max_samples: int = 8,
     bin_stride: int = 1,
+    levels: Optional[torch.Tensor] = None,
+    level: int = 0,
 ) -> torch.Tensor:
     """The plain PyTorch version of :func:`roi_align`, on any device:
     float32 arithmetic on the features cast to float32, the result cast
-    back to the features' dtype."""
+    back to the features' dtype.  With ``levels`` (``[B, S]``), only the
+    rois whose level is ``level`` are pooled; the other rows are zero."""
     out_dtype = features.dtype
     features = features.to(torch.float32)
     P, Q = output_size
@@ -149,13 +163,17 @@ def roi_align_plain(
     )
     out_p = -(-P // bin_stride)
     out_q = -(-Q // bin_stride)
-    out = torch.empty((B, S, out_p, out_q, C), dtype=out_dtype, device=features.device)
+    alloc = torch.empty if levels is None else torch.zeros
+    out = alloc((B, S, out_p, out_q, C), dtype=out_dtype, device=features.device)
     for b in range(B):
         feat = features[b]
-        for s0 in range(0, S, _PLAIN_ROI_CHUNK):
-            s1 = min(s0 + _PLAIN_ROI_CHUNK, S)
-            a_y = _axis_interp_matrix(sh[b, s0:s1], bh[b, s0:s1], gh[b, s0:s1], H, P, cap_h, bin_stride)
-            a_x = _axis_interp_matrix(sw[b, s0:s1], bw[b, s0:s1], gw[b, s0:s1], W, Q, cap_w, bin_stride)
+        rows = None if levels is None else torch.nonzero(levels[b] == level).flatten()
+        n = S if rows is None else rows.numel()
+        for s0 in range(0, n, _PLAIN_ROI_CHUNK):
+            s1 = min(s0 + _PLAIN_ROI_CHUNK, n)
+            r = slice(s0, s1) if rows is None else rows[s0:s1]
+            a_y = _axis_interp_matrix(sh[b, r], bh[b, r], gh[b, r], H, P, cap_h, bin_stride)
+            a_x = _axis_interp_matrix(sw[b, r], bw[b, r], gw[b, r], W, Q, cap_w, bin_stride)
             # contraction order as in the JAX function: the smaller
             # intermediate ([s, Q, H, C] or [s, P, W, C]) is materialized
             if H * out_q <= out_p * W:
@@ -164,7 +182,7 @@ def roi_align_plain(
             else:
                 tmp = torch.einsum("sph,hwc->spwc", a_y, feat)
                 res = torch.einsum("spwc,sqw->spqc", tmp, a_x)
-            out[b, s0:s1] = res
+            out[b, r] = res.to(out_dtype)
     return out
 
 
@@ -178,17 +196,23 @@ def roi_align_backward_plain(
     sampling_ratio: int = 0,
     max_samples: int = 8,
     bin_stride: int = 1,
+    levels: Optional[torch.Tensor] = None,
+    level: int = 0,
 ) -> torch.Tensor:
     """The plain version of the backward: the gradient of
     ``sum(roi_align_plain(F, rois, ...) * grad)`` with respect to ``F``
     of ``feature_shape`` and ``feature_dtype`` (it does not depend on F's
     values), by autograd of the plain version: the transposed float32
-    contraction, cast to the features' dtype."""
+    contraction, cast to the features' dtype.  With ``levels``, the rois
+    of ``level`` only."""
     with torch.enable_grad():
         f = torch.zeros(feature_shape, dtype=feature_dtype, device=grad.device, requires_grad=True)
         out = roi_align_plain(
-            f, rois_per_image, output_size, spatial_scale, sampling_ratio, max_samples, bin_stride
+            f, rois_per_image, output_size, spatial_scale, sampling_ratio, max_samples, bin_stride,
+            levels, level,
         )
+        if not out.requires_grad:  # no roi on the level
+            return torch.zeros(feature_shape, dtype=feature_dtype, device=grad.device)
         (dfeat,) = torch.autograd.grad(out, f, grad)
     return dfeat
 
@@ -227,8 +251,21 @@ def _aligned(t: torch.Tensor, what: str) -> torch.Tensor:
     return t
 
 
+def _check_levels(levels, B, S, device):
+    """The level filter as the kernels read it: ``[B, S]`` int32,
+    contiguous, on the features' device; None stays None."""
+    if levels is None:
+        return None
+    if tuple(levels.shape) != (B, S) or levels.device != device:
+        raise ValueError(f"levels must be [B={B}, S={S}] on {device}, got "
+                         f"{tuple(levels.shape)} on {levels.device}")
+    return levels.to(torch.int32).contiguous()
+
+
 def _forward_cuda(features, rois_per_image, output_size, spatial_scale,
-                  sampling_ratio, max_samples, bin_stride):
+                  sampling_ratio, max_samples, bin_stride, levels=None, level=0, out=None):
+    """Launches ``roi_align_forward``; with ``levels``, into the rows of
+    ``level`` of ``out`` (allocated when None) only."""
     P, Q = output_size
     B, H, W, C = features.shape
     S = rois_per_image.shape[1]
@@ -236,14 +273,19 @@ def _forward_cuda(features, rois_per_image, output_size, spatial_scale,
         features.shape, features.dtype, features.device, rois_per_image,
         sampling_ratio, max_samples, bin_stride,
     )
+    lv = _check_levels(levels, B, S, features.device)
     feats = _aligned(features, "features")
-    out = torch.empty(
-        (B, S, -(-P // bin_stride), -(-Q // bin_stride), C), dtype=feats.dtype, device=feats.device
-    )
+    shape = (B, S, -(-P // bin_stride), -(-Q // bin_stride), C)
+    if out is None:
+        out = torch.empty(shape, dtype=feats.dtype, device=feats.device)
+    elif (tuple(out.shape) != shape or out.dtype != feats.dtype or out.device != feats.device
+          or not out.is_contiguous()):
+        raise ValueError(f"roi_align: out must be a contiguous {shape} {feats.dtype} tensor on "
+                         f"{feats.device}, got {tuple(out.shape)} {out.dtype} on {out.device}")
     kernels.ROI_ALIGN.call(
         "roi_align_forward",
-        feats.data_ptr(), rois.data_ptr(), out.data_ptr(),
-        B, H, W, C, S, P, Q, float(spatial_scale),
+        feats.data_ptr(), rois.data_ptr(), None if lv is None else lv.data_ptr(), int(level),
+        out.data_ptr(), B, H, W, C, S, P, Q, float(spatial_scale),
         int(sampling_ratio), int(max_samples), int(bin_stride),
         int(feats.dtype == torch.bfloat16),
     )
@@ -252,7 +294,8 @@ def _forward_cuda(features, rois_per_image, output_size, spatial_scale,
     if hook is not None:
         hook(
             (features, rois_per_image, output_size, spatial_scale,
-             sampling_ratio, max_samples, bin_stride),
+             sampling_ratio, max_samples, bin_stride)
+            + (() if levels is None else (levels, level)),
             out,
         )
     return out
@@ -301,11 +344,13 @@ def _plan_bytes(B, S, out_p, out_q, cap_h, cap_w):
 
 
 def _backward_cuda(grad, rois_per_image, feature_shape, feature_dtype, output_size,
-                   spatial_scale, sampling_ratio, max_samples, bin_stride, tile=BACKWARD_TILE):
+                   spatial_scale, sampling_ratio, max_samples, bin_stride, levels=None,
+                   level=0, tile=BACKWARD_TILE):
     """Launches ``roi_align_backward``: the plan of every roi's tap lists
     into a workspace, then the tiles of dF, each summed in shared memory
     and written once in the features' dtype (``tile`` as for
-    :func:`backward_tiling`)."""
+    :func:`backward_tiling`).  With ``levels``, dF of the rois of
+    ``level`` only."""
     P, Q = output_size
     B, H, W, C = feature_shape
     S = rois_per_image.shape[1]
@@ -322,6 +367,7 @@ def _backward_cuda(grad, rois_per_image, feature_shape, feature_dtype, output_si
             f"roi_align backward kernel takes at most 65535 rois per image and 64 x "
             f"{8 * _BWD_COLUMNS_PER_ITEM} emitted bins, got S={S}, {out_p} x {out_q}"
         )
+    lv = _check_levels(levels, B, S, grad.device)
     cap_h, cap_w = _sample_caps(H, W, P, Q, sampling_ratio, max_samples)
     rows, cols, slab, per_cta = backward_tiling(H, W, C, 2 * cap_w, tile)
     if backward_shared_bytes(rows, cols, slab, 2 * cap_w) > SHARED_MEMORY_PER_BLOCK:
@@ -332,7 +378,8 @@ def _backward_cuda(grad, rois_per_image, feature_shape, feature_dtype, output_si
     out = torch.empty(feature_shape, dtype=feature_dtype, device=g.device)
     kernels.ROI_ALIGN_BACKWARD.call(
         "roi_align_backward",
-        g.data_ptr(), rois.data_ptr(), workspace.data_ptr(), nbytes, out.data_ptr(),
+        g.data_ptr(), rois.data_ptr(), None if lv is None else lv.data_ptr(), int(level),
+        workspace.data_ptr(), nbytes, out.data_ptr(),
         B, H, W, C, S, P, Q, float(spatial_scale),
         int(sampling_ratio), int(max_samples), int(bin_stride), rows, cols, slab, per_cta,
         int(feature_dtype == torch.bfloat16),
@@ -342,7 +389,8 @@ def _backward_cuda(grad, rois_per_image, feature_shape, feature_dtype, output_si
     if hook is not None:
         hook(
             (grad, rois_per_image, tuple(feature_shape), feature_dtype, output_size,
-             spatial_scale, sampling_ratio, max_samples, bin_stride),
+             spatial_scale, sampling_ratio, max_samples, bin_stride)
+            + (() if levels is None else (levels, level)),
             out,
         )
     return out
@@ -358,15 +406,18 @@ def roi_align_backward(
     sampling_ratio: int = 0,
     max_samples: int = 8,
     bin_stride: int = 1,
+    levels: Optional[torch.Tensor] = None,
+    level: int = 0,
 ) -> torch.Tensor:
     """The gradient of :func:`roi_align` with respect to features of
     ``feature_shape`` and ``feature_dtype``, for the cotangent ``grad``
-    (``[B, S, P', Q', C]``).  CPU tensors run
-    :func:`roi_align_backward_plain`; CUDA tensors launch the kernel's
-    ``roi_align_backward`` entry.  ``roi_align`` calls it from its
+    (``[B, S, P', Q', C]``); with ``levels``, the gradient of the rois
+    of ``level`` only.  CPU tensors run :func:`roi_align_backward_plain`;
+    CUDA tensors launch the kernel's ``roi_align_backward`` entry.
+    ``roi_align`` and ``roi_align_levels`` call it from their
     ``autograd.Function`` on CUDA."""
     args = (grad, rois_per_image, tuple(feature_shape), feature_dtype, output_size,
-            spatial_scale, sampling_ratio, max_samples, bin_stride)
+            spatial_scale, sampling_ratio, max_samples, bin_stride, levels, level)
     if grad.device.type == "cpu":
         return roi_align_backward_plain(*args)
     if grad.device.type != "cuda":
@@ -433,4 +484,88 @@ def roi_align(
     return _RoIAlignCUDA.apply(
         features, rois_per_image, output_size, spatial_scale,
         sampling_ratio, max_samples, bin_stride,
+    )
+
+
+def _forward_levels_cuda(features, rois_per_image, levels, output_size, scales,
+                         sampling_ratio, max_samples, out=None):
+    """One ``roi_align_forward`` launch a level into one output (``out``,
+    allocated when None): together the launches write every row whose
+    level is in ``range(len(features))``."""
+    for level, (feat, scale) in enumerate(zip(features, scales)):
+        out = _forward_cuda(feat, rois_per_image, output_size, scale, sampling_ratio,
+                            max_samples, 1, levels, level, out)
+    return out
+
+
+class _RoIAlignLevelsCUDA(torch.autograd.Function):
+    """The multi-level CUDA route with its gradient: the forward's level
+    launches into one output, and one backward launch for each level
+    whose features need a gradient."""
+
+    @staticmethod
+    def forward(ctx, rois_per_image, levels, output_size, scales, sampling_ratio,
+                max_samples, *features):
+        ctx.save_for_backward(rois_per_image, levels)
+        ctx.args = ([(tuple(f.shape), f.dtype) for f in features], output_size, scales,
+                    sampling_ratio, max_samples)
+        return _forward_levels_cuda(features, rois_per_image, levels, output_size, scales,
+                                    sampling_ratio, max_samples)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        rois_per_image, levels = ctx.saved_tensors
+        shapes, output_size, scales, sampling_ratio, max_samples = ctx.args
+        dfeats = tuple(
+            _backward_cuda(grad, rois_per_image, shape, dtype, output_size, scale,
+                           sampling_ratio, max_samples, 1, levels, level)
+            if ctx.needs_input_grad[6 + level] else None
+            for level, ((shape, dtype), scale) in enumerate(zip(shapes, scales))
+        )
+        return (None,) * 6 + dfeats
+
+
+def roi_align_levels(
+    features: Sequence[torch.Tensor],
+    rois_per_image: torch.Tensor,
+    levels: torch.Tensor,
+    output_size: Tuple[int, int],
+    scales: Sequence[float],
+    sampling_ratio: int = 0,
+    max_samples: int = 8,
+) -> torch.Tensor:
+    """RoIAlign of each roi on its own level: roi s of image b pools from
+    ``features[levels[b, s]][b]`` at ``scales[levels[b, s]]``, at every bin
+    (the JAX multi-level pooler has no ``bin_stride``).
+
+    features: one ``[B, H_l, W_l, C]`` map a level, all of one dtype;
+    rois_per_image ``[B, S, 4]``; levels ``[B, S]`` integers in
+    ``range(len(features))``.  Returns ``[B, S, P, Q, C]`` in the features'
+    dtype.  CPU tensors sum the plain version's levels (each zero outside
+    its rows; autograd differentiates it); CUDA tensors launch the forward
+    kernel once a level into one output and, for the gradient, the
+    backward kernel once a level.  Rois that require grad raise on CUDA, as for
+    :func:`roi_align`."""
+    if len(features) != len(scales) or not features:
+        raise ValueError(f"{len(features)} feature levels but {len(scales)} scales")
+    if len({f.dtype for f in features}) != 1:
+        raise ValueError("roi_align_levels: every level must have one dtype")
+    device = features[0].device
+    if device.type == "cpu":
+        out = None
+        for level, (feat, scale) in enumerate(zip(features, scales)):
+            part = roi_align_plain(feat, rois_per_image, output_size, scale, sampling_ratio,
+                                   max_samples, 1, levels, level)
+            out = part if out is None else out + part
+        return out
+    if device.type != "cuda":
+        raise ValueError(f"roi_align_levels runs on cpu or cuda tensors, not {device}")
+    if torch.is_grad_enabled() and rois_per_image.requires_grad:
+        raise RuntimeError(
+            "roi_align_levels: csrc/roi_align.cu differentiates with respect to the "
+            "features only, so rois must not require grad (detach them)"
+        )
+    return _RoIAlignLevelsCUDA.apply(
+        rois_per_image, levels, output_size, tuple(scales), sampling_ratio, max_samples, *features,
     )

@@ -10,7 +10,10 @@ result for a bfloat16 one (the two float32 sums may round to neighbouring
 bfloat16 values).  The RoIAlign backward within 1e-5 * max|dF| of the
 plain version's autograd gradient (the kernel sums each tile's taps in
 another order than the plain contraction), plus one bfloat16 ulp for
-bfloat16 features.
+bfloat16 features.  The level filter of both (the FPN pooler's, at C
+256): each level's forward launch writes only its rows of one output,
+the four together every row; each level's backward gives the dF of that
+level's rois; a null filter is the unfiltered launch, bit for bit.
 """
 
 import numpy as np
@@ -350,3 +353,91 @@ def test_roi_align_backward_kernel_refuses_a_tile_too_large(card):
         ra._backward_cuda(grad, rois, (1, 50, 300, 64), torch.float32, (14, 14), 1.0 / 16, 0, 8, 2,
                           tile=(4, 300, 64, 1))
     assert kernels.ROI_ALIGN_BACKWARD.launches == before
+
+
+# ---------------------------------------------------------------------------
+# the level filter of the FPN pooler, at C 256
+
+
+def _pyramid(card, dtype, b=2, s=300, seed=21):
+    """P2..P5 of a 320 x 480 image at C 256, rois over every level (their
+    LevelMapper levels, as the pooler assigns them)."""
+    from cvpr22_cross_modal_pseudo_labeling_torch.models.roi_heads.pooler import assign_fpn_levels
+
+    rng = np.random.default_rng(seed)
+    feats = [torch.from_numpy(rng.standard_normal((b, 320 // st, 480 // st, 256), np.float32)).to(card, dtype)
+             for st in (4, 8, 16, 32)]
+    xy = rng.uniform(-20, 460, (b, s, 2))
+    wh = np.exp(rng.uniform(np.log(8), np.log(600), (b, s, 2)))
+    rois = torch.from_numpy(np.concatenate([xy, xy + wh], -1).astype(np.float32)).to(card)
+    levels = assign_fpn_levels(rois, 2, 5)
+    assert set(levels.flatten().tolist()) == {0, 1, 2, 3}
+    return feats, rois, levels
+
+
+SCALES = (0.25, 0.125, 0.0625, 0.03125)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_level_filtered_forward_writes_every_row_once_and_equals_plain(card, dtype):
+    """One launch a level into one output pre-filled with NaN: every row
+    is written, each by its level's launch, within the tolerance of the
+    plain version of that level."""
+    feats, rois, levels = _pyramid(card, dtype)
+    out = torch.full((2, 300, 14, 14, 256), float("nan"), device=card, dtype=dtype)
+    before = kernels.ROI_ALIGN.launches
+    ra._forward_levels_cuda(feats, rois, levels, (14, 14), SCALES, 2, 8, out=out)
+    torch.cuda.synchronize()
+    assert kernels.ROI_ALIGN.launches == before + 4
+    assert not torch.isnan(out).any()
+    for lvl in range(4):
+        mine = levels == lvl
+        ref = ra.roi_align_plain(feats[lvl], rois, (14, 14), SCALES[lvl], 2, 8, 1, levels, lvl)
+        assert _within_tolerance(out[mine], ref[mine], float(feats[lvl].float().abs().max()))
+    assert torch.equal(ra.roi_align_levels(feats, rois, levels, (14, 14), SCALES, 2), out)
+
+
+def test_level_filtered_forward_leaves_other_rows_untouched(card):
+    feats, rois, levels = _pyramid(card, torch.bfloat16, seed=22)
+    out = torch.full((2, 300, 14, 14, 256), 7.0, device=card, dtype=torch.bfloat16)
+    ra._forward_cuda(feats[1], rois, (14, 14), SCALES[1], 2, 8, 1, levels, 1, out)
+    assert bool((out[levels != 1] == 7.0).all()) and not bool((out[levels == 1] == 7.0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_level_filtered_backward_equals_plain_per_level(card, dtype):
+    """Each level's dF from its rois only, against the plain version's
+    autograd gradient of that level; the autograd route launches the
+    forward and the backward once a level."""
+    feats, rois, levels = _pyramid(card, dtype, seed=23)
+    gen = torch.Generator(device=card).manual_seed(24)
+    grad = torch.randn((2, 300, 14, 14, 256), generator=gen, device=card).to(dtype)
+    for lvl in range(4):
+        args = (grad, rois, tuple(feats[lvl].shape), dtype, (14, 14), SCALES[lvl], 2, 8, 1, levels, lvl)
+        out = ra.roi_align_backward(*args)
+        ref = ra.roi_align_backward_plain(*args)
+        assert ref.float().abs().max() > 0
+        assert _within_tolerance(out, ref, float(ref.float().abs().max())), lvl
+    leaves = [f.clone().requires_grad_() for f in feats]
+    fwd, bwd = kernels.ROI_ALIGN.launches, kernels.ROI_ALIGN_BACKWARD.launches
+    pooled = ra.roi_align_levels(leaves, rois, levels, (14, 14), SCALES, 2)
+    pooled.backward(grad)
+    assert kernels.ROI_ALIGN.launches == fwd + 4 and kernels.ROI_ALIGN_BACKWARD.launches == bwd + 4
+    for lvl, leaf in enumerate(leaves):
+        ref = ra.roi_align_backward_plain(grad, rois, tuple(feats[lvl].shape), dtype, (14, 14), SCALES[lvl], 2,
+                                          8, 1, levels, lvl)
+        assert _within_tolerance(leaf.grad, ref, float(ref.float().abs().max())), lvl
+
+
+def test_a_null_level_filter_is_the_unfiltered_launch(card):
+    """Without levels both kernels give what they gave before the filter,
+    bit for bit: the filter with every roi on level 0 changes nothing."""
+    feats, rois, _ = _pyramid(card, torch.bfloat16, seed=25)
+    zeros = torch.zeros(rois.shape[:2], dtype=torch.int32, device=card)
+    plain = ra.roi_align(feats[2], rois, (14, 14), SCALES[2], 2)
+    assert torch.equal(plain, ra._forward_cuda(feats[2], rois, (14, 14), SCALES[2], 2, 8, 1, zeros, 0))
+    grad = torch.randn(plain.shape, device=card).to(torch.bfloat16)
+    args = (grad, rois, tuple(feats[2].shape), torch.bfloat16, (14, 14), SCALES[2], 2, 8, 1)
+    assert torch.equal(ra.roi_align_backward(*args), ra.roi_align_backward(*args, zeros, 0))
+    # a level no roi is on: zero dF, every element written
+    assert not ra.roi_align_backward(*args, zeros, 3).any()

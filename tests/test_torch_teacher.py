@@ -470,11 +470,12 @@ def test_teacher_optimizer_labels_match_jax():
 
 @pytest.mark.parametrize("opts,error", [
     (("MODEL.RETINANET_ON", True), NotImplementedError),
-    (("MODEL.BACKBONE.CONV_BODY", "R-50-FPN"), NotImplementedError),
+    (("MODEL.BACKBONE.CONV_BODY", "R-50-C5"), NotImplementedError),
     (("MODEL.KEYPOINT_ON", True), NotImplementedError),
     (("MODEL.ROI_BOX_HEAD.WSDDN", True), NotImplementedError),
     (("MODEL.RPN_ONLY", True), NotImplementedError),
     (("MODEL.META_ARCHITECTURE", "NoSuchRCNN"), ValueError),
+    (("MODEL.BACKBONE.CONV_BODY", "R-50-FPN-RETINANET"), NotImplementedError),
 ])
 def test_registry_refuses_what_is_not_ported(opts, error):
     with pytest.raises(error):

@@ -286,6 +286,11 @@ def test_mask_predictor_uncertainty_matches_jax(sigma_max):
     tm = torch_mask.MaskPredictor(in_channels=16, num_classes=2, dim_reduced=8, uncertainty=True,
                                   sigma_max=sigma_max)
     tree = bridge.seeded_flax_params(tm, seed=12)
+    # a He-scale log-variance kernel (the seeded tree draws its 0.001
+    # init), so that sigma spreads to both sides of the cap
+    kernel = tree["uncertain_pred"]["kernel"]
+    tree["uncertain_pred"]["kernel"] = (np.random.default_rng(12).standard_normal(kernel.shape)
+                                        * np.sqrt(2.0 / 8)).astype(np.float32)
     tree["uncertain_pred"]["bias"] = np.full((1,), 0.4, np.float32) if sigma_max else tree["uncertain_pred"]["bias"]
     bridge.load_flax_params(tm, tree)
     rng = np.random.RandomState(12)
