@@ -217,6 +217,27 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                 shapes (the 81-class detection NMS, VOC's batch-1 NMS, RoIAlign
                 and backward, the top-2 pseudo boxes' pooling) are timed on their
                 captured inputs.  Deletes its outputs and the VOC tree.
+19. fpn      -- the R-50-FPN body (config.R50_FPN_OPTS) over the teacher and
+                student-teacher configs: serving, train steps, train_net
+                (the teacher, then the student from it) and test_net, every
+                first launch checked; the level-filtered RoIAlign launches
+                and the per-level NMS shapes timed.
+20. retinanet -- RetinaNet (config.RETINANET_OPTS over the supervised COCO
+                setup, 81 classes, INFERENCE_TH 0 for the seeded weights) at
+                full width in bfloat16: 3 serving batches of 8 at 800 x 1333
+                (the detection NMS over 5 levels x 1000 candidates, 80
+                labels, IoU 0.4 -> 100, checked on its first launch; what
+                reaches it printed per image, label and level), the
+                stable-sort top-k of P3's 8 x 12.0 M scores timed beside a
+                keyed selection of the same order and torch.topk, 3
+                Trainer steps (finite losses, the trunk from layer2 on, the
+                FPN and the head change, the stem and layer1 do not; no
+                kernel launch), the loss and the focal loss timed alone;
+                train_net 3 steps, a resume to 4, test_net --ckpt on the
+                eval tree's coco_not_zeroshot_val (box metrics only); then
+                the RPN-only teacher (zeroshot_mask.yaml, MODEL.RPN_ONLY) on
+                the C4 and the FPN body, 2 train_net steps each (the RPN
+                losses alone) and test_net's box_proposal/AR_*@1000.
 One line gives the seconds each phase from 7 on took.  The per-kernel line
 gives, beside each kernel's launches on the earlier paths, its launches on
 the MMSS paths (phase 14 and the MMSS stage of phase 16): 0, on the
@@ -2327,13 +2348,15 @@ def phase_openimages(dev, results):
     shutil.rmtree(tree, ignore_errors=True)
 
 
-def supervised_test(label, argv, out_dir, name, captured):
+def supervised_test(label, argv, out_dir, name, captured, per_batch=None):
     """One in-process ``test_net.main`` run with the first batch of each
     batch shape's launches held against the plain versions, the launch
     counts set to 0 just before and read just after, and the first
     checked detection NMS's inputs (and its candidates' rois, from the
-    postprocessing's top-k) captured under ``captured[label]``.  Returns
-    (metrics, launches, batches, checks, predictions, the metrics file)."""
+    postprocessing's top-k) captured under ``captured[label]``.
+    ``per_batch``: each kernel's launches a batch (default: a two-stage
+    detector's).  Returns (metrics, launches, batches, checks,
+    predictions, the metrics file)."""
     from cvpr22_cross_modal_pseudo_labeling_torch.engine import inference as inf
     from cvpr22_cross_modal_pseudo_labeling_torch.models.roi_heads import box_head
     from cvpr22_cross_modal_pseudo_labeling_torch.ops import kernels
@@ -2388,15 +2411,18 @@ def supervised_test(label, argv, out_dir, name, captured):
         preds = json.load(f)
     with open(os.path.join(out_dir, f"metrics_{name}.json")) as f:
         saved_m = json.load(f)
-    # per batch: the RPN's and the detections' NMS; the proposals' pooling
-    # and, with masks, the detections'
+    # per batch (unless ``per_batch`` says otherwise): the RPN's and the
+    # detections' NMS; the proposals' pooling and, with masks, the
+    # detections'
     n_checked = sum(b["checked"] for b in batches)
-    pools = 2 if "segm/AP" in got[name] else 1
-    check(launches == {"nms": 2 * len(batches), "roi_align": pools * len(batches), "roi_align_backward": 0},
+    if per_batch is None:
+        per_batch = {"nms": 2, "roi_align": 2 if "segm/AP" in got[name] else 1, "roi_align_backward": 0}
+    check(launches == {k: v * len(batches) for k, v in per_batch.items()},
           f"supervised {label}: launches {launches} over {len(batches)} batches")
-    check(len(checks["nms"]) == 2 * n_checked and all(x == 0 for x, _ in checks["nms"]),
+    check(len(checks["nms"]) == per_batch["nms"] * n_checked and all(x == 0 for x, _ in checks["nms"]),
           f"supervised {label}: NMS launches differ from the plain version: {checks['nms']}")
-    check(len(checks["roi_align"]) == pools * n_checked and all(x <= 0 for _, x, _, _ in checks["roi_align"]),
+    check(len(checks["roi_align"]) == per_batch["roi_align"] * n_checked
+          and all(x <= 0 for _, x, _, _ in checks["roi_align"]),
           f"supervised {label}: RoIAlign launches over tolerance: {checks['roi_align']}")
     return got[name], launches, batches, checks, preds, saved_m, seconds
 
@@ -3110,6 +3136,308 @@ def fpn_shapes_timed(dev, captured):
     return shapes
 
 
+# RetinaNet (config.RETINANET_OPTS: maskrcnn_benchmark's retinanet_R-50-FPN_1x,
+# 81 classes, over the supervised phase's COCO setup; INFERENCE_TH 0 for the
+# seeded weights, whose scores spread around the 0.01 prior) and the RPN-only
+# teacher (zeroshot_mask.yaml with MODEL.RPN_ONLY) on the C4 and FPN bodies,
+# at full width in bfloat16; outputs under build/retina_out (deleted at the
+# end of the phase)
+RETINA = dict(batches=3, steps=3, rpn_only_steps=2, out="build/retina_out", timing_iters=10, classes=81)
+RETINA_TRAINED = ("net.backbone.body.layer2.", "net.backbone.body.layer3.", "net.backbone.body.layer4.",
+                  "net.backbone.fpn.", "net.head.")
+RETINA_FROZEN = ("net.backbone.body.stem.", "net.backbone.body.layer1.")
+
+
+def retina_opts():
+    from cvpr22_cross_modal_pseudo_labeling_torch.config import RETINANET_OPTS
+
+    # the seeded weights diverge within 3 steps at the supervised setup's
+    # BASE_LR 0.01 (the gradient norm grows 1.5e3 -> 1.7e5 -> inf on the
+    # CPU rehearsal); the default 0.001 trains them
+    return [*map(str, SUPERVISED["common"]), *map(str, SUPERVISED["coco_opts"]), *map(str, RETINANET_OPTS),
+            "MODEL.RETINANET.INFERENCE_TH", "0.0", "SOLVER.BASE_LR", "0.001"]
+
+
+def keyed_top_k(x, k):
+    """The stable-sort ``top_k``'s order from ``torch.topk`` over unique
+    int64 keys (a float's order-preserving bits high, the inverted index
+    low): a selection in place of a sort of the whole row, timed beside
+    the sort that RetinaNet's inference runs."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32).to(torch.int64)
+    ordered = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+    n = x.shape[-1]
+    keys = ordered * (1 << 32) + torch.arange(n - 1, -1, -1, device=x.device, dtype=torch.int64)
+    idx = torch.topk(keys, k, dim=-1, largest=True, sorted=True).indices
+    return torch.gather(x, -1, idx), idx
+
+
+def retina_candidates(model, inputs):
+    """What reaches the detection NMS of a RetinaNet batch: valid
+    candidates per image, distinct labels among them and valid candidates
+    per level (each level gives its top ``PRE_NMS_TOP_N`` in order)."""
+    _, _, valid, _, _, labels = inputs
+    s = model.statics
+    anchors = list(model.net._anchors.values())[-1]  # the one batch shape served
+    per_level = [min(s.pre_nms_top_n, a.shape[0] * (s.num_classes - 1)) for a in anchors]
+    bounds = np.cumsum([0] + per_level)
+    v = valid.cpu()
+    return dict(candidates_per_level=per_level, valid_per_image=v.sum(1).tolist(),
+                distinct_labels=len(torch.unique(labels.cpu()[v])),
+                valid_per_level=[int(v[:, a:b].sum()) for a, b in zip(bounds[:-1], bounds[1:])])
+
+
+def phase_retinanet(dev, results):
+    """(a) RetinaNet serving, (b) RetinaNet train steps, (c) train_net, a
+    resume and test_net --ckpt, (d) the RPN-only teacher on the C4 and
+    FPN bodies through train_net and test_net; then the detection NMS at
+    RetinaNet's shape, the top-k and the focal loss timed."""
+    import shutil
+
+    from cvpr22_cross_modal_pseudo_labeling_torch import bridge
+    from cvpr22_cross_modal_pseudo_labeling_torch.config import R50_FPN_OPTS
+    from cvpr22_cross_modal_pseudo_labeling_torch.data import make_data_loader
+    from cvpr22_cross_modal_pseudo_labeling_torch.engine import inference as inf
+    from cvpr22_cross_modal_pseudo_labeling_torch.engine.inference import Predictor
+    from cvpr22_cross_modal_pseudo_labeling_torch.engine.train_step import Trainer
+    from cvpr22_cross_modal_pseudo_labeling_torch.models.backbone import device_normalize
+    from cvpr22_cross_modal_pseudo_labeling_torch.models.detector.retinanet import RetinaNetDetector
+    from cvpr22_cross_modal_pseudo_labeling_torch.models.rpn import retinanet as rt
+    from cvpr22_cross_modal_pseudo_labeling_torch.models.rpn.rpn import top_k
+    from cvpr22_cross_modal_pseudo_labeling_torch.ops import kernels
+    from cvpr22_cross_modal_pseudo_labeling_torch.ops import nms as nm
+    from cvpr22_cross_modal_pseudo_labeling_torch.ops.sigmoid_focal_loss import sigmoid_focal_loss
+
+    opts = retina_opts()
+    captured, runs, launches, all_checks, profiles, timed_ = {}, {}, {}, {}, {}, {}
+    b, (h, w) = SERVING["batch"], SERVING["hw"]
+    iters = RETINA["timing_iters"]
+
+    # (a) serving: 3 batches of 8, the first batch's NMS checked and kept
+    pred = Predictor("", opts, device=dev)
+    pred.load_flax_params(bridge.seeded_flax_params(pred.model, SEED))
+    check(isinstance(pred.model, RetinaNetDetector) and pred.cfg.TPU.COMPUTE_DTYPE == "bfloat16"
+          and pred.cfg.MODEL.RPN_ONLY and pred.model.statics.num_classes == RETINA["classes"],
+          f"retinanet: built {type(pred.model).__name__} in {pred.cfg.TPU.COMPUTE_DTYPE}")
+    rng = np.random.default_rng(SEED + 10)
+    batches = []
+    for _ in range(RETINA["batches"]):
+        sizes = np.stack([rng.integers(3 * h // 4, h + 1, b), rng.integers(2 * w // 3, w + 1, b)], 1)
+        sizes[0] = (h, w)
+        batches.append((rng.integers(0, 256, (b, h, w, 3), dtype=np.uint8), sizes.astype(np.int32)))
+    checks, check_nms, _, _ = launch_checks()
+
+    def serving_nms(inputs, out):
+        captured.setdefault("serving_nms", inputs)
+        check_nms(inputs, out)
+
+    lat, outs, first, path, peak = fpn_steps(lambda x: pred(x[0], x[1]), batches, 1, (serving_nms, None, None))
+    for i, (dets, masks) in enumerate(outs):
+        check(dets.boxes.shape == (b, 100, 4) and masks is None, f"retinanet serving: shapes {dets.boxes.shape}")
+        check(np.isfinite(dets.boxes).all() and np.isfinite(dets.scores).all(), "retinanet serving: non-finite")
+        check(bool(dets.valid.any(1).all()), f"retinanet serving: batch {i} has an image without detections")
+        labels = dets.labels[dets.valid]
+        check(labels.min() >= 1 and labels.max() < RETINA["classes"], "retinanet serving: a label off the classes")
+    check(first == {"nms": 1, "roi_align": 0, "roi_align_backward": 0} and len(checks["nms"]) == 1
+          and checks["nms"][0][0] == 0 and path["nms"] == RETINA["batches"],
+          f"retinanet serving: launches {first} / {path}, checks {checks['nms']}")
+    candidates = retina_candidates(pred.model, captured["serving_nms"])
+    check(min(candidates["valid_per_image"]) > 0 and min(candidates["valid_per_level"]) > 0
+          and candidates["distinct_labels"] > 1, f"retinanet serving: a degenerate NMS input {candidates}")
+    steady = lat[1:]
+    runs["serving"] = dict(batch_latency_s=lat, steady_images_per_s=b * len(steady) / sum(steady),
+                           steady_peak_memory_gb=peak, valid_detections=[d.valid.sum(1).tolist() for d, _ in outs],
+                           labels_detected=len(np.unique(np.concatenate([d.labels[d.valid] for d, _ in outs]))),
+                           nms_input=candidates)
+    launches["serving"], all_checks["serving"] = path, checks
+    emit(dict(phase="retinanet_serving", launches=path, **runs["serving"]))
+    profiles["serving"] = profile_groups(lambda: pred(*batches[-1]))
+
+    # the top-k of the largest level (P3: 8 x 12.0 M scores): the stable
+    # sort the path runs, a keyed selection of the same order, and
+    # torch.topk, whose order among ties is not lax.top_k's
+    with torch.no_grad():
+        images, sizes = (torch.as_tensor(x).to(dev) for x in batches[0])
+        s = pred.model.statics
+        feats = pred.model.net.backbone(device_normalize(images, sizes, s.pixel_mean, s.pixel_std, s.to_bgr255))
+        p3 = torch.sigmoid(pred.model.net.head(feats[:1])[0][0].reshape(b, -1).to(torch.float32))
+        del feats
+        k = s.pre_nms_top_n
+        keyed, ref = keyed_top_k(p3, k), top_k(p3, k)
+        check(torch.equal(keyed[0], ref[0]) and torch.equal(keyed[1], ref[1]),
+              "retinanet: the keyed top-k differs from the stable sort")
+        timed_["top_k"] = dict(
+            shape=list(p3.shape), k=k, distinct_in_top_k=[len(torch.unique(v)) for v in ref[0]],
+            sort_ms=cuda_ms(lambda: top_k(p3, k), iters), keyed_ms=cuda_ms(lambda: keyed_top_k(p3, k), iters),
+            torch_topk_ms=cuda_ms(lambda: torch.topk(p3, k), iters))
+        del p3, keyed, ref
+    del pred
+    torch.cuda.empty_cache()
+
+    # (b) 3 Trainer steps of 8: no kernel of the port on this path
+    trainer = Trainer("", opts, device=dev, seed=SEED)
+    trainer.load_flax_params(bridge.seeded_flax_params(trainer.model, SEED))
+    model = trainer.model
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+    frozen = [n for n, p in model.named_parameters() if not p.requires_grad]
+    check(sorted(frozen) == sorted(n for n in start if n.startswith(RETINA_FROZEN)),
+          f"retinanet train: frozen {frozen[:5]}")
+    buffers = {n: x.clone() for n, x in model.named_buffers()}
+    rng = np.random.default_rng(SEED + 11)
+    tb = [rcnn_batch(train_batch(rng, TRAIN["batch"], TRAIN["hw"], TRAIN["max_gt"], TRAIN["nouns"],
+                                 TRAIN["noun_tokens"], TRAIN["lvis"], RETINA["classes"]))
+          for _ in range(RETINA["steps"])]
+    lat, outs, first, path, peak = fpn_steps(trainer.step, tb, 0, (None, None, None))
+    metrics = [{k: float(v) for k, v in m.items()} for m in outs]
+    check(all(np.isfinite(v) for m in metrics for v in m.values()) and set(metrics[0]) ==
+          {"loss_retina_cls", "loss_retina_reg", "total_loss", "grad_norm"}, f"retinanet train: metrics {metrics}")
+    params = dict(model.named_parameters())
+    unchanged = [n for n in start if n.startswith(RETINA_TRAINED) and torch.equal(params[n], start[n])]
+    # a bias (no weight decay) whose gradient is 0 or under an ulp of its
+    # value per update (behind ReLUs nearly all off on P7) may stay put
+    still = [n for n in unchanged if n.endswith(".bias")]
+    moved = [n for n in frozen if not torch.equal(params[n], start[n])]
+    moved += [n for n, x in model.named_buffers() if not torch.equal(x, buffers[n])]
+    check(unchanged == still and len(still) < 4 and not moved,
+          f"retinanet train: unchanged {unchanged[:5]}, frozen moved {moved[:5]}")
+    check(not any(path.values()), f"retinanet train: a kernel launched in training: {path}")
+    steady = lat[1:]
+    runs["train"] = dict(step_latency_s=lat, steady_step_s=sum(steady) / len(steady),
+                         steady_images_per_s=TRAIN["batch"] * len(steady) / sum(steady),
+                         steady_peak_memory_gb=peak, metrics=metrics, unchanged_biases=still)
+    launches["train"] = path
+    emit(dict(phase="retinanet_train", launches=path, **runs["train"]))
+    profiles["train"] = profile_groups(lambda: trainer.step(tb[-1]))
+    # the loss alone at the step's shapes: the focal loss, then the whole
+    # loss (matching, focal, smooth-L1), forward and backward, float32
+    anchors = torch.cat(list(model.net._anchors.values())[-1])
+    n_anchors, num_fg = anchors.shape[0], RETINA["classes"] - 1
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED)
+    logits = (torch.randn((TRAIN["batch"], n_anchors, num_fg), device=dev, generator=g) - 4.6).requires_grad_(True)
+    reg = torch.randn((TRAIN["batch"], n_anchors, 4), device=dev, generator=g).mul_(0.1).requires_grad_(True)
+    targets = torch.randint(-1, num_fg + 1, (TRAIN["batch"], n_anchors), device=dev, generator=g)
+    batch_t = {k: torch.as_tensor(v).to(dev) for k, v in tb[0].items()}
+
+    def focal():
+        sigmoid_focal_loss(logits, targets, 2.0, 0.25).sum().backward()
+
+    def loss():
+        cls, box = rt.retinanet_loss(anchors, logits, reg, batch_t["gt_boxes"], batch_t["gt_labels"],
+                                     batch_t["gt_valid"], model.statics)
+        (cls + box).backward()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    loss()
+    torch.cuda.synchronize()
+    timed_["loss"] = dict(anchors=n_anchors, logits_shape=list(logits.shape),
+                          focal_ms=cuda_ms(focal, 3), loss_ms=cuda_ms(loss, 3),
+                          loss_peak_gb=(torch.cuda.max_memory_allocated() - base) / 1e9,
+                          step_device_ms=profiles["train"]["device_ms"])
+    del logits, reg, targets, batch_t, trainer, model, start, buffers, outs
+    torch.cuda.empty_cache()
+    emit(dict(phase="retinanet_timing", **timed_))
+
+    # (c) train_net 3 steps, a resume to 4, test_net --ckpt on the eval tree
+    check(os.path.isdir(EVAL["tree"]), f"retinanet: no tree at {EVAL['tree']} (the eval phase writes it)")
+    os.environ["CMPL_TPU_DATA_DIR"] = EVAL["tree"]
+    out = RETINA["out"]
+    shutil.rmtree(out, ignore_errors=True)
+    common = ["--device", dev.type, "--seed", str(SEED)]
+    steps = RETINA["steps"]
+    try:
+        r_dir = os.path.join(out, "retina")
+        kernels.reset_launches()
+        rec, runs["train_net"], _, logged = train_net_run(
+            ["--skip-test", *common, *opts, "SOLVER.MAX_ITER", str(steps), "SOLVER.CHECKPOINT_PERIOD", str(steps)],
+            r_dir)
+        check(isinstance(rec["trainer"].model, RetinaNetDetector) and rec["start_iter"] == 0,
+              f"retinanet train_net: {type(rec['trainer'].model).__name__} from {rec['start_iter']}")
+        del rec
+        rec, runs["train_net_resume"], log, logged = train_net_run(
+            ["--skip-test", *common, *opts, "SOLVER.MAX_ITER", str(steps + 1), "SOLVER.CHECKPOINT_PERIOD",
+             str(steps + 1), "MODEL.LOAD_TRAINER_STATE", "True"], r_dir)
+        launches["train_net"] = {k.name: k.launches for k in kernels.ALL}
+        check(rec["start_iter"] == steps and "resumed from" in log
+              and [r["step"] for r in logged] == list(range(1, steps + 2))
+              and all(np.isfinite(v) for r in logged for v in r.values()),
+              f"retinanet train_net: start {rec['start_iter']}, logged {logged}")
+        check(not any(launches["train_net"].values()), f"retinanet train_net: launches {launches['train_net']}")
+        del rec
+        torch.cuda.empty_cache()
+        name = "coco_not_zeroshot_val"
+        m, launches["test_net"], tbatches, checks, preds, saved_m, test_s = supervised_test(
+            "retinanet", ["--ckpt", os.path.join(r_dir, f"model_{steps + 1:07d}.pth"), *common, *opts],
+            os.path.join(out, "test"), name, captured, per_batch={"nms": 1, "roi_align": 0, "roi_align_backward": 0})
+        _, (ds,) = make_data_loader(inf.load_cfg("", opts), is_train=False)
+        per_image = {}
+        for pr in preds:
+            per_image[pr["image_id"]] = per_image.get(pr["image_id"], 0) + 1
+        check(set(per_image) == set(ds.id_to_img_map.values()) and max(per_image.values()) <= 100,
+              f"retinanet test_net: {len(set(ds.id_to_img_map.values()) - set(per_image))} images without a result")
+        bad, _ = metrics_finite(saved_m, ds)
+        check(not bad and "bbox/AP" in saved_m and "segm/AP" not in saved_m
+              and not any(k.startswith("box_proposal") for k in saved_m),
+              f"retinanet test_net: metrics {bad[:5]} {sorted(saved_m)[:5]}")
+        runs["test_net"] = dict(seconds=test_s, batches=len(tbatches), results=len(preds),
+                                images_per_s=len(ds) / test_s, bbox_AP=m["bbox/AP"],
+                                **{k[5:]: m[k] for k in m if k.startswith("time/")})
+        all_checks["test_net"] = checks
+
+        # (d) the RPN-only teacher, C4 and FPN: train_net, then test_net's
+        # proposal recall (an RPN NMS a level a batch)
+        for body, extra, per_level in (("c4", [], 1), ("fpn", [str(x) for x in R50_FPN_OPTS], 5)):
+            d = os.path.join(out, f"rpn_only_{body}")
+            argv = ["--config-file", TEACHER, *common, *map(str, TRAIN_NET["opts"]), *extra,
+                    "MODEL.RPN_ONLY", "True", "DATASETS.TEST", "('coco_generalized_zeroshot_val',)"]
+            n = RETINA["rpn_only_steps"]
+            kernels.reset_launches()
+            rec, runs[f"rpn_only_{body}_train_net"], _, logged = train_net_run(
+                ["--skip-test", *argv, "SOLVER.MAX_ITER", str(n), "SOLVER.CHECKPOINT_PERIOD", str(n),
+                 "SOLVER.TEST_PERIOD", "0"], d)
+            launches[f"rpn_only_{body}_train_net"] = {k.name: k.launches for k in kernels.ALL}
+            check(rec["trainer"].model.statics.rpn_only and [r["step"] for r in logged] == list(range(1, n + 1))
+                  and all(np.isfinite(v) for r in logged for v in r.values())
+                  and all("loss_objectness" in r and "loss_classifier" not in r for r in logged)
+                  and not any(launches[f"rpn_only_{body}_train_net"].values()),
+                  f"rpn_only {body} train_net: logged {logged}, launches {launches[f'rpn_only_{body}_train_net']}")
+            del rec
+            torch.cuda.empty_cache()
+            name = "coco_generalized_zeroshot_val"
+            m, launches[f"rpn_only_{body}_test_net"], tbatches, checks, props, saved_m, test_s = supervised_test(
+                f"rpn_only_{body}", ["--ckpt", os.path.join(d, f"model_{n:07d}.pth"), *argv],
+                os.path.join(out, f"rpn_only_{body}_test"), name, captured,
+                per_batch={"nms": per_level, "roi_align": 0, "roi_align_backward": 0})
+            ar = {k: v for k, v in saved_m.items() if k.startswith("box_proposal/")}
+            check(sorted(ar) == sorted(f"box_proposal/AR_{a}@1000" for a in ("all", "large", "medium", "small"))
+                  and np.isfinite(ar["box_proposal/AR_all@1000"]) and "bbox/AP" not in saved_m
+                  and len(props) == EVAL["val"], f"rpn_only {body} test_net: {saved_m}, {len(props)} images")
+            runs[f"rpn_only_{body}_test_net"] = dict(seconds=test_s, batches=len(tbatches), images_per_s=EVAL["val"] / test_s,
+                                                     proposals=sum(len(v) for v in props.values()), **ar)
+            all_checks[f"rpn_only_{body}_test_net"] = checks
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    check(all(launches[p]["nms"] > 0 for p in ("serving", "test_net", "rpn_only_c4_test_net", "rpn_only_fpn_test_net")),
+          f"retinanet: a path's NMS never launched: {launches}")
+
+    # the detection NMS at RetinaNet's shape, on the first serving batch's
+    # inputs (5 levels x 1000 candidates, 80 labels, IoU 0.4 -> 100)
+    inputs = captured.pop("serving_nms")
+    boxes, scores, valid, thr, k, labels = inputs
+    idx, keep = nm.nms(*inputs)
+    bound_ms, bound_by, _ = nms_bound(scores, valid, labels, idx, keep, k)
+    shapes = {f"nms {boxes.shape[0]} x {boxes.shape[1]} -> {k}, {int(labels.max())} labels, IoU {thr}": dict(
+        kept=int(keep.sum()), ms=cuda_ms(lambda: nm.nms(*inputs), 2 * iters),
+        plain_ms=cuda_ms(lambda: nm.nms_plain(*inputs), 2), bound_ms=bound_ms, bound_by=bound_by)}
+    captured.clear()
+    rec = dict(phase="retinanet", opts=opts, dtype="bfloat16", batch=b, image_hw=[h, w], runs=runs,
+               launches=launches, new_shapes=shapes, timing=timed_, profiles=profiles,
+               checks={k: check_lists(v) for k, v in all_checks.items()})
+    emit(rec)
+    results["retinanet"] = rec
+
+
 
 def count_syncs(run):
     """The synchronizing CUDA calls one call of ``run`` makes (blocking
@@ -3141,6 +3469,11 @@ def kernels_line(results):
     oi_evals = oi["evals"].values()
     sup = results["supervised"]
     fp = results["fpn"]
+    rn = results["retinanet"]
+
+    def retina_launches(kernel):
+        # RetinaNet's and the RPN-only teacher's paths (phase 20)
+        return {f"retinanet_{path}_launches": n[kernel] for path, n in rn["launches"].items()}
 
     def fpn_launches(kernel):
         # the R-50-FPN models' paths (phase 19)
@@ -3191,6 +3524,7 @@ def kernels_line(results):
              openimages_bbox_aug_merge_launches=oi["evals"]["bbox_aug"]["merge_launches"],
              **sup_launches("nms"),
              **fpn_launches("nms"),
+             **retina_launches("nms"),
              launch_unit="one nms_forward call: a memset, then a mask and a scan "
                          "kernel per column band",
              max_abs_err=float(max(serving["first_batch_checks"]["nms_mismatches"]
@@ -3204,6 +3538,7 @@ def kernels_line(results):
                                    + oi["evals"]["bbox_aug"]["merge_nms_mismatches"]
                                    + sup_errs("nms_mismatches")
                                    + fpn_errs("nms_mismatches")
+                                   + [x for c in rn["checks"].values() for x in c["nms_mismatches"]]
                                    + [results[f"nms_{c[0]}"]["mismatches"] for c in NMS_CASES]
                                    + [results["nms_rpn_dense"]["one_band_mismatches"]])),
              ms=nms_rpn["ms"], plain_ms=nms_rpn["plain_ms"],
@@ -3213,7 +3548,8 @@ def kernels_line(results):
              openimages_shapes={v["shape"]: shape_rec(v) for k, v in oi["new_shapes"].items()
                                 if k.startswith("nms_")},
              supervised_shapes=sup_shapes("nms_"),
-             fpn_shapes=fpn_shapes("nms")),
+             fpn_shapes=fpn_shapes("nms"),
+             retinanet_shapes={k[4:]: shape_rec(v) for k, v in rn["new_shapes"].items()}),
         dict(name="roi_align", route="cuda",
              source="cvpr22_cross_modal_pseudo_labeling_torch/csrc/roi_align.cu",
              replaces="tools/proto_pallas_roialign.py:146",
@@ -3228,6 +3564,7 @@ def kernels_line(results):
              **oi_launches("roi_align"),
              **sup_launches("roi_align"),
              **fpn_launches("roi_align"),
+             **retina_launches("roi_align"),
              fpn_launch_unit="the FPN pooler launches the kernel once a level (P2..P5) into one output; "
                              "each launch counts one",
              max_abs_err=max(serving["first_batch_checks"]["roi_align_max_abs_err"]
@@ -3265,6 +3602,7 @@ def kernels_line(results):
              **oi_launches("roi_align_backward"),
              **sup_launches("roi_align_backward"),
              **fpn_launches("roi_align_backward"),
+             **retina_launches("roi_align_backward"),
              launch_unit="one roi_align_backward call: the plan kernel (each roi's tap "
                          "lists), then the tile kernel (each tile of dF summed in shared "
                          "memory, written once in bfloat16)",
@@ -3357,6 +3695,8 @@ def main():
     timed("supervised", phase_supervised, dev, results)
     torch.cuda.empty_cache()
     timed("fpn", phase_fpn, dev, results)
+    torch.cuda.empty_cache()
+    timed("retinanet", phase_retinanet, dev, results)
     emit(dict(phase="timing", **seconds))
 
     smi = subprocess.run(

@@ -260,13 +260,18 @@ def seeded_flax_params(model: nn.Module, seed: int, emb_pred_std: float = 0.01):
     ``emb_pred_std``; the stem 1/64 of He, as pixels enter at O(100)),
     frozen BN a near-identity affine, biases small noise.  The BERT and
     transformer-head kernels and every embedding table draw BERT's N(0,
-    0.02), LayerNorm scales a near-identity."""
+    0.02), LayerNorm scales a near-identity.  The RetinaNet head's towers
+    draw the FPN's 1 / fan_in variance (JAX's normal(0.01) would shrink
+    every score to the prior), its ``cls_logits`` the head's normal(0.01)
+    and keeps its prior bias: the scores spread around ``PRIOR_PROB``."""
     rng = np.random.default_rng(seed)
     tree = flax_from_state_dict(model)
 
-    def draw(path, shape):
-        leaf = path[-1]
+    def draw(path, value):
+        leaf, shape = path[-1], value.shape
         name = "/".join(path)
+        if path[-3:] == ("head", "cls_logits", "bias"):
+            return value  # RetinaNetHead's prior bias
         if leaf == "kernel":
             if "language_backbone" in path or "transformer_head" in path:
                 return rng.standard_normal(shape, np.float32) * np.float32(0.02)
@@ -282,6 +287,12 @@ def seeded_flax_params(model: nn.Module, seed: int, emb_pred_std: float = 0.01):
                 # the log-variance head: sigma = exp(logit / 2), so a
                 # He-scale draw makes sigma span orders of magnitude
                 std = 0.001
+            elif "head" in path and path[-2].startswith(("cls_tower", "bbox_tower")):
+                # the RetinaNet towers: the FPN's variance, so that four
+                # of them bring the levels' O(10) features down to O(1)
+                std = float(np.sqrt(1.0 / np.prod(shape[:-1])))
+            elif "head" in path and path[-2] == "cls_logits":
+                std = 0.01  # RetinaNetHead's own init
             elif "fpn" in path:
                 # no ReLU follows the FPN's convs: the reference's
                 # kaiming_uniform(a=1) variance, 1 / fan_in (JAX's
@@ -310,7 +321,7 @@ def seeded_flax_params(model: nn.Module, seed: int, emb_pred_std: float = 0.01):
 
     def walk(node, path):
         return {
-            k: walk(v, path + (k,)) if isinstance(v, dict) else draw(path + (k,), v.shape)
+            k: walk(v, path + (k,)) if isinstance(v, dict) else draw(path + (k,), v)
             for k, v in node.items()
         }
 

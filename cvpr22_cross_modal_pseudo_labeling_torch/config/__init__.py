@@ -16,4 +16,17 @@ R50_FPN_OPTS = [
     "MODEL.ROI_BOX_HEAD.POOLER_SAMPLING_RATIO", 2,
 ]
 
-__all__ = ["CfgNode", "R50_FPN_OPTS", "get_default_cfg"]
+# maskrcnn_benchmark's configs/retinanet/retinanet_R-50-FPN_1x.yaml over a
+# detector config: the RetinaNet detector (RETINANET_ON; the reference sets
+# RPN_ONLY beside it, and JAX still runs the box evaluation), no masks,
+# 256 FPN channels.  The MODEL.RETINANET keys keep the defaults, which are
+# that config's.
+RETINANET_OPTS = [
+    "MODEL.RETINANET_ON", True,
+    "MODEL.BACKBONE.CONV_BODY", "R-50-FPN-RETINANET",
+    "MODEL.RESNETS.BACKBONE_OUT_CHANNELS", 256,
+    "MODEL.MASK_ON", False,
+    "MODEL.RPN_ONLY", True,
+]
+
+__all__ = ["CfgNode", "R50_FPN_OPTS", "RETINANET_OPTS", "get_default_cfg"]

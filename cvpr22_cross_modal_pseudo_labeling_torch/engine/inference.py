@@ -13,9 +13,9 @@ the JAX package's ``compute_on_dataset`` and ``inference`` (:25-211,
 loader feeds it, a thread pool converts each batch to COCO results while
 the card computes the next, and the port's evaluator scores them.
 ``compute_on_dataset_bbox_aug`` ports JAX's test-time augmentation
-(:214-318, ``TEST.BBOX_AUG``) over the same ``Predictor``.  One
-process; proposal evaluation (``MODEL.RPN_ONLY``) is not ported yet
-(ROADMAP.md queue A item 2).
+(:214-318, ``TEST.BBOX_AUG``) over the same ``Predictor``, and
+``evaluate_proposals`` its proposal evaluation (:321-389), which
+``inference`` runs for an RPN-only model.  One process.
 """
 
 import concurrent.futures as cf
@@ -256,16 +256,12 @@ def compute_on_dataset(
 
 
 def check_eval_options(cfg) -> None:
-    """Refuses the eval options the port does not run yet."""
-    if cfg.MODEL.RPN_ONLY:
-        raise NotImplementedError(
-            "MODEL.RPN_ONLY: proposal evaluation is not ported yet "
-            "(ROADMAP.md queue A item 2)"
-        )
-    if cfg.MODEL.GT_BOX_EVAL and cfg.MODEL.META_ARCHITECTURE not in RCNN_FAMILY:
+    """Refuses the eval options that the model cannot serve."""
+    if cfg.MODEL.GT_BOX_EVAL and (cfg.MODEL.META_ARCHITECTURE not in RCNN_FAMILY or cfg.MODEL.RETINANET_ON):
         raise ValueError(
-            f"MODEL.GT_BOX_EVAL: {cfg.MODEL.META_ARCHITECTURE} scores no given boxes; "
-            "the GeneralizedRCNN family does"
+            f"MODEL.GT_BOX_EVAL: {cfg.MODEL.META_ARCHITECTURE}"
+            f"{' with MODEL.RETINANET_ON' if cfg.MODEL.RETINANET_ON else ''} scores no given boxes; "
+            "the GeneralizedRCNN family's two-stage detectors do"
         )
 
 
@@ -399,6 +395,57 @@ def compute_on_dataset_bbox_aug(
     }
 
 
+def evaluate_proposals(
+    predictor: Predictor, loader, dataset, limit: int = 1000, output_file: Optional[str] = None,
+) -> Dict[str, float]:
+    """The RPN-only model's evaluation (JAX's ``evaluate_proposals``,
+    ``tpu/engine/inference.py:321``): each image's valid proposals,
+    scaled from the input frame back to the original image, then
+    ``box_proposal/AR_{all,small,medium,large}@limit`` from
+    ``data/evaluation/box_proposals.py``.  ``output_file`` receives the
+    proposals, ``{image_id: [[x1, y1, x2, y2, score], ...]}``.  Besides
+    the recalls the dict holds ``total_eval_seconds`` and the pass's
+    ``time/`` figures (``images``, ``device_s_per_img``,
+    ``e2e_images_per_s``)."""
+    from ..data.evaluation.box_proposals import evaluate_box_proposals
+
+    start = time.time()
+    proposals_by_image: Dict[int, np.ndarray] = {}
+    device_s = 0.0
+    for batch, indices in loader:
+        t = time.perf_counter()
+        dets, _ = predictor(batch["images"], batch["image_sizes"], None)
+        device_s += time.perf_counter() - t
+        for bi, ds_index in enumerate(indices):
+            info = dataset.get_img_info(ds_index)
+            ih, iw = batch["image_sizes"][bi]
+            sx, sy = info["width"] / iw, info["height"] / ih
+            keep = dets.valid[bi]
+            boxes = dets.boxes[bi][keep] * np.array([sx, sy, sx, sy], np.float32)
+            img_id = (
+                dataset.id_to_img_map[ds_index]
+                if hasattr(dataset, "id_to_img_map")
+                else info.get("id", ds_index)
+            )
+            proposals_by_image[img_id] = np.concatenate(
+                [boxes, dets.scores[bi][keep][:, None]], axis=1
+            ).astype(np.float64)
+    if output_file:
+        import json
+
+        with open(output_file, "w") as f:
+            json.dump({int(k): v.tolist() for k, v in proposals_by_image.items()}, f)
+    out = {}
+    for area in ("all", "small", "medium", "large"):
+        res = evaluate_box_proposals(proposals_by_image, dataset.coco, area=area, limit=limit)
+        out[f"box_proposal/AR_{area}@{limit}"] = res["ar"]
+    n = len(proposals_by_image)
+    wall = time.time() - start
+    out.update({"time/images": float(n), "time/device_s_per_img": device_s / max(n, 1),
+                "time/e2e_images_per_s": n / wall, "total_eval_seconds": wall})
+    return out
+
+
 def inference(
     predictor: Predictor,
     loader,
@@ -419,8 +466,12 @@ def inference(
     (:func:`bbox_aug_options`) switches to the test-time augmentation
     path, which is box-only and reads the dataset, not ``loader``.  A
     dataset without class embeddings (VOC, Cityscapes) serves a
-    class-specific detector only."""
+    class-specific detector only.  An RPN-only model (its statics'
+    ``rpn_only``, as JAX dispatches: not RetinaNet's, which have none)
+    goes to :func:`evaluate_proposals`."""
     check_eval_options(predictor.cfg)
+    if getattr(getattr(predictor.model, "statics", None), "rpn_only", False):
+        return evaluate_proposals(predictor, loader, dataset, output_file=output_file)
     start = time.time()
     table = getattr(dataset, "class_emb_mtx", None)
     if bbox_aug:

@@ -1,8 +1,9 @@
 """Training entry point: a config file in, one SGD step per batch.
 
 Counterpart of ``cvpr22_cross_modal_pseudo_labeling_tpu/engine/
-train_step.py``: the ``GeneralizedRCNN``, student-teacher and MMSS
-branches of ``build_loss_fn`` (:61), ``build_train_step`` (:180) and
+train_step.py``: the ``GeneralizedRCNN`` (RetinaNet and the RPN-only
+detector included: their losses are RetinaNet's two or the RPN's),
+student-teacher and MMSS branches of ``build_loss_fn`` (:61), ``build_train_step`` (:180) and
 ``build_val_loss_step`` (:211).  One step is the training forward, the
 sum of its losses, the backward and one optimizer step; its metrics are
 each loss, the model's info (``avg_uncertain``, ``adaptive_lamb`` for the

@@ -40,9 +40,13 @@ Also here, shared with the student-teacher model: the output types, the
 random draws of a training forward (:class:`TrainDraws`) and the pieces
 of the forward both detectors run (:func:`check_ported`,
 :func:`detector_backbone`, :func:`num_cell_anchors`, :class:`AnchorCache`,
-:func:`select_proposals`, :func:`detect`).  Not ported, and refused: the
-C5 and RetinaNet bodies,
-``KEYPOINT_ON``, ``WSDDN``, ``RPN_ONLY``, the ``class_valid`` row mask
+:func:`select_proposals`, :func:`detect`).
+
+The RPN-only detector (``MODEL.RPN_ONLY``, JAX :282 and :428-437) trains
+the RPN losses alone and serves the proposals as detections (boxes,
+sigmoid objectness as scores, label 0), which ``engine/inference.py::
+evaluate_proposals`` scores by recall.  Not ported, and refused: the
+C5 body, ``KEYPOINT_ON``, ``WSDDN``, the ``class_valid`` row mask
 (it serves only class tables padded to a TPU mesh axis), the
 ``pseudo_sample_weights`` argument of the training forward, and
 ``run_teacher_pseudo_branch`` / ``predict_masks_for_boxes`` (no caller
@@ -91,12 +95,16 @@ class TrainDraws(NamedTuple):
 def check_ported(s: RCNNStatics) -> None:
     """Raises NotImplementedError for a configuration the port does not
     run yet, and ValueError for one that JAX cannot run either."""
-    if s.conv_body.endswith("-FPN-RETINANET") or not s.conv_body.endswith(("-C4", "-FPN")):
+    if s.conv_body.endswith("-FPN-RETINANET"):
+        # JAX's GeneralizedRCNN reads it as an FPN depth and fails
+        raise ValueError(
+            f"CONV_BODY {s.conv_body} is RetinaNet's body: set MODEL.RETINANET_ON True"
+        )
+    if not s.conv_body.endswith(("-C4", "-FPN")):
         raise NotImplementedError(
             f"CONV_BODY {s.conv_body}: only the C4 and FPN bodies are ported yet"
         )
-    for on, key in ((s.keypoint_on, "MODEL.KEYPOINT_ON"), (s.wsddn, "MODEL.ROI_BOX_HEAD.WSDDN"),
-                    (s.rpn_only, "MODEL.RPN_ONLY")):
+    for on, key in ((s.keypoint_on, "MODEL.KEYPOINT_ON"), (s.wsddn, "MODEL.ROI_BOX_HEAD.WSDDN")):
         if on:
             raise NotImplementedError(f"{key} is not ported yet")
     if s.embedding_based and not s.cls_agnostic_bbox_reg:
@@ -256,12 +264,15 @@ class GeneralizedRCNN(RoIHeadsBundle):
             images, image_sizes, class_embeddings, batch, compute_uncertain, draws, generator
         )
 
-    def _rpn_forward(self, images, image_sizes, train: bool):
+    def _rpn_forward(self, images, image_sizes, train: bool, select: bool = True):
+        """The trunk, the RPN head and (with ``select``) the proposals."""
         feats = self.backbone(images)
         obj_l, reg_l = self.rpn_head(feats)
         objectness, box_reg = flatten_rpn_outputs(obj_l, reg_l)
         anchor_list, anchors = self.anchors(feats)
-        proposals = select_proposals(self.statics, anchor_list, objectness, box_reg, image_sizes, train)
+        proposals = None
+        if select:
+            proposals = select_proposals(self.statics, anchor_list, objectness, box_reg, image_sizes, train)
         return feats, objectness, box_reg, anchors, proposals
 
     def forward_train(
@@ -269,8 +280,10 @@ class GeneralizedRCNN(RoIHeadsBundle):
         draws: TrainDraws = TrainDraws(), generator: Optional[torch.Generator] = None,
     ) -> RCNNTrainOutput:
         s = self.statics
+        # the RPN-only detector trains no RoI head: JAX's compiled step
+        # drops its unused proposals, and the port selects none
         feats, objectness, box_reg, anchors, proposals = self._rpn_forward(
-            images, image_sizes, train=True
+            images, image_sizes, train=True, select=not s.rpn_only
         )
         gt_boxes = batch["gt_boxes"].to(torch.float32)
         gt_labels = batch["gt_labels"]
@@ -295,6 +308,9 @@ class GeneralizedRCNN(RoIHeadsBundle):
             )
             losses["loss_objectness"] = obj_loss
             losses["loss_rpn_box_reg"] = rpn_box_loss
+
+        if s.rpn_only:
+            return RCNNTrainOutput(losses, info)
 
         # add_gt_proposals (rpn/inference.py:53-74)
         sampled = subsample_rois(
@@ -336,6 +352,11 @@ class GeneralizedRCNN(RoIHeadsBundle):
 
     def forward_eval(self, images, image_sizes, class_embeddings=None, gt_eval=None) -> RCNNEvalOutput:
         feats, _, _, _, proposals = self._rpn_forward(images, image_sizes, train=False)
+        if self.statics.rpn_only:
+            # the proposals themselves, scored by recall
+            # (engine/inference.py::evaluate_proposals)
+            labels = torch.zeros(proposals.scores.shape, dtype=torch.int32, device=proposals.scores.device)
+            return RCNNEvalOutput(Detections(proposals.boxes, proposals.scores, labels, proposals.valid), None)
         override = None
         if gt_eval is not None:
             valid = gt_eval["valid"].to(torch.bool)

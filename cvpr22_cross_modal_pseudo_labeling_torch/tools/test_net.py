@@ -7,9 +7,10 @@
 For each of the config's ``DATASETS.TEST`` it runs the port's loader, a
 ``Predictor`` on ``--device`` (``cuda`` unless the CPU is asked for; it
 raises without a card) for any detector of the ``GeneralizedRCNN`` and
-``STGeneralizedRCNN`` families, and the port's evaluator (the COCO
-protocol, or VOC's ``bbox/mAP`` and ``bbox/mAP_07metric`` on a VOC
-dataset), and writes ``predictions_{name}.json`` and
+``STGeneralizedRCNN`` families (RetinaNet included), and the port's
+evaluator (the COCO protocol, VOC's ``bbox/mAP`` and ``bbox/mAP_07metric``
+on a VOC dataset, or the proposals' ``box_proposal/AR_*@1000`` for an
+RPN-only model, whose ``predictions_{name}.json`` holds the proposals), and writes ``predictions_{name}.json`` and
 ``metrics_{name}.json`` into ``OUTPUT_DIR``.  The datasets are found under ``CMPL_TPU_DATA_DIR``.
 With ``TEST.BBOX_AUG.ENABLED`` the detections come from the test-time
 augmentation (``engine/inference.py::compute_on_dataset_bbox_aug``),

@@ -6,8 +6,9 @@
 
 It trains the model the config names (MMSS pretraining ``MMSS-GCNN``;
 ``GeneralizedRCNN``, the teacher or a class-specific supervised
-detector, or one of its baseline skeletons ``SBBaseline``, ``OMP`` and
-``BA_RPN``; the student ``STGeneralizedRCNN`` or one of its baselines
+detector, the RPN-only detector (``MODEL.RPN_ONLY``; its test scores the
+proposals' recall), RetinaNet (``MODEL.RETINANET_ON``), or one of its
+baseline skeletons ``SBBaseline``, ``OMP`` and ``BA_RPN``; the student ``STGeneralizedRCNN`` or one of its baselines
 ``SoftTeacher`` and ``UnbiasedTeacher``) on ``DATASETS.TRAIN`` with a ``Trainer`` on ``--device`` (``cuda``
 unless the CPU is asked for; it raises without a card), through
 ``engine/trainer.py::do_train``, and then evaluates a detector on

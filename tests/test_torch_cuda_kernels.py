@@ -4,7 +4,8 @@ file imports torch and the port only, so it runs where JAX is absent:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda_kernels.py
 
-NMS must agree exactly; RoIAlign within 1e-5 * max|F| for a float32
+NMS must agree exactly (RetinaNet's 8 x 5000 over 80 labels among the
+shapes); RoIAlign within 1e-5 * max|F| for a float32
 result (only the summation order differs), plus one bfloat16 ulp of the
 result for a bfloat16 one (the two float32 sums may round to neighbouring
 bfloat16 values).  The RoIAlign backward within 1e-5 * max|dF| of the
@@ -84,6 +85,27 @@ def test_nms_kernel_wide_labels_and_long_scans(card, n, k, label_dtype):
     ref_idx, ref_keep = nm.nms_plain(boxes, scores, valid, 0.5, k, labels=lab)
     assert idx.shape == (k,) and idx.dtype == torch.int32 and keep.dtype == torch.bool
     assert torch.equal(idx, ref_idx[0]) and torch.equal(keep, ref_keep[0])
+
+
+def test_nms_kernel_at_retinanet_shape(card):
+    """RetinaNet's detection NMS: 8 x 5000 candidates (5 levels x 1000),
+    80 labels, IoU 0.4, down to 100; the scores the float32 sigmoid of
+    bfloat16 logits around the 0.01 prior (ties in bulk), valid above
+    the 0.05 threshold, as ``models/rpn/retinanet.py`` gives them."""
+    rng = np.random.default_rng(12)
+    b, n, k = 8, 5000, 100
+    boxes = torch.from_numpy(_boxes(rng, b, n, size=600.0)).to(card)
+    logits = torch.from_numpy(rng.normal(-4.6, 1.0, (b, n)).astype(np.float32)).to(card, torch.bfloat16)
+    scores = torch.sigmoid(logits.float())
+    valid = scores > 0.05
+    labels = torch.from_numpy(rng.integers(1, 81, (b, n)).astype(np.int32)).to(card)
+    assert len(torch.unique(scores[valid])) < valid.sum() // 4
+    before = kernels.NMS.launches
+    idx, keep = nm.batched_nms(boxes, scores, labels, valid, 0.4, k)
+    assert kernels.NMS.launches == before + 1
+    ref_idx, ref_keep = nm.nms_plain(boxes, scores, valid, 0.4, k, labels=labels)
+    assert torch.equal(idx, ref_idx) and torch.equal(keep, ref_keep)
+    assert int(keep.sum(1).min()) == k
 
 
 @pytest.mark.parametrize("hint", [0, 1, 17, 40, 94, 10**6])

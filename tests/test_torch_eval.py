@@ -22,9 +22,10 @@ JPEGs, 3 seen and 2 unseen classes with 768-d embeddings):
   threshold); every metric is equal (on random weights every AP is 0,
   so this holds the pass's wiring into the evaluator; the evaluator's
   numerics are held at nonzero AP by ``test_evaluate_matches_jax``);
-- the port's ``test_net`` runs on the CPU and writes its two JSON files,
-  and refuses what it does not run yet (``MODEL.RPN_ONLY``; test-time
-  augmentation is held in ``tests/test_torch_bbox_aug.py``).
+- the port's ``test_net`` runs on the CPU and writes its two JSON files
+  (test-time augmentation is held in ``tests/test_torch_bbox_aug.py``,
+  ``MODEL.RPN_ONLY``'s proposal evaluation in
+  ``tests/test_torch_rpn_only.py``).
 """
 
 import json
@@ -358,9 +359,3 @@ def test_test_net_without_test_datasets_returns_early(tmp_path):
                           "OUTPUT_DIR", str(tmp_path / "none")]) == {}
     assert not (tmp_path / "none").exists()
 
-
-@pytest.mark.parametrize("opts", [["MODEL.RPN_ONLY", True]])
-def test_unported_eval_options_raise(opts):
-    _, tc = cfg_pair(opts)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md queue A item 2"):
-        torch_inference.check_eval_options(tc)

@@ -469,13 +469,12 @@ def test_teacher_optimizer_labels_match_jax():
 
 
 @pytest.mark.parametrize("opts,error", [
-    (("MODEL.RETINANET_ON", True), NotImplementedError),
     (("MODEL.BACKBONE.CONV_BODY", "R-50-C5"), NotImplementedError),
     (("MODEL.KEYPOINT_ON", True), NotImplementedError),
     (("MODEL.ROI_BOX_HEAD.WSDDN", True), NotImplementedError),
-    (("MODEL.RPN_ONLY", True), NotImplementedError),
     (("MODEL.META_ARCHITECTURE", "NoSuchRCNN"), ValueError),
-    (("MODEL.BACKBONE.CONV_BODY", "R-50-FPN-RETINANET"), NotImplementedError),
+    # RetinaNet's body without RETINANET_ON: JAX's GeneralizedRCNN fails too
+    (("MODEL.BACKBONE.CONV_BODY", "R-50-FPN-RETINANET"), ValueError),
 ])
 def test_registry_refuses_what_is_not_ported(opts, error):
     with pytest.raises(error):
@@ -487,15 +486,29 @@ def test_registry_refuses_what_is_not_ported(opts, error):
     ("MODEL.META_ARCHITECTURE", "OMP"),
     ("MODEL.META_ARCHITECTURE", "UnbiasedTeacher"),
     ("MODEL.GT_BOX_EVAL", True),
+    ("MODEL.RPN_ONLY", True),
+    ("MODEL.RETINANET_ON", True),
 ])
 def test_registry_builds_and_runs_what_it_once_refused(opts):
-    """The baselines and ``GT_BOX_EVAL``, refused before the port had
-    them: the registry builds them and they run, a train step for the
-    baselines (the top-k teachers on the student-teacher config and
-    batch), the eval forward on the gt boxes for ``GT_BOX_EVAL``."""
+    """The baselines, ``GT_BOX_EVAL``, the RPN-only detector and
+    RetinaNet, refused before the port had them: the registry builds them
+    and they run, a train step for the baselines (the top-k teachers on
+    the student-teacher config and batch), the RPN-only detector (its RPN
+    losses alone) and RetinaNet (over the teacher config's C4 body, whose
+    depth it takes: the R-50 RetinaNet body), the eval forward on the gt
+    boxes for ``GT_BOX_EVAL``."""
+    from cvpr22_cross_modal_pseudo_labeling_torch.models.detector.retinanet import RetinaNetDetector
     from tests import test_torch_st_train as st
 
     key, value = opts
+    if key == "MODEL.RETINANET_ON":
+        trainer = Trainer(TEACHER, TRAIN_OPTS + list(opts) + ["MODEL.RETINANET.NUM_CONVS", 1], device="cpu", seed=0)
+        assert isinstance(trainer.model, RetinaNetDetector) and len(trainer.model.net.backbone.body.layer3) == 6
+        trainer.load_flax_params(bridge.seeded_flax_params(trainer.model, seed=0))
+        metrics = trainer.step(tiny_batch())
+        assert sorted(metrics) == ["grad_norm", "loss_retina_cls", "loss_retina_reg", "total_loss"]
+        assert all(torch.isfinite(v) for v in metrics.values())
+        return
     if value in ("SoftTeacher", "UnbiasedTeacher"):
         trainer = Trainer(ST_CONFIG, st.TRAIN_OPTS + list(opts), device="cpu", seed=0)
         assert isinstance(trainer.model, STGeneralizedRCNN) and type(trainer.model).__name__.startswith(value)
@@ -515,6 +528,8 @@ def test_registry_builds_and_runs_what_it_once_refused(opts):
         return
     metrics = trainer.step(batch)
     assert all(torch.isfinite(v) for v in metrics.values()) and float(metrics["total_loss"]) > 0
+    if key == "MODEL.RPN_ONLY":
+        assert sorted(metrics) == ["grad_norm", "loss_objectness", "loss_rpn_box_reg", "total_loss"]
 
 
 def test_registry_builds_both_detectors_and_the_teacher_checks_its_batch():
