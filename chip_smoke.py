@@ -238,10 +238,37 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                 the RPN-only teacher (zeroshot_mask.yaml, MODEL.RPN_ONLY) on
                 the C4 and the FPN body, 2 train_net steps each (the RPN
                 losses alone) and test_net's box_proposal/AR_*@1000.
+21. options  -- three detector options at full width in bfloat16: (a) the
+                R-50-C5 teacher (zeroshot_mask.yaml, RES5_DILATION 2, the
+                pooler at 1/16 emitting every bin from the 2048-channel
+                map; the RPN conv 2048 -> 1024 and the RoI head's block-0
+                downsample as JAX builds them), 3 serving batches of 8 at
+                800 x 1333 (28 x 28 masks) and 3 Trainer steps (res3 to res5
+                train: the backward runs into the C5 map); (b) the
+                student-teacher model on the same body (its trunk undilated,
+                as JAX's), 3 serving batches and 3 steps; (c) the keypoint
+                R-CNN (config.R50_FPN_OPTS, KEYPOINT_ON, person and
+                background, 17 keypoints, no masks) through train_net, 3
+                steps of 8 on a tools/synth_coco_keypoints.py tree of 8
+                train and 8 val JPEGs under build/synth_kp, then test_net
+                --ckpt: every image a result with 17 keypoints, every metric
+                finite, keypoints/AP among them; (d) WSDDN over
+                zeroshot_mask.yaml without masks, 3 steps (every one of the
+                8 x 2000 training proposals pooled, through the res5 head
+                and the backward kernel) and 3 serving batches.  Every
+                launch of each path's first batch or step is held against
+                the plain version, each path's launches are counted from 0,
+                losses are finite, trained parameters change and frozen ones
+                stay bit-identical.  The new launch shapes (the WSDDN and
+                keypoint detections' NMS, the forward and backward on the C5
+                map and on WSDDN's proposals) are checked again and timed on
+                their captured inputs.
 One line gives the seconds each phase from 7 on took.  The per-kernel line
 gives, beside each kernel's launches on the earlier paths, its launches on
 the MMSS paths (phase 14 and the MMSS stage of phase 16): 0, on the
-OpenImages paths of phase 17 and on the supervised paths of phase 18.
+OpenImages paths of phase 17, on the supervised paths of phase 18, on the
+FPN, RetinaNet and RPN-only paths of phases 19 and 20 and on the options'
+paths of phase 21.
 
 Then the card's name and power limit, the per-kernel JSON line, and the last
 line ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when
@@ -361,19 +388,65 @@ def check(cond, msg):
         raise RuntimeError(msg)
 
 
-def roi_err(out, ref, fmax):
+def roi_err(out, ref, fmax, rows=1 << 14):
     """(max abs diff, largest excess of an element's diff over its limit:
     the check passes when it is <= 0).  The limit is 1e-5 * max|F| for a
     float32 result, plus one bfloat16 ulp of the larger of the two values
-    for a bfloat16 one."""
-    diff = (out.float() - ref.float()).abs()
-    if diff.numel() == 0:  # a level-filtered launch whose level has no roi
+    for a bfloat16 one.  Computed ``rows`` rows of the last axis at a
+    time, so that a result of gigabytes needs little more memory."""
+    if out.numel() == 0:  # a level-filtered launch whose level has no roi
         return 0.0, 0.0
-    limit = torch.full_like(diff, 1e-5 * fmax)
-    if out.dtype == torch.bfloat16:
-        mag = torch.maximum(out.float().abs(), ref.float().abs())
-        limit += torch.ldexp(torch.ones_like(mag), torch.frexp(mag).exponent - 8)
-    return float(diff.max()), float((diff - limit).max())
+    o, r = out.reshape(-1, out.shape[-1]), ref.reshape(-1, ref.shape[-1])
+    err = excess = -float("inf")
+    for i in range(0, o.shape[0], rows):
+        a, b = o[i:i + rows].float(), r[i:i + rows].float()
+        diff = (a - b).abs()
+        limit = torch.full_like(diff, 1e-5 * fmax)
+        if out.dtype == torch.bfloat16:
+            mag = torch.maximum(a.abs(), b.abs())
+            limit += torch.ldexp(torch.ones_like(mag), torch.frexp(mag).exponent - 8)
+        err, excess = max(err, float(diff.max())), max(excess, float((diff - limit).max()))
+    return err, excess
+
+
+def forward_err(out, inputs, fmax, chunk=128):
+    """``roi_err`` of a forward launch's ``out`` against the plain version
+    on its ``inputs``, computed ``chunk`` rois an image at a time (each
+    roi's bins depend on that roi alone); a level-filtered launch is held
+    on its level's rows only."""
+    from cvpr22_cross_modal_pseudo_labeling_torch.ops import roi_align as ra
+
+    feats, rois, output_size, scale, sr, ms, bin_stride, *lv = inputs
+    err = excess = None
+    for s0 in range(0, rois.shape[1], chunk):
+        sl = slice(s0, s0 + chunk)
+        part_lv = (lv[0][:, sl], lv[1]) if lv else ()
+        ref = ra.roi_align_plain(feats, rois[:, sl], output_size, scale, sr, ms, bin_stride, *part_lv)
+        got = out[:, sl]
+        if lv:
+            mine = part_lv[0] == lv[1]
+            got, ref = got[mine], ref[mine]
+        if got.numel():
+            e, x = roi_err(got, ref, fmax)
+            err, excess = (e, x) if err is None else (max(err, e), max(excess, x))
+    return (0.0, 0.0) if err is None else (err, excess)
+
+
+def backward_plain(args, chunk=64):
+    """``roi_align_backward_plain`` on ``args`` over ``chunk`` rois an
+    image at a time, each chunk's dF in float32, summed in float32 and
+    cast to the features' dtype once: the plain version's function with
+    the autograd graph of one chunk alive at a time."""
+    from cvpr22_cross_modal_pseudo_labeling_torch.ops import roi_align as ra
+
+    grad, rois, shape, dtype, output_size, scale, sr, ms, bin_stride, *lv = args
+    total = None
+    for s0 in range(0, rois.shape[1], chunk):
+        sl = slice(s0, s0 + chunk)
+        part = ra.roi_align_backward_plain(grad[:, sl], rois[:, sl], shape, torch.float32, output_size, scale,
+                                           sr, ms, bin_stride, *((lv[0][:, sl], lv[1]) if lv else ()))
+        total = part if total is None else total.add_(part)
+    return total.to(dtype)
 
 
 def cuda_ms(fn, iters):
@@ -875,7 +948,6 @@ def launch_checks():
     be exact; RoIAlign within ``roi_err``'s limit at the launch's own
     dtype (of max|F| forward, of max|dF| backward)."""
     from cvpr22_cross_modal_pseudo_labeling_torch.ops import nms as nm
-    from cvpr22_cross_modal_pseudo_labeling_torch.ops import roi_align as ra
 
     checks = {"nms": [], "roi_align": [], "roi_align_backward": []}
 
@@ -886,23 +958,21 @@ def launch_checks():
                               f"{inputs[0].shape[0]} x {n} -> {inputs[4]}"))
 
     def check_roi(inputs, out):
-        ref = ra.roi_align_plain(*inputs)  # at the launch's own dtype
+        # at the launch's own dtype; a level-filtered launch (the FPN
+        # pooler) writes its level's rows of an output the other levels'
+        # launches share, and is held on those rows
         rois = f"{inputs[1].shape[0]} x {inputs[1].shape[1]}"
         if len(inputs) > 7:
-            # a level-filtered launch (the FPN pooler) writes its level's
-            # rows of an output the other levels' launches share
-            mine = inputs[7] == inputs[8]
-            out, ref = out[mine], ref[mine]
-            rois += f", level {inputs[8]}: {int(mine.sum())}"
+            rois += f", level {inputs[8]}: {int((inputs[7] == inputs[8]).sum())}"
         checks["roi_align"].append(
-            roi_err(out, ref, float(inputs[0].float().abs().max())) + (str(out.dtype), rois)
+            forward_err(out, inputs, float(inputs[0].float().abs().max())) + (str(out.dtype), rois)
         )
 
     def check_roi_bwd(inputs, out):
         # kept on the host, out of the steady steps' peak memory
-        checks.setdefault("roi_align_backward_inputs", tuple(
-            x.cpu() if torch.is_tensor(x) else x for x in inputs))
-        ref = ra.roi_align_backward_plain(*inputs)
+        if "roi_align_backward_inputs" not in checks:
+            checks["roi_align_backward_inputs"] = tuple(x.cpu() if torch.is_tensor(x) else x for x in inputs)
+        ref = backward_plain(inputs)
         rois = f"{inputs[1].shape[0]} x {inputs[1].shape[1]}"
         if len(inputs) > 9:
             rois += f", level {inputs[10]}: {int((inputs[9] == inputs[10]).sum())}"
@@ -1112,7 +1182,7 @@ def rcnn_batch(batch):
     """The keys of a teacher training batch."""
     from cvpr22_cross_modal_pseudo_labeling_torch.engine.train_step import RCNN_BATCH_DTYPES
 
-    return {k: batch[k] for k in RCNN_BATCH_DTYPES}
+    return {k: batch[k] for k in RCNN_BATCH_DTYPES if k in batch}
 
 
 def phase_small_teacher_train(devices=("cuda", "cpu")):
@@ -1600,7 +1670,7 @@ def host_breakdown(pred, dataset, cfg):
     with cf.ThreadPoolExecutor(workers) as pool:
         t = time.perf_counter()
         split = list(pool.map(lambda i: inf._convert_batch(
-            dataset, type(dets)(*(a[i:i + 1] for a in dets)), masks[i:i + 1], [i],
+            dataset, type(dets)(*(None if a is None else a[i:i + 1] for a in dets)), masks[i:i + 1], [i],
             batch["image_sizes"][i:i + 1]), idx))
         pool_s = time.perf_counter() - t
     check(sum(split, []) == out, "host breakdown: the pooled conversion differs from the serial one")
@@ -2819,6 +2889,107 @@ def check_all_passed(label, checks, first, nms, roi, bwd):
           f"or errors {checks['roi_align_backward']}")
 
 
+def checked_serving(dev, phase, config, opts, classes, seed, label, per_batch, mask_size, n, capture, rec):
+    """A ``Predictor`` on ``config`` with ``opts`` (and ``SERVING``'s) and
+    seeded weights serves ``n`` uint8 batches of ``SERVING``'s shape with a
+    random class table of ``classes`` rows.  Every launch of the first
+    batch is held against its plain version through the hooks
+    ``capture(checks, hooks, label)`` gives; the first batch must launch
+    ``per_batch`` (NMS, RoIAlign, backward) and every batch as many. Each
+    image gets detections, every box, score and mask is finite, masks are
+    ``mask_size`` square (None: no masks).  Records the run, launches and
+    checks under ``rec`` and emits ``{phase}_{label}``.  Returns (the
+    predictor, its last batch, the table)."""
+    from cvpr22_cross_modal_pseudo_labeling_torch import bridge
+    from cvpr22_cross_modal_pseudo_labeling_torch.engine.inference import Predictor
+
+    b, (h, w) = SERVING["batch"], SERVING["hw"]
+    pred = Predictor(config, list(opts) + list(SERVING["opts"]), device=dev)
+    pred.load_flax_params(bridge.seeded_flax_params(pred.model, SEED, EMB_PRED_STD))
+    check(pred.cfg.TPU.COMPUTE_DTYPE == "bfloat16", f"{phase} {label}: {pred.cfg.TPU.COMPUTE_DTYPE}")
+    rng = np.random.default_rng(seed)
+    emb_dim = getattr(pred.model.statics, "base", pred.model.statics).emb_dim
+    table = rng.standard_normal((classes, emb_dim)).astype(np.float32)
+    table[0] = 0.0
+    batches = []
+    for _ in range(n):
+        sizes = np.stack([rng.integers(3 * h // 4, h + 1, b), rng.integers(2 * w // 3, w + 1, b)], 1)
+        sizes[0] = (h, w)
+        batches.append((rng.integers(0, 256, (b, h, w, 3), dtype=np.uint8), sizes.astype(np.int32)))
+    checks, *hooks = launch_checks()
+    lat, outs, first, path, peak = fpn_steps(lambda x: pred(x[0], x[1], table), batches, 1,
+                                             capture(checks, hooks, label))
+    d = pred.cfg.MODEL.ROI_HEADS.DETECTIONS_PER_IMG
+    for i, (dets, masks) in enumerate(outs):
+        check(dets.boxes.shape == (b, d, 4) and (masks is None if mask_size is None
+                                                 else masks.shape == (b, d, mask_size, mask_size)),
+              f"{phase} {label}: shapes {dets.boxes.shape} {None if masks is None else masks.shape}")
+        check(np.isfinite(dets.boxes).all() and np.isfinite(dets.scores).all()
+              and (masks is None or np.isfinite(masks).all()), f"{phase} {label}: non-finite output")
+        check(bool(dets.valid.any(1).all()), f"{phase} {label}: batch {i} has an image without detections")
+    check_all_passed(label, checks, first, *per_batch)
+    check(path == {k: v * n for k, v in first.items()},
+          f"{phase} {label}: launches {path} over {n} batches, first {first}")
+    steady = lat[1:]
+    rec["runs"][label] = dict(batch_latency_s=lat, steady_images_per_s=b * len(steady) / sum(steady),
+                              steady_peak_memory_gb=peak, valid_detections=[x.valid.sum(1).tolist() for x, _ in outs])
+    rec["launches"][label], rec["checks"][label] = path, checks
+    emit(dict(phase=f"{phase}_{label}", launches=path, first_launches=first, **rec["runs"][label]))
+    return pred, batches[-1], table
+
+
+def checked_training(dev, phase, config, opts, classes, seed, label, per_step, trained, frozen_ok, n, capture, rec,
+                     rcnn=True, still=()):
+    """A ``Trainer`` on ``config`` with ``opts`` (and ``TRAIN``'s) and
+    seeded weights takes ``n`` steps on ``TRAIN``-shaped batches (the
+    ``GeneralizedRCNN`` keys alone when ``rcnn``).  Every launch of the
+    first step is held against its plain version through ``capture``'s
+    hooks; the first step launches ``per_step`` and every step as many.
+    Metrics finite, every parameter under the prefixes ``trained`` changes
+    (but those in ``still``), the frozen ones (``frozen_ok(frozen,
+    names)`` says which) and the buffers stay bit-identical.  Records
+    under ``rec`` and emits ``{phase}_{label}``.  Returns (the trainer,
+    its last batch)."""
+    from cvpr22_cross_modal_pseudo_labeling_torch import bridge
+    from cvpr22_cross_modal_pseudo_labeling_torch.engine.train_step import Trainer
+
+    trainer = Trainer(config, list(opts) + list(TRAIN["opts"]), device=dev, seed=SEED)
+    trainer.load_flax_params(bridge.seeded_flax_params(trainer.model, SEED, EMB_PRED_STD))
+    model = trainer.model
+    start = {k: p.detach().clone() for k, p in model.named_parameters()}
+    frozen = [k for k, p in model.named_parameters() if not p.requires_grad]
+    check(frozen_ok(frozen, list(start)), f"{phase} {label}: unexpected frozen parameters {frozen[:5]}")
+    buffers = {k: x.clone() for k, x in model.named_buffers()}
+    rng = np.random.default_rng(seed)
+    batches = [train_batch(rng, TRAIN["batch"], TRAIN["hw"], TRAIN["max_gt"], TRAIN["nouns"],
+                           TRAIN["noun_tokens"], TRAIN["lvis"], classes,
+                           getattr(model.statics, "base", model.statics).emb_dim)
+               for _ in range(n)]
+    if rcnn:
+        batches = [rcnn_batch(x) for x in batches]
+    checks, *hooks = launch_checks()
+    lat, outs, first, path, peak = fpn_steps(trainer.step, batches, 1, capture(checks, hooks, label))
+    metrics = [{k: float(v) for k, v in m.items()} for m in outs]
+    check(all(np.isfinite(v) for m in metrics for v in m.values()),
+          f"{phase} {label}: non-finite metrics {metrics}, step latency {lat}, peak {peak} GB")
+    params = dict(model.named_parameters())
+    unchanged = [k for k in start if k.startswith(trained) and k not in still and torch.equal(params[k], start[k])]
+    moved = [k for k in frozen if not torch.equal(params[k], start[k])]
+    moved += [k for k, x in model.named_buffers() if not torch.equal(x, buffers[k])]
+    check(not unchanged, f"{phase} {label}: trained parameters did not change: {unchanged[:5]}")
+    check(not moved, f"{phase} {label}: frozen parameters or buffers changed: {moved[:5]}")
+    check_all_passed(label, checks, first, *per_step)
+    check(path == {k: v * n for k, v in first.items()}, f"{phase} {label}: launches {path} over {n} steps, first {first}")
+    steady = lat[1:]
+    rec["runs"][label] = dict(step_latency_s=lat, steady_step_s=sum(steady) / len(steady),
+                              steady_images_per_s=TRAIN["batch"] * len(steady) / sum(steady),
+                              steady_peak_memory_gb=peak, metrics=metrics,
+                              gt_per_image=[int(v.sum()) for v in batches[0]["gt_valid"]])
+    rec["launches"][label], rec["checks"][label] = path, checks
+    emit(dict(phase=f"{phase}_{label}", launches=path, first_launches=first, **rec["runs"][label]))
+    return trainer, batches[-1]
+
+
 def plain_levels(feats, rois, levels, output_size, sampling_ratio, max_samples):
     """The multi-level pooling's plain version on the card: each level's
     rows from the level-filtered plain version, summed."""
@@ -2843,88 +3014,31 @@ def phase_fpn(dev, results):
     from cvpr22_cross_modal_pseudo_labeling_torch.data import make_data_loader
     from cvpr22_cross_modal_pseudo_labeling_torch.engine import checkpoint as ck
     from cvpr22_cross_modal_pseudo_labeling_torch.engine import inference as inf
-    from cvpr22_cross_modal_pseudo_labeling_torch.engine.inference import Predictor
-    from cvpr22_cross_modal_pseudo_labeling_torch.engine.train_step import Trainer
     from cvpr22_cross_modal_pseudo_labeling_torch.models.backbone import ResNetFPNBackbone
     from cvpr22_cross_modal_pseudo_labeling_torch.ops import kernels
     from cvpr22_cross_modal_pseudo_labeling_torch.tools import test_net
 
     fpn = [str(x) for x in R50_FPN_OPTS]
     captured, runs, launches, all_checks = {}, {}, {}, {}
+    records = dict(runs=runs, launches=launches, checks=all_checks)
     b, (h, w) = SERVING["batch"], SERVING["hw"]
 
+    def capture(checks, hooks, label):
+        return fpn_capture(checks, *hooks, captured, label)
+
     def serving(config, classes, seed, label):
-        pred = Predictor(config, fpn + list(SERVING["opts"]), device=dev)
-        pred.load_flax_params(bridge.seeded_flax_params(pred.model, SEED, EMB_PRED_STD))
-        check(isinstance(pred.model.backbone, ResNetFPNBackbone) and pred.cfg.TPU.COMPUTE_DTYPE == "bfloat16",
-              f"fpn {label}: built {type(pred.model.backbone).__name__} in {pred.cfg.TPU.COMPUTE_DTYPE}")
-        rng = np.random.default_rng(seed)
-        emb_dim = getattr(pred.model.statics, "base", pred.model.statics).emb_dim
-        table = rng.standard_normal((classes, emb_dim)).astype(np.float32)
-        table[0] = 0.0
-        batches = []
-        for _ in range(FPN_PHASE["batches"]):
-            sizes = np.stack([rng.integers(3 * h // 4, h + 1, b), rng.integers(2 * w // 3, w + 1, b)], 1)
-            sizes[0] = (h, w)
-            batches.append((rng.integers(0, 256, (b, h, w, 3), dtype=np.uint8), sizes.astype(np.int32)))
-        checks, *hooks = launch_checks()
-        lat, outs, first, path, peak = fpn_steps(lambda x: pred(x[0], x[1], table), batches, 1,
-                                                 fpn_capture(checks, *hooks, captured, label))
-        for i, (dets, masks) in enumerate(outs):
-            check(dets.boxes.shape == (b, 100, 4) and masks.shape == (b, 100, 28, 28),
-                  f"fpn {label}: shapes {dets.boxes.shape} {masks.shape} (28 x 28 masks expected)")
-            check(np.isfinite(dets.boxes).all() and np.isfinite(dets.scores).all() and np.isfinite(masks).all(),
-                  f"fpn {label}: non-finite output")
-            check(bool(dets.valid.any()), f"fpn {label}: batch {i} has no detection")
+        pred, batch, table = checked_serving(dev, "fpn", config, fpn, classes, seed, label, (6, 8, 0), 28,
+                                             FPN_PHASE["batches"], capture, records)
         # 5 RPN levels and the detections; 4 levels for the proposals and
         # 4 for the detections' masks
-        check_all_passed(label, checks, first, 6, 8, 0)
-        steady = lat[1:]
-        runs[label] = dict(batch_latency_s=lat, steady_images_per_s=b * len(steady) / sum(steady),
-                           steady_peak_memory_gb=peak,
-                           valid_detections=[d.valid.sum(1).tolist() for d, _ in outs])
-        launches[label], all_checks[label] = path, checks
-        emit(dict(phase=f"fpn_{label}", launches=path, first_launches=first, **runs[label]))
-        return pred, batches[-1], table
+        check(isinstance(pred.model.backbone, ResNetFPNBackbone),
+              f"fpn {label}: built {type(pred.model.backbone).__name__}")
+        return pred, batch, table
 
     def training(config, classes, seed, label, nms_per_step, roi_per_step, bwd_per_step, trained, frozen_ok):
-        trainer = Trainer(config, fpn + list(TRAIN["opts"]), device=dev, seed=SEED)
-        trainer.load_flax_params(bridge.seeded_flax_params(trainer.model, SEED, EMB_PRED_STD))
-        model = trainer.model
-        start = {n: p.detach().clone() for n, p in model.named_parameters()}
-        frozen = [n for n, p in model.named_parameters() if not p.requires_grad]
-        check(frozen_ok(frozen, list(start)), f"fpn {label}: unexpected frozen parameters {frozen[:5]}")
-        buffers = {n: x.clone() for n, x in model.named_buffers()}
-        rng = np.random.default_rng(seed)
-        batches = [train_batch(rng, TRAIN["batch"], TRAIN["hw"], TRAIN["max_gt"], TRAIN["nouns"],
-                               TRAIN["noun_tokens"], TRAIN["lvis"], classes,
-                               getattr(model.statics, "base", model.statics).emb_dim)
-                   for _ in range(FPN_PHASE["steps"])]
-        if label == "teacher_train":
-            batches = [rcnn_batch(x) for x in batches]
-        checks, *hooks = launch_checks()
-        lat, outs, first, path, peak = fpn_steps(trainer.step, batches, 1,
-                                                 fpn_capture(checks, *hooks, captured, label))
-        metrics = [{k: float(v) for k, v in m.items()} for m in outs]
-        check(all(np.isfinite(v) for m in metrics for v in m.values()),
-              f"fpn {label}: non-finite metrics {metrics}, step latency {lat}, peak {peak} GB")
-        params = dict(model.named_parameters())
-        unchanged = [n for n in start if n.startswith(trained) and torch.equal(params[n], start[n])]
-        moved = [n for n in frozen if not torch.equal(params[n], start[n])]
-        moved += [n for n, x in model.named_buffers() if not torch.equal(x, buffers[n])]
-        check(not unchanged, f"fpn {label}: trained parameters did not change: {unchanged[:5]}")
-        check(not moved, f"fpn {label}: frozen parameters or buffers changed: {moved[:5]}")
-        check_all_passed(label, checks, first, nms_per_step, roi_per_step, bwd_per_step)
-        check(path == {k: v * FPN_PHASE["steps"] for k, v in first.items()},
-              f"fpn {label}: launches {path} over {FPN_PHASE['steps']} steps, first {first}")
-        steady = lat[1:]
-        runs[label] = dict(step_latency_s=lat, steady_step_s=sum(steady) / len(steady),
-                           steady_images_per_s=TRAIN["batch"] * len(steady) / sum(steady),
-                           steady_peak_memory_gb=peak, metrics=metrics,
-                           gt_per_image=[int(v.sum()) for v in batches[0]["gt_valid"]])
-        launches[label], all_checks[label] = path, checks
-        emit(dict(phase=f"fpn_{label}", launches=path, first_launches=first, **runs[label]))
-        return trainer, batches[-1]
+        return checked_training(dev, "fpn", config, fpn, classes, seed, label,
+                                (nms_per_step, roi_per_step, bwd_per_step), trained, frozen_ok,
+                                FPN_PHASE["steps"], capture, records, rcnn=label == "teacher_train")
 
     profiles = {}
     # (a) the FPN teacher's serving
@@ -3439,6 +3553,300 @@ def phase_retinanet(dev, results):
 
 
 
+# The detector options of the options phase, at full width in bfloat16:
+# the R-50-C5 body with res5 dilated (stride 16, so the pooler keeps
+# zeroshot_mask.yaml's 1/16 and emits every bin), the keypoint R-CNN
+# (maskrcnn_benchmark's e2e_keypoint_rcnn_R_50_FPN_1x as the port reads it:
+# config.R50_FPN_OPTS, person and background, 17 keypoints, no masks) on a
+# tools/synth_coco_keypoints.py tree under build/synth_kp, and the WSDDN box
+# head over zeroshot_mask.yaml (SCORE_THRESH 0.0: with seeded weights each
+# (proposal, class) score is about 1 / (1000 proposals x 49 classes), under
+# the config's threshold).  Outputs and the tree are deleted at the end.
+# The keypoint run trains at BASE_LR 1e-5: the seeded weights' RoI vectors
+# are long, so each step at 1e-3 moves the person logit by tens against
+# the background, and after 3 steps every person score underflows to 0
+# on the card (test_net then gives no image a result).
+C5_OPTS = ("MODEL.BACKBONE.CONV_BODY", "R-50-C5", "MODEL.RESNETS.RES5_DILATION", 2,
+           "MODEL.ROI_BOX_HEAD.POOLER_SCALES", (0.0625,))
+WSDDN_OPTS = ("MODEL.ROI_BOX_HEAD.WSDDN", True, "MODEL.MASK_ON", False, "MODEL.ROI_HEADS.SCORE_THRESH", 0.0)
+KEYPOINT_OPTS = ("MODEL.KEYPOINT_ON", True, "MODEL.MASK_ON", False, "MODEL.ROI_BOX_HEAD.NUM_CLASSES", 2,
+                 "MODEL.ROI_KEYPOINT_HEAD.NUM_CLASSES", 17, "DATASETS.TRAIN", ("coco_zeroshot_train",),
+                 "DATASETS.TEST", ("coco_not_zeroshot_val",), "SOLVER.IMS_PER_BATCH", 8, "TEST.IMS_PER_BATCH", 8,
+                 "DATALOADER.ASPECT_RATIO_GROUPING", False, "SOLVER.BASE_LR", 1e-5)
+OPTIONS = dict(batches=3, steps=3, tree="build/synth_kp", out="build/options_out", train=8, val=8, seed=0,
+               timing_iters=10)
+C5_TRAINED = TEACHER_TRAINED + ("backbone.body.layer4.",)
+WSDDN_TRAINED = ("backbone.body.layer2.", "backbone.body.layer3.", "rpn_head.", "roi_extractor.", "wsddn_head.")
+# the detection stream's bias: a shift of a class's logits over the
+# proposals leaves their softmax alone, so its gradient is zero but for
+# rounding and it may stay put (it has no weight decay)
+WSDDN_STILL = ("wsddn_head.det_score.bias",)
+
+
+def options_capture(checks, check_nms, check_roi, check_roi_bwd, captured, tag):
+    """Launch hooks that check every launch against its plain version and
+    keep, under ``captured[tag]``, the inputs of the first launch of each
+    kind and shape."""
+    def nms(inputs, out):
+        key = ("nms", inputs[0].shape[0], inputs[0].shape[1], inputs[4], inputs[5] is not None)
+        captured.setdefault(tag, {}).setdefault(key, inputs)
+        check_nms(inputs, out)
+
+    def roi(inputs, out):
+        key = ("roi_align", inputs[1].shape[1], inputs[0].shape[3], inputs[6])
+        captured.setdefault(tag, {}).setdefault(key, inputs)
+        check_roi(inputs, out)
+
+    def bwd(inputs, out):
+        key = ("roi_align_backward", inputs[1].shape[1], inputs[2][3], inputs[8])
+        group = captured.setdefault(tag, {})
+        if key not in group:  # on the host, out of the steady steps' peak memory
+            group[key] = tuple(x.cpu() if torch.is_tensor(x) else x for x in inputs)
+        check_roi_bwd(inputs, out)
+
+    return nms, roi, bwd
+
+
+def phase_options(dev, results):
+    """(a) the dilated R-50-C5 teacher: 3 serving batches and 3 steps; (b)
+    the student-teacher model on the same body: 3 serving batches and 3
+    steps; (c) the keypoint R-CNN through train_net (3 steps) and
+    test_net on a synthetic person-keypoint tree; (d) the WSDDN teacher: 3
+    steps (every proposal pooled) and 3 serving batches; then the new
+    launch shapes timed on their captured inputs."""
+    import shutil
+
+    from cvpr22_cross_modal_pseudo_labeling_torch.config import R50_FPN_OPTS
+    from cvpr22_cross_modal_pseudo_labeling_torch.data import make_data_loader
+    from cvpr22_cross_modal_pseudo_labeling_torch.engine import inference as inf
+    from cvpr22_cross_modal_pseudo_labeling_torch.models.backbone import ResNetBackbone, ResNetFPNBackbone
+    from cvpr22_cross_modal_pseudo_labeling_torch.ops import kernels
+    from cvpr22_cross_modal_pseudo_labeling_torch.tools import synth_coco_keypoints
+
+    captured, runs, launches, all_checks, profiles = {}, {}, {}, {}, {}
+    b, (h, w) = SERVING["batch"], SERVING["hw"]
+    c5, wsddn = [str(x) for x in C5_OPTS], [str(x) for x in WSDDN_OPTS]
+    records = dict(runs=runs, launches=launches, checks=all_checks)
+
+    def capture(checks, hooks, label):
+        return options_capture(checks, *hooks, captured, label)
+
+    def serving(config, opts, classes, seed, label, per_batch, mask_size):
+        return checked_serving(dev, "options", config, opts, classes, seed, label, per_batch, mask_size,
+                               OPTIONS["batches"], capture, records)
+
+    def training(config, opts, classes, seed, label, per_step, trained, frozen_ok, rcnn=True, still=()):
+        return checked_training(dev, "options", config, opts, classes, seed, label, per_step, trained, frozen_ok,
+                                OPTIONS["steps"], capture, records, rcnn, still)
+
+    def teacher_frozen(fr, names):
+        return sorted(fr) == sorted(n for n in names if n.startswith(TEACHER_FROZEN))
+
+    # (a) the C5 teacher: the RPN and the detections' NMS, the proposals'
+    # and the detections' pooling from the 2048-channel C5 map at every
+    # bin (28 x 28 masks); training pools its sampled rois and runs the
+    # backward into the C5 map (res5 trains with res3 and res4)
+    pred, batch, table = serving(TEACHER, c5, TEACHER_CLASSES, SEED + 20, "c5_teacher_serving", (2, 2, 0), 28)
+    # the trunk's 8 x res2 channels (2048) into an RPN conv of
+    # BACKBONE_OUT_CHANNELS (1024) and into the RoI head's block 0
+    trunk, out_ch = 8 * pred.cfg.MODEL.RESNETS.RES2_OUT_CHANNELS, pred.cfg.MODEL.RESNETS.BACKBONE_OUT_CHANNELS
+    check(isinstance(pred.model.backbone, ResNetBackbone)
+          and pred.model.backbone.body.layer4.block1.conv2.dilation == (2, 2)
+          and (pred.model.rpn_head.conv.in_channels, pred.model.rpn_head.conv.out_channels) == (trunk, out_ch)
+          and pred.model.roi_extractor.layer4.block0.downsample_conv.in_channels == trunk and trunk != out_ch,
+          "options: the C5 teacher's trunk, RPN conv or RoI head has other widths than JAX's")
+    profiles["c5_teacher_serving"] = profile_groups(lambda: pred(*batch, table))
+    del pred
+    torch.cuda.empty_cache()
+    trainer, batch = training(TEACHER, c5, TEACHER_CLASSES, SEED + 21, "c5_teacher_train", (1, 1, 1), C5_TRAINED,
+                              teacher_frozen)
+    profiles["c5_teacher_train"] = profile_groups(lambda: trainer.step(batch))
+    del trainer
+    torch.cuda.empty_cache()
+    # (b) the student-teacher model on the same body: JAX's builds the
+    # trunk undilated (stride 32) under heads that dilate res5
+    pred, _, _ = serving(CONFIG, c5, TRAIN["classes"], SEED + 22, "c5_st_serving", (2, 2, 0), 28)
+    check(pred.model.backbone.body.layer4.block1.conv2.dilation == (1, 1)
+          and pred.model.student.roi_extractor.layer4.block1.conv2.dilation == (2, 2),
+          "options: the C5 student-teacher model's dilations differ from JAX's")
+    del pred
+    torch.cuda.empty_cache()
+    trainer, batch = training(
+        CONFIG, c5, TRAIN["classes"], SEED + 23, "c5_st_train", (2, 4, 0), ("student.",),
+        lambda fr, names: set(fr) >= {n for n in names if n.split(".")[0] in FROZEN_MODULES}, rcnn=False)
+    del trainer, batch
+    torch.cuda.empty_cache()
+
+    # (c) the keypoint R-CNN through train_net and test_net
+    out = OPTIONS["out"]
+    tree = OPTIONS["tree"]
+    shutil.rmtree(out, ignore_errors=True)
+    shutil.rmtree(tree, ignore_errors=True)
+    kp_opts = [*map(str, SUPERVISED["common"]), *map(str, R50_FPN_OPTS), *map(str, KEYPOINT_OPTS)]
+    common = ["--device", dev.type, "--seed", str(SEED)]
+    try:
+        people = synth_coco_keypoints.write_tree(tree, OPTIONS["train"], OPTIONS["val"], seed=OPTIONS["seed"])
+        os.environ["CMPL_TPU_DATA_DIR"] = tree
+        k_dir = os.path.join(out, "keypoint")
+        checks, check_nms, check_roi, check_roi_bwd = launch_checks()
+        hooks = options_capture(checks, check_nms, check_roi, check_roi_bwd, captured, "keypoint_train_net")
+
+        def first_step_bwd(inputs, out_):
+            hooks[2](inputs, out_)
+            if len(checks["roi_align_backward"]) == 4:  # the first step's last launch
+                kernels.NMS.on_launch = kernels.ROI_ALIGN.on_launch = kernels.ROI_ALIGN_BACKWARD.on_launch = None
+
+        kernels.reset_launches()
+        kernels.NMS.on_launch, kernels.ROI_ALIGN.on_launch, kernels.ROI_ALIGN_BACKWARD.on_launch = (
+            hooks[0], hooks[1], first_step_bwd)
+        steps = OPTIONS["steps"]
+        try:
+            rec, runs["keypoint_train_net"], _, logged = train_net_run(
+                ["--skip-test", *common, *kp_opts, "SOLVER.MAX_ITER", str(steps),
+                 "SOLVER.CHECKPOINT_PERIOD", str(steps)], k_dir)
+        finally:
+            kernels.NMS.on_launch = kernels.ROI_ALIGN.on_launch = kernels.ROI_ALIGN_BACKWARD.on_launch = None
+        launches["keypoint_train_net"] = {k.name: k.launches for k in kernels.ALL}
+        all_checks["keypoint_train_net"] = checks
+        model = rec["trainer"].model
+        check(isinstance(model.backbone, ResNetFPNBackbone) and hasattr(model, "keypoint_predictor")
+              and not hasattr(model, "mask_predictor"), "options keypoint train_net: another model was built")
+        check_all_passed("keypoint train_net", checks, {"nms": 5, "roi_align": 4, "roi_align_backward": 4}, 5, 4, 4)
+        check(launches["keypoint_train_net"] == {"nms": 5 * steps, "roi_align": 4 * steps,
+                                                 "roi_align_backward": 4 * steps},
+              f"options keypoint train_net: launches {launches['keypoint_train_net']}")
+        check([r["step"] for r in logged] == list(range(1, steps + 1))
+              and all(np.isfinite(v) for r in logged for v in r.values())
+              and all(r["loss_kp"] > 0 for r in logged), f"options keypoint train_net: logged {logged}")
+        runs["keypoint_train_net"]["loss_kp"] = [r["loss_kp"] for r in logged]
+        del rec, model
+        torch.cuda.empty_cache()
+        name = "coco_not_zeroshot_val"
+        m, launches["keypoint_test_net"], tbatches, checks, preds, saved_m, test_s = supervised_test(
+            "keypoint", ["--ckpt", os.path.join(k_dir, f"model_{steps:07d}.pth"), *common, *kp_opts],
+            os.path.join(out, "keypoint_test"), name, captured,
+            per_batch={"nms": 6, "roi_align": 8, "roi_align_backward": 0})
+        ds_cfg = inf.load_cfg("", kp_opts)
+        _, (ds,) = make_data_loader(ds_cfg, is_train=False)
+        per_image = {}
+        for pr in preds:
+            per_image[pr["image_id"]] = per_image.get(pr["image_id"], 0) + 1
+        check(set(per_image) == set(ds.id_to_img_map.values())
+              and max(per_image.values()) <= ds_cfg.MODEL.ROI_HEADS.DETECTIONS_PER_IMG
+              and all(len(pr.get("keypoints", ())) == 3 * 17 for pr in preds),
+              f"options keypoint test_net: images without a result or keypoints missing ({len(preds)} results)")
+        bad, _ = metrics_finite(saved_m, ds)
+        check(not bad and "keypoints/AP" in saved_m and np.isfinite(saved_m["keypoints/AP"])
+              and "segm/AP" not in saved_m, f"options keypoint test_net: metrics {bad[:5]} {sorted(saved_m)[:8]}")
+        runs["keypoint_test_net"] = dict(seconds=test_s, batches=len(tbatches), results=len(preds),
+                                         images_per_s=len(ds) / test_s, bbox_AP=m["bbox/AP"],
+                                         keypoints_AP=m["keypoints/AP"], tree=people)
+        all_checks["keypoint_test_net"] = checks
+        emit(dict(phase="options_keypoint", launches={k: launches[k] for k in ("keypoint_train_net",
+                                                                             "keypoint_test_net")},
+                  train_net=runs["keypoint_train_net"], test_net=runs["keypoint_test_net"]))
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+        shutil.rmtree(tree, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # (d) WSDDN: every training proposal (8 x 2000) pooled and
+    # backpropagated into the C4 map; serving's NMS over the (proposal,
+    # class) candidates
+    trainer, batch = training(TEACHER, wsddn, TEACHER_CLASSES, SEED + 24, "wsddn_train", (1, 1, 1), WSDDN_TRAINED,
+                              lambda fr, names: sorted(fr) == sorted(
+                                  n for n in names if n.startswith(("backbone.body.stem.", "backbone.body.layer1."))),
+                              still=WSDDN_STILL)
+    check(not hasattr(trainer.model, "box_predictor") and set(runs["wsddn_train"]["metrics"][0]) ==
+          {"loss_objectness", "loss_rpn_box_reg", "loss_classifier", "total_loss", "grad_norm"},
+          f"options wsddn train: metrics {sorted(runs['wsddn_train']['metrics'][0])}")
+    profiles["wsddn_train"] = profile_groups(lambda: trainer.step(batch))
+    del trainer, batch
+    torch.cuda.empty_cache()
+    pred, _, _ = serving(TEACHER, wsddn, TEACHER_CLASSES, SEED + 25, "wsddn_serving", (2, 1, 0), None)
+    del pred
+    torch.cuda.empty_cache()
+    check(all(v["nms"] > 0 and v["roi_align"] > 0 for v in launches.values())
+          and all(launches[p]["roi_align_backward"] > 0
+                  for p in ("c5_teacher_train", "keypoint_train_net", "wsddn_train")),
+          f"options: a kernel of a path never launched: {launches}")
+
+    with torch.no_grad():
+        shapes = options_shapes_timed(dev, captured)
+    captured.clear()
+    rec = dict(phase="options", c5_opts=c5, wsddn_opts=wsddn, keypoint_opts=kp_opts, dtype="bfloat16", batch=b,
+               image_hw=[h, w], runs=runs, launches=launches, new_shapes=shapes, profiles=profiles,
+               checks={k: check_lists(v) for k, v in all_checks.items()})
+    emit(rec)
+    results["options"] = rec
+
+
+def options_shapes_timed(dev, captured):
+    """The options phase's new launch shapes on the inputs of their first
+    launch, each held against its plain version again: the WSDDN and the
+    keypoint detections' NMS, the forward on the C5 map (8 x 1000
+    proposals and 8 x 512 sampled rois, C 2048, every bin) and on WSDDN's
+    8 x 2000 proposals (C4, C 1024, even bins), the backward into the C5
+    map and from WSDDN's proposals."""
+    from cvpr22_cross_modal_pseudo_labeling_torch.ops import nms as nm
+    from cvpr22_cross_modal_pseudo_labeling_torch.ops import roi_align as ra
+
+    iters = OPTIONS["timing_iters"]
+    shapes = {}
+    # the WSDDN detections' NMS: the best 10 x 100 (proposal, class)
+    # candidates of each image, label-gated
+    wsddn_nms = [v for k, v in captured["wsddn_serving"].items() if k[0] == "nms" and k[4]]
+    check(len(wsddn_nms) == 1, f"options: {len(wsddn_nms)} labelled NMS shapes in WSDDN serving")
+    nms_cases = (("wsddn detections", wsddn_nms[0]), ("keypoint detections", captured["keypoint"][0]))
+    for what, inputs in nms_cases:
+        boxes, scores, valid, thr, k, labels = inputs
+        idx, keep = nm.nms(*inputs)
+        ref = nm.nms_plain(*inputs)
+        mism = int((idx != ref[0]).sum() + (keep != ref[1]).sum())
+        check(mism == 0, f"options nms {what}: {mism} mismatches")
+        bound_ms, bound_by, _ = nms_bound(scores, valid, labels, idx, keep, k)
+        shapes[f"nms {what} {boxes.shape[0]} x {boxes.shape[1]} -> {k}, {len(torch.unique(labels))} labels, "
+               f"IoU {thr}"] = dict(
+            kept=int(keep.sum()), mismatches=mism, ms=cuda_ms(lambda: nm.nms(*inputs), 2 * iters),
+            plain_ms=cuda_ms(lambda: nm.nms_plain(*inputs), 2), bound_ms=bound_ms, bound_by=bound_by)
+    # each path's first pooling: serving's proposals, the steps' rois
+    for what, tag in (("C5 proposals", "c5_teacher_serving"), ("C5 sampled rois", "c5_teacher_train"),
+                      ("WSDDN proposals", "wsddn_train")):
+        args = next(v for k, v in captured[tag].items() if k[0] == "roi_align")
+        feats, rois, output_size, scale, sr, ms_, bin_stride = args
+        check((scale, sr, ms_) == (1.0 / 16, 0, 8), f"options roi_align {what}: pooler {scale} {sr} {ms_}")
+        out = ra.roi_align(*args)
+        err, excess = forward_err(out, args, float(feats.float().abs().max()))
+        check(excess <= 0, f"options roi_align {what}: max abs diff {err}, {excess} over the limit")
+        del out
+        bound_ms, bound_by, _, _ = roi_bound(feats, rois, output_size, bin_stride)
+        shapes[f"roi_align {what} {rois.shape[0]} x {rois.shape[1]}, {list(feats.shape)} {feats.dtype}, "
+               f"bin_stride {bin_stride}"] = dict(
+            max_abs_err=err, ms=cuda_ms(lambda: ra.roi_align(*args), iters),
+            plain_ms=cuda_ms(lambda: ra.roi_align_plain(*args), 1), bound_ms=bound_ms, bound_by=bound_by)
+        torch.cuda.empty_cache()
+    for what, tag in (("C5 sampled rois", "c5_teacher_train"), ("WSDDN proposals", "wsddn_train")):
+        (key,) = [k for k in captured[tag] if k[0] == "roi_align_backward"]
+        args = tuple(x.to(dev) if torch.is_tensor(x) else x for x in captured[tag].pop(key))
+        grad, rois, shape, dtype, output_size, scale, sr, ms_, bin_stride = args
+        check((scale, sr, ms_) == (1.0 / 16, 0, 8), f"options roi_align_backward {what}: {scale} {sr} {ms_}")
+        out = ra.roi_align_backward(*args)
+        ref = backward_plain(args)
+        fmax = float(ref.float().abs().max())
+        err, excess = roi_err(out, ref, fmax)
+        check(fmax > 0 and excess <= 0, f"options roi_align_backward {what}: max abs diff {err}, {excess} over")
+        del out, ref
+        bound_ms, bound_by, _ = roi_bwd_bound(grad, rois, shape, output_size, bin_stride)
+        H, W, C = shape[1:]
+        shapes[f"roi_align_backward {what} {list(shape)} from {rois.shape[0]} x {rois.shape[1]} {dtype}, "
+               f"bin_stride {bin_stride}"] = dict(
+            max_abs_err=err, tile=list(ra.backward_tiling(H, W, C, 2 * ra._sample_caps(H, W, 14, 14, sr, ms_)[1])),
+            ms=cuda_ms(lambda: ra.roi_align_backward(*args), iters),
+            plain_ms=cuda_ms(lambda: ra.roi_align_backward_plain(*args), 1), bound_ms=bound_ms, bound_by=bound_by)
+        torch.cuda.empty_cache()
+    return shapes
+
+
 def count_syncs(run):
     """The synchronizing CUDA calls one call of ``run`` makes (blocking
     copies, ``.item()``, ...), as ``torch.cuda.set_sync_debug_mode``
@@ -3470,6 +3878,20 @@ def kernels_line(results):
     sup = results["supervised"]
     fp = results["fpn"]
     rn = results["retinanet"]
+    op = results["options"]
+
+    def options_launches(kernel):
+        # the C5, keypoint and WSDDN paths (phase 21)
+        return {f"options_{path}_launches": n[kernel] for path, n in op["launches"].items()}
+
+    def options_errs(field, prefix, key):
+        # the paths' launch checks, and each timed shape's own check
+        return [x for c in op["checks"].values() for x in c[field]] + [
+            v[key] for k, v in op["new_shapes"].items() if k.split(" ")[0] == prefix]
+
+    def options_shapes(prefix):
+        return {k[len(prefix) + 1:]: shape_rec(v) for k, v in op["new_shapes"].items()
+                if k.split(" ")[0] == prefix}
 
     def retina_launches(kernel):
         # RetinaNet's and the RPN-only teacher's paths (phase 20)
@@ -3525,6 +3947,7 @@ def kernels_line(results):
              **sup_launches("nms"),
              **fpn_launches("nms"),
              **retina_launches("nms"),
+             **options_launches("nms"),
              launch_unit="one nms_forward call: a memset, then a mask and a scan "
                          "kernel per column band",
              max_abs_err=float(max(serving["first_batch_checks"]["nms_mismatches"]
@@ -3539,6 +3962,7 @@ def kernels_line(results):
                                    + sup_errs("nms_mismatches")
                                    + fpn_errs("nms_mismatches")
                                    + [x for c in rn["checks"].values() for x in c["nms_mismatches"]]
+                                   + options_errs("nms_mismatches", "nms", "mismatches")
                                    + [results[f"nms_{c[0]}"]["mismatches"] for c in NMS_CASES]
                                    + [results["nms_rpn_dense"]["one_band_mismatches"]])),
              ms=nms_rpn["ms"], plain_ms=nms_rpn["plain_ms"],
@@ -3549,7 +3973,8 @@ def kernels_line(results):
                                 if k.startswith("nms_")},
              supervised_shapes=sup_shapes("nms_"),
              fpn_shapes=fpn_shapes("nms"),
-             retinanet_shapes={k[4:]: shape_rec(v) for k, v in rn["new_shapes"].items()}),
+             retinanet_shapes={k[4:]: shape_rec(v) for k, v in rn["new_shapes"].items()},
+             options_shapes=options_shapes("nms")),
         dict(name="roi_align", route="cuda",
              source="cvpr22_cross_modal_pseudo_labeling_torch/csrc/roi_align.cu",
              replaces="tools/proto_pallas_roialign.py:146",
@@ -3565,6 +3990,7 @@ def kernels_line(results):
              **sup_launches("roi_align"),
              **fpn_launches("roi_align"),
              **retina_launches("roi_align"),
+             **options_launches("roi_align"),
              fpn_launch_unit="the FPN pooler launches the kernel once a level (P2..P5) into one output; "
                              "each launch counts one",
              max_abs_err=max(serving["first_batch_checks"]["roi_align_max_abs_err"]
@@ -3578,6 +4004,7 @@ def kernels_line(results):
                              + sup_errs("roi_align_max_abs_err")
                              + fpn_errs("roi_align_max_abs_err")
                              + [v["max_abs_err"] for k, v in fp["new_shapes"].items() if k.startswith("roi_align ")]
+                             + options_errs("roi_align_max_abs_err", "roi_align", "max_abs_err")
                              + [results[("roi_align",) + c]["max_abs_err"] for c in ROI_CASES]),
              dtypes="bfloat16 features -> bfloat16 output",
              ms=roi_main["ms"], plain_ms=roi_main["plain_ms"],
@@ -3590,7 +4017,8 @@ def kernels_line(results):
              supervised_shapes=sup_shapes("roi_align_voc") | {
                  "top-2 pseudo boxes, " + sup["new_shapes"]["roi_align_pseudo_boxes_top2"]["shape"]:
                  shape_rec(sup["new_shapes"]["roi_align_pseudo_boxes_top2"])},
-             fpn_shapes=fpn_shapes("roi_align")),
+             fpn_shapes=fpn_shapes("roi_align"),
+             options_shapes=options_shapes("roi_align")),
         dict(name="roi_align_backward", route="cuda",
              source="cvpr22_cross_modal_pseudo_labeling_torch/csrc/roi_align.cu",
              replaces="cvpr22_cross_modal_pseudo_labeling_tpu/ops/roi_align_mxu.py:91 "
@@ -3603,6 +4031,7 @@ def kernels_line(results):
              **sup_launches("roi_align_backward"),
              **fpn_launches("roi_align_backward"),
              **retina_launches("roi_align_backward"),
+             **options_launches("roi_align_backward"),
              launch_unit="one roi_align_backward call: the plan kernel (each roi's tap "
                          "lists), then the tile kernel (each tile of dF summed in shared "
                          "memory, written once in bfloat16)",
@@ -3611,6 +4040,7 @@ def kernels_line(results):
                              + oi["train_checks"]["roi_align_backward_max_abs_err"]
                              + sup_errs("roi_align_backward_max_abs_err")
                              + fpn_errs("roi_align_backward_max_abs_err")
+                             + options_errs("roi_align_backward_max_abs_err", "roi_align_backward", "max_abs_err")
                              + [results[("roi_align_backward",) + c]["max_abs_err"]
                                 for c in ROI_BWD_CASES]
                              + [bwd_teacher["max_abs_err"]]),
@@ -3621,7 +4051,8 @@ def kernels_line(results):
              shared_g_adds_per_s=bwd_main["shared_g_adds_per_s"],
              teacher_step_rois=shape_rec(bwd_teacher),
              supervised_shapes=sup_shapes("roi_align_backward"),
-             fpn_shapes=fpn_shapes("roi_align_backward")),
+             fpn_shapes=fpn_shapes("roi_align_backward"),
+             options_shapes=options_shapes("roi_align_backward")),
     ]}
 
 
@@ -3697,6 +4128,8 @@ def main():
     timed("fpn", phase_fpn, dev, results)
     torch.cuda.empty_cache()
     timed("retinanet", phase_retinanet, dev, results)
+    torch.cuda.empty_cache()
+    timed("options", phase_options, dev, results)
     emit(dict(phase="timing", **seconds))
 
     smi = subprocess.run(

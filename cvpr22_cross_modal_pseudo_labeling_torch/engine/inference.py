@@ -39,6 +39,8 @@ class NumpyDetections(NamedTuple):
     scores: np.ndarray  # [B, D] float32
     labels: np.ndarray  # [B, D] int32 (row of the class table)
     valid: np.ndarray  # [B, D] bool
+    # MODEL.KEYPOINT_ON: [B, D, K, 3] float32 (x, y, score), else None
+    keypoints: Optional[np.ndarray] = None
 
 
 def load_cfg(config_file: str, opts: Sequence = ()):
@@ -105,7 +107,8 @@ class Predictor:
         (``MODEL.GT_BOX_EVAL``): ``boxes`` ``[B, G, 4]``, ``labels`` and
         ``valid`` ``[B, G]`` in the input frame, scored in place of the
         proposals (``GeneralizedRCNN`` only).  Returns
-        ``(NumpyDetections, mask_probs [B, D, M, M] float32 or None)``."""
+        ``(NumpyDetections, mask_probs [B, D, M, M] float32 or None)``;
+        the detections carry the keypoints of a ``KEYPOINT_ON`` model."""
         dev = self.device
         table = None
         if class_embeddings is not None:
@@ -125,6 +128,7 @@ class Predictor:
             scores=d.scores.cpu().numpy(),
             labels=d.labels.cpu().numpy(),
             valid=d.valid.cpu().numpy(),
+            keypoints=None if getattr(out, "keypoints", None) is None else out.keypoints.cpu().numpy(),
         )
         masks = None if out.mask_probs is None else out.mask_probs.cpu().numpy()
         return dets, masks
@@ -147,6 +151,7 @@ def _convert_batch(dataset, dets, mask_probs, indices, image_sizes) -> List[dict
                 input_hw=image_sizes[bi],
                 original_hw=(info["height"], info["width"]),
                 contiguous_to_json=getattr(dataset, "contiguous_category_id_to_json_id", {}),
+                keypoints=None if dets.keypoints is None else dets.keypoints[bi],
             )
         )
     return out
@@ -253,6 +258,14 @@ def compute_on_dataset(
         100.0 * stats["device_busy_share"],
     )
     return results, stats
+
+
+def iou_types(cfg) -> Tuple[str, ...]:
+    """The evaluator's iou types of a config, as both JAX entry points
+    list them: boxes, masks under ``MASK_ON``, keypoints under
+    ``KEYPOINT_ON``."""
+    return (("bbox",) + (("segm",) if cfg.MODEL.MASK_ON else ())
+            + (("keypoints",) if cfg.MODEL.KEYPOINT_ON else ()))
 
 
 def check_eval_options(cfg) -> None:

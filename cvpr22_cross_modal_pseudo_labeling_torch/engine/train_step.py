@@ -43,7 +43,7 @@ MMSS = "MMSS-GCNN"
 
 # batch key -> device dtype (None: keep the array's own), per family: the
 # collated keys each training forward reads, and the class tables
-RCNN_BATCH_DTYPES = {
+DETECTION_BATCH_DTYPES = {
     "images": None,
     "image_sizes": torch.int32,
     "gt_boxes": torch.float32,
@@ -52,8 +52,9 @@ RCNN_BATCH_DTYPES = {
     "gt_masks": torch.float32,
     "class_embeddings": torch.float32,
 }
+RCNN_BATCH_DTYPES = {**DETECTION_BATCH_DTYPES, "gt_keypoints": torch.float32}
 ST_BATCH_DTYPES = {
-    **RCNN_BATCH_DTYPES,
+    **DETECTION_BATCH_DTYPES,
     "cap_mask": torch.bool,
     "det_mask": torch.bool,
     "cap_labels": torch.int64,
@@ -64,8 +65,10 @@ ST_BATCH_DTYPES = {
 }
 # keys the GeneralizedRCNN family reads when the batch has them: the class
 # table of the embedding-based detector (the class-specific one reads
-# none, and a dataset without embeddings, such as VOC, gives none)
-RCNN_OPTIONAL_KEYS = ("class_embeddings",)
+# none, and a dataset without embeddings, such as VOC, gives none), and
+# the gt keypoints that the collate adds under MODEL.KEYPOINT_ON (JAX's
+# loss function passes them on when the batch has them)
+RCNN_OPTIONAL_KEYS = ("class_embeddings", "gt_keypoints")
 MMSS_BATCH_DTYPES = {
     "images": None,
     "image_sizes": torch.int32,

@@ -4,7 +4,7 @@ Counterpart of ``cvpr22_cross_modal_pseudo_labeling_tpu/models/detector/
 generalized_rcnn.py`` (``RCNNTrainOutput`` :55, ``RCNNEvalOutput`` :60,
 ``GeneralizedRCNN`` :78 with ``_rpn_forward`` :164,
 ``_extract_box_features`` :195, ``forward_train`` :241 and
-``forward_eval`` :410) on the C4 or the FPN body, with either box
+``forward_eval`` :410) on the C4, C5 or FPN body, with either box
 predictor: the embedding-based one with class-agnostic regression, which
 the paper's first stage trains (``configs/coco_cap_det/zeroshot_mask.yaml``), or
 maskrcnn_benchmark's class-specific one (``cls_score`` over
@@ -42,15 +42,31 @@ of the forward both detectors run (:func:`check_ported`,
 :func:`detector_backbone`, :func:`num_cell_anchors`, :class:`AnchorCache`,
 :func:`select_proposals`, :func:`detect`).
 
+The C5 body (``CONV_BODY`` ``R-50-C5``; JAX :98-101) runs the whole
+trunk, with res5 at ``RES5_DILATION`` (stride 16 when dilated), under
+the RPN and the C5 RoI head; its statics' ``backbone_out_channels`` is
+``BACKBONE_OUT_CHANNELS``, not the trunk's width (see
+``roi_heads/bundle.py::feature_channels``).  A dilated res5 turns off
+``pool_prestride``, so the pooler emits every bin.
+
 The RPN-only detector (``MODEL.RPN_ONLY``, JAX :282 and :428-437) trains
 the RPN losses alone and serves the proposals as detections (boxes,
 sigmoid objectness as scores, label 0), which ``engine/inference.py::
-evaluate_proposals`` scores by recall.  Not ported, and refused: the
-C5 body, ``KEYPOINT_ON``, ``WSDDN``, the ``class_valid`` row mask
-(it serves only class tables padded to a TPU mesh axis), the
-``pseudo_sample_weights`` argument of the training forward, and
-``run_teacher_pseudo_branch`` / ``predict_masks_for_boxes`` (no caller
-in the JAX package).
+evaluate_proposals`` scores by recall.  ``MODEL.KEYPOINT_ON`` (JAX
+:141-147, :385-406, :500-513) adds the keypoint head on the box head's
+RoI features: its loss on the positives-first slots the mask head takes,
+against the matched gt keypoints (``batch["gt_keypoints"]``), and its
+``[B, D, K, 3]`` keypoints (x, y, score) of the detections.
+``MODEL.ROI_BOX_HEAD.WSDDN`` (JAX :149-154, :285-321, :452-466) replaces
+the box head: training scores every proposal with no RoI sampling and
+trains on image-level labels (from the gt classes when the batch has no
+``image_labels``), eval serves the proposal boxes with the WSDDN scores;
+masks and keypoints are neither trained nor served then, as in JAX.
+
+Not ported, and refused: the ``class_valid`` row mask (it serves only
+class tables padded to a TPU mesh axis), the ``pseudo_sample_weights``
+argument of the training forward, and ``run_teacher_pseudo_branch`` /
+``predict_masks_for_boxes`` (no caller in the JAX package).
 """
 
 from typing import Dict, List, NamedTuple, Optional, Tuple
@@ -59,8 +75,10 @@ import torch
 
 from ..backbone import ResNetBackbone, ResNetFPNBackbone, device_normalize
 from ..roi_heads.box_head import Detections, box_head_loss, postprocess_boxes, subsample_rois
-from ..roi_heads.bundle import RoIHeadsBundle, compute_dtype
+from ..roi_heads.bundle import RoIHeadsBundle, compute_dtype, feature_channels
+from ..roi_heads.keypoint_head import KeypointPredictor, keypoint_inference, keypoint_loss
 from ..roi_heads.mask_head import mask_head_inference, mask_head_loss
+from ..roi_heads.wsddn_head import WSDDNHead, wsddn_inference, wsddn_loss
 from ..rpn.anchors import anchor_visibility, build_anchors_for_levels
 from ..rpn.rpn import RPNHead, RPNProposals, flatten_rpn_outputs, rpn_loss, select_proposals_multi_level
 from .statics import RCNNStatics
@@ -69,6 +87,7 @@ from .statics import RCNNStatics
 class RCNNEvalOutput(NamedTuple):
     detections: Detections
     mask_probs: Optional[torch.Tensor]  # [B, D, M, M]
+    keypoints: Optional[torch.Tensor] = None  # [B, D, K, 3] (x, y, score)
 
 
 class RCNNTrainOutput(NamedTuple):
@@ -100,13 +119,10 @@ def check_ported(s: RCNNStatics) -> None:
         raise ValueError(
             f"CONV_BODY {s.conv_body} is RetinaNet's body: set MODEL.RETINANET_ON True"
         )
-    if not s.conv_body.endswith(("-C4", "-FPN")):
+    if not s.conv_body.endswith(("-C4", "-C5", "-FPN")):
         raise NotImplementedError(
-            f"CONV_BODY {s.conv_body}: only the C4 and FPN bodies are ported yet"
+            f"CONV_BODY {s.conv_body}: only the C4, C5 and FPN bodies are ported yet"
         )
-    for on, key in ((s.keypoint_on, "MODEL.KEYPOINT_ON"), (s.wsddn, "MODEL.ROI_BOX_HEAD.WSDDN")):
-        if on:
-            raise NotImplementedError(f"{key} is not ported yet")
     if s.embedding_based and not s.cls_agnostic_bbox_reg:
         # the JAX predictor regresses one box: its per-class reshape fails
         raise ValueError(
@@ -115,9 +131,12 @@ def check_ported(s: RCNNStatics) -> None:
         )
 
 
-def detector_backbone(s: RCNNStatics):
-    """The C4 body, or the FPN body (the trunk's options and
-    ``out_channels`` only, as the JAX detectors build it)."""
+def detector_backbone(s: RCNNStatics, dilate_res5: bool = True):
+    """The C4 body, the C5 body (res5 at ``RES5_DILATION`` unless
+    ``dilate_res5`` is False: JAX's student-teacher model builds its C5
+    trunk undilated, ``st_generalized_rcnn.py:186-190``), or the FPN body
+    (the trunk's options and ``out_channels`` only, as the JAX detectors
+    build it)."""
     common = dict(
         stem_out_channels=s.stem_out_channels,
         res2_out_channels=s.res2_out_channels,
@@ -129,6 +148,11 @@ def detector_backbone(s: RCNNStatics):
     if s.conv_body.endswith("-FPN"):
         return ResNetFPNBackbone(
             depth=s.conv_body[: -len("-FPN")], out_channels=s.backbone_out_channels, **common
+        )
+    if s.conv_body.endswith("-C5"):
+        return ResNetBackbone(
+            depth=s.conv_body[:-3], num_stages=4,
+            res5_dilation=s.res5_dilation if dilate_res5 else 1, **common
         )
     return ResNetBackbone(depth=s.conv_body[:-3], **common)
 
@@ -219,11 +243,20 @@ def detect(heads: RoIHeadsBundle, feats, proposals: RPNProposals, image_sizes,
 class GeneralizedRCNN(RoIHeadsBundle):
     def __init__(self, statics: RCNNStatics):
         check_ported(statics)
-        super().__init__(statics, uncertainty=statics.uncertainty)
+        super().__init__(statics, uncertainty=statics.uncertainty, predictors=not statics.wsddn)
         s = statics
         self.backbone = detector_backbone(s)
-        self.rpn_head = RPNHead(s.backbone_out_channels, num_cell_anchors(s), compute_dtype(s))
+        self.rpn_head = RPNHead(
+            s.backbone_out_channels, num_cell_anchors(s), compute_dtype(s), feature_channels(s)
+        )
         self.anchors = AnchorCache(s)
+        if s.keypoint_on:
+            # on the box head's RoI features (SHARE_BOX_FEATURE_EXTRACTOR)
+            self.keypoint_predictor = KeypointPredictor(
+                self.roi_extractor.out_channels, s.num_keypoints, dtype=compute_dtype(s)
+            )
+        if s.wsddn:
+            self.wsddn_head = WSDDNHead(self.roi_extractor.out_channels, s.num_classes)
 
     def forward(
         self,
@@ -248,7 +281,10 @@ class GeneralizedRCNN(RoIHeadsBundle):
         keeps its own label only.  Training (``train=True``)
         returns :class:`RCNNTrainOutput` and reads the targets from
         ``batch``: ``gt_boxes`` ``[B, G, 4]``, ``gt_labels``, ``gt_valid``
-        ``[B, G]`` and ``gt_masks`` ``[B, G, Mr, Mr]``.
+        ``[B, G]`` and ``gt_masks`` ``[B, G, Mr, Mr]``, and with
+        ``KEYPOINT_ON`` ``gt_keypoints`` ``[B, G, K, 3]`` (x, y,
+        visibility; without them the keypoint head trains nothing, as
+        in JAX); WSDDN reads ``image_labels`` ``[B, C]`` when given.
         ``compute_uncertain`` samples the mask uncertainty (when the
         model has it) and reports ``avg_uncertain``; the train step
         leaves it off, as the JAX loss function does."""
@@ -311,6 +347,9 @@ class GeneralizedRCNN(RoIHeadsBundle):
 
         if s.rpn_only:
             return RCNNTrainOutput(losses, info)
+        if s.wsddn:
+            losses["loss_classifier"] = self._wsddn_loss(feats, proposals, batch)
+            return RCNNTrainOutput(losses, info)
 
         # add_gt_proposals (rpn/inference.py:53-74)
         sampled = subsample_rois(
@@ -348,7 +387,41 @@ class GeneralizedRCNN(RoIHeadsBundle):
                 info["avg_uncertain"] = torch.sum(
                     scale[..., 0].to(torch.float32).mean(dim=(1, 2)) * pos
                 ) / pos.sum().clamp(min=1.0)
+        if s.keypoint_on and "gt_keypoints" in batch:
+            # the positives-first slots of the mask head, on the box
+            # head's features, against each roi's matched gt keypoints
+            cap = min(s.mask_pos_cap, s.roi_batch_per_image)
+            b = images.shape[0]
+            x_kp = x.reshape(b, -1, *x.shape[1:])[:, :cap].reshape(-1, *x.shape[1:])
+            sampled_kp = sampled.head(cap)
+            gt_kp = batch["gt_keypoints"].to(torch.float32)  # [B, G, K, 3]
+            idx = sampled_kp.matched_gt[..., None, None].expand(-1, -1, *gt_kp.shape[2:])
+            kp = torch.gather(gt_kp, 1, idx).reshape(-1, *gt_kp.shape[2:])
+            losses["loss_kp"] = keypoint_loss(
+                self.keypoint_predictor(x_kp).to(torch.float32), kp, sampled_kp.boxes.reshape(-1, 4),
+                (sampled_kp.is_pos & sampled_kp.valid).reshape(-1),
+            )
         return RCNNTrainOutput(losses, info)
+
+    def _wsddn_scores(self, feats, proposals):
+        """The WSDDN head on every proposal's pooled vector, in float32."""
+        b, p = proposals.boxes.shape[:2]
+        vec = self.extract(feats, proposals.boxes).mean(dim=(1, 2))
+        return self.wsddn_head(vec.to(torch.float32).reshape(b, p, -1), proposals.valid)
+
+    def _wsddn_loss(self, feats, proposals, batch):
+        """The image-level BCE on all proposals.  Without ``image_labels``
+        the labels are the classes of the image's valid gt boxes (class
+        L in column L, the background column 0 cleared)."""
+        _, image_scores = self._wsddn_scores(feats, proposals)
+        image_labels = batch.get("image_labels")
+        if image_labels is None:
+            c = image_scores.shape[-1]
+            onehot = torch.nn.functional.one_hot(batch["gt_labels"].to(torch.int64).clamp(0, c - 1), c)
+            onehot = onehot.to(torch.float32) * batch["gt_valid"].to(torch.float32)[..., None]
+            image_labels = onehot.amax(dim=1)
+            image_labels[:, 0] = 0.0
+        return wsddn_loss(image_scores, image_labels.to(torch.float32), background_weight=self.statics.bg_weight)
 
     def forward_eval(self, images, image_sizes, class_embeddings=None, gt_eval=None) -> RCNNEvalOutput:
         feats, _, _, _, proposals = self._rpn_forward(images, image_sizes, train=False)
@@ -363,7 +436,22 @@ class GeneralizedRCNN(RoIHeadsBundle):
             boxes = gt_eval["boxes"].to(torch.float32)
             proposals = RPNProposals(boxes, torch.ones(boxes.shape[:2], device=boxes.device), valid)
             override = torch.where(valid, gt_eval["labels"].to(torch.int64), -1)
-        return detect(self, feats, proposals, image_sizes, class_embeddings, override)
+        s = self.statics
+        if s.wsddn:
+            proposal_scores, _ = self._wsddn_scores(feats, proposals)
+            dets = wsddn_inference(
+                proposal_scores, proposals.boxes, proposals.valid, s.score_thresh, s.nms_thresh,
+                s.detections_per_img,
+            )
+            return RCNNEvalOutput(dets, None)
+        out = detect(self, feats, proposals, image_sizes, class_embeddings, override)
+        if not s.keypoint_on:
+            return out
+        boxes = out.detections.boxes
+        kp_logits = self.keypoint_predictor(self.extract(feats, boxes))
+        xy, scores = keypoint_inference(kp_logits.to(torch.float32), boxes.reshape(-1, 4))
+        keypoints = torch.cat([xy, scores[..., None]], dim=-1)
+        return out._replace(keypoints=keypoints.reshape(*boxes.shape[:2], *keypoints.shape[1:]))
 
     def run_teacher_pseudo_branch(self, *args, **kwargs):
         raise NotImplementedError(

@@ -24,7 +24,12 @@ Eval serves the student RoI heads with the dataset's class table.  The
 FPN body (``-FPN``) is the teacher's (``generalized_rcnn.py``): both of
 its selectors, the eval selector of the caption branch and of eval and
 the train selector of the GT branch, select per level, and the frozen
-FPN runs under ``torch.no_grad()`` with the rest of the backbone.
+FPN runs under ``torch.no_grad()`` with the rest of the backbone.  The C5
+body (``-C5``) is JAX's: its trunk is built without ``RES5_DILATION``
+(``st_generalized_rcnn.py:186-190``), so res5 strides 2 while both RoI
+heads dilate it and pool without the prestride.  ``MODEL.KEYPOINT_ON`` and
+``MODEL.ROI_BOX_HEAD.WSDDN`` reach no part of this model, as in JAX: it
+builds, trains and serves as without them.
 
 The random draws (the RoI sampler's priorities and the mask
 uncertainty's normal samples) come from a ``torch.Generator`` or, to
@@ -44,7 +49,7 @@ from ...core.boxes import clip_to_image
 from ..backbone import device_normalize
 from ..language.bert import WordEmbeddingBackbone
 from ..roi_heads.box_head import box_head_loss, subsample_rois
-from ..roi_heads.bundle import RoIHeadsBundle, compute_dtype
+from ..roi_heads.bundle import RoIHeadsBundle, compute_dtype, feature_channels
 from ..roi_heads.mask_head import mask_head_inference, mask_head_loss
 from ..rpn.rpn import RPNHead, RPNProposals, flatten_rpn_outputs
 from .generalized_rcnn import (
@@ -113,8 +118,13 @@ class STGeneralizedRCNN(nn.Module):
                 "it needs MODEL.ROI_BOX_HEAD.EMBEDDING_BASED True"
             )
         self.statics = statics
-        self.backbone = detector_backbone(s)
-        self.rpn_head = RPNHead(s.backbone_out_channels, num_cell_anchors(s), compute_dtype(s))
+        # JAX's student-teacher model builds a C5 trunk without
+        # RES5_DILATION (st_generalized_rcnn.py:186-190); its RoI heads
+        # still run res5 dilated and pool without the prestride
+        self.backbone = detector_backbone(s, dilate_res5=False)
+        self.rpn_head = RPNHead(
+            s.backbone_out_channels, num_cell_anchors(s), compute_dtype(s), feature_channels(s)
+        )
         self.teacher = RoIHeadsBundle(s, uncertainty=False)
         self.student = RoIHeadsBundle(s, uncertainty=statics.uncertainty)
         self.bert = WordEmbeddingBackbone(statics.vocab_size, s.emb_dim)

@@ -56,17 +56,24 @@ def _conv(cin, cout, kernel, stride=1, dilation=1, dtype=torch.float32, groups=1
 
 
 class Bottleneck(nn.Module):
+    """``in_channels`` decides whether the block has a downsample branch
+    (it differs from ``out_channels``, or the block strides), as the
+    flax module's attribute does; ``input_channels`` is the width of the
+    input the convs read (default ``in_channels``), which flax infers
+    from the input.  The two differ only for the C5 body's RoI head."""
+
     def __init__(self, in_channels, bottleneck_channels, out_channels,
                  stride=1, dilation=1, stride_in_1x1=True, num_groups=1,
-                 dtype=torch.float32):
+                 dtype=torch.float32, input_channels=None):
         super().__init__()
         s1, s3 = (stride, 1) if stride_in_1x1 else (1, stride)
+        cin = in_channels if input_channels is None else input_channels
         self.has_downsample = in_channels != out_channels or stride != 1
         if self.has_downsample:
             down_stride = stride if dilation == 1 else 1
-            self.downsample_conv = _conv(in_channels, out_channels, 1, down_stride, dtype=dtype)
+            self.downsample_conv = _conv(cin, out_channels, 1, down_stride, dtype=dtype)
             self.downsample_bn = FrozenBatchNorm(out_channels)
-        self.conv1 = _conv(in_channels, bottleneck_channels, 1, s1, dtype=dtype)
+        self.conv1 = _conv(cin, bottleneck_channels, 1, s1, dtype=dtype)
         self.bn1 = FrozenBatchNorm(bottleneck_channels)
         self.conv2 = _conv(bottleneck_channels, bottleneck_channels, 3, s3,
                            dilation, dtype, groups=num_groups)
@@ -98,16 +105,20 @@ class Stem(nn.Module):
 
 
 class ResNetStage(nn.Sequential):
+    """``input_channels``: the width block 0 reads, when it is not
+    ``in_channels`` (see :class:`Bottleneck`)."""
+
     def __init__(self, block_count, in_channels, bottleneck_channels,
                  out_channels, first_stride, dilation=1, stride_in_1x1=True,
-                 num_groups=1, dtype=torch.float32):
+                 num_groups=1, dtype=torch.float32, input_channels=None):
         super().__init__()
         stride = first_stride
         for i in range(block_count):
             self.add_module(
                 f"block{i}",
                 Bottleneck(in_channels, bottleneck_channels, out_channels,
-                           stride, dilation, stride_in_1x1, num_groups, dtype),
+                           stride, dilation, stride_in_1x1, num_groups, dtype,
+                           input_channels if i == 0 else None),
             )
             in_channels = out_channels
             stride = 1
@@ -156,18 +167,25 @@ class ResNet(nn.Module):
 class ResNetRoIHead(nn.Module):
     """The C5 stage on pooled RoI features, ``[R, P, Q, C]`` NHWC in,
     ``[R, P', Q', 2048]`` out.  ``prestrided``: the pooler already
-    emitted only the even bins, so the first 1x1 convs run stride 1."""
+    emitted only the even bins, so the first 1x1 convs run stride 1.
+    ``feature_channels``: the width of the pooled features when it is
+    not ``in_channels`` (the C5 body's trunk puts out ``8 x res2``
+    channels while its statics' ``in_channels`` is
+    ``BACKBONE_OUT_CHANNELS``; ``in_channels`` still decides block 0's
+    downsample branch, as in the JAX module)."""
 
     def __init__(self, block_count=3, in_channels=1024, out_channels=2048,
                  num_groups=1, width_per_group=64, stride_in_1x1=True,
-                 dilation=1, prestrided=False, dtype=torch.float32):
+                 dilation=1, prestrided=False, dtype=torch.float32, feature_channels=None):
         super().__init__()
         first_stride = 2 if dilation == 1 else 1
         if prestrided:
             first_stride = 1
+        self.out_channels = out_channels
         self.layer4 = ResNetStage(
             block_count, in_channels, num_groups * width_per_group * 8,
             out_channels, first_stride, dilation, stride_in_1x1, 1, dtype,
+            input_channels=feature_channels,
         )
 
     def forward(self, x):

@@ -19,8 +19,25 @@ def compute_dtype(s: RCNNStatics) -> torch.dtype:
     return torch.bfloat16 if s.compute_dtype == "bfloat16" else torch.float32
 
 
+def feature_channels(s: RCNNStatics) -> int:
+    """The width of the map the RPN and the RoI heads read: the C4
+    stage's and the FPN's are the statics' ``backbone_out_channels``;
+    the C5 stage puts out ``8 x res2`` channels, while its statics give
+    ``RESNETS.BACKBONE_OUT_CHANNELS`` (1024 by default).  JAX's convs
+    infer their input width from the map, so its C5 RPN conv maps the
+    trunk's width to ``backbone_out_channels`` and its RoI head gets a
+    block-0 downsample whenever ``backbone_out_channels`` is not 2048."""
+    if s.conv_body.endswith("-C5"):
+        return s.res2_out_channels * 8
+    return s.backbone_out_channels
+
+
 class RoIHeadsBundle(nn.Module):
-    def __init__(self, statics: RCNNStatics, uncertainty: bool = False):
+    """``predictors`` False builds the C5 extractor alone (the WSDDN
+    detector, whose JAX tree has no box or mask predictor: flax creates
+    a module's parameters when it is first called)."""
+
+    def __init__(self, statics: RCNNStatics, uncertainty: bool = False, predictors: bool = True):
         super().__init__()
         s = statics
         self.statics = s
@@ -33,7 +50,10 @@ class RoIHeadsBundle(nn.Module):
             dilation=s.res5_dilation,
             prestrided=s.pool_prestride,
             dtype=dtype,
+            feature_channels=feature_channels(s),
         )
+        if not predictors:
+            return
         self.box_predictor = BoxPredictor(
             emb_dim=s.emb_dim, dtype=dtype, embedding_based=s.embedding_based,
             num_classes=s.num_classes, cls_agnostic_bbox_reg=s.cls_agnostic_bbox_reg,

@@ -24,11 +24,16 @@ from ..layers import Conv2d
 
 
 class RPNHead(nn.Module):
-    """Shared 3x3 conv + 1x1 objectness / 1x1 box heads per level."""
+    """Shared 3x3 conv + 1x1 objectness / 1x1 box heads per level.  The
+    conv puts out ``in_channels`` from ``input_channels`` (default
+    ``in_channels``): they differ on the C5 body, whose trunk is wider
+    than its statics' ``BACKBONE_OUT_CHANNELS`` (flax infers the input
+    width)."""
 
-    def __init__(self, in_channels: int, num_anchors: int, dtype=torch.float32):
+    def __init__(self, in_channels: int, num_anchors: int, dtype=torch.float32, input_channels: int = None):
         super().__init__()
-        self.conv = Conv2d(in_channels, in_channels, 3, padding=1, dtype=dtype)
+        cin = in_channels if input_channels is None else input_channels
+        self.conv = Conv2d(cin, in_channels, 3, padding=1, dtype=dtype)
         self.cls_logits = Conv2d(in_channels, num_anchors, 1, dtype=dtype)
         self.bbox_pred = Conv2d(in_channels, num_anchors * 4, 1, dtype=dtype)
 

@@ -52,7 +52,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Dict[str, float]]:
         latest_checkpoint,
         load_checkpoint,
     )
-    from ..engine.inference import Predictor, bbox_aug_options, check_eval_options, inference, load_cfg
+    from ..engine.inference import Predictor, bbox_aug_options, check_eval_options, inference, iou_types, load_cfg
     from ..utils.logger import get_logger, setup_logger
     from ..utils.model_zoo import resolve_weight_path
 
@@ -83,14 +83,13 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Dict[str, float]]:
         predictor.load_flax_params(tree)
         logger.info("%s", msg or f"random weights from seed {args.seed} on {predictor.device}")
     loaders, datasets = make_data_loader(cfg, is_train=False)
-    iou_types = ("bbox",) + (("segm",) if cfg.MODEL.MASK_ON else ())
     out = {}
     for name, loader, dataset in zip(cfg.DATASETS.TEST, loaders, datasets):
         metrics = inference(
             predictor,
             loader,
             dataset,
-            iou_types=iou_types,
+            iou_types=iou_types(cfg),
             expected_results=cfg.TEST.EXPECTED_RESULTS,
             expected_results_sigma_tol=cfg.TEST.EXPECTED_RESULTS_SIGMA_TOL,
             output_file=os.path.join(cfg.OUTPUT_DIR, f"predictions_{name}.json"),

@@ -98,10 +98,6 @@ def check_train_options(cfg) -> None:
         raise NotImplementedError("MODEL.EXEMPLARS_ENABLED: the exemplar table is not ported")
 
 
-def _iou_types(cfg):
-    return ("bbox",) + (("segm",) if cfg.MODEL.MASK_ON else ())
-
-
 def _summary(metrics):
     """The metrics of a log line: no per-class AP (COCO's ``AP50_class_``,
     VOC's ``AP_class_``)."""
@@ -127,7 +123,7 @@ def train(cfg, logger, device: str = "cuda", seed: int = 0) -> Dict:
         populate_student_from_teacher,
         restore_trainer,
     )
-    from ..engine.inference import Predictor, check_eval_options, inference
+    from ..engine.inference import Predictor, check_eval_options, inference, iou_types
     from ..engine.train_step import Trainer
     from ..engine.trainer import compute_class_name_embeddings, do_train
     from ..models.detector import ST_FAMILY
@@ -225,7 +221,7 @@ def train(cfg, logger, device: str = "cuda", seed: int = 0) -> Dict:
                 try:
                     for name, loader_t, ds in zip(cfg.DATASETS.TEST, val_loaders, val_datasets):
                         metrics = inference(
-                            predictor, loader_t, ds, iou_types=_iou_types(cfg),
+                            predictor, loader_t, ds, iou_types=iou_types(cfg),
                             expected_results=cfg.TEST.EXPECTED_RESULTS,
                             expected_results_sigma_tol=cfg.TEST.EXPECTED_RESULTS_SIGMA_TOL,
                         )
@@ -253,7 +249,7 @@ def run_test(cfg, trainer, logger) -> Dict[str, Dict[str, float]]:
     ``predictions_{name}.json`` into ``OUTPUT_DIR`` and returns each
     dataset's metrics."""
     from ..data import make_data_loader
-    from ..engine.inference import Predictor, check_eval_options, inference
+    from ..engine.inference import Predictor, check_eval_options, inference, iou_types
 
     if not cfg.DATASETS.TEST:
         return {}
@@ -263,7 +259,7 @@ def run_test(cfg, trainer, logger) -> Dict[str, Dict[str, float]]:
     out = {}
     for name, loader, dataset in zip(cfg.DATASETS.TEST, loaders, datasets):
         metrics = inference(
-            predictor, loader, dataset, iou_types=_iou_types(cfg),
+            predictor, loader, dataset, iou_types=iou_types(cfg),
             expected_results=cfg.TEST.EXPECTED_RESULTS,
             expected_results_sigma_tol=cfg.TEST.EXPECTED_RESULTS_SIGMA_TOL,
             output_file=os.path.join(cfg.OUTPUT_DIR, f"predictions_{name}.json"),

@@ -42,6 +42,7 @@ from cvpr22_cross_modal_pseudo_labeling_torch.data.transforms import get_resize_
 from cvpr22_cross_modal_pseudo_labeling_torch.engine import bbox_aug as torch_aug
 from cvpr22_cross_modal_pseudo_labeling_torch.engine import inference as torch_inference
 from cvpr22_cross_modal_pseudo_labeling_torch.tools import test_net
+from tests.native_libs import ensure_native_libs
 from tests.test_torch_openimages import STUDENT, write_tiny_tree
 
 # the JAX package's engine/__init__.py exports a function of this name
@@ -120,6 +121,13 @@ def test_flip_and_the_variant_loop_match_jax():
     assert tc == jc and len(tc) == 6 and tc[1] == ((300, 400), True)
     for g, r in zip(got, ref):
         np.testing.assert_array_equal(g, r)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def native_libs():
+    """Both packages' native image and mask libraries, loaded before
+    the first comparison (``tests/native_libs.py``)."""
+    ensure_native_libs()
 
 
 @pytest.fixture(scope="module")

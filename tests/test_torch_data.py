@@ -39,6 +39,7 @@ from cvpr22_cross_modal_pseudo_labeling_torch.data import transforms as torch_tr
 from cvpr22_cross_modal_pseudo_labeling_torch.data.datasets import coco as torch_coco
 from cvpr22_cross_modal_pseudo_labeling_torch.utils import native_image, native_loader
 from cvpr22_cross_modal_pseudo_labeling_torch.utils import rle as torch_rle
+from tests.native_libs import ensure_native_libs
 
 REPO = Path(__file__).resolve().parents[1]
 CONFIG = str(REPO / "configs/coco_cap_det/student_teacher_mask_rcnn_uncertainty.yaml")
@@ -62,6 +63,13 @@ def make_tree(out: Path) -> Path:
         check=True, capture_output=True, timeout=300,
     )
     return out
+
+
+@pytest.fixture(scope="module", autouse=True)
+def native_libs():
+    """Both packages' native image and mask libraries, loaded before
+    the first comparison (``tests/native_libs.py``)."""
+    ensure_native_libs()
 
 
 @pytest.fixture(scope="module")

@@ -56,6 +56,7 @@ from cvpr22_cross_modal_pseudo_labeling_torch.data.evaluation import prepare as 
 from cvpr22_cross_modal_pseudo_labeling_torch.engine import inference as torch_inference
 from cvpr22_cross_modal_pseudo_labeling_torch.tools import test_net
 from cvpr22_cross_modal_pseudo_labeling_torch.utils import rle as torch_rle
+from tests.native_libs import ensure_native_libs
 
 REPO = Path(__file__).resolve().parents[1]
 CONFIG = str(REPO / "configs/coco_cap_det/student_teacher_mask_rcnn_uncertainty.yaml")
@@ -70,6 +71,13 @@ TINY_EVAL_OPTS = [
     "DATASETS.TEST", ("coco_generalized_zeroshot_val",), "TEST.IMS_PER_BATCH", 4,
     "DATALOADER.NUM_WORKERS", 2,
 ]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def native_libs():
+    """Both packages' native image and mask libraries, loaded before
+    the first comparison (``tests/native_libs.py``)."""
+    ensure_native_libs()
 
 
 @pytest.fixture(scope="module")

@@ -41,6 +41,7 @@ from cvpr22_cross_modal_pseudo_labeling_torch.engine import optimizer as torch_o
 from cvpr22_cross_modal_pseudo_labeling_torch.engine.train_step import Trainer
 from cvpr22_cross_modal_pseudo_labeling_torch.tools import test_net
 from tests import test_torch_train_net as tn
+from tests.tensorboard_stub import tensorboard_compat_reset  # noqa: F401  (an autouse fixture)
 from tests.test_torch_fpn import TREE_WIDTHS, _cfg
 
 FPN = R50_FPN_OPTS + ["MODEL.RESNETS.BACKBONE_OUT_CHANNELS", 16]

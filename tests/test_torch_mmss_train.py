@@ -47,6 +47,7 @@ from cvpr22_cross_modal_pseudo_labeling_torch.engine.train_step import Trainer, 
 from cvpr22_cross_modal_pseudo_labeling_torch.models.detector import build_detection_model
 from cvpr22_cross_modal_pseudo_labeling_torch.models.detector import mmss_gcnn as torch_mmss
 from tests import test_torch_teacher as teacher_tests
+from tests.native_libs import ensure_native_libs
 from tests.test_torch_mmss import JaxMMSSDraws, jax_params, mmss_batch, narrow_statics, seeded_tree
 
 REPO = Path(__file__).resolve().parents[1]
@@ -216,6 +217,13 @@ def write_val_captions(root: Path) -> None:
             for i, im in enumerate(blob["images"]) for k in range(2)]
     (coco / "annotations/captions_val2017.json").write_text(json.dumps({"images": blob["images"],
                                                                          "annotations": anns}))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def native_libs():
+    """Both packages' native image and mask libraries, loaded before
+    the first comparison (``tests/native_libs.py``)."""
+    ensure_native_libs()
 
 
 @pytest.fixture(scope="module")

@@ -60,6 +60,7 @@ from cvpr22_cross_modal_pseudo_labeling_torch.data.datasets import conceptual as
 from cvpr22_cross_modal_pseudo_labeling_torch.data.datasets import list_dataset as torch_list
 from cvpr22_cross_modal_pseudo_labeling_torch.models.backbone import device_normalize
 from cvpr22_cross_modal_pseudo_labeling_torch.tools import synth_openimages
+from tests.native_libs import ensure_native_libs
 
 REPO = Path(__file__).resolve().parents[1]
 TEACHER = str(REPO / "configs/conceptual_openimages_det/zeroshot_mask.yaml")
@@ -79,6 +80,13 @@ CAPTION_ROW_ATOL = 1.0 + 1e-3
 def write_tiny_tree(out: Path, **kw) -> Path:
     synth_openimages.write_tree(str(out), **{**TINY_TREE, **kw})
     return out
+
+
+@pytest.fixture(scope="module", autouse=True)
+def native_libs():
+    """Both packages' native image and mask libraries, loaded before
+    the first comparison (``tests/native_libs.py``)."""
+    ensure_native_libs()
 
 
 @pytest.fixture(scope="module")

@@ -67,6 +67,7 @@ from cvpr22_cross_modal_pseudo_labeling_torch.models.rpn.rpn import top_k
 from cvpr22_cross_modal_pseudo_labeling_torch.ops.sigmoid_focal_loss import sigmoid_focal_loss
 from cvpr22_cross_modal_pseudo_labeling_torch.tools import test_net
 from tests import test_torch_train_net as tn
+from tests.tensorboard_stub import tensorboard_compat_reset  # noqa: F401  (an autouse fixture)
 
 NARROW = dict(stem_out_channels=8, res2_out_channels=16, width_per_group=4)
 FPN_CHANNELS = 16

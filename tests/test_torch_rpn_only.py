@@ -49,6 +49,7 @@ from cvpr22_cross_modal_pseudo_labeling_torch.models.detector.generalized_rcnn i
 from cvpr22_cross_modal_pseudo_labeling_torch.tools import test_net, train_net
 from tests import test_torch_teacher as teacher
 from tests import test_torch_train_net as tn
+from tests.tensorboard_stub import tensorboard_compat_reset  # noqa: F401  (an autouse fixture)
 
 # the module (the package's ``inference`` attribute is the function)
 jax_inference = importlib.import_module("cvpr22_cross_modal_pseudo_labeling_tpu.engine.inference")

@@ -469,9 +469,6 @@ def test_teacher_optimizer_labels_match_jax():
 
 
 @pytest.mark.parametrize("opts,error", [
-    (("MODEL.BACKBONE.CONV_BODY", "R-50-C5"), NotImplementedError),
-    (("MODEL.KEYPOINT_ON", True), NotImplementedError),
-    (("MODEL.ROI_BOX_HEAD.WSDDN", True), NotImplementedError),
     (("MODEL.META_ARCHITECTURE", "NoSuchRCNN"), ValueError),
     # RetinaNet's body without RETINANET_ON: JAX's GeneralizedRCNN fails too
     (("MODEL.BACKBONE.CONV_BODY", "R-50-FPN-RETINANET"), ValueError),
@@ -488,15 +485,21 @@ def test_registry_refuses_what_is_not_ported(opts, error):
     ("MODEL.GT_BOX_EVAL", True),
     ("MODEL.RPN_ONLY", True),
     ("MODEL.RETINANET_ON", True),
+    ("MODEL.BACKBONE.CONV_BODY", "R-50-C5"),
+    ("MODEL.KEYPOINT_ON", True),
+    ("MODEL.ROI_BOX_HEAD.WSDDN", True),
 ])
 def test_registry_builds_and_runs_what_it_once_refused(opts):
-    """The baselines, ``GT_BOX_EVAL``, the RPN-only detector and
-    RetinaNet, refused before the port had them: the registry builds them
-    and they run, a train step for the baselines (the top-k teachers on
-    the student-teacher config and batch), the RPN-only detector (its RPN
-    losses alone) and RetinaNet (over the teacher config's C4 body, whose
-    depth it takes: the R-50 RetinaNet body), the eval forward on the gt
-    boxes for ``GT_BOX_EVAL``."""
+    """The baselines, ``GT_BOX_EVAL``, the RPN-only detector, RetinaNet,
+    the C5 body, the keypoint head and WSDDN, refused before the port had
+    them: the registry builds them and they run, a train step for the
+    baselines (the top-k teachers on the student-teacher config and
+    batch), the RPN-only detector (its RPN losses alone), RetinaNet (over
+    the teacher config's C4 body, whose depth it takes: the R-50 RetinaNet
+    body), the C5 teacher, the keypoint teacher (its eval forward gives
+    keypoints; a batch without gt keypoints trains no keypoint loss, as
+    in JAX) and WSDDN (the RPN losses and its image-level classifier
+    loss), the eval forward on the gt boxes for ``GT_BOX_EVAL``."""
     from cvpr22_cross_modal_pseudo_labeling_torch.models.detector.retinanet import RetinaNetDetector
     from tests import test_torch_st_train as st
 
@@ -530,6 +533,14 @@ def test_registry_builds_and_runs_what_it_once_refused(opts):
     assert all(torch.isfinite(v) for v in metrics.values()) and float(metrics["total_loss"]) > 0
     if key == "MODEL.RPN_ONLY":
         assert sorted(metrics) == ["grad_norm", "loss_objectness", "loss_rpn_box_reg", "total_loss"]
+    if key == "MODEL.ROI_BOX_HEAD.WSDDN":
+        assert sorted(metrics) == ["grad_norm", "loss_classifier", "loss_objectness", "loss_rpn_box_reg",
+                                   "total_loss"]
+    if key == "MODEL.KEYPOINT_ON":
+        assert "loss_kp" not in metrics
+        dets, _ = Predictor.from_model(trainer.cfg, trainer.model)(
+            batch["images"], batch["image_sizes"], batch["class_embeddings"])
+        assert dets.keypoints.shape == (2, 100, 17, 3) and np.isfinite(dets.keypoints).all()
 
 
 def test_registry_builds_both_detectors_and_the_teacher_checks_its_batch():

@@ -46,6 +46,7 @@ from cvpr22_cross_modal_pseudo_labeling_torch.engine.checkpoint import (
 )
 from cvpr22_cross_modal_pseudo_labeling_torch.engine.train_step import Trainer
 from cvpr22_cross_modal_pseudo_labeling_torch.engine.trainer import do_train
+from tests.tensorboard_stub import tensorboard_compat_reset  # noqa: F401  (an autouse fixture)
 from tests.test_torch_st_train import CONFIG, LOSSES, TRAIN_OPTS, JaxDraws, jax_cfg_of, tiny_batch
 
 

@@ -48,6 +48,7 @@ from cvpr22_cross_modal_pseudo_labeling_torch.engine import trainer as torch_tra
 from cvpr22_cross_modal_pseudo_labeling_torch.engine.train_step import Trainer
 from cvpr22_cross_modal_pseudo_labeling_torch.tools import test_net, train_net
 from cvpr22_cross_modal_pseudo_labeling_torch.utils import model_zoo
+from tests.tensorboard_stub import tensorboard_compat_reset  # noqa: F401  (an autouse fixture)
 from tests.test_torch_st_train import TRAIN_OPTS, jax_cfg_of
 
 REPO = Path(__file__).resolve().parents[1]

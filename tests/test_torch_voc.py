@@ -49,6 +49,8 @@ from cvpr22_cross_modal_pseudo_labeling_torch.data.datasets import cityscapes as
 from cvpr22_cross_modal_pseudo_labeling_torch.data.datasets import voc as torch_voc
 from cvpr22_cross_modal_pseudo_labeling_torch.data.evaluation import voc_eval as torch_voc_eval
 from cvpr22_cross_modal_pseudo_labeling_torch.tools import synth_voc, test_net, train_net
+from tests.native_libs import ensure_native_libs
+from tests.tensorboard_stub import tensorboard_compat_reset  # noqa: F401  (an autouse fixture)
 
 REPO = Path(__file__).resolve().parents[1]
 SIZES = ((100, 75), (75, 100), (100, 67))
@@ -77,6 +79,13 @@ TINY = [
 ]
 # one grey level after the BGR255 normalization, and float rounding
 GREY_LEVEL_ATOL = 1.0 + 1e-3
+
+
+@pytest.fixture(scope="module", autouse=True)
+def native_libs():
+    """Both packages' native image and mask libraries, loaded before
+    the first comparison (``tests/native_libs.py``)."""
+    ensure_native_libs()
 
 
 @pytest.fixture(scope="module")
