@@ -263,12 +263,34 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                 keypoint detections' NMS, the forward and backward on the C5
                 map and on WSDDN's proposals) are checked again and timed on
                 their captured inputs.
+22. st_options -- the student-teacher options and the teacher's pseudo-label
+                methods at full width in bfloat16: (a) MODEL.EXEMPLARS_ENABLED,
+                3 Trainer steps of 8 at 800 x 1333 on phase 8's batch shape
+                (the table's valid slots and lambda_exemplar after each step;
+                the first step's table update redone on the CPU: valid and
+                quality equal, embeddings within 1e-6); (b)
+                MODEL.LANGUAGE_BACKBONE.FT_EMB, 3 steps with the tokenized
+                LVIS names in place of the table (the word table's gradient
+                norm after each step, the step time beside phase 8's, the word
+                table changed and finite); (c) both through train_net on the
+                eval tree (2 steps, a save, a resume to 3 whose restored table
+                equals the saved one bit for bit) and test_net --ckpt, every
+                metric finite; (d) the teacher's run_teacher_pseudo_branch and
+                predict_masks_for_boxes on a serving batch of 8 (the masks of
+                the 32 best regressed boxes an image); (e) build_backbone's
+                plain R-50-C4, R-50-C4 with GroupNorm, R-50-C4 with modulated
+                DCN in res4 and FBNet, forward on 8 x 800 x 1333 in bfloat16
+                (ms and peak memory), one res4 block's deformable 3x3 conv
+                beside cuDNN's, and deform_conv2d on the card against the CPU
+                at 2 x 64 x 64 x 64 in float32, within 1e-5 of max|out|.  Every launch
+                of each path's first step or batch held against its plain
+                version; each path's launches counted from 0.
 One line gives the seconds each phase from 7 on took.  The per-kernel line
 gives, beside each kernel's launches on the earlier paths, its launches on
 the MMSS paths (phase 14 and the MMSS stage of phase 16): 0, on the
 OpenImages paths of phase 17, on the supervised paths of phase 18, on the
-FPN, RetinaNet and RPN-only paths of phases 19 and 20 and on the options'
-paths of phase 21.
+FPN, RetinaNet and RPN-only paths of phases 19 and 20, on the options'
+paths of phase 21 and on the student-teacher options' paths of phase 22.
 
 Then the card's name and power limit, the per-kernel JSON line, and the last
 line ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when
@@ -3382,6 +3404,8 @@ def phase_retinanet(dev, results):
         timed_["top_k"] = dict(
             shape=list(p3.shape), k=k, distinct_in_top_k=[len(torch.unique(v)) for v in ref[0]],
             sort_ms=cuda_ms(lambda: top_k(p3, k), iters), keyed_ms=cuda_ms(lambda: keyed_top_k(p3, k), iters),
+            # the float sort top_k ran before it sorted the floats' bits
+            float_sort_ms=cuda_ms(lambda: torch.sort(p3, dim=-1, descending=True, stable=True), iters),
             torch_topk_ms=cuda_ms(lambda: torch.topk(p3, k), iters))
         del p3, keyed, ref
     del pred
@@ -3847,6 +3871,346 @@ def options_shapes_timed(dev, captured):
     return shapes
 
 
+ST_OPTIONS = dict(steps=3, out="build/st_options_out", timing_iters=3, dcn_check=(2, 64, 64, 64))
+EXEMPLAR_OPTS = ("MODEL.EXEMPLARS_ENABLED", True)
+FT_EMB_OPTS = ("MODEL.LANGUAGE_BACKBONE.FT_EMB", True)
+# build_backbone's trunks (phase 22 (e)): the detectors ignore these options
+TRUNK_OPTS = {
+    "r50_c4": ("MODEL.BACKBONE.CONV_BODY", "R-50-C4"),  # the plain trunk, for comparison
+    "r50_c4_gn": ("MODEL.BACKBONE.CONV_BODY", "R-50-C4", "MODEL.RESNETS.TRANS_FUNC", "BottleneckWithGN"),
+    "r50_c4_modulated_dcn_res4": ("MODEL.BACKBONE.CONV_BODY", "R-50-C4", "MODEL.RESNETS.STAGE_WITH_DCN",
+                                  (False, False, True, False), "MODEL.RESNETS.WITH_MODULATED_DCN", True),
+    "fbnet": ("MODEL.BACKBONE.CONV_BODY", "FBNet"),
+}
+DCN_TOL = 1e-5  # of max|out|: float32 sums in another order (TF32 off)
+
+
+def st_options_steps(dev, label, opts, seed, tables, trained, rec, capture, per_step_info):
+    """``ST_OPTIONS["steps"]`` Trainer steps of ``TRAIN``'s shape on the
+    student-teacher config with ``opts``, seeded weights and, for FT_EMB,
+    ``tables`` in place of each batch's LVIS table; every launch of the
+    first step held against its plain version, every parameter under the
+    prefixes ``trained`` changed, the frozen ones bit-identical;
+    ``per_step_info(trainer)`` is recorded after each step.  Returns (the
+    trainer, its record)."""
+    from cvpr22_cross_modal_pseudo_labeling_torch import bridge
+    from cvpr22_cross_modal_pseudo_labeling_torch.engine.train_step import Trainer
+
+    trainer = Trainer(CONFIG, [str(x) for x in opts] + list(TRAIN["opts"]), device=dev, seed=SEED)
+    trainer.load_flax_params(bridge.seeded_flax_params(trainer.model, SEED, EMB_PRED_STD))
+    check(trainer.cfg.TPU.COMPUTE_DTYPE == "bfloat16", f"st_options {label}: {trainer.cfg.TPU.COMPUTE_DTYPE}")
+    rng = np.random.default_rng(seed)
+    batches = [train_batch(rng, TRAIN["batch"], TRAIN["hw"], TRAIN["max_gt"], TRAIN["nouns"], TRAIN["noun_tokens"],
+                           TRAIN["lvis"], TRAIN["classes"], trainer.model.statics.base.emb_dim)
+               for _ in range(ST_OPTIONS["steps"])]
+    if tables:
+        trainer.set_class_tables(**tables)
+        for b in batches:
+            b.pop("lvis_class_embeddings")
+    frozen = {n: p.detach().clone() for n, p in trainer.model.named_parameters() if not p.requires_grad}
+    start = {n: p.detach().clone() for n, p in trainer.model.named_parameters() if n.startswith(trained)}
+    infos = []
+    checks, *hooks = launch_checks()
+
+    def step(batch):
+        metrics = trainer.step(batch)
+        infos.append(per_step_info(trainer))
+        return metrics
+
+    lat, outs, first, path, peak = fpn_steps(step, batches, 1, capture(checks, hooks, label))
+    metrics = [{k: float(v) for k, v in m.items()} for m in outs]
+    check(all(np.isfinite(v) for m in metrics for v in m.values()), f"st_options {label}: non-finite {metrics}")
+    params = dict(trainer.model.named_parameters())
+    check(not [n for n in frozen if not torch.equal(params[n], frozen[n])],
+          f"st_options {label}: a frozen parameter changed")
+    unchanged = [n for n in start if torch.equal(params[n], start[n])]
+    check(start and not unchanged, f"st_options {label}: trained parameters did not change: {unchanged[:5]}")
+    check_all_passed(label, checks, first, 2, 4, 0)
+    check(path == {k: v * len(batches) for k, v in first.items()}, f"st_options {label}: launches {path}")
+    steady = lat[1:]
+    rec["runs"][label] = dict(step_latency_s=lat, steady_step_s=sum(steady) / len(steady),
+                              steady_images_per_s=TRAIN["batch"] * len(steady) / sum(steady),
+                              steady_peak_memory_gb=peak, metrics=metrics,
+                              per_step=[{k: float(v) for k, v in i.items()} for i in infos])
+    rec["launches"][label], rec["checks"][label] = path, checks
+    emit(dict(phase=f"st_options_{label}", launches=path, first_launches=first, **rec["runs"][label]))
+    return trainer, rec["runs"][label]
+
+
+def phase_st_options(dev, results):
+    """The student-teacher options and the pieces only tests reached
+    before: (a) the exemplar table, 3 Trainer steps, its update held
+    against the same update on the CPU; (b) FT_EMB, 3 steps; (c) both
+    through train_net (2 steps, a save, a resume that restores the table
+    bit for bit, 1 more step) and test_net --ckpt; (d) the teacher's
+    run_teacher_pseudo_branch and predict_masks_for_boxes on a serving
+    batch; (e) build_backbone's plain, GN, modulated-DCN and FBNet
+    trunks, forward on 8 x 800 x 1333, one res4 deformable conv beside
+    cuDNN's, and deform_conv2d on the card against the CPU."""
+    import shutil
+
+    from cvpr22_cross_modal_pseudo_labeling_torch import bridge
+    from cvpr22_cross_modal_pseudo_labeling_torch.config import get_default_cfg
+    from cvpr22_cross_modal_pseudo_labeling_torch.data import make_data_loader
+    from cvpr22_cross_modal_pseudo_labeling_torch.data.collate import build_tokenizer
+    from cvpr22_cross_modal_pseudo_labeling_torch.data.parser import load_lvis_categories, normalize_class_names
+    from cvpr22_cross_modal_pseudo_labeling_torch.engine import checkpoint as ck
+    from cvpr22_cross_modal_pseudo_labeling_torch.engine import inference as inf
+    from cvpr22_cross_modal_pseudo_labeling_torch.engine.inference import Predictor
+    from cvpr22_cross_modal_pseudo_labeling_torch.engine.train_step import Trainer
+    from cvpr22_cross_modal_pseudo_labeling_torch.engine.trainer import tokenize_class_names
+    from cvpr22_cross_modal_pseudo_labeling_torch.models.backbone import build_backbone, device_normalize
+    from cvpr22_cross_modal_pseudo_labeling_torch.models.detector import st_generalized_rcnn as st_mod
+    from cvpr22_cross_modal_pseudo_labeling_torch.ops import kernels
+    from cvpr22_cross_modal_pseudo_labeling_torch.ops.deform_conv import deform_conv2d
+    from cvpr22_cross_modal_pseudo_labeling_torch.tools import test_net
+
+    captured, runs, launches, all_checks = {}, {}, {}, {}
+    rec = dict(runs=runs, launches=launches, checks=all_checks)
+
+    def capture(checks, hooks, label):
+        return options_capture(checks, *hooks, captured, label)
+
+    # (a) the exemplar table: the first step's update captured and redone
+    # on the CPU
+    updates = []
+    plain_update = st_mod.update_exemplar_table
+
+    def recording_update(table, *cands):
+        out = plain_update(table, *cands)
+        if not updates:
+            updates.append(([x.detach().cpu().clone() for x in cands], {k: v.cpu() for k, v in table.items()},
+                            {k: v.cpu() for k, v in out.items()}))
+        return out
+
+    st_mod.update_exemplar_table = recording_update
+    try:
+        trainer, run = st_options_steps(
+            dev, "exemplars", EXEMPLAR_OPTS, SEED + 30, None, ("student.", "lambda_exemplar"), rec, capture,
+            lambda t: dict(valid_slots=t.exemplars["valid"].sum(),
+                           lambda_exemplar=t.model.lambda_exemplar[0].detach().clone()))
+    finally:
+        st_mod.update_exemplar_table = plain_update
+    cands, before, got = updates[0]
+    ref = plain_update(before, *cands)
+    check(torch.equal(ref["valid"], got["valid"]) and torch.equal(ref["quality"], got["quality"]),
+          "st_options exemplars: the card's table update differs from the CPU's on valid or quality")
+    emb_err = float((ref["embs"] - got["embs"]).abs().max())
+    check(emb_err <= 1e-6, f"st_options exemplars: the updated embeddings differ from the CPU's by {emb_err}")
+    valid = [int(i["valid_slots"]) for i in run["per_step"]]
+    check(0 < valid[0] <= valid[-1] <= TRAIN["lvis"] and trainer.exemplars["valid"].dtype == torch.bool,
+          f"st_options exemplars: valid slots {valid}")
+    check(run["per_step"][-1]["lambda_exemplar"] != 0.0, "st_options exemplars: lambda_exemplar never moved")
+    run.update(valid_slots=valid, lambda_exemplar=[i["lambda_exemplar"] for i in run["per_step"]],
+               candidates_per_step=int(cands[0].numel()), update_vs_cpu_embs_max_abs_err=emb_err,
+               table_bytes=sum(v.numel() * v.element_size() for v in trainer.exemplars.values()))
+    del trainer
+    torch.cuda.empty_cache()
+
+    # (b) FT_EMB: the LVIS table rebuilt from the live word table each step
+    cfg = get_default_cfg()
+    cfg.merge_from_file(CONFIG)
+    names = normalize_class_names([c["name"] for c in load_lvis_categories()])
+    ids, mask = tokenize_class_names(names, build_tokenizer(cfg))
+    trainer, run = st_options_steps(
+        dev, "ft_emb", FT_EMB_OPTS, SEED + 31, dict(lvis_name_ids=ids, lvis_name_mask=mask), ("student.", "bert."),
+        rec, capture, lambda t: dict(word_table_grad_norm=t.model.bert.word_embeddings.grad.norm()))
+    check(bool(torch.isfinite(trainer.model.bert.word_embeddings).all()), "st_options ft_emb: a non-finite word table")
+    check(trainer.class_tables["lvis_name_ids"].dtype == torch.int64, "st_options ft_emb: the ids are not int64")
+    run.update(word_table_grad_norm=[i["word_table_grad_norm"] for i in run["per_step"]],
+               plain_st_steady_step_s=results["train"]["steady_step_s"],
+               plain_st_steady_peak_memory_gb=results["train"]["steady_peak_memory_gb"],
+               step_vs_plain=run["steady_step_s"] / results["train"]["steady_step_s"])
+    check(all(g > 0 and np.isfinite(g) for g in run["word_table_grad_norm"]),
+          f"st_options ft_emb: word table gradient norms {run['word_table_grad_norm']}")
+    del trainer
+    torch.cuda.empty_cache()
+
+    # (c) both options through train_net (2 steps, a save, a resume to 3)
+    # and test_net --ckpt
+    check(os.path.isdir(EVAL["tree"]), f"st_options: no tree at {EVAL['tree']} (the eval phase writes it)")
+    os.environ["CMPL_TPU_DATA_DIR"] = EVAL["tree"]
+    out = ST_OPTIONS["out"]
+    shutil.rmtree(out, ignore_errors=True)
+    s_dir, e_dir = os.path.join(out, "st"), os.path.join(out, "test_net")
+    name = TRAIN_NET["dataset"]
+    both = [*map(str, EXEMPLAR_OPTS), *map(str, FT_EMB_OPTS)]
+    common = ["--config-file", CONFIG, "--skip-test", "--device", dev.type, "--seed", str(SEED),
+              *map(str, TRAIN_NET["opts"]), *both, "MODEL.LOAD_TRAINER_STATE", "True", "SOLVER.TEST_PERIOD", "0",
+              "SOLVER.CHECKPOINT_PERIOD", "2"]
+    restored = {}
+    load_state = Trainer.load_state_dict
+
+    def recording_load(self, state):
+        load_state(self, state)
+        restored.update({k: v.cpu() for k, v in self.exemplars.items()})
+
+    try:
+        checks, check_nms, check_roi, check_roi_bwd = launch_checks()
+
+        def first_step_roi(inputs, out_):
+            check_roi(inputs, out_)
+            if len(checks["roi_align"]) == 4:  # the first step's last launch
+                kernels.NMS.on_launch = kernels.ROI_ALIGN.on_launch = None
+
+        kernels.reset_launches()
+        kernels.NMS.on_launch, kernels.ROI_ALIGN.on_launch = check_nms, first_step_roi
+        try:
+            _, runs["train_net"], log, logged = train_net_run([*common, "SOLVER.MAX_ITER", "2"], s_dir)
+        finally:
+            kernels.NMS.on_launch = kernels.ROI_ALIGN.on_launch = None
+        launches["train_net"] = {k.name: k.launches for k in kernels.ALL}
+        all_checks["train_net"] = checks
+        check_all_passed("st_options train_net", checks, {"nms": 2, "roi_align": 4, "roi_align_backward": 0}, 2, 4, 0)
+        check("exemplar table initialized: 1203 slots x 768 dims" in log and "LVIS class names tokenized" in log
+              and "LVIS class-name table" not in log, "st_options train_net: the log lacks the options' lines")
+        check([r["step"] for r in logged] == [1, 2] and all(np.isfinite(v) for r in logged for v in r.values()),
+              f"st_options train_net: logged {logged}")
+        saved_table = ck.load_checkpoint(os.path.join(s_dir, "model_0000002.pth"))["trainer"]["exemplars"]
+        torch.cuda.empty_cache()
+        kernels.reset_launches()
+        Trainer.load_state_dict = recording_load
+        try:
+            resumed, runs["train_net_resume"], log, logged = train_net_run([*common, "SOLVER.MAX_ITER", "3"], s_dir)
+        finally:
+            Trainer.load_state_dict = load_state
+        launches["train_net_resume"] = {k.name: k.launches for k in kernels.ALL}
+        check(resumed["start_iter"] == 2 and "resumed from" in log and [r["step"] for r in logged] == [1, 2, 3],
+              f"st_options train_net resume: start {resumed['start_iter']}, logged {logged}")
+        check(set(restored) == set(saved_table) and all(torch.equal(restored[k], saved_table[k]) for k in restored),
+              "st_options train_net resume: the restored exemplar table differs from the saved one")
+        check(launches["train_net_resume"] == {"nms": 2, "roi_align": 4, "roi_align_backward": 0},
+              f"st_options train_net resume: launches {launches['train_net_resume']}")
+        runs["train_net_resume"]["restored_valid_slots"] = int(restored["valid"].sum())
+        del resumed
+        torch.cuda.empty_cache()
+        kernels.reset_launches()
+        t = time.perf_counter()
+        got = test_net.main(["--config-file", CONFIG, "--device", dev.type, "--ckpt",
+                             os.path.join(s_dir, "model_0000003.pth"), *map(str, TRAIN_NET["opts"]), *both,
+                             "DATASETS.TEST", f"('{name}',)", "OUTPUT_DIR", e_dir])
+        test_s = time.perf_counter() - t
+        launches["test_net"] = {k.name: k.launches for k in kernels.ALL}
+        _, (val,) = make_data_loader(inf.load_cfg(CONFIG, ["DATASETS.TEST", f"('{name}',)"]), is_train=False)
+        bad, _ = metrics_finite(got[name], val)
+        check(not bad and "segm/AP" in got[name], f"st_options test_net: non-finite metrics {bad[:5]}")
+        runs["test_net"] = dict(seconds=test_s, images=len(val), images_per_s=len(val) / test_s,
+                                bbox_AP=got[name]["bbox/AP"], segm_AP=got[name]["segm/AP"])
+        emit(dict(phase="st_options_train_net", launches={k: launches[k] for k in ("train_net", "train_net_resume",
+                                                                                 "test_net")},
+                  train_net=runs["train_net"], resume=runs["train_net_resume"], test_net=runs["test_net"]))
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # (d) the teacher's pseudo-label methods on one serving batch of 8
+    pred = Predictor(TEACHER, SERVING["opts"], device=dev)
+    pred.load_flax_params(bridge.seeded_flax_params(pred.model, SEED, EMB_PRED_STD))
+    model, s = pred.model, pred.model.statics
+    rng = np.random.default_rng(SEED + 8)  # the teacher serving phase's inputs
+    table = torch.from_numpy(rng.standard_normal((TEACHER_CLASSES, s.emb_dim)).astype(np.float32)).to(dev)
+    b, (h, w) = SERVING["batch"], SERVING["hw"]
+    images = torch.from_numpy(rng.integers(0, 256, (b, h, w, 3), dtype=np.uint8)).to(dev)
+    sizes = np.stack([rng.integers(3 * h // 4, h + 1, b), rng.integers(2 * w // 3, w + 1, b)], 1).astype(np.int32)
+    sizes[0] = (h, w)
+    sizes = torch.from_numpy(sizes).to(dev)
+    n_boxes = TRAIN["nouns"]
+
+    def pseudo(_):
+        with torch.no_grad():
+            x = device_normalize(images, sizes, s.pixel_mean, s.pixel_std, s.to_bgr255)
+            branch = model.run_teacher_pseudo_branch(x, sizes, table)
+            # the reference's pseudo-mask route: the masks of the chosen boxes
+            best = branch.class_logits.amax(-1).masked_fill(~branch.proposals.valid, -float("inf"))
+            idx = best.topk(n_boxes, dim=1).indices
+            boxes = torch.gather(branch.boxes, 1, idx[..., None].expand(-1, -1, 4))
+            return branch, boxes, model.predict_masks_for_boxes(images, sizes, boxes)
+
+    checks, *hooks = launch_checks()
+    lat, outs, first, path, peak = fpn_steps(pseudo, [0, 1], 1, capture(checks, hooks, "teacher_pseudo"))
+    check_all_passed("teacher_pseudo", checks, first, 1, 2, 0)
+    branch, boxes, masks = outs[0]
+    p = s.rpn_post_nms_test
+    check(branch.embeddings.shape == (b, p, s.emb_dim) and branch.class_logits.shape == (b, p, TEACHER_CLASSES)
+          and branch.boxes.shape == (b, p, 4) and masks.shape == (b, n_boxes, 14, 14),
+          f"st_options teacher_pseudo: shapes {branch.embeddings.shape} {branch.class_logits.shape} {masks.shape}")
+    check(all(bool(torch.isfinite(t).all()) for t in (branch.embeddings, branch.class_logits, branch.boxes, masks))
+          and bool(((masks >= 0) & (masks <= 1)).all()), "st_options teacher_pseudo: non-finite or off-range output")
+    inside = (branch.boxes[..., 2] <= sizes[:, None, 1] - 1) & (branch.boxes[..., 3] <= sizes[:, None, 0] - 1)
+    check(bool(inside.all()), "st_options teacher_pseudo: a regressed box outside its image")
+    check(path == {k: v * 2 for k, v in first.items()}, f"st_options teacher_pseudo: launches {path}")
+    runs["teacher_pseudo"] = dict(latency_s=lat, peak_memory_gb=peak, proposals=p, chosen_boxes=n_boxes,
+                                  valid_proposals=branch.proposals.valid.sum(1).tolist())
+    launches["teacher_pseudo"], all_checks["teacher_pseudo"] = path, checks
+    emit(dict(phase="st_options_teacher_pseudo", launches=path, first_launches=first, **runs["teacher_pseudo"]))
+    del pred, model, outs, branch, boxes, masks
+    torch.cuda.empty_cache()
+
+    # (e) build_backbone's trunks at full width in bfloat16, and
+    # deform_conv2d on the card against the CPU
+    trunks = {}
+    x = device_normalize(images, sizes)
+    for label, opts in TRUNK_OPTS.items():
+        cfg = get_default_cfg()
+        cfg.merge_from_list([str(v) for v in opts])
+        module, meta = build_backbone(cfg, torch.bfloat16)
+        bridge.load_flax_params(module, bridge.seeded_flax_params(module, SEED))
+        module = module.to(dev).eval()
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            feats = module(x)
+            ms = cuda_ms(lambda: module(x), ST_OPTIONS["timing_iters"])
+        finite = all(bool(torch.isfinite(f).all()) for f in feats)
+        check(finite and [f.shape[-1] for f in feats] == [meta["out_channels"]] * len(feats)
+              and feats[0].shape[1] == -(-h // meta["strides"][0]),
+              f"st_options trunk {label}: shapes {[tuple(f.shape) for f in feats]} or non-finite")
+        trunks[label] = dict(ms=ms, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, meta=meta,
+                             out_shape=list(feats[0].shape), out_dtype=str(feats[0].dtype))
+        del module, feats
+        torch.cuda.empty_cache()
+    rng = np.random.default_rng(SEED + 32)
+    bb, hh, ww, cc = ST_OPTIONS["dcn_check"]
+    args = [rng.standard_normal((bb, hh, ww, cc)).astype(np.float32),
+            (rng.standard_normal((bb, hh, ww, 18)) * 2).astype(np.float32),
+            (rng.standard_normal((3, 3, cc, cc)) / np.sqrt(9 * cc)).astype(np.float32)]
+    mask = rng.uniform(0, 1, (bb, hh, ww, 9)).astype(np.float32)
+    with torch.no_grad():
+        on_card = deform_conv2d(*(torch.from_numpy(a).to(dev) for a in args), mask=torch.from_numpy(mask).to(dev))
+        on_cpu = deform_conv2d(*(torch.from_numpy(a) for a in args), mask=torch.from_numpy(mask))
+    dcn_err = float((on_card.cpu() - on_cpu).abs().max())
+    check(dcn_err <= DCN_TOL * float(on_cpu.abs().max()),
+          f"st_options deform_conv2d: card vs CPU {dcn_err} over {DCN_TOL} x {float(on_cpu.abs().max())}")
+    # one res4 block's 3x3 conv (8 x 50 x 84, 256 -> 256): deformable in
+    # float32, as the DCN trunk runs it, beside cuDNN's in bfloat16 and
+    # float32
+    xr = torch.randn(b, -(-h // 16), -(-w // 16), 256, device=dev)
+    off = torch.randn(*xr.shape[:3], 18, device=dev) * 2
+    dmask = torch.rand(*xr.shape[:3], 9, device=dev)
+    kern = torch.randn(3, 3, 256, 256, device=dev) / 48
+    xc, kc = xr.permute(0, 3, 1, 2), kern.permute(3, 2, 0, 1).contiguous()
+    with torch.no_grad():
+        res4 = dict(shape=list(xr.shape), deform_f32_ms=cuda_ms(
+            lambda: deform_conv2d(xr, off, kern, mask=dmask), ST_OPTIONS["timing_iters"]),
+            cudnn_bf16_ms=cuda_ms(lambda: torch.nn.functional.conv2d(
+                xc.to(torch.bfloat16), kc.to(torch.bfloat16), padding=1), ST_OPTIONS["timing_iters"]),
+            cudnn_f32_ms=cuda_ms(lambda: torch.nn.functional.conv2d(xc, kc, padding=1), ST_OPTIONS["timing_iters"]))
+    del xr, off, dmask, kern, xc, kc
+    runs["trunks"] = trunks
+    runs["res4_conv"] = res4
+    runs["deform_conv2d_vs_cpu"] = dict(shape=[bb, hh, ww, cc], max_abs_err=dcn_err,
+                                        max_abs_out=float(on_cpu.abs().max()), tol_of_max=DCN_TOL)
+    emit(dict(phase="st_options_trunks", trunks=trunks, res4_conv=res4,
+              deform_conv2d_vs_cpu=runs["deform_conv2d_vs_cpu"]))
+    check(all(v["nms"] > 0 and v["roi_align"] > 0 for v in launches.values()),
+          f"st_options: a kernel of a path never launched: {launches}")
+    captured.clear()
+    out_rec = dict(phase="st_options", dtype="bfloat16", batch=b, image_hw=[h, w], runs=runs, launches=launches,
+                   checks={k: check_lists(v) for k, v in all_checks.items()})
+    emit(out_rec)
+    results["st_options"] = out_rec
+
+
 def count_syncs(run):
     """The synchronizing CUDA calls one call of ``run`` makes (blocking
     copies, ``.item()``, ...), as ``torch.cuda.set_sync_debug_mode``
@@ -3879,6 +4243,15 @@ def kernels_line(results):
     fp = results["fpn"]
     rn = results["retinanet"]
     op = results["options"]
+    so = results["st_options"]
+
+    def st_options_launches(kernel):
+        # the exemplar table's and FT_EMB's steps, train_net and test_net
+        # with both, the teacher's pseudo-label methods (phase 22)
+        return {f"st_options_{path}_launches": n[kernel] for path, n in so["launches"].items()}
+
+    def st_options_errs(field):
+        return [x for c in so["checks"].values() for x in c[field]]
 
     def options_launches(kernel):
         # the C5, keypoint and WSDDN paths (phase 21)
@@ -3948,6 +4321,7 @@ def kernels_line(results):
              **fpn_launches("nms"),
              **retina_launches("nms"),
              **options_launches("nms"),
+             **st_options_launches("nms"),
              launch_unit="one nms_forward call: a memset, then a mask and a scan "
                          "kernel per column band",
              max_abs_err=float(max(serving["first_batch_checks"]["nms_mismatches"]
@@ -3963,6 +4337,7 @@ def kernels_line(results):
                                    + fpn_errs("nms_mismatches")
                                    + [x for c in rn["checks"].values() for x in c["nms_mismatches"]]
                                    + options_errs("nms_mismatches", "nms", "mismatches")
+                                   + st_options_errs("nms_mismatches")
                                    + [results[f"nms_{c[0]}"]["mismatches"] for c in NMS_CASES]
                                    + [results["nms_rpn_dense"]["one_band_mismatches"]])),
              ms=nms_rpn["ms"], plain_ms=nms_rpn["plain_ms"],
@@ -3991,6 +4366,7 @@ def kernels_line(results):
              **fpn_launches("roi_align"),
              **retina_launches("roi_align"),
              **options_launches("roi_align"),
+             **st_options_launches("roi_align"),
              fpn_launch_unit="the FPN pooler launches the kernel once a level (P2..P5) into one output; "
                              "each launch counts one",
              max_abs_err=max(serving["first_batch_checks"]["roi_align_max_abs_err"]
@@ -4005,6 +4381,7 @@ def kernels_line(results):
                              + fpn_errs("roi_align_max_abs_err")
                              + [v["max_abs_err"] for k, v in fp["new_shapes"].items() if k.startswith("roi_align ")]
                              + options_errs("roi_align_max_abs_err", "roi_align", "max_abs_err")
+                             + st_options_errs("roi_align_max_abs_err")
                              + [results[("roi_align",) + c]["max_abs_err"] for c in ROI_CASES]),
              dtypes="bfloat16 features -> bfloat16 output",
              ms=roi_main["ms"], plain_ms=roi_main["plain_ms"],
@@ -4032,6 +4409,7 @@ def kernels_line(results):
              **fpn_launches("roi_align_backward"),
              **retina_launches("roi_align_backward"),
              **options_launches("roi_align_backward"),
+             **st_options_launches("roi_align_backward"),
              launch_unit="one roi_align_backward call: the plan kernel (each roi's tap "
                          "lists), then the tile kernel (each tile of dF summed in shared "
                          "memory, written once in bfloat16)",
@@ -4130,6 +4508,8 @@ def main():
     timed("retinanet", phase_retinanet, dev, results)
     torch.cuda.empty_cache()
     timed("options", phase_options, dev, results)
+    torch.cuda.empty_cache()
+    timed("st_options", phase_st_options, dev, results)
     emit(dict(phase="timing", **seconds))
 
     smi = subprocess.run(

@@ -19,11 +19,14 @@ of the owning port module decide the layout change:
   ``heads:H``); the ``output`` kernel ``[H, D, out]`` -> ``[out, H * D]``
   (``dense_heads_in:H``).  The layout names the head count, so a
   checkpoint's tree is rebuilt without its model;
-* ``LayerNorm`` ``scale`` -> ``LayerNorm`` ``weight`` (``ln_scale``);
+* ``LayerNorm`` and ``GroupNorm`` ``scale`` -> their ``weight``
+  (``ln_scale``);
 * ``frozen_bn_{weight,bias,mean,var}`` -> the ``FrozenBatchNorm``
-  buffers ``weight``, ``bias``, ``running_mean``, ``running_var``;
+  buffers ``weight``, ``bias``, ``running_mean``, ``running_var`` (FBNet's
+  ``FrozenAffine``: ``weight`` and ``bias``);
 * anything else (``bias``, ``word_embeddings``, ``lambda_exemplar``,
-  ``mlm_bias``) as it is.
+  ``mlm_bias``, a deformable block's ``conv2_kernel``, which keeps flax's
+  ``[3, 3, in, out]``) as it is.
 
 Every flax leaf lands on exactly one port key and every port key is
 filled; an unmatched leaf, a missing key or a wrong shape raises.
@@ -44,6 +47,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .models.fbnet import FrozenAffine
 from .models.layers import Linear
 from .models.resnet import FrozenBatchNorm
 
@@ -55,6 +59,8 @@ _BN_LEAVES = {
 }
 _FLAX_BN_LEAVES = {v: k for k, v in _BN_LEAVES.items()}
 _KERNEL_LAYOUTS = ("conv", "conv_transpose", "dense", "dense_heads_out", "dense_heads_in")
+_FROZEN_AFFINES = (FrozenBatchNorm, FrozenAffine)
+_NORMS = (nn.LayerNorm, nn.GroupNorm)
 
 
 def _flatten(tree, path=()) -> Dict[Tuple[str, ...], Any]:
@@ -81,11 +87,11 @@ def _port_key(modules: Dict[str, nn.Module], path: Tuple[str, ...]):
     owner = modules[owner_name]
     leaf = path[-1]
     prefix = owner_name + "." if owner_name else ""
-    if isinstance(owner, FrozenBatchNorm):
+    if isinstance(owner, _FROZEN_AFFINES):
         if leaf not in _BN_LEAVES:
             raise KeyError(f"flax leaf {'/'.join(path)} is not a frozen-BN leaf")
         return prefix + _BN_LEAVES[leaf], "bn"
-    if isinstance(owner, nn.LayerNorm) and leaf == "scale":
+    if isinstance(owner, _NORMS) and leaf == "scale":
         return prefix + "weight", "ln_scale"
     heads_out = getattr(owner, "heads_out", 0) if isinstance(owner, Linear) else 0
     heads_in = getattr(owner, "heads_in", 0) if isinstance(owner, Linear) else 0
@@ -180,11 +186,11 @@ def _flax_path(modules: Dict[str, nn.Module], key: str):
     """(flax leaf path, layout) of one port key."""
     owner_name, _, leaf = key.rpartition(".")
     owner = modules[owner_name]
-    if isinstance(owner, FrozenBatchNorm):
+    if isinstance(owner, _FROZEN_AFFINES):
         flax_leaf = _FLAX_BN_LEAVES[leaf]
     elif leaf == "weight" and isinstance(owner, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
         flax_leaf = "kernel"
-    elif leaf == "weight" and isinstance(owner, nn.LayerNorm):
+    elif leaf == "weight" and isinstance(owner, _NORMS):
         flax_leaf = "scale"
     else:
         flax_leaf = leaf
@@ -257,7 +263,8 @@ def seeded_flax_params(model: nn.Module, seed: int, emb_pred_std: float = 0.01):
     variance), heads the JAX initializers' scales (RPN and the
     class-specific ``cls_score`` 0.01, box regression and the mask
     uncertainty's ``uncertain_pred`` 0.001, ``emb_pred``
-    ``emb_pred_std``; the stem 1/64 of He, as pixels enter at O(100)),
+    ``emb_pred_std``; the stem 1/64 of He, as pixels enter at O(100); a
+    deformable block's offset conv and kernel He too),
     frozen BN a near-identity affine, biases small noise.  The BERT and
     transformer-head kernels and every embedding table draw BERT's N(0,
     0.02), LayerNorm scales a near-identity.  The RetinaNet head's towers
@@ -272,7 +279,7 @@ def seeded_flax_params(model: nn.Module, seed: int, emb_pred_std: float = 0.01):
         name = "/".join(path)
         if path[-3:] == ("head", "cls_logits", "bias"):
             return value  # RetinaNetHead's prior bias
-        if leaf == "kernel":
+        if leaf in ("kernel", "conv2_kernel"):
             if "language_backbone" in path or "transformer_head" in path:
                 return rng.standard_normal(shape, np.float32) * np.float32(0.02)
             if "rpn_head" in path:

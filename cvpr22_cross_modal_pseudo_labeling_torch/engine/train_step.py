@@ -4,7 +4,8 @@ Counterpart of ``cvpr22_cross_modal_pseudo_labeling_tpu/engine/
 train_step.py``: the ``GeneralizedRCNN`` (RetinaNet and the RPN-only
 detector included: their losses are RetinaNet's two or the RPN's),
 student-teacher and MMSS branches of ``build_loss_fn`` (:61), ``build_train_step`` (:180) and
-``build_val_loss_step`` (:211).  One step is the training forward, the
+``build_val_loss_step`` (:211), with the student-teacher model's exemplar
+table (``TrainState.extra`` :32) as :attr:`Trainer.exemplars`.  One step is the training forward, the
 sum of its losses, the backward and one optimizer step; its metrics are
 each loss, the model's info (``avg_uncertain``, ``adaptive_lamb`` for the
 student-teacher model, the batch accuracies for MMSS), ``total_loss``
@@ -17,6 +18,14 @@ leaves (buffers here), and for the detectors the frozen stages and
 the validation-loss pass: the training branches on fixed draws, with no
 update.
 
+Under ``MODEL.EXEMPLARS_ENABLED`` a student-teacher ``Trainer`` holds the
+exemplar table on the device: each step passes it in and keeps the
+updated table the model hands back (``info["exemplars"]``, not logged);
+the validation-loss pass passes none, as JAX's does.  Under
+``MODEL.LANGUAGE_BACKBONE.FT_EMB`` the batch carries the tokenized LVIS
+names (``lvis_name_ids``, ``lvis_name_mask``) in place of the LVIS table,
+and the model rebuilds the table from its live word table.
+
 :func:`host_batch` turns the numpy batch of ``data/collate.py`` (plus
 the class tables) into CPU tensors of the step's dtypes and
 :func:`device_batch` puts them on the device; a ``Trainer`` may hold the
@@ -24,10 +33,11 @@ class tables on the device already (:meth:`Trainer.set_class_tables`),
 and its :meth:`Trainer.train_step` takes a batch already on the device,
 so that ``engine/trainer.py``'s prefetcher can upload the next batch
 while a step runs.  :meth:`Trainer.state_dict` holds what a resume
-restores: the model, the optimizer and the generator.
+restores: the model, the optimizer, the generator and, when it exists,
+the exemplar table.
 """
 
-from typing import Dict, Mapping, Sequence, Union
+from typing import Dict, Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -36,6 +46,7 @@ from ..bridge import load_flax_params
 from ..config.cfg_node import CfgNode
 from ..models.detector import RCNN_FAMILY, ST_FAMILY, build_detection_model
 from ..models.detector.generalized_rcnn import RCNNTrainOutput, TrainDraws
+from ..models.detector.st_generalized_rcnn import init_exemplar_table
 from .inference import load_cfg
 from .optimizer import Optimizer, frozen_prefixes_from_cfg
 
@@ -62,7 +73,14 @@ ST_BATCH_DTYPES = {
     "cap_tok_ids": torch.int64,
     "cap_tok_mask": torch.float32,
     "lvis_class_embeddings": torch.float32,
+    "lvis_name_ids": torch.int64,
+    "lvis_name_mask": torch.float32,
+    "class_lvis_ids": torch.int64,
 }
+# keys the student-teacher family reads when the batch has them: the LVIS
+# table or, under FT_EMB, the tokenized LVIS names it is rebuilt from, and
+# the dataset classes' LVIS slots of the exemplar table
+ST_OPTIONAL_KEYS = ("lvis_class_embeddings", "lvis_name_ids", "lvis_name_mask", "class_lvis_ids")
 # keys the GeneralizedRCNN family reads when the batch has them: the class
 # table of the embedding-based detector (the class-specific one reads
 # none, and a dataset without embeddings, such as VOC, gives none), and
@@ -97,7 +115,7 @@ def host_batch(
     (tables already on the device) and absent optional keys (the class
     table of a ``GeneralizedRCNN``) are left out."""
     dtypes = batch_dtypes(meta_arch)
-    optional = RCNN_OPTIONAL_KEYS if meta_arch in RCNN_FAMILY else ()
+    optional = RCNN_OPTIONAL_KEYS if meta_arch in RCNN_FAMILY else ST_OPTIONAL_KEYS if meta_arch in ST_FAMILY else ()
     missing = sorted(set(dtypes) - set(batch) - set(provided) - set(optional))
     if missing:
         raise KeyError(f"the training batch lacks {missing}")
@@ -119,9 +137,11 @@ def device_batch(
 
 def training_forward(
     model, meta_arch: str, b: Dict[str, torch.Tensor], draws, generator: torch.Generator = None,
+    exemplars: Optional[Dict[str, torch.Tensor]] = None,
 ) -> RCNNTrainOutput:
     """The model's training forward on a :func:`device_batch`.  ``draws``
-    is a ``TrainDraws`` for the detectors, an ``MMSSDraws`` for MMSS."""
+    is a ``TrainDraws`` for the detectors, an ``MMSSDraws`` for MMSS;
+    ``exemplars`` the student-teacher model's exemplar table."""
     if meta_arch == MMSS:
         captions = {k: b[k] for k in ("input_ids", "attention_mask", "special_tokens_mask")}
         info, losses = model(b["images"], b["image_sizes"], captions, train=True, draws=draws,
@@ -134,7 +154,8 @@ def training_forward(
         )
     return model(
         b["images"], b["image_sizes"], b["class_embeddings"], train=True, batch=b,
-        lvis_class_embeddings=b["lvis_class_embeddings"], draws=draws, generator=generator,
+        lvis_class_embeddings=b.get("lvis_class_embeddings"), draws=draws, generator=generator,
+        exemplars=exemplars,
     )
 
 
@@ -169,10 +190,6 @@ class Trainer:
         else:
             self.cfg = config
         self.meta_arch = self.cfg.MODEL.META_ARCHITECTURE
-        if self.cfg.MODEL.LANGUAGE_BACKBONE.FT_EMB and self.meta_arch not in RCNN_FAMILY:
-            raise NotImplementedError(
-                "MODEL.LANGUAGE_BACKBONE.FT_EMB: the in-step LVIS table is not ported"
-            )
         self.device = device
         self.model = (model if model is not None else build_detection_model(self.cfg)).to(device)
         frozen = frozen_prefixes_from_cfg(self.cfg, self.meta_arch)
@@ -183,18 +200,25 @@ class Trainer:
         self.generator = torch.Generator(device=device)
         self.generator.manual_seed(seed)
         self.class_tables: Dict[str, torch.Tensor] = {}
+        # the exemplar table over the LVIS vocabulary (TrainState.extra)
+        self.exemplars: Optional[Dict[str, torch.Tensor]] = None
+        if self.cfg.MODEL.EXEMPLARS_ENABLED and self.meta_arch in ST_FAMILY:
+            s = self.model.statics
+            self.exemplars = init_exemplar_table(s.lvis_vocab, s.base.emb_dim, device)
 
     def load_flax_params(self, params) -> None:
         load_flax_params(self.model, params)
 
     def set_class_tables(self, **tables: np.ndarray) -> None:
         """Keeps batch-invariant tables (``class_embeddings``,
-        ``lvis_class_embeddings``) on the device; :meth:`device_batch`
+        ``lvis_class_embeddings``, or under FT_EMB ``lvis_name_ids`` and
+        ``lvis_name_mask``; ``class_lvis_ids``) on the device, each in its
+        batch dtype (an integer table stays integer); :meth:`device_batch`
         adds them to every batch.  A None table (a dataset without class
         embeddings) is left out."""
+        dtypes = batch_dtypes(self.meta_arch)
         self.class_tables = {
-            k: torch.as_tensor(np.asarray(v, np.float32)).to(self.device)
-            for k, v in tables.items() if v is not None
+            k: torch.as_tensor(np.asarray(v)).to(self.device, dtypes[k]) for k, v in tables.items() if v is not None
         }
 
     def host_batch(self, batch: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
@@ -224,7 +248,10 @@ class Trainer:
 
     def train_step(self, b: Dict[str, torch.Tensor], draws=None) -> Dict[str, torch.Tensor]:
         """One training step on a batch already on the device."""
-        out = training_forward(self.model, self.meta_arch, b, self._draws(draws), self.generator)
+        out = training_forward(self.model, self.meta_arch, b, self._draws(draws), self.generator, self.exemplars)
+        table = out.info.pop("exemplars", None)
+        if table is not None:
+            self.exemplars = table
         total = sum(out.losses.values())
         self.optimizer.zero_grad()
         total.backward()
@@ -238,7 +265,8 @@ class Trainer:
     def val_loss(self, b: Dict[str, torch.Tensor], draws=None) -> Dict[str, torch.Tensor]:
         """The validation loss of a batch on the device: each loss and
         ``val_total_loss``, from the training branches on draws of a
-        generator seeded ``VAL_SEED`` anew (or ``draws``); no update."""
+        generator seeded ``VAL_SEED`` anew (or ``draws``); no update, and
+        no exemplar table (neither mixed nor updated)."""
         generator = torch.Generator(device=self.device)
         generator.manual_seed(self.VAL_SEED)
         out = training_forward(self.model, self.meta_arch, b, self._draws(draws), generator)
@@ -247,17 +275,34 @@ class Trainer:
         return metrics
 
     def state_dict(self) -> Dict:
-        """The model's weights and buffers, the optimizer's state and the
-        generator's state (tensors, ints and dicts)."""
-        return {
+        """The model's weights and buffers, the optimizer's state, the
+        generator's state (tensors, ints and dicts) and, only when it
+        exists, the exemplar table."""
+        state = {
             "model": self.model.state_dict(),
             "optimizer": self.optimizer.state_dict(),
             "generator": self.generator.get_state(),
         }
+        if self.exemplars is not None:
+            state["exemplars"] = dict(self.exemplars)
+        return state
 
     def load_state_dict(self, state: Mapping) -> None:
         """Restores :meth:`state_dict`'s output (strict: every key of the
-        model must be there, and no other)."""
+        model must be there, and no other; the exemplar table must be
+        there exactly when this trainer has one)."""
+        if ("exemplars" in state) != (self.exemplars is not None):
+            raise KeyError(
+                "exemplar table: the state has " + ("one" if "exemplars" in state else "none")
+                + ", this trainer " + ("one" if self.exemplars is not None else "none")
+                + " (MODEL.EXEMPLARS_ENABLED)"
+            )
         self.model.load_state_dict(state["model"], strict=True)
         self.optimizer.load_state_dict(state["optimizer"])
         self.generator.set_state(state["generator"])
+        if self.exemplars is not None:
+            table = state["exemplars"]
+            if set(table) != set(self.exemplars) or any(
+                    table[k].shape != self.exemplars[k].shape for k in self.exemplars):
+                raise KeyError(f"exemplar table: {sorted(table)} does not match this trainer's")
+            self.exemplars = {k: table[k].to(self.device, self.exemplars[k].dtype) for k in self.exemplars}

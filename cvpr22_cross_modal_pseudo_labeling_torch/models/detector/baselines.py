@@ -42,7 +42,7 @@ class _TopKTeacherRCNN(STGeneralizedRCNN):
         likely noun (the first among ties).  A pseudo-label is invalid
         when fewer proposals are valid, or when the caption has no
         noun."""
-        reg_boxes, region_scores = self._teacher_region_scores(
+        emb, reg_boxes, region_scores = self._teacher_region_scores(
             feats, proposals, image_sizes, cap_tok_ids, cap_tok_mask
         )
         word_valid = cap_word_valid.to(torch.bool)[:, None, :]
@@ -65,6 +65,7 @@ class _TopKTeacherRCNN(STGeneralizedRCNN):
             labels=torch.gather(cap_labels.to(torch.int64), 1, words),
             masks=masks,
             weights=scores,
+            embs=torch.gather(emb, 1, top_idx[..., None].expand(-1, -1, emb.shape[-1])),
         )
 
 

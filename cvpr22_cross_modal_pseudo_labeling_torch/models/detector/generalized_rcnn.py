@@ -63,16 +63,25 @@ trains on image-level labels (from the gt classes when the batch has no
 ``image_labels``), eval serves the proposal boxes with the WSDDN scores;
 masks and keypoints are neither trained nor served then, as in JAX.
 
+The teacher's pseudo-label methods (JAX :517 and :546), which no JAX
+detector calls: :meth:`GeneralizedRCNN.run_teacher_pseudo_branch` (the
+test-time proposals, their region embeddings and class logits, and the
+class-agnostic regressed boxes, clipped: :class:`TeacherPseudoOutput`)
+and :meth:`GeneralizedRCNN.predict_masks_for_boxes` (the mask head's
+probabilities on given boxes).  The training forward takes
+``pseudo_sample_weights`` (each sampled roi's classification weight,
+JAX :217) and ``lambda_mask``, which JAX accepts and never reads.
+
 Not ported, and refused: the ``class_valid`` row mask (it serves only
-class tables padded to a TPU mesh axis), the ``pseudo_sample_weights``
-argument of the training forward, and ``run_teacher_pseudo_branch`` /
-``predict_masks_for_boxes`` (no caller in the JAX package).
+class tables padded to a TPU mesh axis).
 """
 
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
+from ...core.box_coder import decode_boxes
+from ...core.boxes import clip_to_image
 from ..backbone import ResNetBackbone, ResNetFPNBackbone, device_normalize
 from ..roi_heads.box_head import Detections, box_head_loss, postprocess_boxes, subsample_rois
 from ..roi_heads.bundle import RoIHeadsBundle, compute_dtype, feature_channels
@@ -93,6 +102,13 @@ class RCNNEvalOutput(NamedTuple):
 class RCNNTrainOutput(NamedTuple):
     losses: Dict[str, torch.Tensor]
     info: Dict[str, torch.Tensor]
+
+
+class TeacherPseudoOutput(NamedTuple):
+    proposals: RPNProposals  # [B, P] at the test-time caps
+    embeddings: torch.Tensor  # [B, P, emb_dim] region embeddings
+    class_logits: torch.Tensor  # [B, P, C] against the given class table
+    boxes: torch.Tensor  # [B, P, 4] regressed (class-agnostic) and clipped
 
 
 class TrainDraws(NamedTuple):
@@ -269,6 +285,8 @@ class GeneralizedRCNN(RoIHeadsBundle):
         draws: TrainDraws = TrainDraws(),
         generator: Optional[torch.Generator] = None,
         gt_eval: Optional[Dict[str, torch.Tensor]] = None,
+        pseudo_sample_weights: Optional[torch.Tensor] = None,
+        lambda_mask: float = 1.0,
     ):
         """images ``[B, H, W, 3]`` uint8 (or already-normalized float);
         image_sizes ``[B, 2]`` (h, w); class_embeddings ``[C, emb_dim]``
@@ -287,7 +305,10 @@ class GeneralizedRCNN(RoIHeadsBundle):
         in JAX); WSDDN reads ``image_labels`` ``[B, C]`` when given.
         ``compute_uncertain`` samples the mask uncertainty (when the
         model has it) and reports ``avg_uncertain``; the train step
-        leaves it off, as the JAX loss function does."""
+        leaves it off, as the JAX loss function does.
+        ``pseudo_sample_weights`` ``[B, S]`` weighs each sampled roi's
+        classification loss; ``lambda_mask`` is read by nothing, as in
+        JAX."""
         s = self.statics
         images = device_normalize(images, image_sizes, s.pixel_mean, s.pixel_std, s.to_bgr255)
         if not train:
@@ -297,7 +318,8 @@ class GeneralizedRCNN(RoIHeadsBundle):
         if "class_valid" in batch:
             raise NotImplementedError("the class_valid row mask of padded class tables is not ported")
         return self.forward_train(
-            images, image_sizes, class_embeddings, batch, compute_uncertain, draws, generator
+            images, image_sizes, class_embeddings, batch, compute_uncertain, draws, generator,
+            pseudo_sample_weights,
         )
 
     def _rpn_forward(self, images, image_sizes, train: bool, select: bool = True):
@@ -314,6 +336,7 @@ class GeneralizedRCNN(RoIHeadsBundle):
     def forward_train(
         self, images, image_sizes, class_embeddings, batch, compute_uncertain: bool = False,
         draws: TrainDraws = TrainDraws(), generator: Optional[torch.Generator] = None,
+        pseudo_sample_weights: Optional[torch.Tensor] = None,
     ) -> RCNNTrainOutput:
         s = self.statics
         # the RPN-only detector trains no RoI head: JAX's compiled step
@@ -363,7 +386,7 @@ class GeneralizedRCNN(RoIHeadsBundle):
         logits, deltas, _ = self.box_outputs(x, class_embeddings)
         losses["loss_classifier"], losses["loss_box_reg"] = box_head_loss(
             logits.to(torch.float32), deltas.to(torch.float32), sampled, s.bg_weight,
-            cls_agnostic_bbox_reg=s.cls_agnostic_bbox_reg,
+            cls_agnostic_bbox_reg=s.cls_agnostic_bbox_reg, sample_weights=pseudo_sample_weights,
         )
         if s.mask_on:
             # the mask head on the positives-first slots (SampledRoIs.head)
@@ -453,12 +476,30 @@ class GeneralizedRCNN(RoIHeadsBundle):
         keypoints = torch.cat([xy, scores[..., None]], dim=-1)
         return out._replace(keypoints=keypoints.reshape(*boxes.shape[:2], *keypoints.shape[1:]))
 
-    def run_teacher_pseudo_branch(self, *args, **kwargs):
-        raise NotImplementedError(
-            "run_teacher_pseudo_branch is not ported: nothing in the JAX package calls it"
+    def run_teacher_pseudo_branch(self, images, image_sizes, class_embeddings=None) -> TeacherPseudoOutput:
+        """The eval-mode box branch on every test-time proposal, unfiltered:
+        region embeddings, class logits and the regressed boxes (the
+        predictor's last 4 deltas, decoded and clipped).  ``images`` go to
+        the trunk as given, as in JAX (no normalization here)."""
+        feats, _, _, _, proposals = self._rpn_forward(images, image_sizes, train=False)
+        logits, deltas, emb = self.box_outputs(self.extract(feats, proposals.boxes), class_embeddings)
+        b, p = proposals.boxes.shape[:2]
+        deltas = deltas.to(torch.float32).reshape(b, p, -1)[..., -4:]
+        boxes = clip_to_image(decode_boxes(deltas, proposals.boxes, self.statics.reg_weights), image_sizes)
+        return TeacherPseudoOutput(
+            proposals, emb.to(torch.float32).reshape(b, p, -1), logits.to(torch.float32).reshape(b, p, -1), boxes
         )
 
-    def predict_masks_for_boxes(self, *args, **kwargs):
-        raise NotImplementedError(
-            "predict_masks_for_boxes is not ported: nothing in the JAX package calls it"
+    def predict_masks_for_boxes(self, images, image_sizes, boxes) -> torch.Tensor:
+        """The mask head's probabilities ``[B, P, M, M]`` (channel 1 of a
+        class-specific head, as JAX reads it) on ``boxes`` ``[B, P, 4]``;
+        uint8 ``images`` are normalized first."""
+        s = self.statics
+        feats = self.backbone(device_normalize(images, image_sizes, s.pixel_mean, s.pixel_std, s.to_bgr255))
+        x = self.extract(feats, boxes)
+        mask_logits, _ = self.mask_outputs(x)
+        probs = mask_head_inference(
+            mask_logits.to(torch.float32), torch.ones(x.shape[0], dtype=torch.int64, device=x.device),
+            s.cls_agnostic_mask,
         )
+        return probs.reshape(boxes.shape[0], -1, *probs.shape[-2:])

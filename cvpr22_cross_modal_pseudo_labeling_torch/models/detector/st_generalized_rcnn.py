@@ -2,7 +2,8 @@
 
 Counterpart of ``cvpr22_cross_modal_pseudo_labeling_tpu/models/detector/
 st_generalized_rcnn.py`` (``STStatics`` :62, ``st_statics_from_cfg``
-:74, ``normalize_rows`` :87, ``extract_word_embeddings`` :213,
+:74, ``normalize_rows`` :87, ``init_exemplar_table`` :111,
+``update_exemplar_table`` :119, ``extract_word_embeddings`` :213,
 ``combine_embs`` :226, ``_teacher_region_scores`` :292,
 ``_pseudo_loss_extras`` :241, ``_teacher_masks`` :322,
 ``generate_pseudo_labels`` :336, ``_student_branch_losses`` :387,
@@ -33,10 +34,24 @@ builds, trains and serves as without them.
 
 The random draws (the RoI sampler's priorities and the mask
 uncertainty's normal samples) come from a ``torch.Generator`` or, to
-replay another program's draws, from :class:`TrainDraws`.  The exemplar
-table (``MODEL.EXEMPLARS_ENABLED``) and the in-step LVIS table of
-``MODEL.LANGUAGE_BACKBONE.FT_EMB`` are not ported; both are off in the
-shipped configs.
+replay another program's draws, from :class:`TrainDraws`.
+
+Two options, off in the shipped configs, run as in JAX:
+
+* ``MODEL.EXEMPLARS_ENABLED``: the exemplar table (the reference's
+  ``update_exemplars`` memory) is a dict of ``embs`` ``[1203, emb]``,
+  ``quality`` and ``valid`` ``[1203]`` that the caller passes in
+  (``exemplars``) and gets back updated in ``info["exemplars"]``.  The
+  caption branch updates it from the pseudo-labels (best quality per
+  LVIS slot, strictly better than the stored one), then mixes it into
+  the LVIS table; the detection branch mixes it into the dataset's
+  table through ``batch["class_lvis_ids"]``.  A mixed table detaches its
+  base, so only ``lambda_exemplar`` gets a gradient through it.
+* ``MODEL.LANGUAGE_BACKBONE.FT_EMB``: with ``lvis_name_ids`` and
+  ``lvis_name_mask`` ``[1203, T]`` in the batch, the LVIS table is
+  rebuilt from the live word table with autograd, so that the caption
+  branch's loss reaches ``bert``; the caption nouns' embeddings stay
+  cut, as JAX's ``stop_gradient`` of the pseudo-labels cuts them.
 """
 
 from typing import Dict, NamedTuple, Optional
@@ -98,6 +113,44 @@ def normalize_rows(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     return x * torch.rsqrt(sq.clamp(min=eps * eps))
 
 
+def init_exemplar_table(vocab_size: int, emb_dim: int, device=None) -> Dict[str, torch.Tensor]:
+    """An empty exemplar table: zero embeddings, quality -inf, no valid
+    slot."""
+    return {
+        "embs": torch.zeros((vocab_size, emb_dim), dtype=torch.float32, device=device),
+        "quality": torch.full((vocab_size,), -float("inf"), dtype=torch.float32, device=device),
+        "valid": torch.zeros((vocab_size,), dtype=torch.bool, device=device),
+    }
+
+
+@torch.no_grad()
+def update_exemplar_table(table, labels, scores, embs, valid) -> Dict[str, torch.Tensor]:
+    """Keeps, for each slot, the best-scoring embedding seen: labels
+    ``[N]`` (clipped to the table), scores ``[N]``, embs ``[N, d]``
+    (row-normalized here), valid ``[N]``.  The batch's best per slot is a
+    scatter-max, ties go to the first occurrence (a scatter-min of the
+    index), and a slot takes it only when it beats the stored quality.
+    Nothing here carries a gradient, as the reference stores detached
+    copies."""
+    v, n = table["quality"].shape[0], labels.shape[0]
+    quality = torch.where(valid, scores.to(torch.float32), torch.full((), -float("inf"), device=scores.device))
+    embs = normalize_rows(embs.to(torch.float32))
+    slot = labels.to(torch.int64).clamp(0, v - 1)
+    best_q = torch.full((v,), -float("inf"), device=quality.device).scatter_reduce(
+        0, slot, quality, "amax", include_self=True)
+    is_best = (quality == best_q[slot]) & valid
+    index = torch.arange(n, device=slot.device)
+    order = torch.where(is_best, index, torch.full_like(index, n))
+    first = torch.full((v,), n, dtype=torch.int64, device=slot.device).scatter_reduce(
+        0, slot, order, "amin", include_self=True)
+    improve = (best_q > table["quality"]) & (first < n)
+    return {
+        "embs": torch.where(improve[:, None], embs[first.clamp(0, n - 1)], table["embs"]),
+        "quality": torch.where(improve, best_q, table["quality"]),
+        "valid": table["valid"] | improve,
+    }
+
+
 class PseudoLabels(NamedTuple):
     boxes: torch.Tensor  # [B, W, 4] teacher-regressed
     scores: torch.Tensor  # [B, W] sigmoid of the best region score
@@ -105,6 +158,7 @@ class PseudoLabels(NamedTuple):
     labels: torch.Tensor  # [B, W] int64 LVIS ids of the nouns
     masks: Optional[torch.Tensor]  # [B, W, M, M] binarized teacher masks
     weights: Optional[torch.Tensor] = None  # [B, W] per-target loss weights (SoftTeacher)
+    embs: Optional[torch.Tensor] = None  # [B, W, emb] the chosen regions' embeddings (the exemplar table's)
 
 
 class STGeneralizedRCNN(nn.Module):
@@ -131,9 +185,14 @@ class STGeneralizedRCNN(nn.Module):
         self.lambda_exemplar = nn.Parameter(torch.zeros(1))
         self.anchors = AnchorCache(s)
 
-    def combine_embs(self, embs: torch.Tensor) -> torch.Tensor:
-        """combine_embs without exemplars: row-normalize the table."""
-        return normalize_rows(embs)
+    def combine_embs(self, embs: torch.Tensor, exemplar_embs=None, exemplar_valid=None) -> torch.Tensor:
+        """Row-normalizes the table, after adding ``lambda_exemplar`` times
+        the valid exemplar rows to its detached base when exemplars are
+        given."""
+        if exemplar_embs is None:
+            return normalize_rows(embs)
+        mixed = embs.detach() + self.lambda_exemplar * exemplar_embs * exemplar_valid.to(embs.dtype)[:, None]
+        return normalize_rows(mixed)
 
     def extract_word_embeddings(self, token_ids, token_mask):
         """Mean word embedding over the real wordpieces, L2-normalized:
@@ -153,6 +212,7 @@ class STGeneralizedRCNN(nn.Module):
         lvis_class_embeddings: Optional[torch.Tensor] = None,
         draws: TrainDraws = TrainDraws(),
         generator: Optional[torch.Generator] = None,
+        exemplars: Optional[Dict[str, torch.Tensor]] = None,
     ):
         """images ``[B, H, W, 3]`` uint8 (or already-normalized float);
         image_sizes ``[B, 2]`` (h, w); class_embeddings ``[C, emb_dim]``
@@ -165,7 +225,11 @@ class STGeneralizedRCNN(nn.Module):
         and ``cap_labels`` ``[B, W]`` (caption nouns); ``gt_boxes`` ``[B,
         G, 4]``, ``gt_labels``, ``gt_valid`` ``[B, G]`` and ``gt_masks``
         ``[B, G, Mr, Mr]``.  ``lvis_class_embeddings`` ``[1203, emb_dim]``
-        is the caption branch's table."""
+        is the caption branch's table, which ``lvis_name_ids`` and
+        ``lvis_name_mask`` in ``batch`` replace (``FT_EMB``);
+        ``class_lvis_ids`` ``[C]`` maps the dataset's classes to LVIS slots
+        (-1: none) for the exemplar table ``exemplars`` (see the module
+        docstring)."""
         sb = self.statics.base
         if train:
             self._check_trainable(batch)
@@ -174,26 +238,23 @@ class STGeneralizedRCNN(nn.Module):
         )
         if not train:
             return self.forward_eval(self.backbone(x), image_sizes, class_embeddings)
+        if "lvis_name_ids" in batch:
+            # FT_EMB: from the live word table, with autograd
+            lvis_class_embeddings = self.extract_word_embeddings(batch["lvis_name_ids"], batch["lvis_name_mask"])
+        if lvis_class_embeddings is None:
+            raise ValueError("STGeneralizedRCNN training needs lvis_class_embeddings or batch['lvis_name_ids']")
         with torch.no_grad():
             feats = self.backbone(x)
             obj_l, reg_l = self.rpn_head(feats)
             objectness, box_reg = flatten_rpn_outputs(obj_l, reg_l)
         return self.forward_train(
             feats, objectness, box_reg, image_sizes, batch, class_embeddings,
-            lvis_class_embeddings, draws, generator,
+            lvis_class_embeddings, draws, generator, exemplars,
         )
 
     def _check_trainable(self, batch):
         if batch is None:
             raise ValueError("STGeneralizedRCNN training needs `batch`")
-        if self.statics.exemplars_enabled:
-            raise NotImplementedError(
-                "MODEL.EXEMPLARS_ENABLED: the exemplar table is not ported"
-            )
-        if "lvis_name_ids" in batch:
-            raise NotImplementedError(
-                "MODEL.LANGUAGE_BACKBONE.FT_EMB: the in-step LVIS table is not ported"
-            )
 
     def _proposals(self, feats, objectness, box_reg, image_sizes, train_selector):
         return select_proposals(
@@ -203,8 +264,8 @@ class STGeneralizedRCNN(nn.Module):
 
     # ------------------------------------------------------------------
     def _teacher_region_scores(self, feats, proposals, image_sizes, cap_tok_ids, cap_tok_mask):
-        """Teacher-regressed boxes and the region x caption-noun
-        similarity ``[B, P, W]`` of the teacher's region embeddings."""
+        """The teacher's region embeddings ``[B, P, emb]``, its regressed
+        boxes and the region x caption-noun similarity ``[B, P, W]``."""
         sb = self.statics.base
         b, p = proposals.boxes.shape[:2]
         x = self.teacher.extract(feats, proposals.boxes)
@@ -217,7 +278,7 @@ class STGeneralizedRCNN(nn.Module):
             decode_boxes(deltas, proposals.boxes, sb.reg_weights), image_sizes
         )
         noun_embs = self.extract_word_embeddings(cap_tok_ids, cap_tok_mask)
-        return reg_boxes, torch.einsum("bpd,bwd->bpw", emb, noun_embs)
+        return emb, reg_boxes, torch.einsum("bpd,bwd->bpw", emb, noun_embs)
 
     def _teacher_masks(self, feats, pseudo_boxes):
         """The teacher's masks on the chosen boxes, binarized at 0.5."""
@@ -239,9 +300,8 @@ class STGeneralizedRCNN(nn.Module):
     ) -> PseudoLabels:
         """Per caption noun, the valid proposal of the highest region
         score (the first among ties); a noun whose image has no valid
-        proposal is invalid.  The chosen regions' embeddings, which only
-        the exemplar table reads, are not kept."""
-        reg_boxes, region_scores = self._teacher_region_scores(
+        proposal is invalid."""
+        emb, reg_boxes, region_scores = self._teacher_region_scores(
             feats, proposals, image_sizes, cap_tok_ids, cap_tok_mask
         )
         region_scores = torch.where(
@@ -257,6 +317,7 @@ class STGeneralizedRCNN(nn.Module):
             valid=cap_word_valid.to(torch.bool) & torch.isfinite(aligned_scores),
             labels=cap_labels.to(torch.int64),
             masks=masks,
+            embs=torch.gather(emb, 1, aligned_idx[..., None].expand(-1, -1, emb.shape[-1])),
         )
 
     def _pseudo_loss_extras(self, pseudo: PseudoLabels) -> Dict:
@@ -334,7 +395,7 @@ class STGeneralizedRCNN(nn.Module):
     def forward_train(
         self, feats, objectness, box_reg, image_sizes, batch, class_embeddings,
         lvis_class_embeddings, draws: TrainDraws = TrainDraws(),
-        generator: Optional[torch.Generator] = None,
+        generator: Optional[torch.Generator] = None, exemplars: Optional[Dict[str, torch.Tensor]] = None,
     ) -> RCNNTrainOutput:
         s = self.statics
         losses: Dict[str, torch.Tensor] = {}
@@ -351,9 +412,20 @@ class STGeneralizedRCNN(nn.Module):
         masks = pseudo.masks
         if masks is None:
             masks = torch.zeros((feats[0].shape[0], 1, 1, 1), device=feats[0].device)
+        use_exemplars = s.exemplars_enabled and exemplars is not None
+        if use_exemplars:
+            # update first, then mix the updated table (one LVIS slot a row)
+            exemplars = update_exemplar_table(
+                exemplars, pseudo.labels.reshape(-1), pseudo.scores.reshape(-1),
+                pseudo.embs.reshape(-1, pseudo.embs.shape[-1]), (pseudo.valid & cap_mask[:, None]).reshape(-1),
+            )
+            info["exemplars"] = exemplars
+            cap_embs = self.combine_embs(lvis_class_embeddings, exemplars["embs"], exemplars["valid"])
+        else:
+            cap_embs = self.combine_embs(lvis_class_embeddings)
         cls_p, box_p, mask_p, avg_unc = self._student_branch_losses(
             feats, eval_proposals, pseudo.boxes, pseudo.labels, pseudo.valid,
-            masks, pseudo.boxes, self.combine_embs(lvis_class_embeddings),
+            masks, pseudo.boxes, cap_embs,
             cap_mask, compute_uncertain=s.uncertainty, append_gt=False,
             rand=draws.pseudo_sampler, eps=draws.mask_eps, generator=generator,
             **self._pseudo_loss_extras(pseudo),
@@ -382,10 +454,19 @@ class STGeneralizedRCNN(nn.Module):
         # ---- detection branch: GT supervision ---------------------------
         train_proposals = self._proposals(feats, objectness, box_reg, image_sizes, True)
         gt_boxes = batch["gt_boxes"].to(torch.float32)
+        det_lvis_ids = batch.get("class_lvis_ids")
+        if use_exemplars and det_lvis_ids is not None:
+            # the dataset's classes mixed by name: a class that is no LVIS
+            # noun (-1, the background too) stays as it is
+            safe = det_lvis_ids.to(torch.int64).clamp(min=0)
+            det_embs = self.combine_embs(
+                class_embeddings, exemplars["embs"][safe], exemplars["valid"][safe] & (det_lvis_ids >= 0))
+        else:
+            det_embs = self.combine_embs(class_embeddings)
         cls_g, box_g, mask_g, _ = self._student_branch_losses(
             feats, train_proposals, gt_boxes, batch["gt_labels"],
             batch["gt_valid"].to(torch.bool), batch["gt_masks"], gt_boxes,
-            self.combine_embs(class_embeddings), det_mask,
+            det_embs, det_mask,
             compute_uncertain=False, append_gt=True, rand=draws.gt_sampler,
             generator=generator,
         )

@@ -1,5 +1,5 @@
 """Conv, transposed conv and dense layers that compute in a set dtype,
-and flax's LayerNorm.
+and flax's LayerNorm and GroupNorm.
 
 Flax's ``nn.Conv``/``nn.ConvTranspose``/``nn.Dense``/``nn.DenseGeneral``
 with ``dtype=bfloat16`` keep float32 parameters and cast the input,
@@ -61,3 +61,15 @@ class LayerNorm(nn.LayerNorm):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.layer_norm(x.to(torch.float32), self.normalized_shape, self.weight, self.bias, self.eps)
+
+
+class GroupNorm(nn.GroupNorm):
+    """Flax's ``nn.GroupNorm`` (32 groups of contiguous channels) with
+    float32 ``scale`` and ``bias`` and no ``dtype``: the statistics and
+    the result are float32 whatever the input's dtype.  NCHW input."""
+
+    def __init__(self, num_channels: int, eps: float = 1e-6, num_groups: int = 32):
+        super().__init__(num_groups, num_channels, eps=eps)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.group_norm(x.to(torch.float32), self.num_groups, self.weight, self.bias, self.eps)

@@ -2,10 +2,19 @@
 
 Counterpart of ``cvpr22_cross_modal_pseudo_labeling_tpu/models/resnet.py``
 (``FrozenBatchNorm`` :31, ``Bottleneck`` :65, ``Stem`` :213,
-``ResNetStage`` :266, ``ResNet`` :307, ``ResNetRoIHead`` :379), for the
-``frozen_bn`` norm only (no DCN, no GroupNorm).  Module names follow the
-flax scopes (``stem``, ``layer1``, ``block0``, ``downsample_conv``...)
-so that ``bridge.py`` maps parameters by path.
+``ResNetStage`` :266, ``ResNet`` :307, ``ResNetRoIHead`` :379).  Module
+names follow the flax scopes (``stem``, ``layer1``, ``block0``,
+``downsample_conv``...) so that ``bridge.py`` maps parameters by path.
+
+Two trunk options, which only ``models/backbone.py::build_backbone``
+passes (the detectors ignore them, as JAX's do): ``norm="gn"``
+(``TRANS_FUNC BottleneckWithGN``) puts GroupNorm (32 groups, eps 1e-5,
+float32 statistics and result, as flax's) in place of every frozen BN of
+the stem and the blocks; a block ``with_dcn`` (``STAGE_WITH_DCN``) runs
+its 3x3 conv as ``ops/deform_conv.py::deform_conv2d`` in float32, on
+offsets (and, ``with_modulated_dcn``, sigmoid masks) from the
+zero-initialized ``conv2_offset`` conv, dilated like the main conv; its
+kernel ``conv2_kernel`` keeps flax's ``[3, 3, in / groups, out]`` layout.
 
 Tensors run as NCHW in ``torch.channels_last`` memory: the NHWC input is
 permuted to that view for free, and the output permutes back to a
@@ -20,7 +29,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import Conv2d
+from ..ops.deform_conv import deform_conv2d
+from .layers import Conv2d, GroupNorm
 
 RESNET_STAGES = {
     "R-50": (3, 4, 6, 3),
@@ -47,6 +57,10 @@ class FrozenBatchNorm(nn.Module):
         return x * scale.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
 
 
+def _norm(norm: str, features: int) -> nn.Module:
+    return GroupNorm(features, eps=1e-5) if norm == "gn" else FrozenBatchNorm(features)
+
+
 def _conv(cin, cout, kernel, stride=1, dilation=1, dtype=torch.float32, groups=1):
     pad = dilation * (kernel - 1) // 2
     return Conv2d(
@@ -60,11 +74,14 @@ class Bottleneck(nn.Module):
     (it differs from ``out_channels``, or the block strides), as the
     flax module's attribute does; ``input_channels`` is the width of the
     input the convs read (default ``in_channels``), which flax infers
-    from the input.  The two differ only for the C5 body's RoI head."""
+    from the input.  The two differ only for the C5 body's RoI head.
+    ``norm``, ``with_dcn`` and ``with_modulated_dcn``: see the module
+    docstring."""
 
     def __init__(self, in_channels, bottleneck_channels, out_channels,
                  stride=1, dilation=1, stride_in_1x1=True, num_groups=1,
-                 dtype=torch.float32, input_channels=None):
+                 dtype=torch.float32, input_channels=None, with_dcn=False,
+                 with_modulated_dcn=False, norm="frozen_bn"):
         super().__init__()
         s1, s3 = (stride, 1) if stride_in_1x1 else (1, stride)
         cin = in_channels if input_channels is None else input_channels
@@ -72,32 +89,59 @@ class Bottleneck(nn.Module):
         if self.has_downsample:
             down_stride = stride if dilation == 1 else 1
             self.downsample_conv = _conv(cin, out_channels, 1, down_stride, dtype=dtype)
-            self.downsample_bn = FrozenBatchNorm(out_channels)
+            self.downsample_bn = _norm(norm, out_channels)
         self.conv1 = _conv(cin, bottleneck_channels, 1, s1, dtype=dtype)
-        self.bn1 = FrozenBatchNorm(bottleneck_channels)
-        self.conv2 = _conv(bottleneck_channels, bottleneck_channels, 3, s3,
-                           dilation, dtype, groups=num_groups)
-        self.bn2 = FrozenBatchNorm(bottleneck_channels)
+        self.bn1 = _norm(norm, bottleneck_channels)
+        self.with_dcn, self.with_modulated_dcn = with_dcn, with_modulated_dcn
+        if with_dcn:
+            self.dcn_args = dict(stride=s3, padding=dilation, dilation=dilation, groups=num_groups)
+            self.compute_dtype = dtype
+            self.conv2_offset = Conv2d(
+                bottleneck_channels, 27 if with_modulated_dcn else 18, 3, stride=s3, padding=dilation,
+                dilation=dilation, dtype=dtype,
+            )
+            nn.init.zeros_(self.conv2_offset.weight)
+            nn.init.zeros_(self.conv2_offset.bias)
+            self.conv2_kernel = nn.Parameter(
+                torch.zeros(3, 3, bottleneck_channels // num_groups, bottleneck_channels))
+        else:
+            self.conv2 = _conv(bottleneck_channels, bottleneck_channels, 3, s3,
+                               dilation, dtype, groups=num_groups)
+        self.bn2 = _norm(norm, bottleneck_channels)
         self.conv3 = _conv(bottleneck_channels, out_channels, 1, dtype=dtype)
-        self.bn3 = FrozenBatchNorm(out_channels)
+        self.bn3 = _norm(norm, out_channels)
+
+    def _deform_conv2(self, x):
+        """The 3x3 conv as a deformable one: NCHW (channels-last) in and
+        out, the sampling and the matmul in float32."""
+        off = self.conv2_offset(x).permute(0, 2, 3, 1)
+        offsets, mask = off, None
+        if self.with_modulated_dcn:
+            offsets, mask = off[..., :18], torch.sigmoid(off[..., 18:]).to(torch.float32)
+        out = deform_conv2d(
+            x.permute(0, 2, 3, 1).to(torch.float32), offsets.to(torch.float32),
+            self.conv2_kernel.to(torch.float32), mask=mask, **self.dcn_args,
+        )
+        return out.to(self.compute_dtype).permute(0, 3, 1, 2)
 
     def forward(self, x):
         identity = x
         if self.has_downsample:
             identity = self.downsample_bn(self.downsample_conv(x))
         out = F.relu(self.bn1(self.conv1(x)))
-        out = F.relu(self.bn2(self.conv2(out)))
+        out = self._deform_conv2(out) if self.with_dcn else self.conv2(out)
+        out = F.relu(self.bn2(out))
         out = self.bn3(self.conv3(out))
         return F.relu(out + identity)
 
 
 class Stem(nn.Module):
-    """7x7/2 conv + frozen BN + relu + 3x3/2 max-pool (pad 1)."""
+    """7x7/2 conv + frozen BN (or GroupNorm) + relu + 3x3/2 max-pool (pad 1)."""
 
-    def __init__(self, out_channels=64, dtype=torch.float32):
+    def __init__(self, out_channels=64, dtype=torch.float32, norm="frozen_bn"):
         super().__init__()
         self.conv1 = Conv2d(3, out_channels, 7, stride=2, padding=3, bias=False, dtype=dtype)
-        self.bn1 = FrozenBatchNorm(out_channels)
+        self.bn1 = _norm(norm, out_channels)
 
     def forward(self, x):
         x = F.relu(self.bn1(self.conv1(x)))
@@ -110,7 +154,8 @@ class ResNetStage(nn.Sequential):
 
     def __init__(self, block_count, in_channels, bottleneck_channels,
                  out_channels, first_stride, dilation=1, stride_in_1x1=True,
-                 num_groups=1, dtype=torch.float32, input_channels=None):
+                 num_groups=1, dtype=torch.float32, input_channels=None,
+                 with_dcn=False, with_modulated_dcn=False, norm="frozen_bn"):
         super().__init__()
         stride = first_stride
         for i in range(block_count):
@@ -118,7 +163,8 @@ class ResNetStage(nn.Sequential):
                 f"block{i}",
                 Bottleneck(in_channels, bottleneck_channels, out_channels,
                            stride, dilation, stride_in_1x1, num_groups, dtype,
-                           input_channels if i == 0 else None),
+                           input_channels if i == 0 else None, with_dcn,
+                           with_modulated_dcn, norm),
             )
             in_channels = out_channels
             stride = 1
@@ -129,15 +175,18 @@ class ResNet(nn.Module):
     stage.  Takes NCHW channels-last tensors and returns the list of the
     stages named in ``return_stages`` (``"C2"`` .. ``"C5"``, in that
     order; default the last stage alone), as JAX's ``return_stages``.
-    Stage 5 runs at ``res5_dilation`` (stride 1 when dilated)."""
+    Stage 5 runs at ``res5_dilation`` (stride 1 when dilated).
+    ``stage_with_dcn`` (one flag a stage), ``with_modulated_dcn`` and
+    ``norm``: see the module docstring."""
 
     def __init__(self, stages: Sequence[int], stem_out_channels=64,
                  res2_out_channels=256, num_groups=1, width_per_group=64,
                  stride_in_1x1=True, res5_dilation=1, dtype=torch.float32,
-                 return_stages: Sequence[str] = ()):
+                 return_stages: Sequence[str] = (), stage_with_dcn: Sequence[bool] = (),
+                 with_modulated_dcn=False, norm="frozen_bn"):
         super().__init__()
         self.return_stages = tuple(return_stages) or (f"C{len(stages) + 1}",)
-        self.stem = Stem(stem_out_channels, dtype)
+        self.stem = Stem(stem_out_channels, dtype, norm)
         in_ch = stem_out_channels
         stage2_bottleneck = num_groups * width_per_group
         self.num_stages = len(stages)
@@ -151,7 +200,9 @@ class ResNet(nn.Module):
                 f"layer{stage_num - 1}",
                 ResNetStage(block_count, in_ch, stage2_bottleneck * factor,
                             out_ch, first_stride, dilation, stride_in_1x1,
-                            num_groups, dtype),
+                            num_groups, dtype,
+                            with_dcn=idx < len(stage_with_dcn) and bool(stage_with_dcn[idx]),
+                            with_modulated_dcn=with_modulated_dcn, norm=norm),
             )
             in_ch = out_ch
 

@@ -63,11 +63,20 @@ class RPNProposals(NamedTuple):
     valid: torch.Tensor  # [B, P] bool
 
 
+_ORDER_INTS = {2: (torch.int16, 0x7FFF), 4: (torch.int32, 0x7FFFFFFF), 8: (torch.int64, 0x7FFFFFFFFFFFFFFF)}
+
+
 def top_k(x: torch.Tensor, k: int):
     """``jax.lax.top_k`` along the last axis: descending, ties broken by
-    the lower index (``torch.topk`` promises no tie order)."""
-    values, indices = torch.sort(x, dim=-1, descending=True, stable=True)
-    return values[..., :k], indices[..., :k]
+    the lower index (``torch.topk`` promises no tie order).  The stable
+    sort runs on the floats' bits with a negative's non-sign bits
+    flipped, an integer key in the floats' total order, so that -0.0
+    sorts below 0.0 as in ``lax.top_k`` (a float sort ties them)."""
+    itype, low = _ORDER_INTS[x.element_size()]
+    bits = x.contiguous().view(itype)
+    key = bits ^ ((bits >> (8 * x.element_size() - 1)) & low)
+    indices = torch.sort(key, dim=-1, descending=True, stable=True)[1][..., :k]
+    return torch.gather(x, -1, indices), indices
 
 
 def select_proposals_single_level(

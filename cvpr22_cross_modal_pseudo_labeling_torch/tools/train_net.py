@@ -26,8 +26,12 @@ are found under ``CMPL_TPU_DATA_DIR``.  In JAX's order:
   student-teacher model's student starts as a copy of its teacher unless
   ``MODEL.RESUME``;
 * the student-teacher model's LVIS class-name table comes from its BERT
-  table; checkpoints are written every ``SOLVER.CHECKPOINT_PERIOD`` and
-  at the end;
+  table (under ``MODEL.LANGUAGE_BACKBONE.FT_EMB`` the tokenized names
+  ship instead, and each step rebuilds the table from the live word
+  table); under ``MODEL.EXEMPLARS_ENABLED`` the ``Trainer`` holds the
+  exemplar table, the dataset classes' LVIS slots ship with the class
+  table, and a resume restores the table; checkpoints are written every
+  ``SOLVER.CHECKPOINT_PERIOD`` and at the end;
 * every ``SOLVER.TEST_PERIOD`` a detector is evaluated on each of
   ``DATASETS.TEST``, and unless ``SOLVER.SKIP_VAL_LOSS`` the
   validation-loss pass (``Trainer.val_loss``) runs over 8 batches of
@@ -90,14 +94,6 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     return record
 
 
-def check_train_options(cfg) -> None:
-    """Refuses the training options the port does not run yet."""
-    from ..models.detector import ST_FAMILY
-
-    if cfg.MODEL.EXEMPLARS_ENABLED and cfg.MODEL.META_ARCHITECTURE in ST_FAMILY:
-        raise NotImplementedError("MODEL.EXEMPLARS_ENABLED: the exemplar table is not ported")
-
-
 def _summary(metrics):
     """The metrics of a log line: no per-class AP (COCO's ``AP50_class_``,
     VOC's ``AP_class_``)."""
@@ -113,7 +109,7 @@ def train(cfg, logger, device: str = "cuda", seed: int = 0) -> Dict:
     from .. import bridge
     from ..data import make_data_loader
     from ..data.collate import build_tokenizer
-    from ..data.parser import load_lvis_categories, normalize_class_names
+    from ..data.parser import load_lvis_categories, lvis_ids_for_class_names, normalize_class_names
     from ..engine.checkpoint import (
         checkpoint_step,
         import_external_weights,
@@ -125,13 +121,12 @@ def train(cfg, logger, device: str = "cuda", seed: int = 0) -> Dict:
     )
     from ..engine.inference import Predictor, check_eval_options, inference, iou_types
     from ..engine.train_step import Trainer
-    from ..engine.trainer import compute_class_name_embeddings, do_train
+    from ..engine.trainer import compute_class_name_embeddings, do_train, tokenize_class_names
     from ..models.detector import ST_FAMILY
     from ..utils.env_info import save_labels
     from ..utils.model_zoo import resolve_weight_path
 
     meta_arch = cfg.MODEL.META_ARCHITECTURE
-    check_train_options(cfg)
     timing = {}
 
     # resume discovery before the loader is built: the save's name
@@ -142,6 +137,8 @@ def train(cfg, logger, device: str = "cuda", seed: int = 0) -> Dict:
     start_iter = checkpoint_step(last) if resuming else 0
     loader, dataset = make_data_loader(cfg, is_train=True, start_iter=start_iter)
     trainer = Trainer(cfg, device=device, seed=seed)
+    if trainer.exemplars is not None:
+        logger.info("exemplar table initialized: %d slots x %d dims", *trainer.exemplars["embs"].shape)
 
     if not resuming:
         # on a resume the restore below supplies every weight, so
@@ -183,16 +180,27 @@ def train(cfg, logger, device: str = "cuda", seed: int = 0) -> Dict:
     # datasets (VOC, Cityscapes) may have none
     tables = {} if meta_arch == MMSS else {"class_embeddings": getattr(dataset, "class_emb_mtx", None)}
     if meta_arch in ST_FAMILY:
-        # the LVIS class-name table from the (frozen) BERT table: after a
-        # restore it equals the fresh run's
-        t = time.perf_counter()
         names = normalize_class_names([c["name"] for c in load_lvis_categories()])
-        tables["lvis_class_embeddings"] = compute_class_name_embeddings(trainer.model, names, build_tokenizer(cfg))
-        timing["lvis_table_s"] = time.perf_counter() - t
-        logger.info(
-            "LVIS class-name table: %d x %d in %.3f s",
-            *tables["lvis_class_embeddings"].shape, timing["lvis_table_s"],
-        )
+        if cfg.MODEL.LANGUAGE_BACKBONE.FT_EMB:
+            # the word table trains: each step rebuilds the LVIS table
+            # from the tokenized names, and a resume computes nothing
+            tables["lvis_name_ids"], tables["lvis_name_mask"] = tokenize_class_names(names, build_tokenizer(cfg))
+            logger.info("LVIS class names tokenized for the in-step table: %d x %d", *tables["lvis_name_ids"].shape)
+        else:
+            # the LVIS class-name table from the (frozen) BERT table:
+            # after a restore it equals the fresh run's
+            t = time.perf_counter()
+            tables["lvis_class_embeddings"] = compute_class_name_embeddings(
+                trainer.model, names, build_tokenizer(cfg))
+            timing["lvis_table_s"] = time.perf_counter() - t
+            logger.info(
+                "LVIS class-name table: %d x %d in %.3f s",
+                *tables["lvis_class_embeddings"].shape, timing["lvis_table_s"],
+            )
+        if trainer.exemplars is not None and getattr(dataset, "class_names", None):
+            # the detection branch mixes exemplars into the dataset's
+            # classes by name (-1: no LVIS noun)
+            tables["class_lvis_ids"] = np.asarray(lvis_ids_for_class_names(dataset.class_names), np.int64)
     trainer.set_class_tables(**tables)
 
     evals: Dict[int, Dict[str, Dict[str, float]]] = {}

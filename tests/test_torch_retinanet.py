@@ -243,22 +243,29 @@ def test_retinanet_inference_matches_jax_with_ties():
 
 @pytest.mark.parametrize("k", [1, 7, 64, 300])
 def test_top_k_is_lax_top_k_on_ties(k):
-    """The stable-sort ``top_k`` that RetinaNet's inference runs on each
-    level: ties keep the lower index first and negatives order below 0.0,
-    as in ``lax.top_k``.  On a -0.0 the two part: the sort ties it with
-    0.0, ``lax.top_k`` orders it below (ROADMAP.md section C; a sigmoid
-    score is never -0.0)."""
+    """The stable-sort ``top_k`` that the RPN and RetinaNet's inference
+    run equals ``lax.top_k`` exactly, values and indices: ties keep the
+    lower index first, negatives order below 0.0, and -0.0 orders below
+    0.0 (the sort runs on the floats' total order), in float32 and
+    bfloat16."""
     rng = np.random.default_rng(k)
     x = np.round(rng.standard_normal((3, 300)) * 2) / 2 + 0.0  # no -0.0
     x[1, ::5] = 0.0
-    t = torch.from_numpy(x.astype(np.float32))
-    for g, r in zip(top_k(t, k), jax.lax.top_k(jnp.asarray(t.numpy()), k)):
-        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
-    signed = t.clone()
+    signed = x.copy()
     signed[1, ::10] = -0.0
-    got, ref = top_k(signed, k)[1].numpy(), np.asarray(jax.lax.top_k(jnp.asarray(signed.numpy()), k)[1])
-    zeros = int((t[1] > 0).sum())  # where row 1's zeros start
-    assert np.array_equal(got[1], ref[1]) == (k <= zeros)
+    signed[2, ::7] = -0.0
+    signed[2, 3::7] = 0.0
+    for rows in (x, signed):
+        for dtype, jdtype in ((torch.float32, jnp.float32), (torch.bfloat16, jnp.bfloat16)):
+            t = torch.from_numpy(rows.astype(np.float32)).to(dtype)
+            got = top_k(t, k)
+            ref = jax.lax.top_k(jnp.asarray(rows.astype(np.float32)).astype(jdtype), k)
+            np.testing.assert_array_equal(got[1].numpy(), np.asarray(ref[1]))
+            np.testing.assert_array_equal(got[0].float().numpy(), np.asarray(ref[0].astype(jnp.float32)))
+            # the signed zeros come out where lax.top_k puts them
+            np.testing.assert_array_equal(np.signbit(got[0].float().numpy()),
+                                          np.signbit(np.asarray(ref[0].astype(jnp.float32))))
+    assert (np.signbit(signed) & (signed == 0)).any()
 
 
 # ---------------------------------------------------------------------------

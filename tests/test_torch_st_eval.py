@@ -179,19 +179,35 @@ def test_bf16_bundle_extract_matches_jax():
 
 def test_training_forward_is_not_ported(tiny_f32):
     """The training forward is ported (``tests/test_torch_st_train.py``
-    holds it against JAX) except for its two options that no shipped
-    config turns on: the exemplar table and the in-step LVIS table of
-    FT_EMB.  Both raise, as does a training call without a batch."""
-    js, model, _ = tiny_f32
+    holds it against JAX), and so are its two options that no shipped
+    config turns on, the exemplar table and the in-step LVIS table of
+    FT_EMB (``tests/test_torch_exemplars.py``, ``test_torch_ft_emb.py``):
+    with both a training forward runs and hands back the updated table.
+    A training call without a batch raises."""
+    from cvpr22_cross_modal_pseudo_labeling_torch.engine.train_step import device_batch
+    from tests.test_torch_st_train import TRAIN_OPTS, tiny_batch
+
+    js, model, tree = tiny_f32
     images, sizes, table = tiny_inputs()
     args = (torch.from_numpy(images), torch.from_numpy(sizes), torch.from_numpy(table))
     with pytest.raises(ValueError, match="needs `batch`"):
         model(*args, train=True)
-    with pytest.raises(NotImplementedError, match="FT_EMB"):
-        model(*args, train=True, batch={"lvis_name_ids": torch.zeros((3, 4), dtype=torch.int64)})
-    ex = torch_st.STGeneralizedRCNN(model.statics._replace(exemplars_enabled=True))
-    with pytest.raises(NotImplementedError, match="EXEMPLARS_ENABLED"):
-        ex(*args, train=True, batch={})
+    cfg = torch_cfg()
+    cfg.merge_from_file(CONFIG)
+    cfg.merge_from_list(TRAIN_OPTS + ["MODEL.EXEMPLARS_ENABLED", True])
+    ex = torch_st.STGeneralizedRCNN(torch_st.st_statics_from_cfg(cfg)._replace(vocab_size=64))
+    bridge.load_flax_params(ex, bridge.seeded_flax_params(ex, seed=0))
+    batch = tiny_batch()
+    rows = batch.pop("lvis_class_embeddings").shape[0]
+    rng = np.random.default_rng(0)
+    batch["lvis_name_ids"] = rng.integers(5, 64, (rows, 4)).astype(np.int32)
+    batch["lvis_name_mask"] = np.ones((rows, 4), np.int32)
+    b = device_batch(batch, "cpu")
+    table0 = torch_st.init_exemplar_table(rows, 16)
+    out = ex(b["images"], b["image_sizes"], b["class_embeddings"], train=True, batch=b, exemplars=table0)
+    assert all(torch.isfinite(v) for v in out.losses.values())
+    # a slot for each distinct valid caption noun
+    assert int(out.info["exemplars"]["valid"].sum()) == len(set(batch["cap_labels"][batch["cap_word_valid"]]))
 
 
 def test_predictor_needs_a_card_unless_cpu_is_asked_for():

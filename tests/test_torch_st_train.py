@@ -428,8 +428,6 @@ def test_trainer_needs_a_card_unless_cpu_is_asked_for():
         pytest.skip("this host has a CUDA device: the default device is valid here")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Trainer(CONFIG, TRAIN_OPTS)
-    with pytest.raises(NotImplementedError, match="FT_EMB"):
-        Trainer(CONFIG, TRAIN_OPTS + ["MODEL.LANGUAGE_BACKBONE.FT_EMB", True], device="cpu")
     with pytest.raises(KeyError, match="cap_mask"):
         device_batch({k: v for k, v in tiny_batch().items() if k != "cap_mask"}, "cpu")
 

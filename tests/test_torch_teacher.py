@@ -557,9 +557,14 @@ def test_registry_builds_both_detectors_and_the_teacher_checks_its_batch():
         model(*args, train=True, batch=dict(b, class_valid=torch.ones(6, dtype=torch.bool)))
     with pytest.raises(KeyError, match="gt_masks"):
         device_batch({k: v for k, v in batch.items() if k != "gt_masks"}, "cpu", "GeneralizedRCNN")
-    for method in (model.run_teacher_pseudo_branch, model.predict_masks_for_boxes):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            method(*args)
+    # the teacher's pseudo-label methods run, at JAX's shapes
+    # (tests/test_torch_teacher_pseudo.py holds them against JAX)
+    with torch.no_grad():
+        out = model.run_teacher_pseudo_branch(*args)
+        masks = model.predict_masks_for_boxes(args[0], args[1], out.boxes[:, :5])
+    p = model.statics.rpn_post_nms_test
+    assert out.embeddings.shape == (2, p, 16) and out.class_logits.shape == (2, p, 6)
+    assert out.boxes.shape == out.proposals.boxes.shape == (2, p, 4) and masks.shape == (2, 5, 14, 14)
 
 
 def test_teacher_trainer_draws_from_its_generator_reproducibly():

@@ -219,7 +219,6 @@ def test_train_net_needs_a_card_unless_cpu_is_asked_for(tmp_path):
 
 
 @pytest.mark.parametrize("opts,match", [
-    (["MODEL.EXEMPLARS_ENABLED", True], "EXEMPLARS_ENABLED"),
     (["DATALOADER.USE_GRAIN", True], "USE_GRAIN"),
 ])
 def test_unported_training_options_raise(tmp_path, opts, match):
