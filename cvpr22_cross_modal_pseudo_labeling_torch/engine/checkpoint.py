@@ -17,7 +17,12 @@ and utils/model_serialization.py:10-67).
   the save is published (the tag, the pruning to ``keep`` saves and the
   staged sidecar files) by the next save or :func:`flush_pending_checkpoint`,
   never earlier; :func:`discard_pending_checkpoint` deletes an unpublished
-  save (the divergence abort of ``engine/trainer.py::do_train``).
+  save (the divergence abort of ``engine/trainer.py::do_train``).  On more
+  than one rank every rank calls these, with the same state: rank 0 alone
+  copies, writes, tags, prunes and deletes saves, and each rank writes its
+  own sidecar files (its loader state).  A reader on several ranks waits
+  at a barrier first (``parallel/dist.py::barrier``), then every rank
+  loads the same file.
 * **Importers**, copied from the JAX package (numpy, on
   flax-layout trees: ``bridge.flax_from_state_dict`` of a model, or
   ``bridge.flax_tree_from_checkpoint`` of a checkpoint; the result goes
@@ -43,6 +48,7 @@ import numpy as np
 import torch
 
 from .. import bridge
+from ..parallel.dist import is_primary
 
 ORBAX_NOT_READ = (
     "an orbax checkpoint of the JAX package: the port reads it only through jax and "
@@ -128,6 +134,8 @@ def _finalize(directory: str, path: str, keep: int, extras=None) -> None:
     for p, content in (extras or {}).items():
         with open(p, "w") as f:
             f.write(content)
+    if not is_primary():
+        return
     tag = os.path.join(directory, "last_checkpoint")
     with open(tag + ".tmp", "w") as f:
         f.write(os.path.basename(path))
@@ -169,6 +177,8 @@ def discard_pending_checkpoint() -> None:
         return
     pending, _pending = _pending, None
     pending.thread.join()
+    if not is_primary():
+        return
     for p in (pending.path, pending.path + ".tmp"):
         if os.path.exists(p):
             os.remove(p)
@@ -188,15 +198,18 @@ def save_checkpoint(
     os.makedirs(directory, exist_ok=True)
     path = os.path.join(directory, f"model_{step:07d}.pth")
     flush_pending_checkpoint()
-    host = _to_host(state)
+    primary = is_primary()
+    host = _to_host(state) if primary else None
     if block:
-        _write(host, path)
+        if primary:
+            _write(host, path)
         _finalize(directory, path, keep, extras)
         return path
 
     def run():
         try:
-            _write(host, path)
+            if primary:
+                _write(host, path)
         except BaseException as e:  # surfaced by the flush that publishes it
             pending.error = e
 

@@ -15,7 +15,14 @@ the card computes the next, and the port's evaluator scores them.
 ``compute_on_dataset_bbox_aug`` ports JAX's test-time augmentation
 (:214-318, ``TEST.BBOX_AUG``) over the same ``Predictor``, and
 ``evaluate_proposals`` its proposal evaluation (:321-389), which
-``inference`` runs for an RPN-only model.  One process.
+``inference`` runs for an RPN-only model.
+
+On more than one rank (``parallel/dist.py``) each rank runs its stripe of
+the dataset (the loader's ``DistributedSampler(pad=False)``: every image
+once; the test-time augmentation stripes the dataset the same way), the
+results are gathered in rank order (:363-366, :420-428), rank 0 writes
+the file and evaluates, and every rank returns rank 0's metrics.  The
+``time/`` figures are each rank's own pass.
 """
 
 import concurrent.futures as cf
@@ -32,6 +39,7 @@ from ..config import get_default_cfg
 from ..data.evaluation import evaluate
 from ..data.evaluation.prepare import detections_to_coco_results
 from ..models.detector import RCNN_FAMILY, build_detection_model
+from ..parallel.dist import gather_objects, is_primary, rank, world_size
 
 
 class NumpyDetections(NamedTuple):
@@ -361,7 +369,10 @@ def compute_on_dataset_bbox_aug(
     contig_to_json = getattr(dataset, "contiguous_category_id_to_json_id", {})
     wall_start = time.perf_counter()
     host_s = 0.0
-    for index in range(len(dataset)):
+    # this rank's stripe of the images, as the eval loader's sampler
+    # gives it (all of them on one rank)
+    indices = range(rank(), len(dataset), world_size())
+    for index in indices:
         raw = dataset.raw_sample(index)
         n_calls = len(calls)
         t = time.perf_counter()
@@ -395,7 +406,7 @@ def compute_on_dataset_bbox_aug(
                 }
             )
     wall = time.perf_counter() - wall_start
-    n = len(dataset)
+    n = len(indices)
     if not n:
         return results, {"images": 0}
     return results, {
@@ -443,16 +454,19 @@ def evaluate_proposals(
             proposals_by_image[img_id] = np.concatenate(
                 [boxes, dets.scores[bi][keep][:, None]], axis=1
             ).astype(np.float64)
-    if output_file:
-        import json
-
-        with open(output_file, "w") as f:
-            json.dump({int(k): v.tolist() for k, v in proposals_by_image.items()}, f)
-    out = {}
-    for area in ("all", "small", "medium", "large"):
-        res = evaluate_box_proposals(proposals_by_image, dataset.coco, area=area, limit=limit)
-        out[f"box_proposal/AR_{area}@{limit}"] = res["ar"]
     n = len(proposals_by_image)
+    proposals_by_image = {k: v for part in gather_objects(proposals_by_image) for k, v in part.items()}
+    out = {}
+    if is_primary():
+        if output_file:
+            import json
+
+            with open(output_file, "w") as f:
+                json.dump({int(k): v.tolist() for k, v in proposals_by_image.items()}, f)
+        for area in ("all", "small", "medium", "large"):
+            res = evaluate_box_proposals(proposals_by_image, dataset.coco, area=area, limit=limit)
+            out[f"box_proposal/AR_{area}@{limit}"] = res["ar"]
+    out = gather_objects(out)[0]
     wall = time.time() - start
     out.update({"time/images": float(n), "time/device_s_per_img": device_s / max(n, 1),
                 "time/e2e_images_per_s": n / wall, "total_eval_seconds": wall})
@@ -494,20 +508,24 @@ def inference(
         results, stats = compute_on_dataset(
             predictor, loader, dataset, table, gt_box_eval=predictor.cfg.MODEL.GT_BOX_EVAL
         )
-    if output_file:
-        import json
+    results = [r for part in gather_objects(results) for r in part]
+    metrics = {}
+    if is_primary():
+        if output_file:
+            import json
 
-        with open(output_file, "w") as f:
-            json.dump(results, f)
-    t = time.perf_counter()
-    metrics = evaluate(
-        dataset,
-        results,
-        iou_types=iou_types,
-        expected_results=expected_results,
-        expected_results_sigma_tol=expected_results_sigma_tol,
-    )
-    stats["evaluate_s"] = time.perf_counter() - t
+            with open(output_file, "w") as f:
+                json.dump(results, f)
+        t = time.perf_counter()
+        metrics = evaluate(
+            dataset,
+            results,
+            iou_types=iou_types,
+            expected_results=expected_results,
+            expected_results_sigma_tol=expected_results_sigma_tol,
+        )
+        stats["evaluate_s"] = time.perf_counter() - t
+    metrics = gather_objects(metrics)[0]
     metrics.update({f"time/{k}": float(v) for k, v in stats.items()})
     metrics["total_eval_seconds"] = time.time() - start
     return metrics

@@ -35,6 +35,19 @@ so that ``engine/trainer.py``'s prefetcher can upload the next batch
 while a step runs.  :meth:`Trainer.state_dict` holds what a resume
 restores: the model, the optimizer, the generator and, when it exists,
 the exemplar table.
+
+On more than one rank (``parallel/dist.py``: one process a rank, started
+by torchrun) a ``Trainer`` takes its rank's rows of the global batch, as
+JAX's step does on its mesh's data axis.  The detector runs under
+``DistributedDataParallel`` (whenever a process group is up, so that one
+rank under torchrun pays what the wrapper costs), whose hook sums the
+ranks' gradients: each rank's loss is its share of a loss normalized over
+the global batch.  So ``grad_norm``, the clip and the update are the
+global batch's, and every rank applies the same update; the frozen
+parameters and the buffers take no part.  The logged losses are summed
+over the ranks.  The generator is seeded per rank, and explicit draws are
+the global batch's, of which each rank takes its rows.  MMSS refuses more
+than one rank.
 """
 
 from typing import Dict, Mapping, Optional, Sequence, Union
@@ -47,6 +60,7 @@ from ..config.cfg_node import CfgNode
 from ..models.detector import RCNN_FAMILY, ST_FAMILY, build_detection_model
 from ..models.detector.generalized_rcnn import RCNNTrainOutput, TrainDraws
 from ..models.detector.st_generalized_rcnn import init_exemplar_table
+from ..parallel.dist import global_sum, rank, refuse_ranks, sum_hook, world_size
 from .inference import load_cfg
 from .optimizer import Optimizer, frozen_prefixes_from_cfg
 
@@ -159,14 +173,35 @@ def training_forward(
     )
 
 
+def shard_draws(draws, rank_: int, world: int):
+    """Rank ``rank_``'s rows of the global batch's draws (a
+    ``TrainDraws``): the samplers' ``[B, ...]`` along the images, the
+    mask samples ``[n_s, B * cap, ...]`` along their image-major rows."""
+    if world == 1:
+        return draws
+    return TrainDraws(*(None if x is None else torch.chunk(x, world, dim=1 if k == "mask_eps" else 0)[rank_]
+                        for k, x in draws._asdict().items()))
+
+
+def summed_over_ranks(losses: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The 0-d losses, detached and summed over the ranks in one
+    reduction: each rank's is its share of the global batch's loss."""
+    if world_size() == 1:
+        return {k: v.detach() for k, v in losses.items()}
+    keys = list(losses)
+    values = global_sum(torch.stack([losses[k].detach().to(torch.float32) for k in keys]))
+    return dict(zip(keys, values.unbind()))
+
+
 class Trainer:
     """Builds the model and optimizer a config names and takes SGD steps.
 
     ``config`` is a config file (``opts`` are merged into it) or a loaded
     config.  ``device`` defaults to ``"cuda"`` and raises when no card is
     present; pass ``device="cpu"`` to run the plain versions of the
-    kernels on the CPU.  ``seed`` seeds the generator of the step's
-    random draws.  ``model`` replaces the model the config names (built
+    kernels on the CPU (on more than one rank, the rank's device).
+    ``seed`` seeds the generator of the step's random draws (on rank r
+    of w, ``seed * w + r``).  ``model`` replaces the model the config names (built
     from statics, e.g. at narrow widths); the optimizer still follows
     the config.  Load weights with :meth:`load_flax_params` (or
     :meth:`load_state_dict`) before the first step.
@@ -190,6 +225,9 @@ class Trainer:
         else:
             self.cfg = config
         self.meta_arch = self.cfg.MODEL.META_ARCHITECTURE
+        if self.meta_arch == MMSS:
+            refuse_ranks("MMSS pretraining", "its grounding losses pair every caption with every image of the "
+                         "global batch, which needs an all-gather with a gradient")
         self.device = device
         self.model = (model if model is not None else build_detection_model(self.cfg)).to(device)
         frozen = frozen_prefixes_from_cfg(self.cfg, self.meta_arch)
@@ -198,13 +236,31 @@ class Trainer:
         counted = ("language_backbone/",) if self.meta_arch == MMSS else ()
         self.optimizer = Optimizer(self.cfg, self.model, frozen, counted_prefixes=counted)
         self.generator = torch.Generator(device=device)
-        self.generator.manual_seed(seed)
+        self.generator.manual_seed(seed * world_size() + rank())
         self.class_tables: Dict[str, torch.Tensor] = {}
         # the exemplar table over the LVIS vocabulary (TrainState.extra)
         self.exemplars: Optional[Dict[str, torch.Tensor]] = None
         if self.cfg.MODEL.EXEMPLARS_ENABLED and self.meta_arch in ST_FAMILY:
             s = self.model.statics
             self.exemplars = init_exemplar_table(s.lvis_vocab, s.base.emb_dim, device)
+        # the module the step runs: the model, or under a launch of ranks
+        # (a process group is up, even of one rank) the detector under DDP,
+        # built after the optimizer has set requires_grad, so that only the
+        # trainable parameters are reduced; the buffers (frozen BN) never
+        # change and are not broadcast.  DDP always looks for the trainable
+        # parameters a step leaves without a gradient (lambda_exemplar
+        # without the exemplar table, the BERT word table under FT_EMB with
+        # it, whose LVIS table the mixing detaches, the RPN-only detector's
+        # RoI heads): one missed would stall the reduce and let the ranks
+        # part silently, and the search costs a steady step little
+        # (chip_smoke.py's ddp phase times both; PERF.md section 6)
+        self.train_module = self.model
+        if torch.distributed.is_initialized() and self.meta_arch != MMSS:
+            from torch.nn.parallel import DistributedDataParallel
+
+            self.train_module = DistributedDataParallel(self.model, broadcast_buffers=False,
+                                                        find_unused_parameters=True)
+            self.train_module.register_comm_hook(None, sum_hook)
 
     def load_flax_params(self, params) -> None:
         load_flax_params(self.model, params)
@@ -232,7 +288,7 @@ class Trainer:
 
     def _draws(self, draws):
         if draws is not None:
-            return draws
+            return shard_draws(draws, rank(), world_size())
         if self.meta_arch == MMSS:
             from ..models.detector.mmss_gcnn import MMSSDraws
 
@@ -242,13 +298,16 @@ class Trainer:
     def step(self, batch: Mapping[str, np.ndarray], draws=None) -> Dict[str, torch.Tensor]:
         """One training step on a numpy batch (see :func:`host_batch`).
         ``draws`` (a ``TrainDraws``, or an ``MMSSDraws`` for MMSS)
-        replaces the generator's draws of this step.  Returns the metrics
-        as 0-d tensors on the device."""
+        replaces the generator's draws of this step; on more than one rank
+        they are the global batch's, and this rank takes its rows.
+        Returns the metrics as 0-d tensors on the device, the same on
+        every rank."""
         return self.train_step(self.device_batch(batch), draws)
 
     def train_step(self, b: Dict[str, torch.Tensor], draws=None) -> Dict[str, torch.Tensor]:
         """One training step on a batch already on the device."""
-        out = training_forward(self.model, self.meta_arch, b, self._draws(draws), self.generator, self.exemplars)
+        out = training_forward(self.train_module, self.meta_arch, b, self._draws(draws), self.generator,
+                               self.exemplars)
         table = out.info.pop("exemplars", None)
         if table is not None:
             self.exemplars = table
@@ -256,8 +315,10 @@ class Trainer:
         self.optimizer.zero_grad()
         total.backward()
         grad_norm = self.optimizer.step()
-        metrics = {k: v.detach() for k, v in {**out.losses, **out.info}.items()}
-        metrics["total_loss"] = total.detach()
+        summed = summed_over_ranks({**out.losses, "total_loss": total})
+        metrics = {k: summed[k] for k in out.losses}
+        metrics.update({k: v.detach() for k, v in out.info.items()})
+        metrics["total_loss"] = summed["total_loss"]
         metrics["grad_norm"] = grad_norm
         return metrics
 
@@ -270,9 +331,7 @@ class Trainer:
         generator = torch.Generator(device=self.device)
         generator.manual_seed(self.VAL_SEED)
         out = training_forward(self.model, self.meta_arch, b, self._draws(draws), generator)
-        metrics = dict(out.losses)
-        metrics["val_total_loss"] = sum(out.losses.values())
-        return metrics
+        return summed_over_ranks({**out.losses, "val_total_loss": sum(out.losses.values())})
 
     def state_dict(self) -> Dict:
         """The model's weights and buffers, the optimizer's state, the

@@ -17,6 +17,12 @@ runs the periodic evaluation and stops on a non-finite loss.
   through.
 * :func:`do_train` takes ``step_fn(batch) -> metrics``, so that a caller
   can replay fixed random draws through it.
+* On more than one rank (``parallel/dist.py``) every rank runs the loop on
+  its rows of each global batch; the metrics (already the global batch's)
+  go to TensorBoard from rank 0 only, each rank keeps its own
+  loader-state file, and the checkpoint is written and published by rank
+  0 (``engine/checkpoint.py``); every rank leaves the loop after the
+  final save is published.
 """
 
 import datetime
@@ -31,6 +37,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from ..parallel.dist import barrier, is_primary, rank, world_size
 from ..utils.logger import get_logger
 from ..utils.metric_logger import MetricLogger
 from .checkpoint import (
@@ -230,7 +237,7 @@ def do_train(
     logger = get_logger("trainer")
     meters = MetricLogger()
     output_dir = output_dir or cfg.OUTPUT_DIR
-    writer = SummaryWriter(os.path.join(output_dir, "tb"))
+    writer = SummaryWriter(os.path.join(output_dir, "tb")) if is_primary() else None
     max_iter = cfg.SOLVER.MAX_ITER
     log_period = cfg.SOLVER.LOG_PERIOD
     ckpt_period = cfg.SOLVER.CHECKPOINT_PERIOD
@@ -243,7 +250,8 @@ def do_train(
         logger.info(
             "training already complete (iteration %d >= MAX_ITER %d); nothing to do", start_iter, max_iter,
         )
-        writer.close()
+        if writer:
+            writer.close()
         return trainer
 
     cuda = trainer.device.type == "cuda"
@@ -301,7 +309,8 @@ def do_train(
                 meters.update(**metrics)
                 eta = datetime.timedelta(seconds=int(meters.meters["time"].global_avg * (max_iter - iteration)))
                 logger.info("iter %d/%d eta %s %s", iteration, max_iter, eta, meters)
-                writer.write(iteration, metrics)
+                if writer:
+                    writer.write(iteration, metrics)
             if ckpt_period and iteration % ckpt_period == 0 and output_dir:
                 # pipelined: the write overlaps the next steps and is
                 # published by the next save or the final flush; the
@@ -318,7 +327,8 @@ def do_train(
                 break
     finally:
         prefetcher.stop()
-        writer.close()
+        if writer:
+            writer.close()
 
     if output_dir:
         if pending_checkpoint_step() != iteration:
@@ -327,6 +337,7 @@ def do_train(
                 extras=_loader_state_extras(output_dir, prefetcher),
             )
         flush_pending_checkpoint()
+        barrier()  # the final save is published before any rank goes on
     steps = iteration - start_iter
     if steps > 0:
         # sustained summary (reference logs the totals at
@@ -336,15 +347,17 @@ def do_train(
         logger.info(
             "sustained: %d steps, %.1f s wall, %.3f s/it, %.2f imgs/s/host, data-wait %.1f%% "
             "(sum_data %.1f s / sum_time %.1f s)",
-            steps, t.total, t.total / steps, cfg.SOLVER.IMS_PER_BATCH * steps / t.total,
+            steps, t.total, t.total / steps, cfg.SOLVER.IMS_PER_BATCH // world_size() * steps / t.total,
             100.0 * d.total / max(t.total, 1e-9), d.total, t.total,
         )
     return trainer
 
 
 def loader_state_path(output_dir: str) -> str:
-    """The data-stream position's file (one process)."""
-    return os.path.join(output_dir, "loader_state.json")
+    """This rank's data-stream position's file: each rank reads its own
+    shard of the stream."""
+    r = rank()
+    return os.path.join(output_dir, "loader_state.json" if r == 0 else f"loader_state_{r}.json")
 
 
 def _loader_state_extras(output_dir: str, loader):

@@ -82,6 +82,7 @@ import torch
 
 from ...core.box_coder import decode_boxes
 from ...core.boxes import clip_to_image
+from ...parallel.dist import global_sum
 from ..backbone import ResNetBackbone, ResNetFPNBackbone, device_normalize
 from ..roi_heads.box_head import Detections, box_head_loss, postprocess_boxes, subsample_rois
 from ..roi_heads.bundle import RoIHeadsBundle, compute_dtype, feature_channels
@@ -407,9 +408,9 @@ class GeneralizedRCNN(RoIHeadsBundle):
                 # code reads the positives of all sampled slots, the same
                 # ones whenever the mask slice covers them all)
                 pos = (sampled_mask.is_pos & sampled_mask.valid).reshape(-1).to(torch.float32)
-                info["avg_uncertain"] = torch.sum(
+                info["avg_uncertain"] = global_sum(torch.sum(
                     scale[..., 0].to(torch.float32).mean(dim=(1, 2)) * pos
-                ) / pos.sum().clamp(min=1.0)
+                )) / global_sum(pos.sum()).clamp(min=1.0)
         if s.keypoint_on and "gt_keypoints" in batch:
             # the positives-first slots of the mask head, on the box
             # head's features, against each roi's matched gt keypoints

@@ -62,6 +62,7 @@ from torch import nn
 from ...core.box_coder import decode_boxes
 from ...core.boxes import clip_to_image
 from ..backbone import device_normalize
+from ...parallel.dist import gather_rows, global_sum
 from ..language.bert import WordEmbeddingBackbone
 from ..roi_heads.box_head import box_head_loss, subsample_rois
 from ..roi_heads.bundle import RoIHeadsBundle, compute_dtype, feature_channels
@@ -386,10 +387,12 @@ class STGeneralizedRCNN(nn.Module):
                 estimator=sb.uncertainty_estimator, cls_agnostic_mask=sb.cls_agnostic_mask,
             )
             if scale is not None:
+                # the mean sigma over the global batch's positives: it sets
+                # the detached weight below, and carries no gradient
                 pos = (sampled_mask.is_pos & sampled_mask.valid).reshape(-1).to(torch.float32)
-                avg_uncertain = torch.sum(
+                avg_uncertain = global_sum(torch.sum(
                     scale[..., 0].to(torch.float32).mean(dim=(1, 2)) * pos
-                ) / pos.sum().clamp(min=1.0)
+                )) / global_sum(pos.sum()).clamp(min=1.0)
         return cls_loss, box_loss, mask_loss, avg_uncertain
 
     def forward_train(
@@ -414,10 +417,14 @@ class STGeneralizedRCNN(nn.Module):
             masks = torch.zeros((feats[0].shape[0], 1, 1, 1), device=feats[0].device)
         use_exemplars = s.exemplars_enabled and exemplars is not None
         if use_exemplars:
-            # update first, then mix the updated table (one LVIS slot a row)
+            # update first, then mix the updated table (one LVIS slot a row),
+            # from the candidates of the global batch in its image order
+            # (the ranks' rows in rank order), as JAX's sharded step
+            # scatters them: every rank keeps the same table
             exemplars = update_exemplar_table(
-                exemplars, pseudo.labels.reshape(-1), pseudo.scores.reshape(-1),
-                pseudo.embs.reshape(-1, pseudo.embs.shape[-1]), (pseudo.valid & cap_mask[:, None]).reshape(-1),
+                exemplars, gather_rows(pseudo.labels.reshape(-1)), gather_rows(pseudo.scores.reshape(-1)),
+                gather_rows(pseudo.embs.reshape(-1, pseudo.embs.shape[-1])),
+                gather_rows((pseudo.valid & cap_mask[:, None]).reshape(-1)),
             )
             info["exemplars"] = exemplars
             cap_embs = self.combine_embs(lvis_class_embeddings, exemplars["embs"], exemplars["valid"])

@@ -27,6 +27,7 @@ from ...core.matcher import match_boxes
 from ...core.sampler import balanced_sample_indices, draw_priorities
 from ...ops.losses import smooth_l1_loss
 from ...ops.nms import batched_nms
+from ...parallel.dist import global_sum
 from ..layers import Linear
 from ..rpn.rpn import top_k
 
@@ -145,7 +146,7 @@ def box_head_loss(
     valid = sampled.valid.reshape(-1)
     is_pos = sampled.is_pos.reshape(-1)
     reg_targets = sampled.reg_targets.reshape(-1, 4)
-    n = valid.to(torch.float32).sum().clamp(min=1.0)
+    n = global_sum(valid.to(torch.float32).sum()).clamp(min=1.0)
 
     logp = F.log_softmax(class_logits, dim=-1)
     ce = -torch.gather(logp, 1, labels.clamp(min=0)[:, None])[:, 0]

@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...parallel.dist import refuse_ranks
 from ..layers import Conv2d, ConvTranspose2d
 
 
@@ -83,6 +84,7 @@ def keypoint_loss(kp_logits: torch.Tensor, keypoints: torch.Tensor, rois: torch.
                   roi_valid: torch.Tensor) -> torch.Tensor:
     """kp_logits ``[S, H, W, K]``: the cross-entropy over each heatmap's
     positions at its visible keypoints, averaged over them."""
+    refuse_ranks("the keypoint loss")
     s, h, w, k = kp_logits.shape
     flat = kp_logits.permute(0, 3, 1, 2).reshape(s, k, h * w)
     targets, valid = keypoints_to_heatmap_targets(keypoints, rois, h)

@@ -21,6 +21,7 @@ from torch import nn
 
 from ...ops.losses import binary_cross_entropy_with_logits
 from ...ops.masks import project_masks_on_boxes
+from ...parallel.dist import global_sum
 from ..layers import Conv2d, ConvTranspose2d
 from .box_head import SampledRoIs
 
@@ -127,7 +128,7 @@ def mask_head_loss(
         per_pix = -(torch.logsumexp(-per_pix, dim=0, keepdim=True) - math.log(n_s))
         n_s = 1
     w = pos.to(per_pix.dtype)[None, :, None, None]
-    denom = (pos.to(per_pix.dtype).sum() * (n_s * m * m)).clamp(min=1.0)
+    denom = (global_sum(pos.to(per_pix.dtype).sum()) * (n_s * m * m)).clamp(min=1.0)
     return torch.sum(per_pix * w) / denom
 
 

@@ -31,6 +31,7 @@ from ...core.matcher import BETWEEN_THRESHOLDS, match_boxes
 from ...ops.losses import smooth_l1_loss
 from ...ops.nms import batched_nms
 from ...ops.sigmoid_focal_loss import sigmoid_focal_loss
+from ...parallel.dist import refuse_ranks
 from ..backbone import ResNetFPNBackbone, device_normalize
 from ..layers import Conv2d
 from ..roi_heads.box_head import Detections
@@ -156,6 +157,7 @@ def retinanet_loss(
     positives plus the images; smooth-L1 (beta ``bbox_reg_beta``) on the
     positives' (10, 10, 5, 5) targets, divided by ``max(1, positives *
     bbox_reg_weight)``."""
+    refuse_ranks("RetinaNet's focal loss")
     matched = match_boxes(box_iou(gt_boxes, anchors), gt_valid, s.fg_iou, s.bg_iou,
                           allow_low_quality_matches=True)  # [B, N]
     pos = matched >= 0

@@ -20,6 +20,7 @@ from ...core.matcher import match_boxes
 from ...core.sampler import balanced_sample_masks, draw_priorities
 from ...ops.losses import binary_cross_entropy_with_logits, smooth_l1_loss
 from ...ops.nms import nms
+from ...parallel.dist import global_sum
 from ..layers import Conv2d
 
 
@@ -213,7 +214,8 @@ def rpn_loss(
     anchors are neither positive nor negative; the balanced sampler takes
     ``batch_size_per_image`` of them per image.  BCE over the sampled
     anchors and smooth-L1 (beta 1/9) over the sampled positives, both
-    divided by the batch's total sampled count.  ``rand`` ``[B, 2, N]``
+    divided by the global batch's total sampled count (summed over the
+    ranks).  ``rand`` ``[B, 2, N]``
     holds the sampler's priorities (``core/sampler.py``), else drawn from
     ``generator``."""
     b, n = objectness.shape
@@ -236,5 +238,5 @@ def rpn_loss(
         smooth_l1_loss(box_regression, reg_targets, beta=1.0 / 9)
         * sampled_pos.to(box_regression.dtype)[..., None]
     )
-    total = sampled.sum().clamp(min=1.0)
+    total = global_sum(sampled.sum()).clamp(min=1.0)
     return obj_sum / total, box_sum / total

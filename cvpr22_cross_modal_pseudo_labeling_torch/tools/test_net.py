@@ -4,6 +4,12 @@
     python -m cvpr22_cross_modal_pseudo_labeling_torch.tools.test_net \\
         --config-file X.yaml [--device cuda|cpu] [--seed N] KEY VALUE ...
 
+or on k cards, one process a card, as ``train_net`` is launched
+(``torchrun --nproc_per_node k -m ...test_net ... [--dist-backend
+nccl|gloo]``): each rank evaluates its stripe of each test set, and rank 0
+gathers the results, writes the files and evaluates (``tools/test_net.py``
+:56-70's per-process shards).
+
 For each of the config's ``DATASETS.TEST`` it runs the port's loader, a
 ``Predictor`` on ``--device`` (``cuda`` unless the CPU is asked for; it
 raises without a card) for any detector of the ``GeneralizedRCNN`` and
@@ -31,6 +37,9 @@ import os
 import sys
 from typing import Dict, Optional, Sequence
 
+from ..parallel.dist import BACKENDS
+from .train_net import launch_device
+
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Dict[str, float]]:
     """Runs the evaluation; returns each test dataset's metrics dict
@@ -41,6 +50,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Dict[str, float]]:
     p.add_argument("--seed", type=int, default=0, help="seed of the random weights")
     p.add_argument("--ckpt", default=None,
                    help="checkpoint to evaluate (default: OUTPUT_DIR/last_checkpoint)")
+    p.add_argument("--dist-backend", default="nccl", choices=BACKENDS,
+                   help="the process group's backend under torchrun (WORLD_SIZE > 1)")
     p.add_argument("opts", nargs=argparse.REMAINDER, default=None)
     args = p.parse_args(argv)
 
@@ -53,10 +64,12 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Dict[str, float]]:
         load_checkpoint,
     )
     from ..engine.inference import Predictor, bbox_aug_options, check_eval_options, inference, iou_types, load_cfg
+    from ..parallel.dist import barrier, is_primary, rank, world_size
     from ..utils.logger import get_logger, setup_logger
     from ..utils.model_zoo import resolve_weight_path
 
-    setup_logger()
+    # torchrun's rank, before the group is up
+    setup_logger(rank=int(os.environ.get("RANK", "0")))
     logger = get_logger("test_net")
     opts = args.opts or []
     cfg = load_cfg(args.config_file, opts)
@@ -64,8 +77,10 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Dict[str, float]]:
         # the reference loops over an empty cfg.DATASETS.TEST (test_net.py:95-113)
         logger.info("DATASETS.TEST is empty; nothing to evaluate")
         return {}
-    setup_logger(save_dir=cfg.OUTPUT_DIR)
+    device = launch_device(args.device, args.dist_backend)
+    setup_logger(save_dir=cfg.OUTPUT_DIR, rank=rank())
     check_eval_options(cfg)
+    barrier()  # a training run's rank 0 has published the tag
     ckpt = args.ckpt or latest_checkpoint(cfg.OUTPUT_DIR)
     blob = load_checkpoint(ckpt) if ckpt else None
     if blob is not None and not is_port_checkpoint(blob):
@@ -73,7 +88,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Dict[str, float]]:
     if blob is not None and blob["meta_arch"] != cfg.MODEL.META_ARCHITECTURE:
         raise RuntimeError(f"{ckpt} holds a {blob['meta_arch']} model, not {cfg.MODEL.META_ARCHITECTURE}")
 
-    predictor = Predictor(args.config_file, opts, device=args.device)
+    predictor = Predictor(args.config_file, opts, device=device)
     if blob is not None:
         predictor.model.load_state_dict(blob["trainer"]["model"], strict=True)
         logger.info("loaded checkpoint %s (iteration %d) on %s", ckpt, blob["iteration"], predictor.device)
@@ -82,7 +97,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Dict[str, float]]:
         tree, msg = import_external_weights(tree, resolve_weight_path(cfg.MODEL.WEIGHT), cfg)
         predictor.load_flax_params(tree)
         logger.info("%s", msg or f"random weights from seed {args.seed} on {predictor.device}")
-    loaders, datasets = make_data_loader(cfg, is_train=False)
+    loaders, datasets = make_data_loader(cfg, is_train=False, is_distributed=world_size() > 1, rank=rank(),
+                                         num_replicas=world_size())
     out = {}
     for name, loader, dataset in zip(cfg.DATASETS.TEST, loaders, datasets):
         metrics = inference(
@@ -101,11 +117,12 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Dict[str, float]]:
             {k: round(v, 4) for k, v in metrics.items()
              if isinstance(v, float) and "_class_" not in k},
         )
-        with open(os.path.join(cfg.OUTPUT_DIR, f"metrics_{name}.json"), "w") as f:
-            json.dump(
-                {k: float(v) for k, v in metrics.items() if isinstance(v, (int, float))},
-                f, indent=1, sort_keys=True,
-            )
+        if is_primary():
+            with open(os.path.join(cfg.OUTPUT_DIR, f"metrics_{name}.json"), "w") as f:
+                json.dump(
+                    {k: float(v) for k, v in metrics.items() if isinstance(v, (int, float))},
+                    f, indent=1, sort_keys=True,
+                )
         out[name] = metrics
     return out
 

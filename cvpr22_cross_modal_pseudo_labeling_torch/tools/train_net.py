@@ -4,6 +4,11 @@
     python -m cvpr22_cross_modal_pseudo_labeling_torch.tools.train_net \\
         --config-file X.yaml [--skip-test] [--device cuda|cpu] [--seed N] KEY VALUE ...
 
+or on k cards of one host, one process a card:
+
+    torchrun --nproc_per_node k -m cvpr22_cross_modal_pseudo_labeling_torch.tools.train_net \\
+        --config-file X.yaml [--dist-backend nccl|gloo] KEY VALUE ...
+
 It trains the model the config names (MMSS pretraining ``MMSS-GCNN``;
 ``GeneralizedRCNN``, the teacher or a class-specific supervised
 detector, the RPN-only detector (``MODEL.RPN_ONLY``; its test scores the
@@ -39,8 +44,17 @@ are found under ``CMPL_TPU_DATA_DIR``.  In JAX's order:
   pass only: JAX's in-training eval calls detection inference on it,
   which ``MMSSGridModel`` cannot serve (ROADMAP.md section C).
 
-One process: the multi-process branches go with ROADMAP.md queue A
-item 8.
+Under torchrun (``WORLD_SIZE`` > 1) each process joins the group over
+``--dist-backend`` (``parallel/dist.py::init_from_env``; nccl by default,
+gloo when asked for, also for ranks that share a card) and trains on
+``cuda:LOCAL_RANK`` (or the CPU with ``--device cpu``) as JAX's processes
+do on their hosts: each rank loads ``SOLVER.IMS_PER_BATCH / world``
+images a step and ``TEST.IMS_PER_BATCH / world`` an eval batch, its
+stripe of the test sets, the step reduces over the global batch
+(``engine/train_step.py``), rank 0 writes the checkpoints, the labels,
+the metrics and the predictions, and the validation-loss pass sums the
+ranks' shares over the batches every rank has.  MMSS refuses more than
+one rank.
 """
 
 import argparse
@@ -52,6 +66,8 @@ from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
+
+from ..parallel.dist import BACKENDS
 
 MMSS = "MMSS-GCNN"
 # batches of DATASETS.TEST[0] in one validation-loss pass
@@ -66,12 +82,14 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     p.add_argument("--skip-test", action="store_true")
     p.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
     p.add_argument("--seed", type=int, default=0, help="seed of the random weights and draws")
+    p.add_argument("--dist-backend", default="nccl", choices=BACKENDS,
+                   help="the process group's backend under torchrun (WORLD_SIZE > 1)")
     p.add_argument("opts", nargs=argparse.REMAINDER, default=None, help="config overrides: KEY VALUE pairs")
     args = p.parse_args(argv)
-    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("train_net: no CUDA device is available; pass --device cpu to run on the CPU")
+    device = launch_device(args.device, args.dist_backend)
 
     from ..config import get_default_cfg
+    from ..parallel.dist import rank
     from ..utils.env_info import collect_env_info
     from ..utils.logger import setup_logger
 
@@ -84,14 +102,28 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     if test and cfg.MODEL.META_ARCHITECTURE == MMSS and cfg.DATASETS.TEST:
         raise ValueError("MMSS-GCNN pretraining has no detection test: pass --skip-test or TEST.DO_EVAL False")
     os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
-    logger = setup_logger(save_dir=cfg.OUTPUT_DIR)
+    logger = setup_logger(save_dir=cfg.OUTPUT_DIR, rank=rank())
     logger.info("environment:\n%s", collect_env_info())
     logger.info("config:\n%s", cfg)
-    record = train(cfg, logger, args.device, args.seed)
+    record = train(cfg, logger, device, args.seed)
     record["test"] = {}
     if test:
         record["test"] = run_test(cfg, record["trainer"], logger)
     return record
+
+
+def launch_device(device: str, backend: str) -> str:
+    """The device of this process: ``device`` in one process; under
+    torchrun (``WORLD_SIZE`` > 1) the rank's card, or the CPU for
+    ``device="cpu"``, once the process group is up.  Raises without a
+    card unless the CPU is asked for."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass --device cpu to run on the CPU")
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        from ..parallel.dist import init_from_env
+
+        return str(init_from_env(backend, torch.device(device).type))
+    return device
 
 
 def _summary(metrics):
@@ -123,19 +155,23 @@ def train(cfg, logger, device: str = "cuda", seed: int = 0) -> Dict:
     from ..engine.train_step import Trainer
     from ..engine.trainer import compute_class_name_embeddings, do_train, tokenize_class_names
     from ..models.detector import ST_FAMILY
+    from ..parallel.dist import barrier, gather_objects, is_primary, rank, world_size
     from ..utils.env_info import save_labels
     from ..utils.model_zoo import resolve_weight_path
 
     meta_arch = cfg.MODEL.META_ARCHITECTURE
     timing = {}
+    shard = dict(is_distributed=world_size() > 1, rank=rank(), num_replicas=world_size())
 
     # resume discovery before the loader is built: the save's name
     # encodes its iteration, where the sampler starts (reference
-    # data/build.py:115 + trainer.py:94)
+    # data/build.py:115 + trainer.py:94); every rank reads the tag once
+    # a previous run's rank 0 has published it
+    barrier()
     last = latest_checkpoint(cfg.OUTPUT_DIR)
     resuming = bool(last and cfg.MODEL.LOAD_TRAINER_STATE)
     start_iter = checkpoint_step(last) if resuming else 0
-    loader, dataset = make_data_loader(cfg, is_train=True, start_iter=start_iter)
+    loader, dataset = make_data_loader(cfg, is_train=True, start_iter=start_iter, **shard)
     trainer = Trainer(cfg, device=device, seed=seed)
     if trainer.exemplars is not None:
         logger.info("exemplar table initialized: %d slots x %d dims", *trainer.exemplars["embs"].shape)
@@ -161,7 +197,7 @@ def train(cfg, logger, device: str = "cuda", seed: int = 0) -> Dict:
         trainer.load_flax_params(tree)
         timing["weights_s"] = time.perf_counter() - t
 
-    if hasattr(dataset, "class_names"):
+    if hasattr(dataset, "class_names") and is_primary():
         save_labels(dataset.class_names, cfg.OUTPUT_DIR)
 
     if resuming:
@@ -211,7 +247,7 @@ def train(cfg, logger, device: str = "cuda", seed: int = 0) -> Dict:
     if cfg.DATASETS.TEST and cfg.SOLVER.TEST_PERIOD > 0 and (detect or val_loss):
         if detect:
             check_eval_options(cfg)
-        val_loaders, val_datasets = make_data_loader(cfg, is_train=False)
+        val_loaders, val_datasets = make_data_loader(cfg, is_train=False, **shard)
         val_classes = getattr(val_datasets[0], "class_names", None)
         if val_loss and val_classes is not None and val_classes != getattr(dataset, "class_names", None):
             # the pass reads the training class table; JAX's gather past
@@ -238,9 +274,11 @@ def train(cfg, logger, device: str = "cuda", seed: int = 0) -> Dict:
                 finally:
                     trainer.model.train()
             if val_loss:
+                # the batches every rank has: each reduces over the ranks
+                n = min(gather_objects(min(VAL_LOSS_BATCHES, len(val_loaders[0]))))
                 totals = [
                     trainer.val_loss(trainer.device_batch(batch))["val_total_loss"]
-                    for batch, _ in itertools.islice(iter(val_loaders[0]), VAL_LOSS_BATCHES)
+                    for batch, _ in itertools.islice(iter(val_loaders[0]), n)
                 ]
                 if totals:
                     val_losses[iteration] = float(np.mean(torch.stack(totals).cpu().numpy()))
@@ -258,12 +296,14 @@ def run_test(cfg, trainer, logger) -> Dict[str, Dict[str, float]]:
     dataset's metrics."""
     from ..data import make_data_loader
     from ..engine.inference import Predictor, check_eval_options, inference, iou_types
+    from ..parallel.dist import rank, world_size
 
     if not cfg.DATASETS.TEST:
         return {}
     check_eval_options(cfg)
     predictor = Predictor.from_model(cfg, trainer.model)
-    loaders, datasets = make_data_loader(cfg, is_train=False)
+    loaders, datasets = make_data_loader(cfg, is_train=False, is_distributed=world_size() > 1, rank=rank(),
+                                         num_replicas=world_size())
     out = {}
     for name, loader, dataset in zip(cfg.DATASETS.TEST, loaders, datasets):
         metrics = inference(

@@ -2,20 +2,21 @@
 
 The port's copy of ``cvpr22_cross_modal_pseudo_labeling_tpu/utils/
 model_zoo.py`` (reference utils/model_zoo.py:20 cache_url and
-utils/checkpoint.py:132-154), for one process: the JAX package's
-cross-process barrier goes with multi-process training (ROADMAP.md queue
-A item 8).  ``MODEL.WEIGHT`` may be a local path, a ``catalog://`` key
+utils/checkpoint.py:132-154).  ``MODEL.WEIGHT`` may be a local path, a ``catalog://`` key
 (``data/paths_catalog.py::ModelCatalog``) or an http(s) URL.  URLs
 resolve through the cache ``$CMPL_TPU_MODEL_ZOO`` (default
 ``~/.cache/cmpl_tpu/models``), keyed by the URL's file name; Detectron's
 shared ``model_final.pkl`` names are flattened with their path, as the
-reference does.  A URL that is not in the cache is downloaded once; a
-failed download raises.
+reference does.  A URL that is not in the cache is downloaded once, by
+rank 0 while the other ranks wait at a barrier; a failed download raises
+on every rank after it.
 """
 
 import os
 import re
 from urllib.parse import urlparse
+
+from ..parallel.dist import barrier, is_primary
 
 _HASH_RE = re.compile(r"-([a-f0-9]*)\.")
 
@@ -43,15 +44,17 @@ def cache_url(url: str, model_dir: str = None, progress: bool = True) -> str:
     model_dir = model_dir or default_cache_dir()
     os.makedirs(model_dir, exist_ok=True)
     cached_file = os.path.join(model_dir, cached_name(url))
-    if os.path.exists(cached_file):
-        return cached_file
-    error = _download(url, cached_file, progress)
+    error = None
+    if not os.path.exists(cached_file) and is_primary():
+        error = _download(url, cached_file, progress)
+    barrier()
     if not os.path.exists(cached_file):
         if error and error.startswith("hash mismatch"):
             # corrupt or tampered download: distinct from a cache miss
             raise ValueError(f"weight URL {url}: {error}")
+        detail = f": {error}" if error else " on rank 0"
         raise FileNotFoundError(
-            f"weight URL {url} not in cache {model_dir} and download failed: {error}; "
+            f"weight URL {url} not in cache {model_dir} and download failed{detail}; "
             "pre-populate the cache on this host"
         )
     return cached_file
