@@ -310,13 +310,33 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                 s/it; then in that rank the steady ST step at 4 images under
                 the Trainer's DDP, under DDP without the search for unused
                 parameters and without the wrapper, in turns (medians).
+24. jax_checkpoint -- a checkpoint trained with the JAX package, without jax:
+                for the teacher (zeroshot_mask.yaml) and the student-teacher
+                model (the exemplar table on, so the uncertain labels'
+                ``_freeze_after`` layout), at full width, the arrays
+                ``tools/orbax_to_npz.py`` writes of a JAX train state after
+                N = 5 updates (``jax_train_state_dump``: seeded parameters,
+                non-zero momentum traces under the optax paths, every count
+                N, the table), turned into a port checkpoint on the card by
+                the port's ``tools/import_jax_checkpoint.py``: every
+                parameter and momentum buffer equal to its source array bit
+                for bit after the layout change, ``updates`` and the
+                iteration N, the table equal.  ``train_net`` resumes the teacher from it at N for 2
+                steps of 8 on the eval tree (finite losses; the first step's
+                NMS, RoIAlign forward and backward held against the plain
+                versions); ``test_net --ckpt`` serves the converted
+                student-teacher model on coco_generalized_zeroshot_val, whose
+                predictions and metrics must equal ``test_net``'s with
+                ``MODEL.WEIGHT`` the dump.  Prints the dumps' and
+                checkpoints' bytes, the import's seconds, the resumed s/it and
+                images/s, and the card's name and power limit.
 One line gives the seconds each phase from 7 on took.  The per-kernel line
 gives, beside each kernel's launches on the earlier paths, its launches on
 the MMSS paths (phase 14 and the MMSS stage of phase 16): 0, on the
 OpenImages paths of phase 17, on the supervised paths of phase 18, on the
 FPN, RetinaNet and RPN-only paths of phases 19 and 20, on the options'
-paths of phase 21, on the student-teacher options' paths of phase 22 and
-on each rank of phase 23 (a).
+paths of phase 21, on the student-teacher options' paths of phase 22, on
+each rank of phase 23 (a) and on phase 24's resume and test_net runs.
 
 Then the card's name and power limit, the per-kernel JSON line, and the last
 line ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when
@@ -4742,6 +4762,255 @@ def phase_ddp_runs(dev, rec, out, world, started):
     rec["nccl_one_rank"] = c
 
 
+# phase 24: a checkpoint trained with the JAX package, dumped where jax
+# runs (tools/orbax_to_npz.py) and imported on the card.  The dump is
+# written here, without jax, as that tool writes a JAX train state of the
+# config after N updates; the phase keeps its files under build/jax_ckpt
+# (a dump and a checkpoint of each family, hundreds of MB) and deletes
+# them at the end
+JAX_CKPT = dict(n=5, steps=2, out="build/jax_ckpt", trace_std=1e-3)
+JAX_CKPT_FAMILIES = {"teacher": (TEACHER, ()), "st": (CONFIG, EXEMPLAR_OPTS)}
+
+
+def jax_train_state_dump(trainer, seed, n, source, trace_std=JAX_CKPT["trace_std"]):
+    """The arrays ``tools/orbax_to_npz.py`` writes of the JAX package's
+    ``{"state": TrainState, "iteration": n}`` for ``trainer``'s model and
+    config after ``n`` updates of ``make_optimizer``'s chain (no clip, no
+    accumulation), made without jax: the parameters are
+    ``bridge.seeded_flax_params(model, seed)``; each trainable parameter
+    has a seeded, non-zero momentum trace under its label's optax path
+    (``inner_states/<label>/inner_state/<i>/trace/...``, ``i`` 1 after
+    ``add_decayed_weights`` and 0 at weight decay 0; the uncertain labels
+    one level down, in ``_freeze_after``'s ``inner``); every schedule
+    count, ``_freeze_after``'s count and the train state's step are ``n``;
+    the key is ``PRNGKey(42)``'s data; with the exemplar table, a seeded
+    table with some slots filled is ``state/extra``."""
+    from cvpr22_cross_modal_pseudo_labeling_torch import bridge
+
+    cfg, s = trainer.cfg, trainer.cfg.SOLVER
+    check(s.CLIP_GRAD_NORM_AT <= 0 and s.GRADIENT_ACCUMULATION_STEPS <= 1,
+          "jax_train_state_dump writes make_optimizer's chain without a clip or accumulation")
+    rng = np.random.default_rng(seed + 24)
+    tree = bridge.seeded_flax_params(trainer.model, seed, EMB_PRED_STD)
+    params = {}
+
+    def walk(node, path):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, path + (k,))
+            else:
+                params[path + (k,)] = v
+
+    walk(tree, ())
+    flat = {"state/params/params/" + "/".join(p): v for p, v in params.items()}
+    decay = {"default": s.WEIGHT_DECAY, "bias": s.WEIGHT_DECAY_BIAS, "uncertain": s.WEIGHT_DECAY,
+             "uncertain_bias": s.WEIGHT_DECAY_BIAS}
+    freeze = cfg.MODEL.UNCERTAINTY and cfg.MODEL.UNCERTAINTY_TRAIN_ITER > 0
+    traces = {}
+    for label, wd in decay.items():
+        base = f"state/opt_state/inner_states/{label}/inner_state/"
+        if freeze and label.startswith("uncertain"):
+            flat[base + "count"] = np.asarray(n, np.int32)
+            base += "inner/"
+        i = int(wd > 0)
+        flat[f"{base}{i + 1}/count"] = np.asarray(n, np.int32)
+        traces[label] = f"{base}{i}/trace/"
+    modules = dict(trainer.model.named_modules())
+    for name in trainer.optimizer.names:
+        path, _ = bridge._flax_path(modules, name)
+        shape = params[path].shape
+        flat[traces[trainer.optimizer.labels[name]] + "/".join(path)] = (
+            rng.standard_normal(shape, np.float32) * np.float32(trace_std))
+    flat["state/rng"] = np.asarray([0, 42], np.uint32)
+    flat["state/step"] = np.asarray(n, np.int32)
+    if trainer.exemplars is not None:
+        v, d = trainer.exemplars["embs"].shape
+        valid = rng.random(v) < 0.5
+        flat["state/extra/embs"] = np.where(valid[:, None], rng.standard_normal((v, d), np.float32), 0).astype(
+            np.float32)
+        flat["state/extra/quality"] = np.where(valid, rng.random(v, np.float32), -np.inf).astype(np.float32)
+        flat["state/extra/valid"] = valid
+    flat["iteration"] = np.asarray(n, np.int64)
+    flat["__dump__/source"] = np.asarray(source)
+    flat["__dump__/iteration"] = np.asarray(n, np.int64)
+    for key in ("widened", "widened_from", "key_data"):
+        flat["__dump__/" + key] = np.asarray([], dtype=str)
+    return flat
+
+
+def nvidia_smi():
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def phase_jax_checkpoint(dev, results):
+    """Phase 24: for the teacher and the student-teacher model (exemplar
+    table on, so the uncertain labels' ``_freeze_after`` layout), the dump
+    of a JAX train state at N updates, ``import_jax_checkpoint`` on the
+    card, the port checkpoint held bit for bit against the dump (every
+    parameter and momentum buffer after its layout change, ``updates``,
+    the iteration, the table); ``train_net`` resuming the teacher from it
+    for 2 steps (the first step's launches held against the plain
+    versions); ``test_net --ckpt`` serving the converted student-teacher
+    model on the eval tree, its predictions equal to those of ``test_net``
+    with ``MODEL.WEIGHT`` the dump (the same weights through
+    ``load_flax_params``)."""
+    import shutil
+
+    from cvpr22_cross_modal_pseudo_labeling_torch import bridge
+    from cvpr22_cross_modal_pseudo_labeling_torch.engine import checkpoint as ck
+    from cvpr22_cross_modal_pseudo_labeling_torch.engine.jax_checkpoint import params_tree
+    from cvpr22_cross_modal_pseudo_labeling_torch.engine.train_step import Trainer
+    from cvpr22_cross_modal_pseudo_labeling_torch.ops import kernels
+    from cvpr22_cross_modal_pseudo_labeling_torch.tools import import_jax_checkpoint, test_net
+
+    check(os.path.isdir(EVAL["tree"]), f"jax_checkpoint: no tree at {EVAL['tree']} (the eval phase writes it)")
+    os.environ["CMPL_TPU_DATA_DIR"] = EVAL["tree"]
+    out, n, name = JAX_CKPT["out"], JAX_CKPT["n"], TRAIN_NET["dataset"]
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    t_phase = time.perf_counter()
+    runs, launches, all_checks, paths = {}, {}, {}, {}
+    step = Trainer.train_step
+    try:
+        for family, (config, extra) in JAX_CKPT_FAMILIES.items():
+            opts = [*map(str, TRAIN_NET["opts"]), *map(str, extra)]
+            dump, p_dir = os.path.join(out, f"{family}.npz"), os.path.join(out, family)
+            # the dump, from the model and optimizer of a Trainer on the host
+            t = time.perf_counter()
+            host = Trainer(config, opts, device="cpu", seed=SEED)
+            flat = jax_train_state_dump(host, SEED, n, os.path.abspath(dump))
+            with open(dump, "wb") as f:
+                np.savez(f, **flat)
+            write_s = time.perf_counter() - t
+            # the import on the card
+            t = time.perf_counter()
+            got = import_jax_checkpoint.main(["--config-file", config, "--dump", dump, "--out", p_dir,
+                                              "--device", dev.type, "--seed", str(SEED), *opts])
+            import_s = time.perf_counter() - t
+            paths[family] = got["path"]
+            with open(os.path.join(p_dir, "log.txt.rank0")) as f:
+                import_log = f.read()
+            check("not carried: JAX's rng key" in import_log,
+                  f"jax_checkpoint {family}: the import does not log what it cannot carry")
+            # the port checkpoint against the dump, bit for bit after the
+            # layout change
+            blob = ck.load_checkpoint(got["path"])
+            model, state = blob["trainer"]["model"], blob["trainer"]["optimizer"]
+            want = bridge.state_dict_from_flax(host.model, params_tree(flat))
+            differ = [k for k in want if not torch.equal(model[k], want[k])]
+            check(set(model) == set(want) and not differ,
+                  f"jax_checkpoint {family}: parameters differ from the dump: {differ[:5]}")
+            modules = dict(host.model.named_modules())
+            momentum = {}
+            for key, value in flat.items():
+                if "/trace/" in key:
+                    port, kind = bridge._port_key(modules, tuple(key.split("/trace/", 1)[1].split("/")))
+                    momentum[port] = torch.from_numpy(np.ascontiguousarray(bridge._to_port(value, kind)))
+            differ = [k for k in momentum if not torch.equal(state["momentum"].get(k, torch.empty(0)), momentum[k])]
+            check(set(state["momentum"]) == set(momentum) == set(host.optimizer.names) and not differ,
+                  f"jax_checkpoint {family}: momentum buffers differ from the dump's traces: {differ[:5]}")
+            check(state["updates"] == n and state["micro"] == 0 and not state["acc"] and blob["iteration"] == n
+                  and got["iteration"] == n,
+                  f"jax_checkpoint {family}: updates {state['updates']}, iteration {blob['iteration']}, want {n}")
+            if host.exemplars is not None:
+                table = blob["trainer"]["exemplars"]
+                check(all(np.array_equal(table[k].numpy(), flat["state/extra/" + k]) for k in table)
+                      and set(table) == {"embs", "quality", "valid"},
+                      f"jax_checkpoint {family}: the exemplar table differs from the dump's")
+            runs[family] = dict(dump_bytes=os.path.getsize(dump), checkpoint_bytes=os.path.getsize(got["path"]),
+                                dump_write_s=write_s, import_s=import_s, read_s=got["read_s"],
+                                load_s=got["load_s"], save_s=got["save_s"], parameters=len(want),
+                                momentum_buffers=len(momentum), updates=state["updates"],
+                                valid_slots=int(flat["state/extra/valid"].sum()) if host.exemplars is not None else None)
+            del host, flat, blob, model, state, want, momentum
+            torch.cuda.empty_cache()
+
+        # train_net resumes the teacher at N for 2 steps, its first step's
+        # launches held against the plain versions
+        checks, check_nms, check_roi, check_roi_bwd = launch_checks()
+        per_step = []
+
+        def counted_step(self, b, draws=None):
+            first = not per_step
+            kernels.NMS.on_launch = check_nms if first else None
+            kernels.ROI_ALIGN.on_launch = check_roi if first else None
+            kernels.ROI_ALIGN_BACKWARD.on_launch = check_roi_bwd if first else None
+            before = {k.name: k.launches for k in kernels.ALL}
+            try:
+                return step(self, b, draws)
+            finally:
+                kernels.NMS.on_launch = kernels.ROI_ALIGN.on_launch = kernels.ROI_ALIGN_BACKWARD.on_launch = None
+                per_step.append({k.name: k.launches - before[k.name] for k in kernels.ALL})
+
+        t_dir = os.path.dirname(paths["teacher"])
+        argv = ["--config-file", TEACHER, "--skip-test", "--device", dev.type, "--seed", str(SEED),
+                *map(str, TRAIN_NET["opts"]), "SOLVER.MAX_ITER", str(n + JAX_CKPT["steps"]),
+                "MODEL.LOAD_TRAINER_STATE", "True", "SOLVER.TEST_PERIOD", "0"]
+        kernels.reset_launches()
+        Trainer.train_step = counted_step
+        try:
+            rec, runs["resume"], log, logged = train_net_run(argv, t_dir)
+        finally:
+            Trainer.train_step = step
+        launches["resume"] = {k.name: k.launches for k in kernels.ALL}
+        all_checks["resume"] = checks
+        check_all_passed("jax_checkpoint resume", checks, per_step[0], 1, 1, 1)
+        check(f"resumed from {paths['teacher']} at iteration {n}" in log and rec["start_iter"] == n
+              and rec["trainer"].optimizer.updates == n + JAX_CKPT["steps"],
+              f"jax_checkpoint resume: start {rec['start_iter']}, updates {rec['trainer'].optimizer.updates}")
+        check([r["step"] for r in logged] == list(range(n + 1, n + JAX_CKPT["steps"] + 1))
+              and all(np.isfinite(r["total_loss"]) and np.isfinite(r["grad_norm"]) for r in logged),
+              f"jax_checkpoint resume: logged {logged}")
+        want = {k: v / TRAIN["steps"] for k, v in results["teacher_train"]["launches"].items()}
+        check(len(per_step) == JAX_CKPT["steps"] and all(p == want for p in per_step),
+              f"jax_checkpoint resume: launches per step {per_step}, teacher_train {want}")
+        runs["resume"]["losses"] = [{k: r[k] for k in ("step", "total_loss", "grad_norm")} for r in logged]
+        del rec
+        torch.cuda.empty_cache()
+
+        # test_net serves the converted student-teacher checkpoint; the
+        # same weights through MODEL.WEIGHT (the dump, load_flax_params)
+        # must predict the same
+        preds = {}
+        for how, args in (("ckpt", ["--ckpt", paths["st"]]),
+                          ("weight", ["MODEL.WEIGHT", os.path.join(out, "st.npz")])):
+            e_dir = os.path.join(out, f"test_net_{how}")
+            kernels.reset_launches()
+            t = time.perf_counter()
+            got = test_net.main(["--config-file", CONFIG, "--device", dev.type, "--seed", str(SEED), *args,
+                                 *map(str, TRAIN_NET["opts"]), *map(str, EXEMPLAR_OPTS),
+                                 "DATASETS.TEST", f"('{name}',)", "OUTPUT_DIR", e_dir])[name]
+            seconds = time.perf_counter() - t
+            launches[f"test_net_{how}"] = {k.name: k.launches for k in kernels.ALL}
+            with open(os.path.join(e_dir, f"predictions_{name}.json")) as f:
+                preds[how] = json.load(f)
+            with open(os.path.join(e_dir, "log.txt.rank0")) as f:
+                test_log = f.read()
+            runs[f"test_net_{how}"] = dict(seconds=seconds, images_per_s=got["time/e2e_images_per_s"],
+                                           results=len(preds[how]), bbox_AP=got["bbox/AP"], segm_AP=got["segm/AP"],
+                                           metrics={k: v for k, v in got.items() if not k.startswith("time/")})
+        check("imported" in test_log and "from JAX dump" in test_log and "(0 source leaves unmatched)" in test_log,
+              "jax_checkpoint test_net: MODEL.WEIGHT did not import the whole dump")
+        check(preds["ckpt"] == preds["weight"] and len(preds["ckpt"]) > 0
+              and same_metrics(runs["test_net_ckpt"].pop("metrics"), runs["test_net_weight"].pop("metrics")),
+              "jax_checkpoint test_net: the converted checkpoint's predictions differ from the dump's through "
+              "MODEL.WEIGHT")
+        check(launches["test_net_ckpt"] == launches["test_net_weight"]
+              and all(v > 0 for k, v in launches["test_net_ckpt"].items() if k != "roi_align_backward"),
+              f"jax_checkpoint test_net: launches {launches}")
+    finally:
+        Trainer.train_step = step
+        shutil.rmtree(out, ignore_errors=True)
+    rec = dict(phase="jax_checkpoint", device=nvidia_smi(), dtype="bfloat16", n=n, runs=runs, launches=launches,
+               first_step_checks=check_lists(all_checks["resume"]), seconds=time.perf_counter() - t_phase)
+    emit(rec)
+    results["jax_checkpoint"] = rec
+
+
 def count_syncs(run):
     """The synchronizing CUDA calls one call of ``run`` makes (blocking
     copies, ``.item()``, ...), as ``torch.cuda.set_sync_debug_mode``
@@ -4776,6 +5045,12 @@ def kernels_line(results):
     op = results["options"]
     so = results["st_options"]
     dp = results["ddp"]
+    jx = results["jax_checkpoint"]
+
+    def jax_checkpoint_launches(kernel):
+        # the resumed teacher and test_net on the converted checkpoint and
+        # on the dump (phase 24)
+        return {f"jax_checkpoint_{path}_launches": n[kernel] for path, n in jx["launches"].items()}
 
     def ddp_launches(kernel):
         # each rank's launches on the 2-rank steps of phase 23 (a)
@@ -4863,6 +5138,7 @@ def kernels_line(results):
              **options_launches("nms"),
              **st_options_launches("nms"),
              **ddp_launches("nms"),
+             **jax_checkpoint_launches("nms"),
              launch_unit="one nms_forward call: a memset, then a mask and a scan "
                          "kernel per column band",
              max_abs_err=float(max(serving["first_batch_checks"]["nms_mismatches"]
@@ -4880,6 +5156,7 @@ def kernels_line(results):
                                    + options_errs("nms_mismatches", "nms", "mismatches")
                                    + st_options_errs("nms_mismatches")
                                    + ddp_errs("nms_mismatches")
+                                   + jx["first_step_checks"]["nms_mismatches"]
                                    + [results[f"nms_{c[0]}"]["mismatches"] for c in NMS_CASES]
                                    + [results["nms_rpn_dense"]["one_band_mismatches"]])),
              ms=nms_rpn["ms"], plain_ms=nms_rpn["plain_ms"],
@@ -4910,6 +5187,7 @@ def kernels_line(results):
              **options_launches("roi_align"),
              **st_options_launches("roi_align"),
              **ddp_launches("roi_align"),
+             **jax_checkpoint_launches("roi_align"),
              fpn_launch_unit="the FPN pooler launches the kernel once a level (P2..P5) into one output; "
                              "each launch counts one",
              max_abs_err=max(serving["first_batch_checks"]["roi_align_max_abs_err"]
@@ -4926,6 +5204,7 @@ def kernels_line(results):
                              + options_errs("roi_align_max_abs_err", "roi_align", "max_abs_err")
                              + st_options_errs("roi_align_max_abs_err")
                              + ddp_errs("roi_align_max_abs_err")
+                             + jx["first_step_checks"]["roi_align_max_abs_err"]
                              + [results[("roi_align",) + c]["max_abs_err"] for c in ROI_CASES]),
              dtypes="bfloat16 features -> bfloat16 output",
              ms=roi_main["ms"], plain_ms=roi_main["plain_ms"],
@@ -4955,6 +5234,7 @@ def kernels_line(results):
              **options_launches("roi_align_backward"),
              **st_options_launches("roi_align_backward"),
              **ddp_launches("roi_align_backward"),
+             **jax_checkpoint_launches("roi_align_backward"),
              launch_unit="one roi_align_backward call: the plan kernel (each roi's tap "
                          "lists), then the tile kernel (each tile of dF summed in shared "
                          "memory, written once in bfloat16)",
@@ -4965,6 +5245,7 @@ def kernels_line(results):
                              + fpn_errs("roi_align_backward_max_abs_err")
                              + options_errs("roi_align_backward_max_abs_err", "roi_align_backward", "max_abs_err")
                              + ddp_errs("roi_align_backward_max_abs_err")
+                             + jx["first_step_checks"]["roi_align_backward_max_abs_err"]
                              + [results[("roi_align_backward",) + c]["max_abs_err"]
                                 for c in ROI_BWD_CASES]
                              + [bwd_teacher["max_abs_err"]]),
@@ -5064,13 +5345,11 @@ def main():
     timed("st_options", phase_st_options, dev, results)
     torch.cuda.empty_cache()
     timed("ddp", phase_ddp, dev, results)
+    torch.cuda.empty_cache()
+    timed("jax_checkpoint", phase_jax_checkpoint, dev, results)
     emit(dict(phase="timing", **seconds))
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
+    print(nvidia_smi(), flush=True)
 
     emit(kernels_line(results))
     emit({"ok": True, "device": {"platform": "gpu",

@@ -34,10 +34,12 @@ and utils/model_serialization.py:10-67).
   target's trunk has none (:func:`import_flax_params`).
 * :func:`import_external_weights` is the ``MODEL.WEIGHT`` chain of both
   entry points: a port checkpoint (a file, or an ``OUTPUT_DIR`` whose tag
-  names one), a Caffe2 ``.pkl`` or a reference ``.pth``.  An orbax
-  directory written by the JAX package cannot be read without jax and
-  orbax: it raises (ROADMAP.md queue A item 9), and so does a path that
-  does not exist.
+  names one), the ``.npz`` dump of a JAX-trained checkpoint
+  (``engine/jax_checkpoint.py``), a Caffe2 ``.pkl`` or a reference
+  ``.pth``.  An orbax directory written by the JAX package cannot be read
+  without orbax and tensorstore: it raises with the two commands that
+  convert it (:data:`ORBAX_NOT_READ`), and so does a path that does not
+  exist.
 """
 
 import os
@@ -51,8 +53,11 @@ from .. import bridge
 from ..parallel.dist import is_primary
 
 ORBAX_NOT_READ = (
-    "an orbax checkpoint of the JAX package: the port reads it only through jax and "
-    "orbax, which it does not use (ROADMAP.md queue A item 9)"
+    "an orbax checkpoint of the JAX package, which only orbax and tensorstore read. Dump it where jax "
+    "runs: `python tools/orbax_to_npz.py <checkpoint or OUTPUT_DIR> --out dump.npz`; then `python -m "
+    "cvpr22_cross_modal_pseudo_labeling_torch.tools.import_jax_checkpoint --config-file X --dump dump.npz "
+    "--out DIR` makes a port checkpoint of it for train_net and test_net, and MODEL.WEIGHT or "
+    "MODEL.LANGUAGE_WEIGHT take the .npz itself"
 )
 
 
@@ -232,9 +237,14 @@ def latest_checkpoint(directory: str) -> Optional[str]:
 
 def load_checkpoint(path: str) -> Dict[str, Any]:
     """Reads a port checkpoint onto the host (``weights_only=True``).
-    A directory is an orbax checkpoint of the JAX package and raises."""
+    A directory is an orbax checkpoint of the JAX package and raises, as
+    does a dump of one."""
     if os.path.isdir(path):
         raise NotImplementedError(f"{path} is {ORBAX_NOT_READ}")
+    if path.endswith(".npz"):
+        raise ValueError(f"{path} is the dump of a JAX-trained checkpoint: make it a port checkpoint with "
+                         "`python -m cvpr22_cross_modal_pseudo_labeling_torch.tools.import_jax_checkpoint`, "
+                         "or import it as weights through MODEL.WEIGHT")
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
@@ -637,16 +647,24 @@ def load_torch_checkpoint(path: str) -> Dict[str, np.ndarray]:
 
 
 def _read_weights(weight_path: str):
-    """(path, raw blob) of the weights ``weight_path`` names: a port
-    checkpoint (a file, or a directory whose ``last_checkpoint`` names
-    one) or a torch ``.pth``."""
+    """(path, flax-layout tree, raw blob) of the weights ``weight_path``
+    names: a port checkpoint (a file, or a directory whose
+    ``last_checkpoint`` names one) or the ``.npz`` dump of a JAX-trained
+    checkpoint, with its tree; or a torch ``.pth``, whose tree is None."""
     path = weight_path
     if os.path.isdir(weight_path):
         path = latest_checkpoint(weight_path) or weight_path
-        return path, load_checkpoint(path)
-    if not os.path.exists(path):
+        blob = load_checkpoint(path)
+    elif not os.path.exists(path):
         raise FileNotFoundError(f"weights {weight_path}: no such file or directory")
-    return path, torch.load(path, map_location="cpu", weights_only=False)
+    elif path.endswith(".npz"):
+        from .jax_checkpoint import params_tree, read_dump
+
+        return path, params_tree(read_dump(path)), None
+    else:
+        blob = torch.load(path, map_location="cpu", weights_only=False)
+    tree = bridge.flax_tree_from_checkpoint(blob) if is_port_checkpoint(blob) else None
+    return path, tree, blob
 
 
 def import_language_table(params: Dict[str, Any], weight_path: str) -> Tuple[Dict[str, Any], Dict[str, Any]]:
@@ -654,12 +672,12 @@ def import_language_table(params: Dict[str, Any], weight_path: str) -> Tuple[Dic
     table and, for full-encoder models, the encoder -- from another
     checkpoint (``MODEL.LANGUAGE_WEIGHT``): a teacher checkpoint carries
     no BERT (GeneralizedRCNN has none), so a student run started from it
-    takes the table from an MMSS checkpoint or a reference ``.pth`` that
-    registers ``bert.embeddings``."""
-    _, blob = _read_weights(weight_path)
-    if is_port_checkpoint(blob):
-        sflat = _flatten_params(bridge.flax_tree_from_checkpoint(blob))
-        keep = {p: v for p, v in sflat.items() if p and p[0] in ("bert", "language_backbone")}
+    takes the table from an MMSS checkpoint (the port's, or the dump of a
+    JAX-trained one) or a reference ``.pth`` that registers
+    ``bert.embeddings``."""
+    _, tree, blob = _read_weights(weight_path)
+    if tree is not None:
+        keep = {p: v for p, v in _flatten_params(tree).items() if p and p[0] in ("bert", "language_backbone")}
         return import_flax_params(params, _unflatten(keep))
     sd = {k: v for k, v in _numpy_state_dict(blob).items() if "bert" in k or "language_backbone" in k}
     return import_torch_state_dict(params, sd)
@@ -671,8 +689,9 @@ def import_external_weights(params_tree, weight_path: str, cfg):
     tree:
 
     * a port checkpoint (a file, or an ``OUTPUT_DIR`` whose
-      ``last_checkpoint`` names one) -- cross-stage import in this
-      framework's own vocabulary via :func:`import_flax_params`;
+      ``last_checkpoint`` names one), or the ``.npz`` dump of a
+      JAX-trained checkpoint -- cross-stage import in this framework's
+      own vocabulary via :func:`import_flax_params`;
     * a Caffe2 ``.pkl`` -- ImageNet init blobs;
     * a torch ``.pth`` or state-dict file -- reference weights through
       :func:`apply_reference_key_surgery` and
@@ -696,12 +715,11 @@ def import_external_weights(params_tree, weight_path: str, cfg):
             raise FileNotFoundError(f"weights {weight_path}: no such file")
         new_params, report = import_c2_imagenet_weights(params_tree, weight_path)
         return new_params, f"imported {report['matched']} caffe2 blobs"
-    path, blob = _read_weights(weight_path)
-    if is_port_checkpoint(blob):
-        src = bridge.flax_tree_from_checkpoint(blob)
+    path, src, blob = _read_weights(weight_path)
+    if src is not None:
         new_params, report = import_flax_params(params_tree, src, **surgery)
         return new_params, (
-            f"imported {report['matched']} leaves from checkpoint {path} "
+            f"imported {report['matched']} leaves from {'JAX dump' if blob is None else 'checkpoint'} {path} "
             f"({len(report['missed_source_keys'])} source leaves unmatched)"
         )
     sd = apply_reference_key_surgery(

@@ -26,9 +26,12 @@ The weights, as in ``tools/test_net.py``: a port checkpoint (``--ckpt``,
 or the save ``OUTPUT_DIR/last_checkpoint`` names) gives the model's
 weights and buffers; otherwise ``MODEL.WEIGHT``, resolved only then, is
 imported into weights drawn from ``--seed`` (``bridge.seeded_flax_params``;
-``engine/checkpoint.py::import_external_weights``); otherwise the drawn
-weights serve.  An orbax checkpoint of the JAX package raises
-(ROADMAP.md queue A item 9).
+``engine/checkpoint.py::import_external_weights``: a port checkpoint, the
+``.npz`` dump of a JAX-trained one, a ``.pth`` or a ``.pkl``); otherwise
+the drawn weights serve.  An orbax checkpoint of the JAX package raises
+with the two commands that make it a port checkpoint
+(``tools/orbax_to_npz.py`` where jax runs, then this package's
+``tools/import_jax_checkpoint.py``).
 """
 
 import argparse

@@ -26,8 +26,9 @@ are found under ``CMPL_TPU_DATA_DIR``.  In JAX's order:
   restores the model, the optimizer and the generator;
 * otherwise the weights are drawn from ``--seed``
   (``bridge.seeded_flax_params``), then ``MODEL.WEIGHT`` (a port
-  checkpoint or its ``OUTPUT_DIR``, a reference ``.pth`` or a Caffe2
-  ``.pkl``) and ``MODEL.LANGUAGE_WEIGHT`` are imported, and the
+  checkpoint or its ``OUTPUT_DIR``, the ``.npz`` dump of a JAX-trained
+  checkpoint, a reference ``.pth`` or a Caffe2 ``.pkl``) and
+  ``MODEL.LANGUAGE_WEIGHT`` are imported, and the
   student-teacher model's student starts as a copy of its teacher unless
   ``MODEL.RESUME``;
 * the student-teacher model's LVIS class-name table comes from its BERT

@@ -44,6 +44,7 @@ from cvpr22_cross_modal_pseudo_labeling_torch.engine import inference as torch_i
 from cvpr22_cross_modal_pseudo_labeling_torch.tools import test_net
 from tests.native_libs import ensure_native_libs
 from tests.test_torch_openimages import STUDENT, write_tiny_tree
+from tests.torch_threads import two_torch_threads  # noqa: F401  (an autouse fixture)
 
 # the JAX package's engine/__init__.py exports a function of this name
 jax_inference = importlib.import_module("cvpr22_cross_modal_pseudo_labeling_tpu.engine.inference")

@@ -14,8 +14,9 @@
   and ``missed`` reports; and the Caffe2 importer.
 - Round trips of the port's own checkpoints: save, load, prune, pending
   publish and discard; ``torch.load(..., weights_only=True)`` reads them
-  and a restore is bit for bit; an orbax directory of the JAX package, a
-  missing file and a checkpoint of another model raise.
+  and a restore is bit for bit; an orbax directory of the JAX package
+  (with the two commands that convert it), a missing file and a
+  checkpoint of another model raise.
 """
 
 import os
@@ -256,10 +257,13 @@ def test_unreadable_or_mismatched_checkpoints_raise(teacher, student, tmp_path):
     (tmp_path / "jax_out" / "last_checkpoint").write_text(str(orbax))
     target = bridge.flax_from_state_dict(teacher.model)
     for path in (str(tmp_path / "jax_out"), str(orbax)):
-        with pytest.raises(NotImplementedError, match="queue A item 9"):
+        with pytest.raises(NotImplementedError, match=r"tools/orbax_to_npz\.py .*tools\.import_jax_checkpoint"):
             torch_ckpt.import_external_weights(target, path, teacher.cfg)
     with pytest.raises(NotImplementedError, match="orbax"):
         torch_ckpt.load_checkpoint(str(orbax))
+    # the dump of a JAX-trained checkpoint is no port checkpoint
+    with pytest.raises(ValueError, match="the dump of a JAX-trained checkpoint: .*import_jax_checkpoint"):
+        torch_ckpt.load_checkpoint(str(tmp_path / "dump.npz"))
     with pytest.raises(FileNotFoundError):
         torch_ckpt.import_external_weights(target, str(tmp_path / "missing.pth"), teacher.cfg)
     assert torch_ckpt.import_external_weights(target, "", teacher.cfg) == (target, None)

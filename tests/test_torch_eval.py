@@ -22,6 +22,11 @@ JPEGs, 3 seen and 2 unseen classes with 768-d embeddings):
   threshold); every metric is equal (on random weights every AP is 0,
   so this holds the pass's wiring into the evaluator; the evaluator's
   numerics are held at nonzero AP by ``test_evaluate_matches_jax``);
+- the same slice from a JAX-trained checkpoint: JAX's params saved with
+  orbax, dumped by ``tools/orbax_to_npz.py`` and imported by
+  the port's ``tools/import_jax_checkpoint.py``, then served by its
+  ``test_net --ckpt``: the port's predictions exactly, JAX's within the
+  tolerances above;
 - the port's ``test_net`` runs on the CPU and writes its two JSON files
   (test-time augmentation is held in ``tests/test_torch_bbox_aug.py``,
   ``MODEL.RPN_ONLY``'s proposal evaluation in
@@ -206,15 +211,14 @@ def test_check_expected_results_matches_jax():
 
 
 @pytest.fixture(scope="module")
-def slice_runs(catalogs):
-    """JAX's and the port's inference on the same tree and params."""
+def jax_eval(catalogs):
+    """JAX's model, its eval init's params, loader and dataset."""
     import jax
     import jax.numpy as jnp
 
-    from cvpr22_cross_modal_pseudo_labeling_tpu.engine.inference import inference as jax_inf
     from cvpr22_cross_modal_pseudo_labeling_tpu.models.detector import build_detection_model
 
-    jc, tc = cfg_pair(TINY_EVAL_OPTS)
+    jc, _ = cfg_pair(TINY_EVAL_OPTS)
     (jl,), (jd,) = jax_build.make_data_loader(jc, is_train=False)
     model = build_detection_model(jc)
     sample = jd[0]
@@ -222,7 +226,16 @@ def slice_runs(catalogs):
         lambda r, im, sz, ce: model.init(r, im, sz, class_embeddings=ce, train=False)
     )({"params": jax.random.PRNGKey(0)}, jnp.asarray(sample["image"][None]),
       jnp.asarray([sample["image"].shape[:2]], jnp.int32), jnp.asarray(jd.class_emb_mtx))
-    params = jax.tree_util.tree_map(np.asarray, params)
+    return model, jax.tree_util.tree_map(np.asarray, params), jl, jd
+
+
+@pytest.fixture(scope="module")
+def slice_runs(catalogs, jax_eval):
+    """JAX's and the port's inference on the same tree and params."""
+    from cvpr22_cross_modal_pseudo_labeling_tpu.engine.inference import inference as jax_inf
+
+    model, params, jl, jd = jax_eval
+    _, tc = cfg_pair(TINY_EVAL_OPTS)
     jax_out = str(catalogs / "jax_predictions.json")
     jax_metrics = jax_inf(model, params, jl, jd, iou_types=("bbox", "segm"), output_file=jax_out)
 
@@ -250,8 +263,10 @@ def slice_runs(catalogs):
         return json.load(f), jax_metrics, json.load(g), port_metrics, td
 
 
-def test_inference_results_match_jax(slice_runs):
-    ref, _, got, _, dataset = slice_runs
+def assert_results_match_jax(ref, got, dataset):
+    """``got`` against JAX's results ``ref``: the same (image, category)
+    pairs in order, boxes within 1e-3 px of the input frame, scores
+    within 1e-5."""
     assert len(got) == len(ref) > 0
     assert {r["image_id"] for r in got} == set(dataset.id_to_img_map.values())
     assert [(r["image_id"], r["category_id"]) for r in got] == \
@@ -268,14 +283,54 @@ def test_inference_results_match_jax(slice_runs):
                                rtol=0, atol=1e-5)
 
 
-def test_inference_masks_match_jax(slice_runs):
-    ref, _, got, _, _ = slice_runs
+def assert_masks_match_jax(ref, got):
+    """At most 0.5% of the pasted masks' pixels differ from JAX's."""
     differ = total = 0
     for r, g in zip(ref, got):
         a, b = torch_rle.decode_rle(g["segmentation"]), jax_rle.decode_rle(r["segmentation"])
         differ += int((a != b).sum())
         total += a.size
     assert differ <= 0.005 * total, (differ, total)
+
+
+def test_inference_results_match_jax(slice_runs):
+    ref, _, got, _, dataset = slice_runs
+    assert_results_match_jax(ref, got, dataset)
+
+
+def test_inference_masks_match_jax(slice_runs):
+    ref, _, got, _, _ = slice_runs
+    assert_masks_match_jax(ref, got)
+
+
+def test_test_net_serves_the_converted_jax_eval_dump(catalogs, jax_eval, slice_runs, tmp_path):
+    """The slice from a JAX-trained checkpoint: JAX's eval params saved by
+    JAX's orbax ``save_checkpoint`` as an eval dump (``{"params": params}``),
+    dumped by ``tools/orbax_to_npz.py``, made a port checkpoint by
+    ``import_jax_checkpoint --seed 0`` (the leaves JAX's eval init does not
+    make take the seed-0 draws, which the eval forward never reads) and
+    served by the port's ``test_net --ckpt``: its predictions equal the
+    port's on the same weights (``slice_runs``) exactly, and JAX's within
+    the tolerances above."""
+    from cvpr22_cross_modal_pseudo_labeling_tpu.engine import checkpoint as jax_ckpt
+    from cvpr22_cross_modal_pseudo_labeling_torch.tools import import_jax_checkpoint
+    from tools import orbax_to_npz
+
+    ref, _, port, _, dataset = slice_runs
+    jax_ckpt.save_checkpoint(str(tmp_path / "jax_eval"), {"params": jax_eval[1]}, 0)
+    orbax_to_npz.main([str(tmp_path / "jax_eval"), "--out", str(tmp_path / "eval.npz")])
+    got = import_jax_checkpoint.main(["--config-file", CONFIG, "--dump", str(tmp_path / "eval.npz"), "--out",
+                                      str(tmp_path / "port"), "--device", "cpu", "--seed", "0",
+                                      *map(str, TINY_EVAL_OPTS)])
+    assert got["iteration"] == 0
+    name = "coco_generalized_zeroshot_val"
+    test_net.main(["--config-file", CONFIG, "--device", "cpu", "--ckpt", got["path"], *map(str, TINY_EVAL_OPTS),
+                   "OUTPUT_DIR", str(tmp_path / "eval")])
+    with open(tmp_path / "eval" / f"predictions_{name}.json") as f:
+        served = json.load(f)
+    assert served == port
+    assert_results_match_jax(ref, served, dataset)
+    assert_masks_match_jax(ref, served)
 
 
 def test_inference_metrics_match_jax(slice_runs):
@@ -336,8 +391,10 @@ def test_test_net_on_cpu_writes_predictions_and_metrics(catalogs, tmp_path):
 @pytest.mark.parametrize("how", ["ckpt", "last_checkpoint", "weight"])
 def test_test_net_refuses_checkpoints(catalogs, tmp_path, how):
     """An orbax checkpoint of the JAX package, however it is named, raises
-    rather than being ignored: the port reads only its own checkpoints
-    (loaded by ``tests/test_torch_train_net.py``)."""
+    rather than being ignored, and names the two commands that convert it
+    (``tests/test_torch_jax_checkpoint.py`` runs them): the port reads
+    its own checkpoints (loaded by ``tests/test_torch_train_net.py``) and
+    the dumps of JAX-trained ones."""
     orbax = tmp_path / "jax_out" / "model_0000001"
     orbax.mkdir(parents=True)
     (orbax / "_CHECKPOINT_METADATA").write_text("{}")
@@ -350,7 +407,7 @@ def test_test_net_refuses_checkpoints(catalogs, tmp_path, how):
     else:
         extra = ["MODEL.WEIGHT", str(tmp_path / "jax_out")]
         (tmp_path / "jax_out" / "last_checkpoint").write_text(str(orbax))
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md queue A item 9"):
+    with pytest.raises(NotImplementedError, match=r"tools/orbax_to_npz\.py .*tools\.import_jax_checkpoint"):
         test_net.main(["--config-file", CONFIG, "--device", "cpu", *extra, *map(str, TINY_EVAL_OPTS),
                        "OUTPUT_DIR", str(out)])
 

@@ -44,6 +44,7 @@ from cvpr22_cross_modal_pseudo_labeling_torch.models.backbone import device_norm
 from cvpr22_cross_modal_pseudo_labeling_torch.models.detector.st_generalized_rcnn import TrainDraws
 from cvpr22_cross_modal_pseudo_labeling_torch.models.rpn.rpn import flatten_rpn_outputs
 from tests.test_torch_st_eval import CONFIG, TINY_OPTS
+from tests.torch_threads import two_torch_threads  # noqa: F401  (an autouse fixture)
 
 TRAIN_OPTS = TINY_OPTS + [
     "MODEL.RPN.PRE_NMS_TOP_N_TRAIN", 128,

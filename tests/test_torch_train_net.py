@@ -50,6 +50,7 @@ from cvpr22_cross_modal_pseudo_labeling_torch.tools import test_net, train_net
 from cvpr22_cross_modal_pseudo_labeling_torch.utils import model_zoo
 from tests.tensorboard_stub import tensorboard_compat_reset  # noqa: F401  (an autouse fixture)
 from tests.test_torch_st_train import TRAIN_OPTS, jax_cfg_of
+from tests.torch_threads import two_torch_threads  # noqa: F401  (an autouse fixture)
 
 REPO = Path(__file__).resolve().parents[1]
 TEACHER = str(REPO / "configs/coco_cap_det/zeroshot_mask.yaml")
