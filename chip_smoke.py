@@ -310,6 +310,34 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                 s/it; then in that rank the steady ST step at 4 images under
                 the Trainer's DDP, under DDP without the search for unused
                 parameters and without the wrapper, in turns (medians).
+                (a') MMSS pretraining (mmss.yaml at full width in bfloat16:
+                R-50-C5, frozen BERT-Base, both heads, 128-token captions) on
+                the 2 gloo ranks, 4 images a rank of a global 8, 3 steps on
+                fixed draws (rank 1's first caption [CLS] w [SEP] and no MLM
+                target on rank 1, its second image 40 x 56), against the
+                one-process step at 8 (phase 14's shape) within (a)'s
+                tolerances (the update's but for the trunk, whose bf16
+                weight gradient moves by percents when a batch is split:
+                measured beside it, with its distance from float32's), and
+                again in float32 (2 steps, every parameter's update within
+                (a)'s bound), the ranks bit-equal, the MLM count each rank
+                reduces the sum of unequal counts; per rank the step time,
+                the peak memory and the gloo all-reduce of the trainable and
+                of the counted BERT gradients apart.  (b') train_net
+                mmss.yaml on the 2 ranks: 2 iterations of a global 8 with the
+                validation-loss pass, then a resume to 3 in (b)'s second
+                launch.  (c') on the NCCL rank: the steady MMSS step at 8
+                bare, under the Trainer's DDP and under DDP without the
+                BERT (medians), its peak memory, and the transformer head's
+                pair encoder alone (forward and backward) at 8 x 64 pairs (a
+                rank of 8 of mmss.yaml's 64) and 8 x 8: ms and peak, and the
+                estimate of a rank of 8 of 64's peak.  (d') the keypoint
+                R-CNN (R-50-FPN; the one-process reference groups its
+                cross-level top-N by rank, as JAX's data shards do), WSDDN
+                and RetinaNet, 2 steps each on the 2 ranks x 4 against one
+                process at 8 on the draws the one-process step made: (a)'s
+                checks, each normalizer the sum of unequal counts, the
+                first step's launches held against the plain versions.
 24. jax_checkpoint -- a checkpoint trained with the JAX package, without jax:
                 for the teacher (zeroshot_mask.yaml) and the student-teacher
                 model (the exemplar table on, so the uncertain labels'
@@ -336,7 +364,8 @@ the MMSS paths (phase 14 and the MMSS stage of phase 16): 0, on the
 OpenImages paths of phase 17, on the supervised paths of phase 18, on the
 FPN, RetinaNet and RPN-only paths of phases 19 and 20, on the options'
 paths of phase 21, on the student-teacher options' paths of phase 22, on
-each rank of phase 23 (a) and on phase 24's resume and test_net runs.
+each rank of phase 23 (a), (a') and (d') and on phase 24's resume and
+test_net runs.
 
 Then the card's name and power limit, the per-kernel JSON line, and the last
 line ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when
@@ -4273,7 +4302,150 @@ def phase_st_options(dev, results):
 DDP = dict(world=2, steps=3, out="build/ddp_out", loss_rtol=(0.02, 0.05), update_rtol=0.05, timeout=600, test_batch=5,
            test_opts=("DATASETS.TEST", "('coco_generalized_zeroshot_val',)", "TPU.IMAGE_BUCKETS",
                       "((1088, 1216),)"))
-DDP_FAMILIES = {"st": (CONFIG, EXEMPLAR_OPTS), "teacher": (TEACHER, ())}
+# phase 23's families: the ST (with the exemplar table) and teacher steps
+# (a), MMSS pretraining in bfloat16 and in float32 (a'), the keypoint
+# R-CNN, WSDDN and RetinaNet (d'); whether a step launches NMS, the
+# RoIAlign forward and its backward; the steps each takes (the ST and
+# teacher families DDP["steps"])
+DDP_FAMILIES = ("st", "teacher", "mmss", "mmss_f32", "keypoint", "wsddn", "retinanet")
+DDP_LAUNCHES = {"st": (True, True, False), "teacher": (True, True, True), "mmss": (False, False, False),
+                "mmss_f32": (False, False, False), "keypoint": (True, True, True), "wsddn": (True, True, True),
+                "retinanet": (False, False, False)}
+DDP_STEPS = dict(mmss=3, mmss_f32=2, keypoint=2, wsddn=2, retinanet=2)
+# the parameters DDP["update_rtol"] does not bound, by family: the MMSS
+# trunk in bfloat16, whose weight gradients move by percents a step when
+# the same batch and cotangent are split 4 + 4, and by tens of percents
+# from float32's (``trunk_wgrad_spread`` measures both in the run); its
+# update is recorded, and mmss_f32 bounds every parameter
+DDP_UPDATE_UNBOUNDED = {"mmss": ("backbone.",)}
+# (c'): the pair encoder of a rank of 8 of mmss.yaml's 64 (8 captions
+# against 64 images, 128 caption tokens and 100 regions a pair), and of
+# phase 14's one process of 8
+DDP_PAIRS = dict(captions=8, images=64, rank_of_8_images=8, tokens=128, regions=100, iters=3)
+
+
+def ddp_family_config(family):
+    """(config, opts) of a phase 23 family, at full width in bfloat16."""
+    from cvpr22_cross_modal_pseudo_labeling_torch.config import R50_FPN_OPTS
+
+    return {"st": (CONFIG, [*TRAIN["opts"], *EXEMPLAR_OPTS]),
+            "teacher": (TEACHER, list(TRAIN["opts"])),
+            "mmss": (MMSS_CONFIG, ["SOLVER.IMS_PER_BATCH", MMSS["batch"], "MODEL.WEIGHT", "", *MMSS["opts"]]),
+            "mmss_f32": (MMSS_CONFIG, ["SOLVER.IMS_PER_BATCH", MMSS["batch"], "MODEL.WEIGHT", "", *MMSS["opts"],
+                                       "TPU.COMPUTE_DTYPE", "float32"]),
+            "keypoint": ("", [*SUPERVISED["common"], *R50_FPN_OPTS, *KEYPOINT_OPTS]),
+            "wsddn": (TEACHER, [*WSDDN_OPTS, *TRAIN["opts"]]),
+            "retinanet": ("", retina_opts())}[family]
+
+
+def ddp_batches(family, model, rng, world, n):
+    """``n`` global training batches of a family, the last rank's counts
+    unlike the others': the detectors' through :func:`unequal_counts`
+    (the keypoint R-CNN's with 17 keypoints a gt box), MMSS's through
+    :func:`unequal_captions`."""
+    if family.startswith("mmss"):
+        return [unequal_captions(mmss_batch(rng, MMSS["batch"], MMSS["hw"], MMSS["tokens"]), world)
+                for _ in range(n)]
+    if family == "st":
+        return [unequal_counts(train_batch(rng, TRAIN["batch"], TRAIN["hw"], TRAIN["max_gt"], TRAIN["nouns"],
+                                           TRAIN["noun_tokens"], TRAIN["lvis"], TRAIN["classes"],
+                                           model.statics.base.emb_dim), world)
+                for _ in range(n)]
+    classes = {"teacher": TEACHER_CLASSES, "wsddn": TEACHER_CLASSES, "keypoint": 2, "retinanet": RETINA["classes"]}
+    emb = getattr(model.statics, "emb_dim", 768)
+    batches = [rcnn_batch(unequal_counts(train_batch(rng, TRAIN["batch"], TRAIN["hw"], TRAIN["max_gt"], 1, 4, 1,
+                                                     classes[family], emb), world))
+               for _ in range(n)]
+    if family == "keypoint":
+        for b in batches:
+            b["gt_keypoints"] = box_keypoints(rng, b["gt_boxes"], b["gt_valid"], 17)
+    return batches
+
+
+def box_keypoints(rng, boxes, valid, k):
+    """``[B, G, k, 3]`` keypoints inside each valid gt box, a quarter of
+    them unlabeled (visibility 0, else 2)."""
+    u = rng.uniform(0, 1, (*boxes.shape[:2], k, 2))
+    xy = boxes[..., None, :2] + u * (boxes[..., None, 2:] - boxes[..., None, :2])
+    vis = np.where(rng.uniform(size=(*boxes.shape[:2], k, 1)) < 0.25, 0, 2)
+    return (np.concatenate([xy, vis], -1) * valid[..., None, None]).astype(np.float32)
+
+
+def unequal_captions(batch, world):
+    """Makes the last rank's MMSS counts differ from the others': its
+    first caption is ``[CLS] w [SEP]`` (one word to ground, few MLM
+    targets), its second image 40 x 56 pixels (2 x 2 grid cells)."""
+    n = batch["images"].shape[0] // world
+    short, small = (world - 1) * n, (world - 1) * n + 1
+    batch["attention_mask"][short] = 0
+    batch["attention_mask"][short, :3] = 1
+    batch["input_ids"][short, 3:] = 0
+    batch["input_ids"][short, 2] = 3
+    batch["special_tokens_mask"][short] = 1 - batch["attention_mask"][short]
+    batch["special_tokens_mask"][short, (0, 2)] = 1
+    batch["image_sizes"][small] = (40, 56)
+    return batch
+
+
+def mmss_fixed_draws(model, batch, dev, seed, world):
+    """An MMSS step's draws at ``batch``'s shapes, on the device: the
+    spatial dropout's uniforms over the C5 grid (stride 32) and the MLM
+    corruption's.  The last rank's captions draw no MLM target and the
+    first caption's first word always does, so that the ranks' MLM counts
+    differ."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    b, t = batch["input_ids"].shape
+    h, w = batch["images"].shape[1:3]
+    cells = -(-h // 32) * -(-w // 32)
+    select = torch.rand((b, t), generator=g, device=dev)
+    select[(world - 1) * (b // world):] = 1.0
+    select[0, 1] = 0.0
+    return dict(dropout=torch.rand((b, cells), generator=g, device=dev), mlm_select=select,
+                mlm_mask=torch.rand((b, t), generator=g, device=dev),
+                mlm_ids=torch.randint(0, model.statics.vocab_size, (b, t), generator=g, device=dev))
+
+
+def step_draws(family, draws, dev):
+    """A family's step draws from a dict of tensors (the global batch's)."""
+    from cvpr22_cross_modal_pseudo_labeling_torch.models.detector.generalized_rcnn import TrainDraws
+    from cvpr22_cross_modal_pseudo_labeling_torch.models.detector.mmss_gcnn import MMSSDraws
+
+    kind = MMSSDraws if family.startswith("mmss") else TrainDraws
+    return kind(**{k: v.to(dev) for k, v in draws.items()})
+
+
+class recorded_priorities:
+    """Records the samplers' priorities a step draws from its generator
+    into ``into``: the RPN's as ``rpn_sampler``, the RoI sampler's as
+    ``gt_sampler`` (on the CPU), so that the ranks replay them."""
+
+    MODULES = {"rpn_sampler": "cvpr22_cross_modal_pseudo_labeling_torch.models.rpn.rpn",
+               "gt_sampler": "cvpr22_cross_modal_pseudo_labeling_torch.models.roi_heads.box_head"}
+
+    def __init__(self, into):
+        self.into = into
+
+    def __enter__(self):
+        import importlib
+
+        self.saved = {key: importlib.import_module(name) for key, name in self.MODULES.items()}
+        for key, mod in self.saved.items():
+            draw = mod.draw_priorities
+
+            def recording(*a, _key=key, _draw=draw, **kw):
+                out = _draw(*a, **kw)
+                self.into[_key] = out.detach().cpu().clone()
+                return out
+
+            mod.draw_priorities = recording
+            self.saved[key] = (mod, draw)
+        return self.into
+
+    def __exit__(self, *exc):
+        for mod, draw in self.saved.values():
+            mod.draw_priorities = draw
+        return False
 
 
 def fixed_draws(model, family, batch, dev, seed):
@@ -4310,8 +4482,12 @@ def fixed_draws(model, family, batch, dev, seed):
 
 # the normalizers' modules, by the name each imports global_sum under
 NORMALIZER_MODULES = ("cvpr22_cross_modal_pseudo_labeling_torch.models.rpn.rpn",
+                      "cvpr22_cross_modal_pseudo_labeling_torch.models.rpn.retinanet",
                       "cvpr22_cross_modal_pseudo_labeling_torch.models.roi_heads.box_head",
-                      "cvpr22_cross_modal_pseudo_labeling_torch.models.roi_heads.mask_head")
+                      "cvpr22_cross_modal_pseudo_labeling_torch.models.roi_heads.mask_head",
+                      "cvpr22_cross_modal_pseudo_labeling_torch.models.roi_heads.keypoint_head",
+                      "cvpr22_cross_modal_pseudo_labeling_torch.models.roi_heads.wsddn_head",
+                      "cvpr22_cross_modal_pseudo_labeling_torch.models.mmss.transformer_head")
 
 
 def unequal_counts(batch, world):
@@ -4333,7 +4509,7 @@ def unequal_counts(batch, world):
 
 
 def rank_rows(batch, r, world):
-    """Rank ``r``'s rows of a global numpy batch (the tables whole)."""
+    """Rank ``r``'s rows of a global numpy batch (the class tables whole)."""
     n = batch["images"].shape[0] // world
     return {k: v if k in ("class_embeddings", "lvis_class_embeddings") else v[r * n:(r + 1) * n]
             for k, v in batch.items()}
@@ -4361,23 +4537,24 @@ def wait_for(path):
 
 
 def ddp_rank(out, stage):
-    """One rank of phase 23 under torchrun.  At ``stage`` "steps", (a):
-    each family's steps on its rows as its inputs arrive, the first step's
-    launches held against the plain versions and its normalizers' counts
-    (this rank's and the sum), the launches, step times, a gloo
-    all-reduce of the gradients' bytes, and a digest of the weights and
-    table after each step (rank 0 also saves its trainable parameters and
-    table).  Then, at any stage, the entry points that
-    ``OUT/entries_{stage}.json`` lists, as ranks of this launch: (b)'s
-    first ``train_net`` run after the steps; its resume and ``test_net``
-    at "resume"; (c)'s ``train_net`` at "nccl", over NCCL, followed by
-    :func:`wrapper_cost`."""
+    """One rank of phase 23 under torchrun.  At ``stage`` "steps", (a),
+    (a') and (d'): each family's steps on its rows as its inputs arrive,
+    the first step's launches held against the plain versions and its
+    normalizers' counts (this rank's and the sum), the launches, step
+    times, the peak memory, a gloo all-reduce of the trainable gradients'
+    bytes (and of MMSS's counted BERT gradient's apart), and a digest of
+    the weights and table after each step (rank 0 also saves its
+    trainable parameters and table).  Then, at any stage, the entry
+    points that ``OUT/entries_{stage}.json`` lists, as ranks of this
+    launch: (b)'s and (b')'s first ``train_net`` runs after the steps;
+    their resumes and ``test_net`` at "resume"; (c)'s ``train_net`` at
+    "nccl", over NCCL, followed by :func:`wrapper_cost` and (c')'s
+    :func:`mmss_cost`."""
     import importlib
 
     import torch.distributed as dist
 
     from cvpr22_cross_modal_pseudo_labeling_torch.engine.train_step import Trainer
-    from cvpr22_cross_modal_pseudo_labeling_torch.models.detector.generalized_rcnn import TrainDraws
     from cvpr22_cross_modal_pseudo_labeling_torch.ops import kernels
     from cvpr22_cross_modal_pseudo_labeling_torch.parallel.dist import global_sum, init_from_env, rank, world_size
     from cvpr22_cross_modal_pseudo_labeling_torch.tools import test_net, train_net
@@ -4390,8 +4567,8 @@ def ddp_rank(out, stage):
 
     def recorded_sum(x):
         total = global_sum(x)
-        if recording[0] and x.numel() == 1:
-            counts.append((float(x), float(total)))
+        if recording[0]:
+            counts.extend(zip(x.detach().reshape(-1).tolist(), total.reshape(-1).tolist()))
         return total
 
     for name in NORMALIZER_MODULES if stage == "steps" else ():
@@ -4407,6 +4584,8 @@ def ddp_rank(out, stage):
         kernels.reset_launches()
         metrics, step_s, digests = [], [], []
         counts.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         for i, (batch, draws) in enumerate(zip(spec["batches"], spec["draws"])):
             for k, hook in ((kernels.NMS, check_nms), (kernels.ROI_ALIGN, check_roi),
                             (kernels.ROI_ALIGN_BACKWARD, check_roi_bwd)):
@@ -4414,7 +4593,7 @@ def ddp_rank(out, stage):
             recording[0] = i == 0
             torch.cuda.synchronize()
             t = time.perf_counter()
-            m = trainer.step(rank_rows(batch, r, world), TrainDraws(**{k: v.to(dev) for k, v in draws.items()}))
+            m = trainer.step(rank_rows(batch, r, world), step_draws(family, draws, dev))
             torch.cuda.synchronize()
             step_s.append(time.perf_counter() - t)
             metrics.append({k: float(v) for k, v in m.items()})
@@ -4422,14 +4601,22 @@ def ddp_rank(out, stage):
         for k in kernels.ALL:
             k.on_launch = None
         launches = {k.name: k.launches for k in kernels.ALL}
+        peak = torch.cuda.max_memory_allocated() / 1e9
         grads = torch.cat([p.grad.reshape(-1) for p in trainer.optimizer.params if p.grad is not None])
-        reduce_ms = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            dist.all_reduce(grads)
-            torch.cuda.synchronize()
-            reduce_ms.append(1e3 * (time.perf_counter() - t))
+        # MMSS's frozen BERT: DDP reduces its gradient too (it counts in
+        # grad_norm), which the optimizer drops after the step
+        counted = torch.zeros(sum(p.numel() for p in trainer.optimizer.counted), device=dev)
+
+        def reduce_ms(x):
+            ms = []
+            for _ in range(3 if x.numel() else 0):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                dist.all_reduce(x)
+                torch.cuda.synchronize()
+                ms.append(1e3 * (time.perf_counter() - t))
+            return ms
+
         if r == 0:
             torch.save({"params": {n: p.detach().cpu() for n, p in trainer.model.named_parameters()
                                    if p.requires_grad},
@@ -4437,17 +4624,17 @@ def ddp_rank(out, stage):
                         {k: v.cpu() for k, v in trainer.exemplars.items()}},
                        os.path.join(out, f"{family}_rank0.pt"))
         res[family] = dict(
-            metrics=metrics, step_s=step_s, digests=digests, launches=launches, reduce_ms=reduce_ms,
-            normalizer_counts=list(counts),
+            metrics=metrics, step_s=step_s, digests=digests, launches=launches, reduce_ms=reduce_ms(grads),
+            counted_reduce_ms=reduce_ms(counted), normalizer_counts=list(counts),
             grad_mb=grads.numel() * grads.element_size() / 1e6,
-            peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+            counted_grad_mb=counted.numel() * counted.element_size() / 1e6, peak_memory_gb=peak,
             nms_mismatches=[m for m, _ in checks["nms"]], nms_shapes=sorted({s for _, s in checks["nms"]}),
             roi_align_max_abs_err=[e for e, _, _, _ in checks["roi_align"]],
             roi_align_excess=[x for _, x, _, _ in checks["roi_align"]],
             roi_align_rois=[q for _, _, _, q in checks["roi_align"]],
             roi_align_backward_max_abs_err=[e for e, _, _, _ in checks["roi_align_backward"]],
             roi_align_backward_excess=[x for _, x, _, _ in checks["roi_align_backward"]])
-        del trainer, grads
+        del trainer, grads, counted
         torch.cuda.empty_cache()
     if stage == "steps":
         with open(os.path.join(out, f"rank{r}.json"), "w") as f:
@@ -4456,8 +4643,10 @@ def ddp_rank(out, stage):
         for tool, argv in json.load(f):
             {"train_net": train_net.main, "test_net": test_net.main}[tool](argv)
     if stage == "nccl":
+        cost = wrapper_cost(out, dev)
+        torch.cuda.empty_cache()
         with open(os.path.join(out, "nccl.json"), "w") as f:
-            json.dump(wrapper_cost(out, dev), f)
+            json.dump({**cost, "mmss": mmss_cost(out, dev)}, f)
     dist.destroy_process_group()
 
 
@@ -4496,6 +4685,89 @@ def wrapper_cost(out, dev, rounds=4, steps=3):
                 if i and j:
                     times[name].append(time.perf_counter() - t)
     return {name: float(np.median(ts)) for name, ts in times.items()} | {"samples": times}
+
+
+def pair_encoder_cost(head, dev, captions, images):
+    """The transformer head's pair encoder alone, forward and backward in
+    bfloat16, over ``captions`` x ``images`` pairs of DDP_PAIRS' tokens
+    and regions (the matching loss's ``_run`` and ``seq_relationship``):
+    its ms (CUDA events) and the peak device memory it adds (GB)."""
+    p, hidden = DDP_PAIRS, head.statics.hidden_size
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED)
+    tokens = torch.randn((captions, p["tokens"], hidden), generator=g, device=dev).requires_grad_(True)
+    visual = torch.randn((images, p["regions"], hidden), generator=g, device=dev).requires_grad_(True)
+    lengths = torch.randint(10, p["tokens"] + 1, (captions, 1), generator=g, device=dev)
+    cmask = (torch.arange(p["tokens"], device=dev)[None] < lengths).to(torch.int32)
+    rmask = torch.ones((images, p["regions"]), dtype=torch.bool, device=dev)
+
+    def run():
+        _, pooled = head._run(tokens.repeat_interleave(images, 0), cmask.repeat_interleave(images, 0),
+                              visual.repeat(captions, 1, 1), rmask.repeat(captions, 1))
+        head.seq_relationship(pooled)[:, 0].sum().backward()
+
+    run()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(run, p["iters"])
+    return dict(pairs=captions * images, sequence=p["tokens"] + p["regions"], ms=ms,
+                peak_added_gb=(torch.cuda.max_memory_allocated() - base) / 1e9)
+
+
+def mmss_cost(out, dev, rounds=4, steps=3):
+    """(c') on this one NCCL rank: the steady MMSS step at 8 on (a')'s
+    first batch and draws, in turns, bare, under the ``Trainer``'s DDP
+    (which reduces the counted BERT gradient with the trainable ones) and
+    under DDP with the BERT left out; ``rounds`` turns of ``steps`` steps
+    from the seeded weights, the first round and each turn's first step
+    not timed, the medians.  The bare step's peak memory at 8, then the
+    pair encoder alone at a rank of 8 of 64 (8 x 64 pairs) and at one
+    process of 8 (8 x 8).  With one rank the gathers are the identity:
+    their cost is in (a')'s 2-rank steps."""
+    from torch.nn.parallel import DistributedDataParallel
+
+    from cvpr22_cross_modal_pseudo_labeling_torch.engine.train_step import Trainer
+    from cvpr22_cross_modal_pseudo_labeling_torch.parallel.dist import sum_hook
+
+    spec = torch.load(os.path.join(out, "mmss.pt"), weights_only=False)
+    trainer = Trainer(spec["config"], spec["opts"], device=dev, seed=SEED)
+    trainer.model.load_state_dict(spec["model"])
+    check(isinstance(trainer.train_module, DistributedDataParallel), "ddp (c'): the MMSS Trainer runs no DDP")
+    bert = [n for n, _ in trainer.model.named_parameters() if n.startswith(MMSS_FROZEN)]
+    DistributedDataParallel._set_params_and_buffers_to_ignore_for_model(trainer.model, bert)
+    no_bert = DistributedDataParallel(trainer.model, broadcast_buffers=False, find_unused_parameters=True)
+    no_bert.register_comm_hook(None, sum_hook)
+    modules = dict(ddp=trainer.train_module, ddp_without_bert=no_bert, plain=trainer.model)
+    batch = trainer.device_batch(spec["batches"][0])
+    draws = step_draws("mmss", spec["draws"][0], dev)
+    times = {name: [] for name in modules}
+    peak = 0.0
+    for i in range(rounds):
+        for name, module in modules.items():
+            trainer.model.load_state_dict(spec["model"])
+            trainer.train_module = module
+            for j in range(steps):
+                torch.cuda.synchronize()
+                if name == "plain" and i == 1 and j == 1:
+                    torch.cuda.reset_peak_memory_stats()
+                t = time.perf_counter()
+                trainer.train_step(batch, draws)
+                torch.cuda.synchronize()
+                if i and j:
+                    times[name].append(time.perf_counter() - t)
+                if name == "plain" and i == 1 and j == 1:
+                    peak = torch.cuda.max_memory_allocated() / 1e9
+    res = {name: float(np.median(ts)) for name, ts in times.items()} | {"samples": times, "step_peak_gb": peak}
+    res["bert_mb"] = sum(p.numel() * p.element_size() for n, p in trainer.model.named_parameters() if n in bert) / 1e6
+    del batch, draws, no_bert
+    trainer.optimizer.zero_grad()
+    torch.cuda.empty_cache()
+    head = trainer.model.transformer_head
+    res["pair_encoder"] = {
+        "rank_of_8_of_64": pair_encoder_cost(head, dev, DDP_PAIRS["captions"], DDP_PAIRS["images"]),
+        "one_process_of_8": pair_encoder_cost(head, dev, DDP_PAIRS["captions"], DDP_PAIRS["rank_of_8_images"])}
+    return res
 
 
 def launch(args, log_path, nproc=None, started=None):
@@ -4558,11 +4830,13 @@ def predictions_of(path):
 
 
 def phase_ddp(dev, results):
-    """Phase 23: (a) the 2-rank steps of both families against the
-    one-process step; (b) train_net and test_net on 2 ranks under
-    torchrun over gloo; (c) train_net under torchrun on 1 rank over
-    NCCL, then the wrapper's cost on a steady step in that rank.  Only
-    (a)'s ranks and (c) are timed; the rest runs beside other work."""
+    """Phase 23: (a), (a') and (d') the 2-rank steps of every training
+    family (ST, teacher, MMSS, keypoint R-CNN, WSDDN, RetinaNet) against
+    the one-process step; (b) and (b') train_net (ST, MMSS) and test_net
+    on 2 ranks under torchrun over gloo; (c) train_net under torchrun on 1
+    rank over NCCL, then the wrapper's cost on a steady step in that rank,
+    and (c') MMSS's and the pair encoder's.  Only the ranks' steps and (c)
+    are timed; the rest runs beside other work."""
     import shutil
 
     out, world = DDP["out"], DDP["world"]
@@ -4592,132 +4866,95 @@ def phase_ddp_runs(dev, rec, out, world, started):
     ``started``."""
     from cvpr22_cross_modal_pseudo_labeling_torch import bridge
     from cvpr22_cross_modal_pseudo_labeling_torch.engine.checkpoint import latest_checkpoint
+    from cvpr22_cross_modal_pseudo_labeling_torch.engine.inference import load_cfg
     from cvpr22_cross_modal_pseudo_labeling_torch.engine.train_step import Trainer
-    from cvpr22_cross_modal_pseudo_labeling_torch.models.detector.generalized_rcnn import TrainDraws
+    from cvpr22_cross_modal_pseudo_labeling_torch.models.detector.generalized_rcnn import GeneralizedRCNN
+    from cvpr22_cross_modal_pseudo_labeling_torch.models.detector.statics import statics_from_cfg
     from cvpr22_cross_modal_pseudo_labeling_torch.tools import test_net
 
     os.environ["CMPL_TPU_DATA_DIR"] = EVAL["tree"]
-    tn = os.path.join(out, "train_net")
-    train_args = ["--config-file", CONFIG, "--skip-test", "--device", dev.type, "--dist-backend", "gloo", "--seed",
-                  SEED, *TRAIN_NET["opts"], "MODEL.LOAD_TRAINER_STATE", True, "SOLVER.CHECKPOINT_PERIOD", 0,
-                  "OUTPUT_DIR", tn]
-    # (b) as the ranks' entries: 2 train_net iterations after (a)'s steps,
-    # then in a launch of their own a resume to 3 and test_net
+    write_val_captions(EVAL["tree"])  # MMSS's validation-loss pass reads them
+    tn, mn = os.path.join(out, "train_net"), os.path.join(out, "mmss_train_net")
+    common = ["--skip-test", "--device", dev.type, "--dist-backend", "gloo", "--seed", SEED, *TRAIN_NET["opts"],
+              "MODEL.LOAD_TRAINER_STATE", True, "SOLVER.CHECKPOINT_PERIOD", 0]
+    train_args = ["--config-file", CONFIG, *common, "OUTPUT_DIR", tn]
+    # (b') MMSS at a global 8 with the validation-loss pass at iteration 2
+    mmss_args = ["--config-file", MMSS_CONFIG, *common, "MODEL.WEIGHT", "", *MMSS["opts"], "SOLVER.TEST_PERIOD", 2,
+                 "TEST.IMS_PER_BATCH", 8, "OUTPUT_DIR", mn]
+    # (b) and (b') as the ranks' entries: 2 train_net iterations after (a)'s
+    # steps, then in a launch of their own a resume to 3 and test_net
     ckpt = os.path.join(tn, "model_0000003.pth")
     test_args = ["--config-file", CONFIG, "--device", dev.type, "--dist-backend", "gloo", "--ckpt", ckpt,
                  *DDP["test_opts"], "TEST.IMS_PER_BATCH", world * DDP["test_batch"], "OUTPUT_DIR",
                  os.path.join(out, "test_two")]
-    for stage, entries in (("steps", [("train_net", train_args + ["SOLVER.MAX_ITER", 2])]),
-                           ("resume", [("train_net", train_args + ["SOLVER.MAX_ITER", 3]), ("test_net", test_args)])):
+    for stage, entries in (("steps", [("train_net", train_args + ["SOLVER.MAX_ITER", 2]),
+                                      ("train_net", mmss_args + ["SOLVER.MAX_ITER", 2])]),
+                           ("resume", [("train_net", train_args + ["SOLVER.MAX_ITER", 3]), ("test_net", test_args),
+                                       ("train_net", mmss_args + ["SOLVER.MAX_ITER", 3])])):
         with open(os.path.join(out, f"entries_{stage}.json"), "w") as f:
             json.dump([(tool, list(map(str, argv))) for tool, argv in entries], f)
     t_phase = time.perf_counter()
-    # (a): the ranks start up while this process writes their inputs (the
-    # seeded weights, batches and draws of each family); the one-process
-    # reference steps run later, beside (b)'s resume
+    # (a), (a') and (d'): the ranks start up while this process writes their
+    # inputs (the seeded weights, batches and draws of each family).  The
+    # one-process reference steps of (a) and (a') run later, beside (b)'s
+    # resume; those of (d') run here at once, while the ranks step the
+    # earlier families, and hand the ranks the samplers' draws they made
     ranks_run = launch(["chip_smoke.py", "--ddp-rank", out, "steps"], os.path.join(out, "ranks.log"), world,
                        started)
-    pending = {}
-    for f_i, (family, (config, extra)) in enumerate(DDP_FAMILIES.items()):
-        trainer = Trainer(config, [*TRAIN["opts"], *extra], device=dev, seed=SEED)
+    pending, single = {}, {}
+    for f_i, family in enumerate(DDP_FAMILIES):
+        config, opts = ddp_family_config(family)
+        model = None
+        if family == "keypoint":
+            # the FPN's cross-level top-N of training runs over each rank's
+            # images (FPN_POST_NMS_PER_BATCH per device, JAX's data shards):
+            # the one-process reference groups its batch alike
+            model = GeneralizedRCNN(statics_from_cfg(load_cfg(config, opts), data_shards=world))
+        trainer = Trainer(config, opts, device=dev, seed=SEED, model=model)
         trainer.load_flax_params(bridge.seeded_flax_params(trainer.model, SEED, EMB_PRED_STD))
         model = trainer.model
-        rng = np.random.default_rng(SEED + 23 + f_i)
-        if family == "st":
-            batches = [unequal_counts(train_batch(rng, TRAIN["batch"], TRAIN["hw"], TRAIN["max_gt"], TRAIN["nouns"],
-                                                  TRAIN["noun_tokens"], TRAIN["lvis"], TRAIN["classes"],
-                                                  model.statics.base.emb_dim), world)
-                       for _ in range(DDP["steps"])]
+        steps = DDP_STEPS.get(family, DDP["steps"])
+        batches = ddp_batches(family, model, np.random.default_rng(SEED + 23 + f_i), world, steps)
+        state = {k: v.detach().to("cpu", copy=True) for k, v in model.state_dict().items()}
+        if family in ("st", "teacher"):
+            draws = [{k: v.cpu() for k, v in fixed_draws(model, family, b, dev, SEED + 100 * f_i + i).items()}
+                     for i, b in enumerate(batches)]
+            pending[family] = (trainer, batches, draws)
+        elif family.startswith("mmss"):
+            if family == "mmss_f32":
+                # (a')'s bf16 trunk against its own 4 + 4 split and float32
+                trunk_spread = trunk_wgrad_spread(pending["mmss"][0].model, model, pending["mmss"][1][0], dev)
+            draws = [{k: v.cpu() for k, v in mmss_fixed_draws(model, b, dev, SEED + 100 * f_i + i, world).items()}
+                     for i, b in enumerate(batches)]
+            pending[family] = (trainer, batches, draws)
         else:
-            batches = [rcnn_batch(unequal_counts(train_batch(rng, TRAIN["batch"], TRAIN["hw"], TRAIN["max_gt"], 1, 4,
-                                                             1, TEACHER_CLASSES, model.statics.emb_dim), world))
-                       for _ in range(DDP["steps"])]
-        draws = [fixed_draws(model, family, b, dev, SEED + 100 * f_i + i) for i, b in enumerate(batches)]
+            single[family], draws = one_process_steps(trainer, family, batches)
+            del trainer
+            torch.cuda.empty_cache()
         path = os.path.join(out, f"{family}.pt")
-        torch.save(dict(config=config, opts=[*TRAIN["opts"], *extra], batches=batches,
-                        draws=[{k: v.cpu() for k, v in d.items()} for d in draws],
-                        model={k: v.cpu() for k, v in model.state_dict().items()}), path + ".tmp")
+        torch.save(dict(config=config, opts=opts, batches=batches, draws=draws, model=state), path + ".tmp")
         os.replace(path + ".tmp", path)
-        pending[family] = (trainer, batches, draws)
+        del state, model
     rec["ranks_seconds"] = finish(ranks_run)
     rec["steps_seconds"] = time.perf_counter() - t_phase
     ranks = []
     for r in range(world):
         with open(os.path.join(out, f"rank{r}.json")) as f:
             ranks.append(json.load(f))
-    # (b) the first train_net run (2 iterations) ran in (a)'s launch; now
-    # the resume to 3 and test_net, while this process takes (a)'s
-    # one-process steps and then test_net on 1 rank (results are compared,
-    # not times)
-    b_s = {"train": run_times(os.path.join(tn, "log.txt.rank0"))}
+    # (b) the first train_net runs (2 iterations) ran in (a)'s launch; now
+    # the resumes to 3 and test_net, while this process takes (a)'s and
+    # (a')'s one-process steps and then test_net on 1 rank (results are
+    # compared, not times)
+    b_s = {"train": run_times(os.path.join(tn, "log.txt.rank0")),
+           "mmss_train": run_times(os.path.join(mn, "log.txt.rank0"))}
     resume = launch(["chip_smoke.py", "--ddp-rank", out, "resume"], os.path.join(out, "resume.log"), world, started)
-    single = {}
     for family, (trainer, batches, draws) in pending.items():
-        start = {n: p.detach().to("cpu", copy=True) for n, p in trainer.model.named_parameters() if p.requires_grad}
-        metrics = [{k: float(v) for k, v in trainer.step(b, TrainDraws(**d)).items()}
-                   for b, d in zip(batches, draws)]
-        single[family] = dict(metrics=metrics, start=start,
-                              end={n: p.detach().cpu() for n, p in trainer.model.named_parameters() if p.requires_grad},
-                              exemplars=None if trainer.exemplars is None else
-                              {k: v.cpu() for k, v in trainer.exemplars.items()})
+        single[family] = one_process_steps(trainer, family, batches, draws)[0]
     del pending, trainer
     torch.cuda.empty_cache()
     for family in DDP_FAMILIES:
-        r0, r1 = ranks[0][family], ranks[1][family]
-        check(r0["digests"] == r1["digests"], f"ddp {family}: the ranks' weights or tables differ")
-        check(r0["metrics"] == r1["metrics"], f"ddp {family}: the ranks' metrics differ")
-        for r, got in enumerate((r0, r1)):
-            check(all(m == 0 for m in got["nms_mismatches"]) and got["nms_mismatches"],
-                  f"ddp {family} rank {r}: NMS launches differ from the plain version: {got['nms_mismatches']}")
-            check(all(x <= 0 for x in got["roi_align_excess"]) and got["roi_align_excess"],
-                  f"ddp {family} rank {r}: RoIAlign over tolerance: {got['roi_align_excess']}")
-            check(all(x <= 0 for x in got["roi_align_backward_excess"]),
-                  f"ddp {family} rank {r}: RoIAlign backward over tolerance: {got['roi_align_backward_excess']}")
-            want_bwd = family == "teacher"
-            check(got["launches"]["nms"] > 0 and got["launches"]["roi_align"] > 0
-                  and (got["launches"]["roi_align_backward"] > 0) == want_bwd,
-                  f"ddp {family} rank {r}: launches {got['launches']}")
-        ref = single[family]
-        loss_err = [max(abs(a[k] / b[k] - 1) for k in b if (k.startswith("loss") or k in ("total_loss", "grad_norm"))
-                        and b[k] != 0) for a, b in zip(r0["metrics"], ref["metrics"])]
-        saved = torch.load(os.path.join(out, f"{family}_rank0.pt"), weights_only=False)
-        num = den = 0.0
-        for n, p in saved["params"].items():
-            want = (ref["end"][n] - ref["start"][n]).double()
-            num += float(((p - ref["start"][n]).double() - want).pow(2).sum())
-            den += float(want.pow(2).sum())
-        update_err = (num / max(den, 1e-30)) ** 0.5
-        fam = dict(loss_and_grad_norm_max_rel_err_per_step=loss_err, update_rel_err=update_err,
-                   metrics_two_ranks=r0["metrics"], metrics_one_process=ref["metrics"],
-                   step_s_per_rank=[r0["step_s"], r1["step_s"]],
-                   steady_step_s=sum(r0["step_s"][1:]) / (len(r0["step_s"]) - 1),
-                   gloo_reduce_ms=r0["reduce_ms"], grad_mb=r0["grad_mb"],
-                   launches_per_rank=[r0["launches"], r1["launches"]],
-                   peak_memory_gb_per_rank=[r0["peak_memory_gb"], r1["peak_memory_gb"]],
-                   nms_shapes=r0["nms_shapes"], roi_align_rois=r0["roi_align_rois"],
-                   roi_align_max_abs_err=r0["roi_align_max_abs_err"] + r1["roi_align_max_abs_err"],
-                   roi_align_backward_max_abs_err=r0["roi_align_backward_max_abs_err"]
-                   + r1["roi_align_backward_max_abs_err"],
-                   nms_mismatches=r0["nms_mismatches"] + r1["nms_mismatches"])
-        c0, c1 = r0["normalizer_counts"], r1["normalizer_counts"]
-        check(len(c0) == len(c1) >= 3 and all(g0 == g1 and abs(g0 - l0 - l1) <= 1e-6 * max(1.0, abs(g0))
-                                              for (l0, g0), (l1, g1) in zip(c0, c1)),
-              f"ddp {family}: the normalizers are not the sums of the ranks' counts: {c0} {c1}")
-        check(any(l0 != l1 for (l0, _), (l1, _) in zip(c0, c1)),
-              f"ddp {family}: the ranks' counts are equal, so a per-rank normalizer would pass: {c0} {c1}")
-        fam["normalizer_counts_per_rank"] = [c0, c1]
-        first, later = DDP["loss_rtol"]
-        check(loss_err[0] <= first and max(loss_err[1:]) <= later,
-              f"ddp {family}: losses or grad norm {loss_err} from the one-process step's")
-        check(update_err <= DDP["update_rtol"], f"ddp {family}: update {update_err} from the one-process step")
-        if ref["exemplars"] is not None:
-            table = saved["exemplars"]
-            check(torch.equal(table["valid"], ref["exemplars"]["valid"]) and bool(table["valid"].any()),
-                  f"ddp {family}: the exemplar table's valid slots differ from the one-process table's")
-            fam.update(exemplar_slots=int(table["valid"].sum()),
-                       exemplar_quality_max_abs_diff=float((table["quality"] - ref["exemplars"]["quality"])
-                                                           [table["valid"]].abs().max()))
-        rec[family] = fam
+        rec[family] = ddp_family_checks(family, ranks, single[family], out)
+    rec["mmss"]["trunk_wgrad_spread"] = trunk_spread
     while resume[0].poll() is None and latest_checkpoint(tn) != ckpt:
         time.sleep(0.2)  # the resume's save is published, and the ranks test
     name = "coco_generalized_zeroshot_val"
@@ -4726,13 +4963,19 @@ def phase_ddp_runs(dev, rec, out, world, started):
                          "TEST.IMS_PER_BATCH", str(DDP["test_batch"]), "OUTPUT_DIR", one])[name]
     b_s["resume_and_test_net_s"] = finish(resume)
     b_s["resume"] = run_times(os.path.join(tn, "log.txt.rank0"))
-    saves = sorted(n for n in os.listdir(tn) if n.startswith("model_"))
-    check(saves == ["model_0000002.pth", "model_0000003.pth"], f"ddp train_net: checkpoints {saves}")
-    with open(os.path.join(tn, "last_checkpoint")) as f:
-        check(f.read().strip() == "model_0000003.pth", "ddp train_net: the tag does not name the resume's save")
-    for r in range(world):
-        with open(os.path.join(tn, f"log.txt.rank{r}")) as f:
-            check("resumed from" in f.read(), f"ddp train_net: rank {r} did not resume")
+    b_s["mmss_resume"] = run_times(os.path.join(mn, "log.txt.rank0"))
+    for label, d in (("train_net", tn), ("mmss train_net", mn)):
+        saves = sorted(n for n in os.listdir(d) if n.startswith("model_"))
+        check(saves == ["model_0000002.pth", "model_0000003.pth"], f"ddp {label}: checkpoints {saves}")
+        with open(os.path.join(d, "last_checkpoint")) as f:
+            check(f.read().strip() == "model_0000003.pth", f"ddp {label}: the tag does not name the resume's save")
+        for r in range(world):
+            with open(os.path.join(d, f"log.txt.rank{r}")) as f:
+                check("resumed from" in f.read(), f"ddp {label}: rank {r} did not resume")
+    with open(os.path.join(mn, "log.txt.rank0")) as f:
+        val = re.findall(r"iter 2 val_loss ([-\d.eE+naif]+)", f.read())
+    check(len(val) == 1 and np.isfinite(float(val[0])), f"ddp mmss train_net: validation loss {val}")
+    b_s["mmss_val_loss"] = float(val[0])
     with open(os.path.join(two, f"metrics_{name}.json")) as f:
         two_metrics = json.load(f)
     check(same_metrics(two_metrics, {k: float(v) for k, v in got.items()}),
@@ -4746,7 +4989,8 @@ def phase_ddp_runs(dev, rec, out, world, started):
                         and "_class_" not in k})
     rec["train_net_test_net"] = b_s
     # (c) train_net under torchrun on 1 rank over NCCL (the model under
-    # DDP), then in the same rank the wrapper's cost on a steady step
+    # DDP), then in the same rank the wrapper's cost on a steady step, and
+    # (c') MMSS's
     t = time.perf_counter()
     nccl = os.path.join(out, "nccl")
     argv = ["--config-file", CONFIG, "--skip-test", "--device", dev.type, "--dist-backend", "nccl", "--seed", SEED,
@@ -4756,10 +5000,166 @@ def phase_ddp_runs(dev, rec, out, world, started):
     finish(launch(["chip_smoke.py", "--ddp-rank", out, "nccl"], os.path.join(out, "nccl.log"), 1, started))
     with open(os.path.join(out, "nccl.json")) as f:
         steady = json.load(f)
+    mmss = steady.pop("mmss")
     c = dict(ddp_one_rank_nccl=run_times(os.path.join(nccl, "log.txt.rank0")), steady_step_s=steady,
              wrapper_cost=steady["ddp"] / steady["plain"] - 1,
              unused_search_cost=steady["ddp"] / steady["ddp_no_search"] - 1, seconds=time.perf_counter() - t)
     rec["nccl_one_rank"] = c
+    rec["mmss_nccl_one_rank"] = mmss_verdict(mmss, rec["mmss"])
+
+
+def trunk_wgrad_spread(model, reference, batch, dev):
+    """The trunk's weight gradients of ``batch`` (its images under a fixed
+    random cotangent on the C5 map): taken at once against the sum of its
+    two halves taken apart (the spread that splitting a batch over 2
+    ranks makes with no other difference), and against ``reference``'s,
+    the same weights in another compute dtype.  Relative to the
+    gradient's norm, overall and per stage."""
+    from cvpr22_cross_modal_pseudo_labeling_torch.models.backbone import device_normalize
+
+    images, sizes = (torch.as_tensor(batch[k]).to(dev) for k in ("images", "image_sizes"))
+    n = images.shape[0]
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED)
+    cot = []
+
+    def grads(m, rows):
+        s = m.statics.backbone
+        f = m.backbone(device_normalize(images[rows], sizes[rows], s.pixel_mean, s.pixel_std, s.to_bgr255))[0]
+        if not cot:
+            cot.append(torch.randn((n, *f.shape[1:]), generator=g, device=dev))
+        named = [(k, p) for k, p in m.backbone.named_parameters() if p.requires_grad]
+        out = torch.autograd.grad((f.to(torch.float32) * cot[0][rows]).sum(), [p for _, p in named])
+        return {k: x.double() for (k, _), x in zip(named, out)}
+
+    def spread(a, b):
+        num, den = {}, {}
+        for k in b:
+            stage = k.split(".")[1]
+            num[stage] = num.get(stage, 0.0) + float((a[k] - b[k]).pow(2).sum())
+            den[stage] = den.get(stage, 0.0) + float(b[k].pow(2).sum())
+        return dict(overall=(sum(num.values()) / sum(den.values())) ** 0.5,
+                    per_stage={k: (num[k] / den[k]) ** 0.5 for k in num})
+
+    full = grads(model, slice(0, n))
+    first, second = grads(model, slice(0, n // 2)), grads(model, slice(n // 2, n))
+    return dict(split_4_plus_4=spread({k: first[k] + second[k] for k in full}, full),
+                against_reference=spread(full, grads(reference, slice(0, n))))
+
+
+def one_process_steps(trainer, family, batches, draws=None):
+    """The one-process reference steps of a family on the global batches:
+    (metrics, the trainable parameters at the start and the end, the
+    exemplar table), and the draws: ``draws``, or where None those the
+    samplers drew from the generator (recorded for the ranks)."""
+    start = {n: p.detach().to("cpu", copy=True) for n, p in trainer.model.named_parameters() if p.requires_grad}
+    metrics, made = [], []
+    for i, b in enumerate(batches):
+        if draws is None:
+            made.append({})
+            with recorded_priorities(made[-1]):
+                m = trainer.step(b)
+        else:
+            m = trainer.step(b, step_draws(family, draws[i], trainer.device))
+        metrics.append({k: float(v) for k, v in m.items()})
+    out = dict(metrics=metrics, start=start,
+               end={n: p.detach().cpu() for n, p in trainer.model.named_parameters() if p.requires_grad},
+               exemplars=None if trainer.exemplars is None else {k: v.cpu() for k, v in trainer.exemplars.items()})
+    return out, (draws if draws is not None else made)
+
+
+def ddp_family_checks(family, ranks, ref, out):
+    """(a), (a') and (d')'s checks of one family's 2-rank steps against
+    the one-process steps ``ref``: the ranks' digests and metrics equal,
+    each rank's first-step launches held against the plain versions and
+    the family's kernels launched (or not), the losses and grad_norm
+    within DDP["loss_rtol"], the update within DDP["update_rtol"], each
+    normalizer the sum of the ranks' counts and some counts unequal, the
+    exemplar table's valid slots equal.  Returns the family's record."""
+    r0, r1 = ranks[0][family], ranks[1][family]
+    check(r0["digests"] == r1["digests"], f"ddp {family}: the ranks' weights or tables differ")
+    check(r0["metrics"] == r1["metrics"], f"ddp {family}: the ranks' metrics differ")
+    want = dict(zip(("nms", "roi_align", "roi_align_backward"), DDP_LAUNCHES[family]))
+    for r, got in enumerate((r0, r1)):
+        check(all(m == 0 for m in got["nms_mismatches"]) and bool(got["nms_mismatches"]) == want["nms"],
+              f"ddp {family} rank {r}: NMS launches differ from the plain version: {got['nms_mismatches']}")
+        check(all(x <= 0 for x in got["roi_align_excess"]) and bool(got["roi_align_excess"]) == want["roi_align"],
+              f"ddp {family} rank {r}: RoIAlign over tolerance: {got['roi_align_excess']}")
+        check(all(x <= 0 for x in got["roi_align_backward_excess"]),
+              f"ddp {family} rank {r}: RoIAlign backward over tolerance: {got['roi_align_backward_excess']}")
+        check(all((got["launches"][k] > 0) == v for k, v in want.items()),
+              f"ddp {family} rank {r}: launches {got['launches']}, want {want}")
+    loss_err = [max(abs(a[k] / b[k] - 1) for k in b
+                    if (k.startswith("loss") or "Loss" in k or k in ("total_loss", "grad_norm")) and b[k] != 0)
+                for a, b in zip(r0["metrics"], ref["metrics"])]
+    saved = torch.load(os.path.join(out, f"{family}_rank0.pt"), weights_only=False)
+    num, den = {}, {}
+    for n, p in saved["params"].items():
+        want_up = (ref["end"][n] - ref["start"][n]).double()
+        group = ".".join(n.split(".")[:2])
+        num[group] = num.get(group, 0.0) + float(((p - ref["start"][n]).double() - want_up).pow(2).sum())
+        den[group] = den.get(group, 0.0) + float(want_up.pow(2).sum())
+
+    def rel(groups):
+        return (sum(num[g] for g in groups) / max(sum(den[g] for g in groups), 1e-30)) ** 0.5
+
+    unbounded = [g for g in num if g.startswith(DDP_UPDATE_UNBOUNDED.get(family, ()))]
+    update_err = rel([g for g in num if g not in unbounded])
+    # the modules that carry the difference, as shares of the update's norm
+    worst = sorted(num, key=num.get, reverse=True)[:4]
+    fam = dict(loss_and_grad_norm_max_rel_err_per_step=loss_err, update_rel_err=update_err,
+               update_rel_err_all=rel(list(num)), unbounded_update_rel_err=rel(unbounded) if unbounded else None,
+               update_err_by_module={g: ((num[g] / max(sum(den.values()), 1e-30)) ** 0.5,
+                                         (den[g] / max(sum(den.values()), 1e-30)) ** 0.5) for g in worst},
+               metrics_two_ranks=r0["metrics"], metrics_one_process=ref["metrics"],
+               step_s_per_rank=[r0["step_s"], r1["step_s"]],
+               steady_step_s=sum(r0["step_s"][1:]) / (len(r0["step_s"]) - 1),
+               gloo_reduce_ms=r0["reduce_ms"], grad_mb=r0["grad_mb"],
+               counted_gloo_reduce_ms=r0["counted_reduce_ms"], counted_grad_mb=r0["counted_grad_mb"],
+               launches_per_rank=[r0["launches"], r1["launches"]],
+               peak_memory_gb_per_rank=[r0["peak_memory_gb"], r1["peak_memory_gb"]],
+               nms_shapes=r0["nms_shapes"], roi_align_rois=r0["roi_align_rois"],
+               roi_align_max_abs_err=r0["roi_align_max_abs_err"] + r1["roi_align_max_abs_err"],
+               roi_align_backward_max_abs_err=r0["roi_align_backward_max_abs_err"]
+               + r1["roi_align_backward_max_abs_err"],
+               nms_mismatches=r0["nms_mismatches"] + r1["nms_mismatches"])
+    c0, c1 = r0["normalizer_counts"], r1["normalizer_counts"]
+    check(len(c0) == len(c1) >= 1 and all(g0 == g1 and abs(g0 - l0 - l1) <= 1e-6 * max(1.0, abs(g0))
+                                          for (l0, g0), (l1, g1) in zip(c0, c1)),
+          f"ddp {family}: the normalizers are not the sums of the ranks' counts: {c0} {c1}")
+    check(any(l0 != l1 for (l0, _), (l1, _) in zip(c0, c1)),
+          f"ddp {family}: the ranks' counts are equal, so a per-rank normalizer would pass: {c0} {c1}")
+    fam["normalizer_counts_per_rank"] = [c0, c1]
+    first, later = DDP["loss_rtol"]
+    check(loss_err[0] <= first and max(loss_err[1:]) <= later,
+          f"ddp {family}: losses or grad norm {loss_err} from the one-process step's")
+    check(update_err <= DDP["update_rtol"],
+          f"ddp {family}: update {update_err} from the one-process step ({fam['update_err_by_module']})")
+    if ref["exemplars"] is not None:
+        table = saved["exemplars"]
+        check(torch.equal(table["valid"], ref["exemplars"]["valid"]) and bool(table["valid"].any()),
+              f"ddp {family}: the exemplar table's valid slots differ from the one-process table's")
+        fam.update(exemplar_slots=int(table["valid"].sum()),
+                   exemplar_quality_max_abs_diff=float((table["quality"] - ref["exemplars"]["quality"])
+                                                       [table["valid"]].abs().max()))
+    return fam
+
+
+def mmss_verdict(cost, two_ranks):
+    """(c')'s record: the steady MMSS step at 8 bare, under the Trainer's
+    DDP and under DDP without the BERT; the pair encoder at a rank of 8
+    of 64 and at one process of 8; and whether a rank of 8 of mmss.yaml's
+    64 fits one 80 GB card: the bare step's peak at 8 (phase 14's shape)
+    less its 8 x 8 pair encoder plus the 8 x 64 one's, beside (a')'s
+    2-rank peak at 4 of 8 for scale."""
+    enc = cost["pair_encoder"]
+    estimate = cost["step_peak_gb"] - enc["one_process_of_8"]["peak_added_gb"] \
+        + enc["rank_of_8_of_64"]["peak_added_gb"]
+    return dict(steady_step_s={k: cost[k] for k in ("plain", "ddp", "ddp_without_bert")}, samples=cost["samples"],
+                ddp_cost=cost["ddp"] / cost["plain"] - 1, bert_reduce_cost=cost["ddp"] / cost["ddp_without_bert"] - 1,
+                bert_mb=cost["bert_mb"], step_peak_gb_at_8=cost["step_peak_gb"], pair_encoder=enc,
+                two_rank_peak_gb_at_4_of_8=two_ranks["peak_memory_gb_per_rank"],
+                rank_of_8_of_64_peak_estimate_gb=estimate, fits_80gb=estimate < 80.0)
 
 
 # phase 24: a checkpoint trained with the JAX package, dumped where jax
@@ -5053,7 +5453,7 @@ def kernels_line(results):
         return {f"jax_checkpoint_{path}_launches": n[kernel] for path, n in jx["launches"].items()}
 
     def ddp_launches(kernel):
-        # each rank's launches on the 2-rank steps of phase 23 (a)
+        # each rank's launches on the 2-rank steps of phase 23 (a), (a'), (d')
         return {f"ddp_{family}_rank{r}_launches": n[kernel] for family in DDP_FAMILIES
                 for r, n in enumerate(dp[family]["launches_per_rank"])}
 

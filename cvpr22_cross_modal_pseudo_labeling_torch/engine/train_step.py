@@ -38,16 +38,20 @@ the exemplar table.
 
 On more than one rank (``parallel/dist.py``: one process a rank, started
 by torchrun) a ``Trainer`` takes its rank's rows of the global batch, as
-JAX's step does on its mesh's data axis.  The detector runs under
+JAX's step does on its mesh's data axis.  The model runs under
 ``DistributedDataParallel`` (whenever a process group is up, so that one
 rank under torchrun pays what the wrapper costs), whose hook sums the
 ranks' gradients: each rank's loss is its share of a loss normalized over
-the global batch.  So ``grad_norm``, the clip and the update are the
-global batch's, and every rank applies the same update; the frozen
-parameters and the buffers take no part.  The logged losses are summed
-over the ranks.  The generator is seeded per rank, and explicit draws are
-the global batch's, of which each rank takes its rows.  MMSS refuses more
-than one rank.
+the global batch (MMSS's shares read every rank's images through a
+gather whose backward brings their gradient home).  So ``grad_norm``,
+the clip and the update are the global batch's, and every rank applies
+the same update; the frozen parameters and the buffers take no part, but
+for MMSS's frozen BERT, whose gradient counts in ``grad_norm`` and so is
+reduced too.  The logged losses are summed over the ranks.  The
+generator is seeded per rank (MMSS's random triplet negatives are rank
+0's draw), and explicit draws are the global batch's, of which each rank
+takes its rows (:func:`shard_draws`).  The validation-loss pass may have
+fewer rows on one rank than on another (its stripes are not padded).
 """
 
 from typing import Dict, Mapping, Optional, Sequence, Union
@@ -59,8 +63,9 @@ from ..bridge import load_flax_params
 from ..config.cfg_node import CfgNode
 from ..models.detector import RCNN_FAMILY, ST_FAMILY, build_detection_model
 from ..models.detector.generalized_rcnn import RCNNTrainOutput, TrainDraws
+from ..models.detector.mmss_gcnn import MMSSDraws
 from ..models.detector.st_generalized_rcnn import init_exemplar_table
-from ..parallel.dist import global_sum, rank, refuse_ranks, sum_hook, world_size
+from ..parallel.dist import global_sum, rank, row_counts, sum_hook, world_size
 from .inference import load_cfg
 from .optimizer import Optimizer, frozen_prefixes_from_cfg
 
@@ -173,14 +178,27 @@ def training_forward(
     )
 
 
-def shard_draws(draws, rank_: int, world: int):
-    """Rank ``rank_``'s rows of the global batch's draws (a
-    ``TrainDraws``): the samplers' ``[B, ...]`` along the images, the
-    mask samples ``[n_s, B * cap, ...]`` along their image-major rows."""
-    if world == 1:
+def shard_draws(draws, rank_: int, counts: Sequence[int]):
+    """Rank ``rank_``'s rows of the global batch's draws, where rank i
+    has ``counts[i]`` images: of a ``TrainDraws``, the samplers' ``[B,
+    ...]`` along the images and the mask samples ``[n_s, B * cap, ...]``
+    along their image-major rows; of an ``MMSSDraws``, every field along
+    its image (or caption) rows but the random triplet negatives, which
+    are the global batch's and stay whole."""
+    if len(counts) == 1:
         return draws
-    return TrainDraws(*(None if x is None else torch.chunk(x, world, dim=1 if k == "mask_eps" else 0)[rank_]
-                        for k, x in draws._asdict().items()))
+
+    def rows(x, dim=0):
+        if x is None:
+            return None
+        per = x.shape[dim] // sum(counts)
+        return torch.split(x, [c * per for c in counts], dim=dim)[rank_]
+
+    if isinstance(draws, MMSSDraws):
+        a = draws.alignment
+        return MMSSDraws(*(rows(x) for x in draws[:-1]),
+                         alignment=a._replace(w2r=rows(a.w2r), r2w=rows(a.r2w)))
+    return TrainDraws(*(rows(x, 1 if k == "mask_eps" else 0) for k, x in draws._asdict().items()))
 
 
 def summed_over_ranks(losses: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -225,9 +243,6 @@ class Trainer:
         else:
             self.cfg = config
         self.meta_arch = self.cfg.MODEL.META_ARCHITECTURE
-        if self.meta_arch == MMSS:
-            refuse_ranks("MMSS pretraining", "its grounding losses pair every caption with every image of the "
-                         "global batch, which needs an all-gather with a gradient")
         self.device = device
         self.model = (model if model is not None else build_detection_model(self.cfg)).to(device)
         frozen = frozen_prefixes_from_cfg(self.cfg, self.meta_arch)
@@ -244,18 +259,19 @@ class Trainer:
             s = self.model.statics
             self.exemplars = init_exemplar_table(s.lvis_vocab, s.base.emb_dim, device)
         # the module the step runs: the model, or under a launch of ranks
-        # (a process group is up, even of one rank) the detector under DDP,
+        # (a process group is up, even of one rank) the model under DDP,
         # built after the optimizer has set requires_grad, so that only the
-        # trainable parameters are reduced; the buffers (frozen BN) never
-        # change and are not broadcast.  DDP always looks for the trainable
-        # parameters a step leaves without a gradient (lambda_exemplar
-        # without the exemplar table, the BERT word table under FT_EMB with
-        # it, whose LVIS table the mixing detaches, the RPN-only detector's
-        # RoI heads): one missed would stall the reduce and let the ranks
-        # part silently, and the search costs a steady step little
-        # (chip_smoke.py's ddp phase times both; PERF.md section 6)
+        # trainable parameters (and MMSS's counted BERT) are reduced; the
+        # buffers (frozen BN) never change and are not broadcast.  DDP
+        # always looks for the trainable parameters a step leaves without
+        # a gradient (lambda_exemplar without the exemplar table, the BERT
+        # word table under FT_EMB with it, whose LVIS table the mixing
+        # detaches, the RPN-only detector's RoI heads): one missed would
+        # stall the reduce and let the ranks part silently, and the search
+        # costs a steady step little (chip_smoke.py's ddp phase times both;
+        # PERF.md section 6)
         self.train_module = self.model
-        if torch.distributed.is_initialized() and self.meta_arch != MMSS:
+        if torch.distributed.is_initialized():
             from torch.nn.parallel import DistributedDataParallel
 
             self.train_module = DistributedDataParallel(self.model, broadcast_buffers=False,
@@ -286,14 +302,12 @@ class Trainer:
         b = {k: t.to(self.device, non_blocking=True) for k, t in self.host_batch(batch).items()}
         return {**b, **self.class_tables}
 
-    def _draws(self, draws):
-        if draws is not None:
-            return shard_draws(draws, rank(), world_size())
-        if self.meta_arch == MMSS:
-            from ..models.detector.mmss_gcnn import MMSSDraws
-
-            return MMSSDraws()
-        return TrainDraws()
+    def _draws(self, draws, b: Dict[str, torch.Tensor]):
+        if draws is None:
+            return MMSSDraws() if self.meta_arch == MMSS else TrainDraws()
+        if world_size() == 1:
+            return draws
+        return shard_draws(draws, rank(), row_counts(b["images"].shape[0], self.device))
 
     def step(self, batch: Mapping[str, np.ndarray], draws=None) -> Dict[str, torch.Tensor]:
         """One training step on a numpy batch (see :func:`host_batch`).
@@ -306,7 +320,7 @@ class Trainer:
 
     def train_step(self, b: Dict[str, torch.Tensor], draws=None) -> Dict[str, torch.Tensor]:
         """One training step on a batch already on the device."""
-        out = training_forward(self.train_module, self.meta_arch, b, self._draws(draws), self.generator,
+        out = training_forward(self.train_module, self.meta_arch, b, self._draws(draws, b), self.generator,
                                self.exemplars)
         table = out.info.pop("exemplars", None)
         if table is not None:
@@ -327,10 +341,14 @@ class Trainer:
         """The validation loss of a batch on the device: each loss and
         ``val_total_loss``, from the training branches on draws of a
         generator seeded ``VAL_SEED`` anew (or ``draws``); no update, and
-        no exemplar table (neither mixed nor updated)."""
+        no exemplar table (neither mixed nor updated).  On more than one
+        rank ``b`` may hold fewer rows on one rank than on another; each
+        rank draws from its own generator seeded ``VAL_SEED``, so that
+        only given ``draws`` (the global batch's) make the ranks' loss the
+        one-process loss of the same images."""
         generator = torch.Generator(device=self.device)
         generator.manual_seed(self.VAL_SEED)
-        out = training_forward(self.model, self.meta_arch, b, self._draws(draws), generator)
+        out = training_forward(self.model, self.meta_arch, b, self._draws(draws, b), generator)
         return summed_over_ranks({**out.losses, "val_total_loss": sum(out.losses.values())})
 
     def state_dict(self) -> Dict:

@@ -15,6 +15,12 @@ The random draws of one training forward are :class:`MMSSDraws`; a None
 field is drawn from the generator, so a test can replay JAX's draws.
 Statics may be built directly (narrow widths for the tests) or from a
 config with :func:`mmss_statics_from_cfg`.
+
+On more than one rank (``parallel/dist.py``) the inputs and the draws are
+this rank's rows of the global batch (``engine/train_step.py``'s
+``shard_draws``); the forward gathers every rank's row count once and
+hands it to the heads, which pair this rank's captions with every
+rank's images and return the rank's shares of the global batch's losses.
 """
 
 from typing import Dict, NamedTuple, Optional, Tuple
@@ -22,6 +28,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
+from ...parallel.dist import row_counts, world_size
 from ..backbone import ResNetBackbone, device_normalize
 from ..language.bert import BertModel, WordEmbeddingBackbone, apply_mlm_masking
 from ..layers import Linear
@@ -141,7 +148,9 @@ class MMSSDraws(NamedTuple):
     from the generator.  ``dropout``: ``[B, gh * gw]`` uniforms of the
     spatial dropout; ``mlm_select``, ``mlm_mask`` (uniforms) and
     ``mlm_ids`` (ids in [0, vocab)): ``[B, W]``, the MLM corruption's;
-    ``alignment``: the grounding head's :class:`AlignmentDraws`."""
+    ``alignment``: the grounding head's :class:`AlignmentDraws`.  On more
+    than one rank each holds this rank's rows (the alignment noise its
+    caption rows), but the triplet draw, which is the global batch's."""
 
     dropout: Optional[torch.Tensor] = None
     mlm_select: Optional[torch.Tensor] = None
@@ -255,6 +264,8 @@ class MMSSGridModel(nn.Module):
             encoded_tokens = word_table = None
 
         caption_grounding_mask = attention_mask * (1 - special_mask)
+        # every rank's rows, for the heads' gathers (None: one process)
+        counts = row_counts(images.shape[0], dev) if world_size() > 1 else None
 
         def v2l(head):
             return self._v2l(head)(region_features)
@@ -264,14 +275,14 @@ class MMSSGridModel(nn.Module):
         if "GroundingHead" in s.heads:
             o, l = self.grounding_head(
                 v2l("GroundingHead"), region_mask, input_embeddings, caption_grounding_mask,
-                draws=draws.alignment, generator=generator,
+                draws=draws.alignment, generator=generator, counts=counts,
             )
             info.update(o)
             losses.update(l)
         if "TransformerHead" in s.heads:
             o, l = self.transformer_head(
                 v2l("TransformerHead"), region_loc, region_mask, encoded_tokens, attention_mask,
-                mlm_mask, input_ids, word_table,
+                mlm_mask, input_ids, word_table, counts=counts,
             )
             info.update(o)
             losses.update(l)

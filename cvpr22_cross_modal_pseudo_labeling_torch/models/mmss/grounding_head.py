@@ -19,14 +19,27 @@ The random alignments and the random triplet negatives take their noise
 as :class:`AlignmentDraws`; a None field is drawn from the generator.
 ``jax.random.categorical`` is an argmax of the logits plus Gumbel noise
 of the logits' shape, so a test hands both sides the same noise.
+
+On more than one rank (``parallel/dist.py``) the rows are this rank's
+captions and the columns every rank's images: the images and their
+region masks come through ``gather_rows_grad``, so the pairwise
+similarity is ``[B_local, B, W, R]``, and its ``[B_local, B]`` costs are
+gathered again into the global ``[B, B]`` matrix that the losses and the
+accuracies read along both axes.  The masks' floor and the guard's
+ceiling are global maxima.  Each loss is the rank's share: its own
+diagonal (or row) terms over the global B, so that the ranks' shares sum
+to JAX's loss over the global batch; the accuracies are the global
+batch's on every rank.  The random triplet negatives are drawn over the
+global B and shared: rank 0's draw, unless the draws are given.
 """
 
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...parallel.dist import from_primary, gather_rows_grad, global_max, rank, row_counts, world_size
 from ..rpn.rpn import top_k
 
 
@@ -48,7 +61,9 @@ class AlignmentDraws(NamedTuple):
     choice over R); ``r2w``: of the region-to-word choice, with the word
     axis moved last (``[..., R, W]``); ``triplet``: ``[2, 2, B]`` ints in
     ``[0, B - 1)``, the random negatives' draws per direction (align
-    words, align regions) and side (choose caption, choose image)."""
+    words, align regions) and side (choose caption, choose image), over
+    the global batch.  On more than one rank ``w2r`` and ``r2w`` hold
+    this rank's caption rows."""
 
     w2r: Optional[torch.Tensor] = None
     r2w: Optional[torch.Tensor] = None
@@ -80,30 +95,46 @@ class GroundingHead(nn.Module):
         caption_mask: torch.Tensor,  # [B, W] real, non-special tokens
         draws: AlignmentDraws = AlignmentDraws(),
         generator: Optional[torch.Generator] = None,
+        counts: Optional[Sequence[int]] = None,
     ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+        """``(info, losses)``.  The inputs are this rank's rows (an image
+        and its caption a row); ``counts`` every rank's row count
+        (``parallel.dist.row_counts``, gathered here when None)."""
         s = self.statics
         b, r, _ = image_emb.shape
         w = caption_emb.shape[1]
         dev = image_emb.device
+        if world_size() > 1 and counts is None:
+            counts = row_counts(b, dev)
+        counts = counts or [b]
+        total, offset = sum(counts), sum(counts[:rank()])
+        mine = slice(offset, offset + b)
         cd = self.compute_dtype
+        pairwise = s.loss_type in ("cross_entropy", "triplet")
+        image_emb = image_emb.to(torch.float32)
+        if pairwise:
+            # the columns: every rank's images, gathered in float32, so that
+            # the backward sums the ranks' partial gradients before it
+            # rounds them to the compute dtype
+            image_emb = gather_rows_grad(image_emb, counts)
+            region_mask = gather_rows_grad(region_mask, counts)
         # the operands rounded to the compute dtype, multiplied in float32
         cap_c = caption_emb.to(cd).to(torch.float32)
         img_c = image_emb.to(cd).to(torch.float32)
         caption_emb = caption_emb.to(torch.float32)
-        image_emb = image_emb.to(torch.float32)
         cmask = caption_mask.to(torch.float32)
         rmask = region_mask.to(torch.float32)
         num_words = cmask.sum(dim=1)
         num_regions = rmask.sum(dim=1)
 
-        pairwise = s.loss_type in ("cross_entropy", "triplet")
         if pairwise:
             # sim[i, j, w, r]: caption i against image j
-            sim = (cap_c.reshape(b * w, -1) @ img_c.reshape(b * r, -1).T).view(b, w, b, r).permute(0, 2, 1, 3)
+            sim = (cap_c.reshape(b * w, -1) @ img_c.reshape(total * r, -1).T).view(b, w, total, r).permute(
+                0, 2, 1, 3)
             pair_cmask = cmask[:, None, :, None]
             pair_rmask = rmask[None, :, None, :]
-            nw = num_words[:, None].expand(b, b)
-            nr = num_regions[None, :].expand(b, b)
+            nw = num_words[:, None].expand(b, total)
+            nr = num_regions[None, :].expand(b, total)
         else:
             sim = torch.bmm(cap_c, img_c.transpose(1, 2))
             pair_cmask = cmask[:, :, None]
@@ -138,7 +169,7 @@ class GroundingHead(nn.Module):
         local_distance = local_distance / temperature
 
         pair_valid = (pair_cmask * pair_rmask) > 0
-        floor = local_similarity.detach().min() - 100.0
+        floor = -global_max(-local_similarity.detach().min()) - 100.0
         local_similarity = torch.where(pair_valid, local_similarity, floor)
 
         w_axis, r_axis = -2, -1
@@ -214,11 +245,23 @@ class GroundingHead(nn.Module):
         ok = (nw > 0) & (nr > 0)
 
         def guard(gd):
-            return torch.where(ok, gd, gd.detach().max() + 100.0)
+            return torch.where(ok, gd, global_max(gd) + 100.0)
+
+        def pair_costs(gd):
+            # the guarded [B_local, B] costs of every rank: [B, B]
+            return gather_rows_grad(guard(gd), counts)
+
+        # a tensor divisor: CUDA divides by a Python scalar as a
+        # multiplication by its reciprocal
+        n = torch.full((), float(total), device=dev)
+
+        def share(x):
+            # this rank's terms of a mean over the global batch
+            return torch.sum(x) / n
 
         losses: Dict[str, torch.Tensor] = {}
         info: Dict[str, torch.Tensor] = {}
-        arange = torch.arange(b, device=dev)
+        arange = torch.arange(total, device=dev)
 
         def accuracies(pw_cost, tag):
             info[f"Batch Accuracy ({tag}, Choose Caption)"] = torch.mean(
@@ -230,32 +273,33 @@ class GroundingHead(nn.Module):
             if s.local_metric == "dot":
                 raise ValueError("Matching loss undefined for unbounded dot metric")
             if s.align_words:
-                losses["Image-Caption Matching Loss (Align Words)"] = torch.mean(guard(gd_w2r))
+                losses["Image-Caption Matching Loss (Align Words)"] = share(guard(gd_w2r))
             if s.align_regions:
-                losses["Image-Caption Matching Loss (Align Regions)"] = torch.mean(guard(gd_r2w))
+                losses["Image-Caption Matching Loss (Align Regions)"] = share(guard(gd_r2w))
         elif s.loss_type == "cross_entropy":
             def ce_losses(pw_cost, tag):
                 lc = torch.log_softmax(-pw_cost, dim=0)
                 li = torch.log_softmax(-pw_cost, dim=1)
-                losses[f"Cross-Entropy Loss ({tag}, Choose Caption)"] = -torch.mean(torch.diagonal(lc))
-                losses[f"Cross-Entropy Loss ({tag}, Choose Image)"] = -torch.mean(torch.diagonal(li))
+                losses[f"Cross-Entropy Loss ({tag}, Choose Caption)"] = -share(torch.diagonal(lc)[mine])
+                losses[f"Cross-Entropy Loss ({tag}, Choose Image)"] = -share(torch.diagonal(li)[mine])
                 accuracies(pw_cost, tag)
 
             if s.align_words:
-                ce_losses(guard(gd_w2r), "Align Words")
+                ce_losses(pair_costs(gd_w2r), "Align Words")
             if s.align_regions:
-                ce_losses(guard(gd_r2w), "Align Regions")
+                ce_losses(pair_costs(gd_r2w), "Align Regions")
         elif s.loss_type == "triplet":
-            eye = torch.eye(b, dtype=torch.bool, device=dev)
+            eye = torch.eye(total, dtype=torch.bool, device=dev)
             inf = float("inf")
             draws_t = draws.triplet
-            if s.negative_mining == "random" and b >= 2 and draws_t is None:
-                draws_t = torch.randint(0, b - 1, (2, 2, b), generator=generator, device=dev)
+            if s.negative_mining == "random" and total >= 2 and draws_t is None:
+                # over the global batch, the same on every rank
+                draws_t = from_primary(torch.randint(0, total - 1, (2, 2, total), generator=generator, device=dev))
 
             def triplet_losses(pw_cost, tag, direction):
                 pos = torch.diagonal(pw_cost)
                 margin = s.margin
-                if b < 2:
+                if total < 2:
                     neg_cap = pos + margin
                     neg_img = pos + margin
                 elif s.negative_mining == "hardest":
@@ -272,14 +316,14 @@ class GroundingHead(nn.Module):
                     ri = ri + (ri >= arange).to(ri.dtype)
                     neg_cap = pw_cost[rc, arange]
                     neg_img = pw_cost[arange, ri]
-                losses[f"Triplet Loss ({tag}, Choose Caption)"] = torch.mean(F.relu(pos - neg_cap + margin))
-                losses[f"Triplet Loss ({tag}, Choose Image)"] = torch.mean(F.relu(pos - neg_img + margin))
+                losses[f"Triplet Loss ({tag}, Choose Caption)"] = share(F.relu(pos - neg_cap + margin)[mine])
+                losses[f"Triplet Loss ({tag}, Choose Image)"] = share(F.relu(pos - neg_img + margin)[mine])
                 accuracies(pw_cost, tag)
 
             if s.align_words:
-                triplet_losses(guard(gd_w2r), "Align Words", 0)
+                triplet_losses(pair_costs(gd_w2r), "Align Words", 0)
             if s.align_regions:
-                triplet_losses(guard(gd_r2w), "Align Regions", 1)
+                triplet_losses(pair_costs(gd_r2w), "Align Regions", 1)
         else:
             raise NotImplementedError(s.loss_type)
         return info, losses

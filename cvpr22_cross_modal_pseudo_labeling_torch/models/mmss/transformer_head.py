@@ -12,14 +12,24 @@ logits are a float32 product of operands rounded to the compute dtype.
 With ``mmm_loss`` ``cross_entropy`` all B^2 pairs are encoded for the
 matching loss; otherwise the ``seq_relationship`` layer enters the loss
 with weight zero, so that weight decay still reaches it.
+
+On more than one rank (``parallel/dist.py``) the pair encoder runs this
+rank's captions against every rank's images, ``B_local * B`` pairs: the
+visual tokens and region masks come through ``gather_rows_grad``, and
+the ``[B_local, B]`` pair scores are gathered into the global ``[B, B]``
+matrix.  Each loss is the rank's share: the MLM loss is the rank's sum
+over the global count of masked tokens, the matching loss its own
+diagonal terms over the global B; the accuracies are the global batch's
+on every rank.
 """
 
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...parallel.dist import gather_rows_grad, global_sum, rank, row_counts, world_size
 from ..language.bert import BertEncoder
 from ..layers import LayerNorm, Linear
 
@@ -46,10 +56,13 @@ class VisualEmbedding(nn.Module):
         return self.ln(self.image_embeddings(image_emb) + self.image_location_embeddings(region_loc))
 
 
-def _ce_matching(global_dist: torch.Tensor):
+def _ce_matching(global_dist: torch.Tensor, mine: slice = slice(None)):
+    """The cross-entropy along both axes of the ``[B, B]`` scores: the
+    diagonal terms of the rows ``mine`` over B (all of them: the mean)."""
     lc = torch.log_softmax(-global_dist, dim=0)
     li = torch.log_softmax(-global_dist, dim=1)
-    return -(torch.mean(torch.diagonal(lc)) + torch.mean(torch.diagonal(li)))
+    n = torch.full((), float(global_dist.shape[0]), device=global_dist.device)
+    return -(torch.sum(torch.diagonal(lc)[mine]) / n + torch.sum(torch.diagonal(li)[mine]) / n)
 
 
 class TransformerHead(nn.Module):
@@ -84,7 +97,11 @@ class TransformerHead(nn.Module):
         mlm_mask: torch.Tensor,  # [B, W] positions selected for MLM
         target_ids: torch.Tensor,  # [B, W] original ids
         word_table: torch.Tensor,  # [vocab, hidden] the tied decoder
+        counts: Optional[Sequence[int]] = None,
     ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+        """``(info, losses)``.  The inputs are this rank's rows (an image
+        and its caption a row); ``counts`` every rank's row count
+        (``parallel.dist.row_counts``, gathered here when None)."""
         s = self.statics
         b = image_emb.shape[0]
         w = encoded_tokens.shape[1]
@@ -103,27 +120,36 @@ class TransformerHead(nn.Module):
         valid = tgt >= 0
         logp = torch.log_softmax(mlm_logits, dim=-1)
         nll = -torch.gather(logp, -1, tgt.clamp(min=0)[..., None])[..., 0]
-        count = valid.sum()
+        # the masked tokens and the hits of the global batch
+        count, hits = global_sum(torch.stack([
+            valid.sum(), ((torch.argmax(mlm_logits, dim=-1) == tgt) & valid).sum()])).unbind()
         mlm_loss = torch.sum(nll * valid) / count.clamp(min=1)
         zero = torch.zeros((), device=dev)
         losses["Masked Language Modeling Loss"] = mlm_loss if s.mlm else zero
-        hits = ((torch.argmax(mlm_logits, dim=-1) == tgt) & valid).sum().to(torch.float32)
+        hits = hits.to(torch.float32)
         den = count.to(torch.float32)
         info["Masked Language Modeling Accuracy"] = torch.where(
             den > 0, hits / den.clamp(min=1.0), zero)
         losses["Masked Visual Modeling Loss"] = zero
 
         if s.mmm_loss == "cross_entropy":
-            # all B^2 pairs, caption-major: pair (i, j) is row i * B + j
+            if world_size() > 1 and counts is None:
+                counts = row_counts(b, dev)
+            counts = counts or [b]
+            total, offset = sum(counts), sum(counts[:rank()])
+            # this rank's captions against every rank's images, caption-
+            # major: pair (i, j) is row i * B + j
+            visual_all = gather_rows_grad(visual, counts)
+            region_mask_all = gather_rows_grad(region_mask, counts)
             _, pooled = self._run(
-                encoded_tokens.repeat_interleave(b, dim=0),
-                caption_mask.repeat_interleave(b, dim=0),
-                visual.repeat(b, 1, 1),
-                region_mask.repeat(b, 1),
+                encoded_tokens.repeat_interleave(total, dim=0),
+                caption_mask.repeat_interleave(total, dim=0),
+                visual_all.repeat(b, 1, 1),
+                region_mask_all.repeat(b, 1),
             )
-            global_dist = self.seq_relationship(pooled)[:, 0].reshape(b, b)
-            losses["Image Caption Matching Loss"] = _ce_matching(global_dist)
-            arange = torch.arange(b, device=dev)
+            global_dist = gather_rows_grad(self.seq_relationship(pooled)[:, 0].reshape(b, total), counts)
+            losses["Image Caption Matching Loss"] = _ce_matching(global_dist, slice(offset, offset + b))
+            arange = torch.arange(total, device=dev)
             info["Batch Accuracy (Choose Caption)"] = torch.mean(
                 (torch.argmin(global_dist, dim=0) == arange).to(torch.float32))
             info["Batch Accuracy (Choose Image)"] = torch.mean(

@@ -28,7 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...parallel.dist import refuse_ranks
+from ...parallel.dist import global_sum
 from ..layers import Conv2d, ConvTranspose2d
 
 
@@ -83,15 +83,16 @@ def keypoints_to_heatmap_targets(keypoints: torch.Tensor, rois: torch.Tensor,
 def keypoint_loss(kp_logits: torch.Tensor, keypoints: torch.Tensor, rois: torch.Tensor,
                   roi_valid: torch.Tensor) -> torch.Tensor:
     """kp_logits ``[S, H, W, K]``: the cross-entropy over each heatmap's
-    positions at its visible keypoints, averaged over them."""
-    refuse_ranks("the keypoint loss")
+    positions at its visible keypoints, averaged over the visible
+    keypoints of the global batch; on more than one rank, this rank's
+    share (its sum over the global count)."""
     s, h, w, k = kp_logits.shape
     flat = kp_logits.permute(0, 3, 1, 2).reshape(s, k, h * w)
     targets, valid = keypoints_to_heatmap_targets(keypoints, rois, h)
     valid = valid & roi_valid[:, None]
     logp = torch.log_softmax(flat, dim=-1)
     nll = -torch.gather(logp, 2, targets[..., None])[..., 0]
-    denom = valid.sum().clamp(min=1).to(nll.dtype)
+    denom = global_sum(valid.sum()).clamp(min=1).to(nll.dtype)
     return torch.sum(nll * valid) / denom
 
 

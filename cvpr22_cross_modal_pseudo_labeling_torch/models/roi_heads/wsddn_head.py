@@ -20,7 +20,7 @@ import torch
 from torch import nn
 
 from ...ops.nms import batched_nms
-from ...parallel.dist import refuse_ranks
+from ...parallel.dist import global_sum
 from ..layers import Linear
 from ..rpn.rpn import top_k
 from .box_head import Detections
@@ -77,9 +77,9 @@ def wsddn_loss(image_scores: torch.Tensor, image_labels: torch.Tensor,
                background_weight: float = 1.0) -> torch.Tensor:
     """Multi-label image-level BCE: ``-t log p - (1 - t) log(1 - p +
     1e-6) * background_weight`` with ``p`` clipped below at 1e-6, the
-    mean over every (image, class) entry."""
-    refuse_ranks("the WSDDN loss")
+    mean over every (image, class) entry of the global batch: on more than
+    one rank, this rank's share (its sum over the global count)."""
     p = image_scores.clamp(min=1e-6)
     neg = torch.log((1.0 - p).clamp(min=0.0) + 1e-6)
     ce = -(image_labels * torch.log(p)) - (1.0 - image_labels) * neg * background_weight
-    return ce.mean()
+    return ce.sum() / global_sum(torch.full((), float(ce.numel()), device=ce.device))

@@ -31,7 +31,7 @@ from ...core.matcher import BETWEEN_THRESHOLDS, match_boxes
 from ...ops.losses import smooth_l1_loss
 from ...ops.nms import batched_nms
 from ...ops.sigmoid_focal_loss import sigmoid_focal_loss
-from ...parallel.dist import refuse_ranks
+from ...parallel.dist import global_sum
 from ..backbone import ResNetFPNBackbone, device_normalize
 from ..layers import Conv2d
 from ..roi_heads.box_head import Detections
@@ -156,8 +156,8 @@ def retinanet_loss(
     classes of the positive and negative anchors and is divided by the
     positives plus the images; smooth-L1 (beta ``bbox_reg_beta``) on the
     positives' (10, 10, 5, 5) targets, divided by ``max(1, positives *
-    bbox_reg_weight)``."""
-    refuse_ranks("RetinaNet's focal loss")
+    bbox_reg_weight)``.  The positives and the images are the global
+    batch's: on more than one rank each loss is this rank's share."""
     matched = match_boxes(box_iou(gt_boxes, anchors), gt_valid, s.fg_iou, s.bg_iou,
                           allow_low_quality_matches=True)  # [B, N]
     pos = matched >= 0
@@ -172,8 +172,9 @@ def retinanet_loss(
         smooth_l1_loss(box_regression, reg_targets, beta=s.bbox_reg_beta) * pos[..., None].to(cls.dtype),
         dim=(1, 2),
     )
-    total_pos = pos.sum().to(torch.float32)
-    b = cls_logits.shape[0]
+    # the positives and the images of the global batch, in one reduction
+    total_pos, b = global_sum(torch.stack([
+        pos.sum().to(torch.float32), torch.full((), float(cls_logits.shape[0]), device=pos.device)])).unbind()
     one = torch.ones((), device=total_pos.device)
     # tensor divisors: CUDA divides by a Python scalar as a multiplication
     # by its reciprocal

@@ -9,8 +9,16 @@ that axis:
 * the gradients, through ``DistributedDataParallel`` with :func:`sum_hook`
   (``engine/train_step.py``);
 * the loss normalizers, counts over the global batch, through
-  :func:`global_sum` (the RPN, box and mask losses, the uncertainty
-  weight);
+  :func:`global_sum` (the RPN, box, mask, keypoint, RetinaNet and WSDDN
+  losses, the uncertainty weight, MMSS's MLM count and hits);
+* the rows a rank's share of a loss reads from every rank, through
+  :func:`gather_rows_grad`, whose backward reduces the gradient back to
+  each rank's rows (MMSS: the grounding head's v2l-projected images and
+  region masks and its ``[B_local, B]`` costs, the transformer head's
+  visual tokens, region masks and pair scores), and the ceilings of
+  MMSS's guards and masks, through :func:`global_max`;
+* draws every rank must share (MMSS's random triplet negatives), through
+  :func:`from_primary`;
 * the exemplar table's candidates, through :func:`gather_rows` in rank
   order, which is JAX's global image order;
 * the evaluation's results, through :func:`gather_objects` (the JAX
@@ -23,7 +31,7 @@ and ignored: only the data axis is ported.
 """
 
 import os
-from typing import Any, List
+from typing import Any, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -83,30 +91,108 @@ def global_sum(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def refuse_ranks(what: str, why: str = "its loss normalizers count this rank's rows, not the global batch's") -> None:
-    """Raises NotImplementedError on more than one rank for a loss that
-    the port does not yet compute over the global batch, as JAX's sharded
-    step does: its gradient would be another model's."""
-    if world_size() > 1:
-        raise NotImplementedError(
-            f"{what} on {world_size()} ranks: {why} (ROADMAP.md queue A item 8); train it in one process"
-        )
-
-
 def gather_rows(x: torch.Tensor) -> torch.Tensor:
     """Every rank's ``x`` (the same shape on each) concatenated along the
-    first axis in rank order; ``x`` itself with one rank.  An all-reduce
-    of a zero-filled ``[world, ...]`` buffer in which each rank fills its
-    own row: gloo reduces CUDA tensors but gathers none, and a sum with
-    zeros is exact."""
+    first axis in rank order, without gradient; ``x`` itself with one
+    rank (:func:`gather_rows_grad` of ``x.detach()``)."""
     w = world_size()
     if w == 1:
         return x
-    dtype = torch.uint8 if x.dtype == torch.bool else x.dtype
-    buf = torch.zeros((w, *x.shape), dtype=dtype, device=x.device)
-    buf[rank()] = x.detach()
+    return gather_rows_grad(x.detach(), [x.shape[0]] * w)
+
+
+def global_max(x: torch.Tensor) -> torch.Tensor:
+    """The largest element of ``x`` over every rank, 0-d and without
+    gradient (``x.max()`` with one rank).  Every rank must call it at the
+    same point."""
+    out = x.detach().max()
+    if world_size() > 1:
+        out = out.clone()
+        dist.all_reduce(out, op=dist.ReduceOp.MAX)
+    return out
+
+
+def from_primary(x: torch.Tensor) -> torch.Tensor:
+    """Rank 0's ``x`` on every rank (the same shape on each), without
+    gradient; ``x`` itself with one rank.  A draw every rank must share
+    comes from rank 0's generator."""
+    if world_size() == 1:
+        return x
+    out = x.detach().clone() if rank() == 0 else torch.zeros_like(x)
+    dist.all_reduce(out)
+    return out
+
+
+def row_counts(n: int, device=None) -> List[int]:
+    """Every rank's row count ``n``, in rank order; ``[n]`` with one rank."""
+    if world_size() == 1:
+        return [n]
+    return [int(c) for c in gather_rows(torch.tensor([n], dtype=torch.int64, device=device)).tolist()]
+
+
+def _reduce_dtype(dtype: torch.dtype) -> torch.dtype:
+    # bool as uint8 (gloo sums no bool); 16-bit floats in float32, so that
+    # the backward's sum of the ranks' gradients rounds once
+    if dtype == torch.bool:
+        return torch.uint8
+    return torch.float32 if dtype in (torch.bfloat16, torch.float16) else dtype
+
+
+def _padded_sum(rows: Sequence[torch.Tensor], counts: Sequence[int], like: torch.Tensor) -> torch.Tensor:
+    """The all-reduced ``[world, max(counts), ...]`` buffer in which rank
+    i's block holds ``rows[i]`` (a None entry stays zero): a gather as a
+    sum with zeros, which is exact, since gloo reduces CUDA tensors but
+    gathers none."""
+    buf = torch.zeros((len(counts), max(counts), *like.shape[1:]), dtype=_reduce_dtype(like.dtype),
+                      device=like.device)
+    for i, x in enumerate(rows):
+        if x is not None:
+            buf[i, :x.shape[0]] = x
     dist.all_reduce(buf)
-    return buf.reshape(w * x.shape[0], *x.shape[1:]).to(x.dtype)
+    return buf
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, counts):
+        ctx.counts, ctx.dtype = counts, x.dtype
+        r = rank()
+        buf = _padded_sum([x.detach() if i == r else None for i in range(len(counts))], counts, x)
+        if min(counts) == max(counts):
+            out = buf.reshape(-1, *x.shape[1:])
+        else:
+            out = torch.cat([buf[i, :c] for i, c in enumerate(counts)])
+        return out.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        # each rank's share of the loss reads every gathered row, so the
+        # gradient of rank r's rows is the sum of the ranks' gradients of
+        # them: an all-reduce, then this rank's block (a reduce-scatter)
+        counts, r = ctx.counts, rank()
+        buf = _padded_sum(list(torch.split(grad, list(counts))), counts, grad)
+        return buf[r, :counts[r]].to(ctx.dtype), None
+
+
+def gather_rows_grad(x: torch.Tensor, counts: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """Every rank's rows of ``x`` concatenated along the first axis in
+    rank order, with a gradient: ``[sum(counts), ...]``, where rank i
+    holds ``counts[i]`` rows (:func:`row_counts`, gathered here when None;
+    the other axes alike on every rank).  Each rank's block is padded to
+    the largest count for the all-reduce and the padding dropped, so that
+    a short rank's padded rows never enter the result.  The backward
+    all-reduces the incoming gradient and keeps this rank's block: the
+    gradient of each rank's rows sums over every rank's share of the loss.
+    ``x`` itself with one rank, so that a one-process graph is unchanged.
+    Every rank must call it at the same point, forward and backward."""
+    if world_size() == 1:
+        return x
+    if counts is None:
+        counts = row_counts(x.shape[0], x.device)
+    counts = tuple(int(c) for c in counts)
+    if counts[rank()] != x.shape[0]:
+        raise ValueError(f"gather_rows_grad: rank {rank()} has {x.shape[0]} rows, its count is {counts[rank()]}")
+    return _GatherRows.apply(x, counts)
 
 
 def gather_objects(obj: Any) -> List[Any]:

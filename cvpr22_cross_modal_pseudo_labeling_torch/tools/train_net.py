@@ -54,8 +54,9 @@ images a step and ``TEST.IMS_PER_BATCH / world`` an eval batch, its
 stripe of the test sets, the step reduces over the global batch
 (``engine/train_step.py``), rank 0 writes the checkpoints, the labels,
 the metrics and the predictions, and the validation-loss pass sums the
-ranks' shares over the batches every rank has.  MMSS refuses more than
-one rank.
+ranks' shares over the batches every rank has (a short tail batch may
+leave one rank fewer images than another).  Every family trains on
+ranks, MMSS pretraining included.
 """
 
 import argparse

@@ -144,30 +144,6 @@ def _rpn_only(spec):
     return {"metrics": metrics, "params": _params(trainer.model)}
 
 
-def _refusals():
-    """The named errors of the paths that refuse more than one rank."""
-    from cvpr22_cross_modal_pseudo_labeling_torch.engine.train_step import Trainer
-    from cvpr22_cross_modal_pseudo_labeling_torch.models.roi_heads.keypoint_head import keypoint_loss
-    from cvpr22_cross_modal_pseudo_labeling_torch.models.roi_heads.wsddn_head import wsddn_loss
-    from cvpr22_cross_modal_pseudo_labeling_torch.models.rpn import retinanet
-
-    calls = {
-        "keypoint": lambda: keypoint_loss(torch.zeros(1, 4, 4, 1), torch.zeros(1, 1, 3), torch.ones(1, 4),
-                                          torch.ones(1, dtype=torch.bool)),
-        "wsddn": lambda: wsddn_loss(torch.full((1, 3), 0.5), torch.zeros(1, 3)),
-        "retinanet": lambda: retinanet.retinanet_loss(*([None] * 6), None),
-        "mmss": lambda: Trainer("configs/coco_cap_det/mmss.yaml", device="cpu"),
-    }
-    out = {}
-    for name, call in calls.items():
-        try:
-            call()
-            out[name] = None
-        except NotImplementedError as e:
-            out[name] = str(e)
-    return out
-
-
 def dump(obj, path):
     """Pickles ``obj`` to ``path`` through a rename, so that a reader
     waiting for the file never sees half of it."""
@@ -188,8 +164,8 @@ def wait_load(path, timeout=600.0):
 
 
 def worker(rank_, world, tmp):
-    """One rank: each family's steps as its inputs arrive, the helpers'
-    results and the refusals, pickled to ``tmp/rank{rank_}.pkl``."""
+    """One rank: each family's steps as its inputs arrive and the helpers'
+    results, pickled to ``tmp/rank{rank_}.pkl``."""
     import importlib
 
     import torch.distributed as dist
@@ -213,7 +189,6 @@ def worker(rank_, world, tmp):
         "gather_rows_bool": pdist.gather_rows(torch.tensor([rank_ == 1, True])).tolist(),
         "gather_objects": pdist.gather_objects({"rank": rank_}),
         "global_sum": float(pdist.global_sum(torch.tensor(float(rank_ + 1)))),
-        "refusals": _refusals(),
         "families": {name: _run_family(wait_load(tmp / f"inputs_{name}.pkl"), rec) for name in RANK_RUNS},
     }
     result["rpn_only"] = _rpn_only(wait_load(tmp / "inputs_teacher.pkl"))
@@ -221,10 +196,10 @@ def worker(rank_, world, tmp):
     dist.destroy_process_group()
 
 
-def start(args, threads="2"):
-    """This file as a process (``--worker`` or ``--jax``)."""
+def start(args, threads="2", file=__file__):
+    """A test file (this one: ``--worker`` or ``--jax``) as a process."""
     env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS=threads)
-    return subprocess.Popen([sys.executable, __file__, *map(str, args)], cwd=ROOT, env=env,
+    return subprocess.Popen([sys.executable, file, *map(str, args)], cwd=ROOT, env=env,
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
@@ -459,7 +434,6 @@ def test_helpers_are_the_identity_without_a_process_group():
     assert pdist.global_sum(x) is x and pdist.gather_rows(x) is x
     assert pdist.gather_objects({"a": 1}) == [{"a": 1}]
     pdist.barrier()
-    pdist.refuse_ranks("nothing")
     with pytest.raises(ValueError, match="nccl backend needs CUDA"):
         pdist.init_from_env("nccl", "cpu")
     with pytest.raises(ValueError, match="dist backend"):
@@ -472,13 +446,6 @@ def test_gather_helpers_keep_rank_order(runs):
         assert out["gather_rows_bool"] == [False, True, True, True], r
         assert out["gather_objects"] == [{"rank": 0}, {"rank": 1}], r
         assert out["global_sum"] == 3.0, r
-
-
-def test_paths_outside_the_slice_refuse_two_ranks(runs):
-    for out in runs["ranks"]:
-        for name, msg in out["refusals"].items():
-            assert msg is not None and "on 2 ranks" in msg and "queue A item 8" in msg, (name, msg)
-        assert "grounding losses" in out["refusals"]["mmss"]
 
 
 @pytest.mark.parametrize("family", RANK_RUNS)

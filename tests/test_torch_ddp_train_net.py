@@ -8,8 +8,10 @@ of ``tests/test_torch_train_net.py`` at its narrow widths: the
 student-teacher model (no exemplar table: its ``lambda_exemplar`` takes
 no gradient, which DDP's search for such parameters finds) 2 iterations
 of a global batch of 4, with the in-training evaluation and the
-validation-loss pass at iteration 2; a resume to 3; ``test_net`` on the last checkpoint; MMSS,
-which refuses 2 ranks.  Then ``test_net`` on 1 rank on the same
+validation-loss pass at iteration 2; a resume to 3; ``test_net`` on the last checkpoint; MMSS
+pretraining (``tests/test_torch_train_net.py``'s ``MMSS_TINY`` at res2
+16) 2 iterations of a global batch of 4 with the validation-loss pass
+at each, then a resume to 3.  Then ``test_net`` on 1 rank on the same
 checkpoint.  Checked:
 
 - each run adds exactly one checkpoint, and one ``last_checkpoint`` tag
@@ -20,7 +22,8 @@ checkpoint.  Checked:
   do the detections of every image and class, scores within 1e-6 and
   boxes within 1e-3 px (the ranks' batches of 2 on 2 threads against
   batches of 4 here: the CPU convolutions sum in another order);
-- MMSS's named error on both ranks.
+- MMSS trains and resumes on both ranks: one save each run, the ranks
+  bit-equal, the same finite validation losses.
 """
 
 import argparse
@@ -37,7 +40,8 @@ import numpy as np
 import pytest
 
 if __name__ != "__main__":  # the ranks import no jax, which that module does
-    from tests.test_torch_train_net import STUDENT, TINY, tree  # noqa: F401  (tree: a fixture)
+    from tests.test_torch_mmss_train import write_val_captions
+    from tests.test_torch_train_net import MMSS_CONFIG, MMSS_TINY, STUDENT, TINY, tree  # noqa: F401  (tree: a fixture)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 WORLD = 2
@@ -62,17 +66,13 @@ def worker(rank_, world, init_file, plan_file, out_dir):
     with open(plan_file) as f:
         plan = json.load(f)
     out = {}
-    for name in ("train", "resume"):
+    for name, where in (("train", "out"), ("resume", "out"), ("mmss", "mmss_out"), ("mmss_resume", "mmss_out")):
         rec = train_net.main(plan[name])
         out[name] = dict(start_iter=rec["start_iter"], updates=rec["trainer"].optimizer.updates,
                          digest=_digest(rec["trainer"].model), evals=rec["evals"], val_losses=rec["val_losses"],
-                         saves=sorted(p.name for p in pathlib.Path(plan["out"]).iterdir()))
-    out["test"] = test_net.main(plan["test"])[NAME]
-    try:
-        train_net.main(plan["mmss"])
-        out["mmss"] = None
-    except NotImplementedError as e:
-        out["mmss"] = str(e)
+                         saves=sorted(p.name for p in pathlib.Path(plan[where]).iterdir()))
+        if name == "resume":
+            out["test"] = test_net.main(plan["test"])[NAME]
     with open(os.path.join(out_dir, f"rank{rank_}.pkl"), "wb") as f:
         pickle.dump(out, f)
     dist.destroy_process_group()
@@ -89,22 +89,27 @@ def _same(a, b):
 @pytest.fixture(scope="module")
 def ranks(tree, tmp_path_factory):  # noqa: F811
     tmp = tmp_path_factory.mktemp("ddp_train_net")
-    out, ev = tmp / "st", tmp / "eval"
+    out, ev, mmss_out = tmp / "st", tmp / "eval", tmp / "mmss"
+    write_val_captions(tree)  # MMSS's validation-loss pass reads them
     common = ["--device", "cpu", "--dist-backend", "gloo"]
     opts = [*map(str, TINY), "SOLVER.IMS_PER_BATCH", "4", "DATALOADER.ASPECT_RATIO_GROUPING", "False",
             "MODEL.LOAD_TRAINER_STATE", "True", "SOLVER.TEST_PERIOD", "2", "SOLVER.CHECKPOINT_PERIOD", "0",
             # the validation-loss pass needs the training classes
             "SOLVER.SKIP_VAL_LOSS", "False", "DATASETS.TEST", "('coco_not_zeroshot_val',)"]
+    mmss = ["--config-file", MMSS_CONFIG, "--skip-test", *common, *map(str, MMSS_TINY),
+            "MODEL.RESNETS.RES2_OUT_CHANNELS", "16", "SOLVER.IMS_PER_BATCH", "4", "SOLVER.CHECKPOINT_PERIOD", "0",
+            "MODEL.LOAD_TRAINER_STATE", "True", "OUTPUT_DIR", str(mmss_out)]
     plan = {
         "out": str(out),
+        "mmss_out": str(mmss_out),
         "train": ["--config-file", STUDENT, "--skip-test", *common, *opts, "SOLVER.MAX_ITER", "2",
                   "OUTPUT_DIR", str(out)],
         "resume": ["--config-file", STUDENT, "--skip-test", *common, *opts, "SOLVER.MAX_ITER", "3",
                    "OUTPUT_DIR", str(out)],
         "test": ["--config-file", STUDENT, *common, "--ckpt", str(out / "model_0000003.pth"), *map(str, TINY),
                  "OUTPUT_DIR", str(ev)],
-        "mmss": ["--config-file", str(ROOT / "configs/coco_cap_det/mmss.yaml"), "--skip-test", *common,
-                 "MODEL.WEIGHT", "", "SOLVER.IMS_PER_BATCH", "4", "OUTPUT_DIR", str(tmp / "mmss")],
+        "mmss": mmss + ["SOLVER.MAX_ITER", "2"],
+        "mmss_resume": mmss + ["SOLVER.MAX_ITER", "3"],
     }
     plan_file = tmp / "plan.json"
     plan_file.write_text(json.dumps(plan))
@@ -127,7 +132,7 @@ def ranks(tree, tmp_path_factory):  # noqa: F811
     for r in range(WORLD):
         with open(tmp / f"rank{r}.pkl", "rb") as f:
             got.append(pickle.load(f))
-    return dict(ranks=got, out=out, eval=ev, tmp=tmp, tree=tree)
+    return dict(ranks=got, out=out, eval=ev, tmp=tmp, tree=tree, mmss_out=mmss_out)
 
 
 def test_rank_zero_writes_one_checkpoint_and_one_tag(ranks):
@@ -189,9 +194,18 @@ def _by_image_and_class(path):
     return {k: sorted(v, reverse=True) for k, v in out.items()}
 
 
-def test_mmss_refuses_two_ranks(ranks):
-    for got in ranks["ranks"]:
-        assert got["mmss"] is not None and "MMSS pretraining on 2 ranks" in got["mmss"], got["mmss"]
+def test_mmss_trains_and_resumes_on_two_ranks(ranks):
+    r0, r1 = ranks["ranks"]
+    for run, iterations, start, losses in (("mmss", [2], 0, [1, 2]), ("mmss_resume", [2, 3], 2, [3])):
+        for r, got in enumerate((r0, r1)):
+            saves = [s for s in got[run]["saves"] if s.startswith("model_")]
+            assert saves == [f"model_{i:07d}.pth" for i in iterations], (run, r, got[run]["saves"])
+            assert got[run]["start_iter"] == start and got[run]["updates"] == iterations[-1], (run, r)
+            assert list(got[run]["val_losses"]) == losses and all(map(math.isfinite, got[run]["val_losses"].values()))
+        assert r0[run]["digest"] == r1[run]["digest"] and r0[run]["val_losses"] == r1[run]["val_losses"], run
+    assert r0["mmss"]["digest"] != r0["mmss_resume"]["digest"]
+    assert (ranks["mmss_out"] / "last_checkpoint").read_text() == "model_0000003.pth"
+    assert "resumed from" in (ranks["mmss_out"] / "log.txt.rank1").read_text()
 
 
 if __name__ == "__main__":
