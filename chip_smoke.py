@@ -358,14 +358,46 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                 ``MODEL.WEIGHT`` the dump.  Prints the dumps' and
                 checkpoints' bytes, the import's seconds, the resumed s/it and
                 images/s, and the card's name and power limit.
+25. ablation -- the port's end-to-end noisy pseudo-label ablation
+                (``tools/ablate_st_e2e.py``: the gt boxes with masks
+                complemented at 0.5 put in through ``_override_pseudo``,
+                full-width R-50-C4 on 8 x 96 x 96 images, JAX's optax chain)
+                at the JAX record's protocol, 400 steps, seed 0: the six
+                conditions in float32, whose held-out table is printed
+                beside JAX's record with the ordering
+                ``tests/test_ablate_st_e2e.py`` pins for JAX's tool checked
+                and recorded.  The ordering is not a gate: one run's
+                outcome is one draw of a wide spread (repeats of one
+                command on the card differ, 1-ulp nudges of the initial
+                weights move a condition's IoU by 0.3; PERF.md section
+                6), so the phase cannot say whether it holds; then ``fixed`` and
+                ``sampled_bce`` in bf16 (recorded, not bounded), each run a
+                process of its own, all at once.  Each run's first step's
+                launches are held against
+                the plain versions, every step launches as many (2 NMS,
+                2 RoIAlign: the hook discards the teacher's pass, so it is
+                not run), and the first step's launch shapes are timed
+                beside their bounds.
+26. export   -- the port's ``tools/export_serving.py``: the student-teacher
+                model (``main``, seeded weights, the eval tree's class table)
+                at 1 x 800 x 1344 and 8 x 800 x 1344, the teacher at 1 x 800 x
+                1344; each artifact loaded back (``load_and_run``), its graph
+                calling ``cmpl::nms`` and ``cmpl::roi_align``, its detections
+                held against ``Predictor``'s on the same inputs (``valid``
+                and ``labels`` equal, boxes, scores and masks within
+                ``EXPORT["bounds"]``), the first served call's launches held
+                against the plain versions.  Export and load seconds, the
+                artifact's bytes, one served call against one ``Predictor``
+                call, and the batch-1 launch shapes timed.
 One line gives the seconds each phase from 7 on took.  The per-kernel line
 gives, beside each kernel's launches on the earlier paths, its launches on
 the MMSS paths (phase 14 and the MMSS stage of phase 16): 0, on the
 OpenImages paths of phase 17, on the supervised paths of phase 18, on the
 FPN, RetinaNet and RPN-only paths of phases 19 and 20, on the options'
 paths of phase 21, on the student-teacher options' paths of phase 22, on
-each rank of phase 23 (a), (a') and (d') and on phase 24's resume and
-test_net runs.
+each rank of phase 23 (a), (a') and (d'), on phase 24's resume and
+test_net runs, on each ablation run of phase 25 and each served export
+call of phase 26.
 
 Then the card's name and power limit, the per-kernel JSON line, and the last
 line ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when
@@ -2380,7 +2412,7 @@ def phase_openimages(dev, results):
 
             def checked_merge(*args, **kw):
                 def hook(inputs, out_):
-                    if "merge_nms" not in captured or inputs[0].shape[0] > captured["merge_nms"][0].shape[0]:
+                    if "merge_nms" not in captured or inputs[0].shape[-2] > captured["merge_nms"][0].shape[-2]:
                         captured["merge_nms"] = inputs
                     check_merge(inputs, out_)
 
@@ -2976,13 +3008,13 @@ def check_lists(checks):
 
 def check_all_passed(label, checks, first, nms, roi, bwd):
     check(len(checks["nms"]) == first["nms"] == nms and all(x == 0 for x, _ in checks["nms"]),
-          f"fpn {label}: NMS launches {first['nms']} (want {nms}) or mismatches {checks['nms']}")
+          f"{label}: NMS launches {first['nms']} (want {nms}) or mismatches {checks['nms']}")
     check(len(checks["roi_align"]) == first["roi_align"] == roi
           and all(x <= 0 for _, x, _, _ in checks["roi_align"]),
-          f"fpn {label}: RoIAlign launches {first['roi_align']} (want {roi}) or errors {checks['roi_align']}")
+          f"{label}: RoIAlign launches {first['roi_align']} (want {roi}) or errors {checks['roi_align']}")
     check(len(checks["roi_align_backward"]) == first["roi_align_backward"] == bwd
           and all(x <= 0 for _, x, _, _ in checks["roi_align_backward"]),
-          f"fpn {label}: backward launches {first['roi_align_backward']} (want {bwd}) "
+          f"{label}: backward launches {first['roi_align_backward']} (want {bwd}) "
           f"or errors {checks['roi_align_backward']}")
 
 
@@ -3024,7 +3056,7 @@ def checked_serving(dev, phase, config, opts, classes, seed, label, per_batch, m
         check(np.isfinite(dets.boxes).all() and np.isfinite(dets.scores).all()
               and (masks is None or np.isfinite(masks).all()), f"{phase} {label}: non-finite output")
         check(bool(dets.valid.any(1).all()), f"{phase} {label}: batch {i} has an image without detections")
-    check_all_passed(label, checks, first, *per_batch)
+    check_all_passed(f"{phase} {label}", checks, first, *per_batch)
     check(path == {k: v * n for k, v in first.items()},
           f"{phase} {label}: launches {path} over {n} batches, first {first}")
     steady = lat[1:]
@@ -3075,7 +3107,7 @@ def checked_training(dev, phase, config, opts, classes, seed, label, per_step, t
     moved += [k for k, x in model.named_buffers() if not torch.equal(x, buffers[k])]
     check(not unchanged, f"{phase} {label}: trained parameters did not change: {unchanged[:5]}")
     check(not moved, f"{phase} {label}: frozen parameters or buffers changed: {moved[:5]}")
-    check_all_passed(label, checks, first, *per_step)
+    check_all_passed(f"{phase} {label}", checks, first, *per_step)
     check(path == {k: v * n for k, v in first.items()}, f"{phase} {label}: launches {path} over {n} steps, first {first}")
     steady = lat[1:]
     rec["runs"][label] = dict(step_latency_s=lat, steady_step_s=sum(steady) / len(steady),
@@ -3192,7 +3224,7 @@ def phase_fpn(dev, results):
             kernels.NMS.on_launch = kernels.ROI_ALIGN.on_launch = kernels.ROI_ALIGN_BACKWARD.on_launch = None
         launches["train_net_teacher"] = {k.name: k.launches for k in kernels.ALL}
         all_checks["train_net_teacher"] = checks
-        check_all_passed("train_net teacher", checks, {"nms": 5, "roi_align": 4, "roi_align_backward": 4}, 5, 4, 4)
+        check_all_passed("fpn train_net teacher", checks, {"nms": 5, "roi_align": 4, "roi_align_backward": 4}, 5, 4, 4)
         check([r["step"] for r in logged] == list(range(1, FPN_PHASE["steps"] + 1))
               and all(np.isfinite(v) for r in logged for v in r.values()),
               f"fpn train_net teacher: logged {logged}")
@@ -3810,7 +3842,7 @@ def phase_options(dev, results):
         model = rec["trainer"].model
         check(isinstance(model.backbone, ResNetFPNBackbone) and hasattr(model, "keypoint_predictor")
               and not hasattr(model, "mask_predictor"), "options keypoint train_net: another model was built")
-        check_all_passed("keypoint train_net", checks, {"nms": 5, "roi_align": 4, "roi_align_backward": 4}, 5, 4, 4)
+        check_all_passed("options keypoint train_net", checks, {"nms": 5, "roi_align": 4, "roi_align_backward": 4}, 5, 4, 4)
         check(launches["keypoint_train_net"] == {"nms": 5 * steps, "roi_align": 4 * steps,
                                                  "roi_align_backward": 4 * steps},
               f"options keypoint train_net: launches {launches['keypoint_train_net']}")
@@ -4000,7 +4032,7 @@ def st_options_steps(dev, label, opts, seed, tables, trained, rec, capture, per_
           f"st_options {label}: a frozen parameter changed")
     unchanged = [n for n in start if torch.equal(params[n], start[n])]
     check(start and not unchanged, f"st_options {label}: trained parameters did not change: {unchanged[:5]}")
-    check_all_passed(label, checks, first, 2, 4, 0)
+    check_all_passed(f"st_options {label}", checks, first, 2, 4, 0)
     check(path == {k: v * len(batches) for k, v in first.items()}, f"st_options {label}: launches {path}")
     steady = lat[1:]
     rec["runs"][label] = dict(step_latency_s=lat, steady_step_s=sum(steady) / len(steady),
@@ -4203,7 +4235,7 @@ def phase_st_options(dev, results):
 
     checks, *hooks = launch_checks()
     lat, outs, first, path, peak = fpn_steps(pseudo, [0, 1], 1, capture(checks, hooks, "teacher_pseudo"))
-    check_all_passed("teacher_pseudo", checks, first, 1, 2, 0)
+    check_all_passed("st_options teacher_pseudo", checks, first, 1, 2, 0)
     branch, boxes, masks = outs[0]
     p = s.rpn_post_nms_test
     check(branch.embeddings.shape == (b, p, s.emb_dim) and branch.class_logits.shape == (b, p, TEACHER_CLASSES)
@@ -5411,6 +5443,340 @@ def phase_jax_checkpoint(dev, results):
     results["jax_checkpoint"] = rec
 
 
+# phase 25: the end-to-end noisy pseudo-label ablation (the port's
+# tools/ablate_st_e2e.py) at the JAX record's protocol, float32, then the
+# two unpinned bf16 runs; JAX's record (BENCH_NOTES.json
+# round5_st_e2e_ablation: tools/ablate_st_e2e.py --steps 400 --corrupt 0.5
+# on its own init) as (AP50, mean mask IoU, class accuracy)
+ABLATION = dict(steps=400, corrupt=0.5, seed=0, bf16=("fixed", "sampled_bce"), timing_iters=20,
+                out="build/ablation_out")
+ABLATION_JAX = {"fixed": (0.406, 0.414, 1.0), "sampled_bce": (0.5, 0.503, 1.0), "logmeanexp": (0.5, 0.446, 1.0),
+                "logmeanexp_unbounded": (0.0, 0.0, 1.0), "sampled_bce_adaptive": (0.094, 0.513, 0.094),
+                "logmeanexp_adaptive": (0.0, 0.371, 0.0)}
+
+
+def ablation_ordering(res):
+    """The ordering ``tests/test_ablate_st_e2e.py`` pins for JAX's tool:
+    each check's name and whether it holds."""
+    iou = {k: v["mean_mask_iou"] for k, v in res.items()}
+    return {
+        "sampled_bce IoU > fixed + 0.02": iou["sampled_bce"] > iou["fixed"] + 0.02,
+        "logmeanexp IoU > fixed + 0.02": iou["logmeanexp"] > iou["fixed"] + 0.02,
+        "sampled_bce AP50 >= fixed": res["sampled_bce"]["gtbox_mask_ap50"] >= res["fixed"]["gtbox_mask_ap50"],
+        "logmeanexp_unbounded IoU < 0.2": iou["logmeanexp_unbounded"] < 0.2,
+        "logmeanexp IoU > 0.35": iou["logmeanexp"] > 0.35,
+    }
+
+
+def shapes_timed(captured, iters):
+    """Each captured first launch (NMS or RoIAlign forward) held against
+    its plain version again and timed beside its bound and the plain
+    version's time."""
+    from cvpr22_cross_modal_pseudo_labeling_torch.ops import nms as nm
+    from cvpr22_cross_modal_pseudo_labeling_torch.ops import roi_align as ra
+
+    shapes = {}
+    for (kind, *_), inputs in captured.items():
+        if kind == "nms":
+            boxes, scores, valid, thr, k, labels = inputs
+            idx, keep = nm.nms(*inputs)
+            ref = nm.nms_plain(*inputs)
+            mism = int((idx != ref[0]).sum() + (keep != ref[1]).sum())
+            check(mism == 0, f"nms {list(boxes.shape)}: {mism} mismatches")
+            bound_ms, bound_by, _ = nms_bound(scores, valid, labels, idx, keep, k)
+            key = (f"nms {boxes.shape[0]} x {boxes.shape[1]} -> {k}, IoU {thr}"
+                   + ("" if labels is None else f", {len(torch.unique(labels))} labels"))
+            shapes[key] = dict(kept=int(keep.sum()), mismatches=mism, ms=cuda_ms(lambda: nm.nms(*inputs), 2 * iters),
+                               plain_ms=cuda_ms(lambda: nm.nms_plain(*inputs), 2), bound_ms=bound_ms,
+                               bound_by=bound_by)
+        else:
+            feats, rois, output_size, scale, sr, ms_, bin_stride = inputs
+            out = ra.roi_align(*inputs)
+            err, excess = forward_err(out, inputs, float(feats.float().abs().max()))
+            check(excess <= 0, f"roi_align {list(rois.shape)}: max abs diff {err}, {excess} over the limit")
+            del out
+            bound_ms, bound_by, _, _ = roi_bound(feats, rois, output_size, bin_stride)
+            key = (f"roi_align {rois.shape[0]} x {rois.shape[1]} on {list(feats.shape)} {feats.dtype}, "
+                   f"bin_stride {bin_stride}")
+            shapes[key] = dict(max_abs_err=err, ms=cuda_ms(lambda: ra.roi_align(*inputs), iters),
+                               plain_ms=cuda_ms(lambda: ra.roi_align_plain(*inputs), 2), bound_ms=bound_ms,
+                               bound_by=bound_by)
+    return shapes
+
+
+def capturing(checks_hooks, captured, tag):
+    """The launch checks' NMS and RoIAlign hooks, keeping the inputs of
+    the first launch of each shape under ``captured[(kind, tag, shape)]``."""
+    check_nms, check_roi = checks_hooks
+
+    def nms_hook(inputs, out_):
+        captured.setdefault(("nms", tag, tuple(inputs[0].shape), inputs[5] is not None), inputs)
+        check_nms(inputs, out_)
+
+    def roi_hook(inputs, out_):
+        captured.setdefault(("roi_align", tag, tuple(inputs[1].shape), tuple(inputs[0].shape)), inputs)
+        check_roi(inputs, out_)
+
+    return nms_hook, roi_hook
+
+
+def ablation_run(name, dtype, out_path, steps=None, captured=None, device="cuda"):
+    """One condition of the port's ``tools/ablate_st_e2e.py`` at
+    ``ABLATION``'s protocol (``steps`` to cut it), launch counts set to 0
+    before it: the first step's launches held against the plain versions
+    (their inputs kept in ``captured`` when given), every step's launches
+    counted.  Writes its record to ``out_path`` (when given) and returns
+    it."""
+    from cvpr22_cross_modal_pseudo_labeling_torch.ops import kernels
+    from cvpr22_cross_modal_pseudo_labeling_torch.tools import ablate_st_e2e as ab
+
+    (_, unc, est, ns, rw, sm), = [c for c in ab.CONDITIONS if c[0] == name]
+    steps = ABLATION["steps"] if steps is None else steps
+    checks, check_nms, check_roi, check_roi_bwd = launch_checks()
+    if captured is not None:
+        check_nms, check_roi = capturing((check_nms, check_roi), captured, dtype)
+    marks = []
+
+    def on_step(it):
+        first = it == 0
+        kernels.NMS.on_launch = check_nms if first else None
+        kernels.ROI_ALIGN.on_launch = check_roi if first else None
+        kernels.ROI_ALIGN_BACKWARD.on_launch = check_roi_bwd if first else None
+        marks.append({k.name: k.launches for k in kernels.ALL})
+
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    try:
+        out = ab.run_condition(name, unc, est, ns, steps, ABLATION["corrupt"], seed=ABLATION["seed"], reweight=rw,
+                               sigma_max=sm, device=device, dtype=dtype, on_step=on_step)
+    finally:
+        kernels.NMS.on_launch = kernels.ROI_ALIGN.on_launch = kernels.ROI_ALIGN_BACKWARD.on_launch = None
+    seconds = time.perf_counter() - t
+    per_step = [{k: b[k] - a[k] for k in a} for a, b in zip(marks, marks[1:])]
+    rec = dict(out, dtype=dtype, steps=steps, seconds=seconds, s_per_step=seconds / steps,
+               first_launches=per_step[0], launches_alike=all(x == per_step[0] for x in per_step),
+               launches={k.name: k.launches for k in kernels.ALL}, checks=check_lists(checks),
+               device=torch.cuda.get_device_name(0) if device == "cuda" else device)
+    if out_path is not None:
+        with open(out_path, "w") as f:
+            json.dump(rec, f)
+    return rec
+
+
+def phase_ablation(dev, results):
+    """Phase 25: the port's ``tools/ablate_st_e2e.py`` at the JAX record's
+    protocol (400 steps, masks complemented at 0.5, seed 0, weights drawn
+    from JAX's init distributions): the six conditions in float32 and
+    ``fixed`` and ``sampled_bce`` in bf16, each run a process of its own
+    (``--ablation-run``), all on the card at once (one run's step is
+    host-bound).  Each run's first step's launches are held against the
+    plain versions; every step launches as many; ``run_condition`` raises
+    on a non-finite loss or a run without a positive.  The float32 table
+    is printed beside JAX's record with each check of the ordering that
+    ``tests/test_ablate_st_e2e.py`` pins for JAX's tool, and
+    ``ordering_holds``: recorded, and not a gate.  The port's step follows
+    JAX's (the CPU tests; ``tests/torch_ablation_lockstep.py``), but one
+    run's outcome is one draw of a spread wider than the pinned gaps:
+    from JAX's own initial weights, two runs of one command on the card
+    differ by up to 0.10 IoU (nondeterministic summation; bit-equal under
+    ``--deterministic``) and 1-ulp nudges of the weights move ``fixed``
+    between 0.28 and 0.61 (PERF.md section 6).  The bf16 runs are
+    recorded too.  Then one step of
+    ``fixed`` in each dtype on the idle card gives the launch shapes,
+    timed beside their bounds."""
+    from cvpr22_cross_modal_pseudo_labeling_torch.tools import ablate_st_e2e as ab
+
+    out = ABLATION["out"]
+    os.makedirs(out, exist_ok=True)
+    t_phase = time.perf_counter()
+    labels = [(c[0], "float32", c[0]) for c in ab.CONDITIONS] + [
+        (n, "bfloat16", f"{n}_bf16") for n in ABLATION["bf16"]]
+    started, runs = [], {}
+    try:
+        procs = {label: launch(["chip_smoke.py", "--ablation-run", name, dtype, os.path.join(out, f"{label}.json")],
+                               os.path.join(out, f"{label}.log"), started=started)
+                 for name, dtype, label in labels}
+        wall = {label: finish(run) for label, run in procs.items()}
+    finally:
+        for proc in started:
+            stop(proc)
+    for name, dtype, label in labels:
+        with open(os.path.join(out, f"{label}.json")) as f:
+            runs[label] = dict(json.load(f), wall_s=wall[label])
+        r = runs[label]
+        # NMS: the RPN's eval and train selectors; RoIAlign: each student
+        # branch's sampled rois (the teacher's pass is not run: the hook
+        # discards it)
+        check(r["first_launches"] == {"nms": 2, "roi_align": 2, "roi_align_backward": 0} and r["launches_alike"]
+              and len(r["checks"]["nms_mismatches"]) == 2 and not any(r["checks"]["nms_mismatches"])
+              and len(r["checks"]["roi_align_excess_over_limit"]) == 2
+              and all(x <= 0 for x in r["checks"]["roi_align_excess_over_limit"]),
+              f"ablation {label}: first step {r['first_launches']}, alike {r['launches_alike']}, checks {r['checks']}")
+        emit(dict(phase=f"ablation_{label}", **{k: v for k, v in r.items() if k != "checks"}))
+    f32 = {c[0]: runs[c[0]] for c in ab.CONDITIONS}
+    ordering = ablation_ordering(f32)
+    table = [dict(condition=k, ap50=v["gtbox_mask_ap50"], jax_ap50=ABLATION_JAX[k][0],
+                  mean_mask_iou=v["mean_mask_iou"], jax_mean_mask_iou=ABLATION_JAX[k][1],
+                  cls_acc=v["cls_acc"], jax_cls_acc=ABLATION_JAX[k][2]) for k, v in f32.items()]
+    runs_s = time.perf_counter() - t_phase
+    captured = {}
+    for dtype in ("float32", "bfloat16"):
+        ablation_run("fixed", dtype, None, steps=1, captured=captured, device=dev.type)
+    shapes = shapes_timed(captured, ABLATION["timing_iters"])
+    rec = dict(phase="ablation", device=nvidia_smi(), steps=ABLATION["steps"], corrupt=ABLATION["corrupt"],
+               seed=ABLATION["seed"], table=table, ordering=ordering, ordering_holds=all(ordering.values()),
+               bf16={k: runs[f"{k}_bf16"] for k in ABLATION["bf16"]},
+               launches={k: r["launches"] for k, r in runs.items()},
+               first_step_checks={k: r["checks"] for k, r in runs.items()}, new_shapes=shapes,
+               runs_s=runs_s, seconds=time.perf_counter() - t_phase)
+    emit(rec)
+    results["ablation"] = rec
+
+
+# phase 26: serving export (the port's tools/export_serving.py) of the
+# student-teacher model at batch 1 and 8 and of the teacher at batch 1, at
+# JAX's default shape; artifacts under build/export (deleted at the end)
+EXPORT = dict(out="build/export", hw=(800, 1344), timing_iters=10,
+              # boxes px, scores, mask probabilities: the CPU eval tests'
+              # tolerances (tests/test_torch_st_eval.py); the artifact runs
+              # the same kernels on the same inputs, so 0 is expected
+              bounds=(1e-3, 1e-5, 1e-4))
+
+
+def served_diffs(served, dets, masks):
+    """(valid equal, labels equal, max |diff| of boxes, scores, masks) of
+    an artifact's outputs against ``Predictor``'s."""
+    valid = np.array_equal(served["valid"], dets.valid)
+    labels = np.array_equal(served["labels"], dets.labels)
+    diffs = [float(np.abs(served[k].astype(np.float64) - want.astype(np.float64)).max())
+             for k, want in (("boxes", dets.boxes), ("scores", dets.scores), ("mask_probs", masks))]
+    return valid, labels, diffs
+
+
+def phase_export(dev, results):
+    """Phase 26: ``tools/export_serving.py`` on the card.  The
+    student-teacher model (``main``, seeded weights, the eval tree's
+    ``coco_zeroshot_val`` class table) at 1 x 800 x 1344, the same model at
+    batch 8 (``export_model`` of a ``Predictor``'s model), and the teacher
+    at batch 1 (``main``).  Each artifact is loaded back and served by
+    ``load_and_run``; its detections are held against ``Predictor``'s on the
+    same inputs (``valid`` and ``labels`` equal, boxes, scores and masks
+    within ``EXPORT["bounds"]``), its graph must call ``cmpl::nms`` and
+    ``cmpl::roi_align``, and the first served call's launches are counted
+    and held against the plain versions.  Records the export and load
+    seconds, the artifact's bytes and one served call against one
+    ``Predictor`` call; times the batch-1 launch shapes."""
+    import shutil
+
+    from cvpr22_cross_modal_pseudo_labeling_torch import bridge
+    from cvpr22_cross_modal_pseudo_labeling_torch.engine.inference import Predictor
+    from cvpr22_cross_modal_pseudo_labeling_torch.ops import kernels
+    from cvpr22_cross_modal_pseudo_labeling_torch.tools import export_serving as es
+
+    check(os.path.isdir(EVAL["tree"]), f"export: no tree at {EVAL['tree']} (the eval phase writes it)")
+    os.environ["CMPL_TPU_DATA_DIR"] = EVAL["tree"]
+    out = EXPORT["out"]
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    h, w = EXPORT["hw"]
+    rng = np.random.default_rng(SEED + 26)
+    t_phase = time.perf_counter()
+    runs, launches, all_checks, captured = {}, {}, {}, {}
+    pred = pred_config = None
+    try:
+        for label, config, batch in (("st_b1", CONFIG, 1), ("st_b8", CONFIG, 8), ("teacher_b1", TEACHER, 1)):
+            path = os.path.join(out, f"{label}.pt2")
+            if config != pred_config:
+                pred = None
+                torch.cuda.empty_cache()
+                pred, pred_config = Predictor(config, (), device=dev), config
+                pred.load_flax_params(bridge.seeded_flax_params(pred.model, SEED, EMB_PRED_STD))
+            table = es.test_class_table(pred.cfg)
+            t = time.perf_counter()
+            if batch == 1:
+                # the command line: build, seeded weights, the class table,
+                # the trace and the save
+                manifest = es.main(["--config-file", config, "--out", path, "--batch", "1", "--height", str(h),
+                                    "--width", str(w), "--device", dev.type, "--seed", str(SEED)])
+            else:
+                manifest = es.export_model(pred.model, table, pred.cfg.MODEL.META_ARCHITECTURE, batch, h, w, path)
+            export_s = time.perf_counter() - t
+            torch.cuda.empty_cache()
+            check(manifest["input_shape"] == [batch, h, w, 3] and manifest["platforms"] == [dev.type]
+                  and manifest["num_classes"] == len(table) and manifest["bytes"] == os.path.getsize(path),
+                  f"export {label}: manifest {manifest}")
+            t = time.perf_counter()
+            program = es.load_exported(path)
+            load_s = time.perf_counter() - t
+            ops = sorted({str(n.target) for n in program.graph.nodes if str(n.target).startswith("cmpl.")})
+            check(ops == ["cmpl.nms.default", "cmpl.roi_align.default"], f"export {label}: graph calls {ops}")
+            del program
+            sizes = np.stack([rng.integers(3 * h // 4, h + 1, batch), rng.integers(2 * w // 3, w + 1, batch)], 1)
+            sizes[0] = (h, w)
+            sizes = sizes.astype(np.int32)
+            images = rng.integers(0, 256, (batch, h, w, 3), dtype=np.uint8)
+            checks, check_nms, check_roi, _ = launch_checks()
+            nms_hook, roi_hook = capturing((check_nms, check_roi), captured, label)
+            kernels.reset_launches()
+            kernels.NMS.on_launch, kernels.ROI_ALIGN.on_launch = (nms_hook, roi_hook) if batch == 1 else (
+                check_nms, check_roi)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            try:
+                served = {k: v.cpu().numpy() for k, v in es.load_and_run(path, images, sizes).items()}
+            finally:
+                kernels.NMS.on_launch = kernels.ROI_ALIGN.on_launch = None
+            first_call_s = time.perf_counter() - t
+            launches[label] = {k.name: k.launches for k in kernels.ALL}
+            all_checks[label] = checks
+            check_all_passed(f"export {label}", checks, launches[label], 2, 2, 0)
+            # one served call of the loaded program against one Predictor call,
+            # both warm, both ending with the outputs on the host
+            module = es.load_exported(path).module()
+            dev_images, dev_sizes = torch.as_tensor(images).to(dev), torch.as_tensor(sizes).to(dev)
+
+            def serve():
+                with torch.no_grad():
+                    return {k: v.cpu().numpy() for k, v in module(dev_images, dev_sizes).items()}
+
+            serve()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            served_again = serve()
+            served_s = time.perf_counter() - t
+            pred(images, sizes, table)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            dets, masks = pred(images, sizes, table)
+            predictor_s = time.perf_counter() - t
+            del module
+            valid_eq, labels_eq, (d_boxes, d_scores, d_masks) = served_diffs(served, dets, masks)
+            b_boxes, b_scores, b_masks = EXPORT["bounds"]
+            check(valid_eq and labels_eq and d_boxes <= b_boxes and d_scores <= b_scores and d_masks <= b_masks
+                  and all(np.array_equal(served_again[k], served[k]) for k in served) and dets.valid.any(1).all(),
+                  f"export {label}: valid {valid_eq}, labels {labels_eq}, max diffs boxes {d_boxes}, scores "
+                  f"{d_scores}, masks {d_masks}")
+            runs[label] = dict(config=config, manifest=manifest, export_s=export_s, load_s=load_s,
+                               first_load_and_run_s=first_call_s, served_call_s=served_s, predictor_call_s=predictor_s,
+                               max_abs_diff=dict(boxes=d_boxes, scores=d_scores, mask_probs=d_masks),
+                               valid_detections=dets.valid.sum(1).tolist(), graph_ops=ops)
+            emit(dict(phase=f"export_{label}", launches=launches[label], **runs[label]))
+            os.remove(path)
+            torch.cuda.empty_cache()
+    finally:
+        kernels.NMS.on_launch = kernels.ROI_ALIGN.on_launch = None
+        shutil.rmtree(out, ignore_errors=True)
+    del pred
+    torch.cuda.empty_cache()
+    shapes = shapes_timed({k: v for k, v in captured.items() if k[1] == "st_b1"}, EXPORT["timing_iters"])
+    rec = dict(phase="export", device=nvidia_smi(), image_hw=[h, w], bounds=EXPORT["bounds"], runs=runs,
+               launches=launches, launch_checks={k: check_lists(c) for k, c in all_checks.items()},
+               new_shapes=shapes, seconds=time.perf_counter() - t_phase)
+    emit(rec)
+    results["export"] = rec
+
+
 def count_syncs(run):
     """The synchronizing CUDA calls one call of ``run`` makes (blocking
     copies, ``.item()``, ...), as ``torch.cuda.set_sync_debug_mode``
@@ -5446,6 +5812,21 @@ def kernels_line(results):
     so = results["st_options"]
     dp = results["ddp"]
     jx = results["jax_checkpoint"]
+    ab, ex = results["ablation"], results["export"]
+
+    def new_phase_launches(kernel):
+        # each ablation run (400 steps, phase 25) and each served export
+        # call (phase 26)
+        return {**{f"ablation_{run}_launches": n[kernel] for run, n in ab["launches"].items()},
+                **{f"export_{run}_launches": n[kernel] for run, n in ex["launches"].items()}}
+
+    def new_phase_errs(field):
+        return [x for rec, key in ((ab, "first_step_checks"), (ex, "launch_checks"))
+                for c in rec[key].values() for x in c[field]]
+
+    def new_phase_shapes(prefix):
+        return {f"{phase} {k[len(prefix) + 1:]}": shape_rec(v) for phase, rec in (("ablation", ab), ("export", ex))
+                for k, v in rec["new_shapes"].items() if k.split(" ")[0] == prefix}
 
     def jax_checkpoint_launches(kernel):
         # the resumed teacher and test_net on the converted checkpoint and
@@ -5539,6 +5920,7 @@ def kernels_line(results):
              **st_options_launches("nms"),
              **ddp_launches("nms"),
              **jax_checkpoint_launches("nms"),
+             **new_phase_launches("nms"),
              launch_unit="one nms_forward call: a memset, then a mask and a scan "
                          "kernel per column band",
              max_abs_err=float(max(serving["first_batch_checks"]["nms_mismatches"]
@@ -5557,6 +5939,9 @@ def kernels_line(results):
                                    + st_options_errs("nms_mismatches")
                                    + ddp_errs("nms_mismatches")
                                    + jx["first_step_checks"]["nms_mismatches"]
+                                   + new_phase_errs("nms_mismatches")
+                                   + [v["mismatches"] for r in (ab, ex) for k, v in r["new_shapes"].items()
+                                      if k.startswith("nms ")]
                                    + [results[f"nms_{c[0]}"]["mismatches"] for c in NMS_CASES]
                                    + [results["nms_rpn_dense"]["one_band_mismatches"]])),
              ms=nms_rpn["ms"], plain_ms=nms_rpn["plain_ms"],
@@ -5568,7 +5953,8 @@ def kernels_line(results):
              supervised_shapes=sup_shapes("nms_"),
              fpn_shapes=fpn_shapes("nms"),
              retinanet_shapes={k[4:]: shape_rec(v) for k, v in rn["new_shapes"].items()},
-             options_shapes=options_shapes("nms")),
+             options_shapes=options_shapes("nms"),
+             ablation_export_shapes=new_phase_shapes("nms")),
         dict(name="roi_align", route="cuda",
              source="cvpr22_cross_modal_pseudo_labeling_torch/csrc/roi_align.cu",
              replaces="tools/proto_pallas_roialign.py:146",
@@ -5588,6 +5974,7 @@ def kernels_line(results):
              **st_options_launches("roi_align"),
              **ddp_launches("roi_align"),
              **jax_checkpoint_launches("roi_align"),
+             **new_phase_launches("roi_align"),
              fpn_launch_unit="the FPN pooler launches the kernel once a level (P2..P5) into one output; "
                              "each launch counts one",
              max_abs_err=max(serving["first_batch_checks"]["roi_align_max_abs_err"]
@@ -5605,6 +5992,9 @@ def kernels_line(results):
                              + st_options_errs("roi_align_max_abs_err")
                              + ddp_errs("roi_align_max_abs_err")
                              + jx["first_step_checks"]["roi_align_max_abs_err"]
+                             + new_phase_errs("roi_align_max_abs_err")
+                             + [v["max_abs_err"] for r in (ab, ex) for k, v in r["new_shapes"].items()
+                                if k.startswith("roi_align ")]
                              + [results[("roi_align",) + c]["max_abs_err"] for c in ROI_CASES]),
              dtypes="bfloat16 features -> bfloat16 output",
              ms=roi_main["ms"], plain_ms=roi_main["plain_ms"],
@@ -5618,7 +6008,8 @@ def kernels_line(results):
                  "top-2 pseudo boxes, " + sup["new_shapes"]["roi_align_pseudo_boxes_top2"]["shape"]:
                  shape_rec(sup["new_shapes"]["roi_align_pseudo_boxes_top2"])},
              fpn_shapes=fpn_shapes("roi_align"),
-             options_shapes=options_shapes("roi_align")),
+             options_shapes=options_shapes("roi_align"),
+             ablation_export_shapes=new_phase_shapes("roi_align")),
         dict(name="roi_align_backward", route="cuda",
              source="cvpr22_cross_modal_pseudo_labeling_torch/csrc/roi_align.cu",
              replaces="cvpr22_cross_modal_pseudo_labeling_tpu/ops/roi_align_mxu.py:91 "
@@ -5635,6 +6026,7 @@ def kernels_line(results):
              **st_options_launches("roi_align_backward"),
              **ddp_launches("roi_align_backward"),
              **jax_checkpoint_launches("roi_align_backward"),
+             **new_phase_launches("roi_align_backward"),
              launch_unit="one roi_align_backward call: the plan kernel (each roi's tap "
                          "lists), then the tile kernel (each tile of dF summed in shared "
                          "memory, written once in bfloat16)",
@@ -5676,6 +6068,13 @@ def main():
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         ddp_rank(sys.argv[2], sys.argv[3])
+        return 0
+    if sys.argv[1:2] == ["--ablation-run"]:
+        # one run of phase 25, started by the phase beside the others
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.set_num_threads(1)
+        ablation_run(*sys.argv[2:5])
         return 0
     from cvpr22_cross_modal_pseudo_labeling_torch.ops import kernels
 
@@ -5747,6 +6146,10 @@ def main():
     timed("ddp", phase_ddp, dev, results)
     torch.cuda.empty_cache()
     timed("jax_checkpoint", phase_jax_checkpoint, dev, results)
+    torch.cuda.empty_cache()
+    timed("ablation", phase_ablation, dev, results)
+    torch.cuda.empty_cache()
+    timed("export", phase_export, dev, results)
     emit(dict(phase="timing", **seconds))
 
     print(nvidia_smi(), flush=True)

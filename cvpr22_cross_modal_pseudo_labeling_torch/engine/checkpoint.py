@@ -667,6 +667,36 @@ def _read_weights(weight_path: str):
     return path, tree, blob
 
 
+def load_eval_weights(predictor, cfg, ckpt: Optional[str], seed: int) -> str:
+    """The weights of an entry point that serves a trained model
+    (``test_net``, ``export_serving``), decided here for both.  ``ckpt``
+    (default: the save ``OUTPUT_DIR/last_checkpoint`` names; a directory
+    reads its own tag) is a port checkpoint of ``cfg``'s meta-architecture,
+    whose weights and buffers load as they are (one of another
+    meta-architecture raises); any other weights it names, or
+    ``MODEL.WEIGHT`` without it, are imported into weights drawn from
+    ``seed`` by :func:`import_external_weights` (the ``.npz`` dump of a
+    JAX-trained checkpoint, a ``.pth``, a ``.pkl``); with neither, the
+    drawn weights serve.  Loads them into ``predictor``; returns what it
+    did."""
+    from ..utils.model_zoo import resolve_weight_path
+
+    ckpt = ckpt or latest_checkpoint(cfg.OUTPUT_DIR)
+    if ckpt and os.path.isdir(ckpt):
+        ckpt = latest_checkpoint(ckpt) or ckpt
+    if ckpt and os.path.isfile(ckpt) and not ckpt.endswith((".npz", ".pkl")):
+        blob = load_checkpoint(ckpt)
+        if is_port_checkpoint(blob):
+            if blob["meta_arch"] != cfg.MODEL.META_ARCHITECTURE:
+                raise RuntimeError(f"{ckpt} holds a {blob['meta_arch']} model, not {cfg.MODEL.META_ARCHITECTURE}")
+            predictor.model.load_state_dict(blob["trainer"]["model"], strict=True)
+            return f"loaded checkpoint {ckpt} (iteration {blob['iteration']}) on {predictor.device}"
+    tree = bridge.seeded_flax_params(predictor.model, seed)
+    tree, msg = import_external_weights(tree, ckpt or resolve_weight_path(cfg.MODEL.WEIGHT), cfg)
+    predictor.load_flax_params(tree)
+    return msg or f"random weights from seed {seed} on {predictor.device}"
+
+
 def import_language_table(params: Dict[str, Any], weight_path: str) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     """Fills the (frozen) language backbone -- the BERT word-embedding
     table and, for full-encoder models, the encoder -- from another

@@ -51,6 +51,37 @@ class NumpyDetections(NamedTuple):
     keypoints: Optional[np.ndarray] = None
 
 
+def eval_outputs(model, images: torch.Tensor, image_sizes: torch.Tensor,
+                 class_embeddings: Optional[torch.Tensor] = None, **kw) -> Dict[str, torch.Tensor]:
+    """The eval forward as JAX's ``tools/export_serving.py::build_eval_fn``
+    returns it: ``boxes``, ``scores``, ``labels`` and ``valid`` of the
+    detections, and ``mask_probs`` (``keypoints``) where the model has
+    masks (keypoints).  ``kw`` goes to the model (``gt_eval``)."""
+    out = model(images, image_sizes, class_embeddings, **kw)
+    d = out.detections
+    res = {"boxes": d.boxes, "scores": d.scores, "labels": d.labels, "valid": d.valid}
+    if out.mask_probs is not None:
+        res["mask_probs"] = out.mask_probs
+    if out.keypoints is not None:
+        res["keypoints"] = out.keypoints
+    return res
+
+
+class ServingModule(torch.nn.Module):
+    """:func:`eval_outputs` of ``model`` with its class table (None for a
+    class-specific detector) held as a buffer: the forward that
+    ``tools/export_serving.py`` exports, a batch and its sizes in, the
+    dict out."""
+
+    def __init__(self, model: torch.nn.Module, class_embeddings: Optional[torch.Tensor] = None):
+        super().__init__()
+        self.model = model
+        self.register_buffer("class_embeddings", class_embeddings)
+
+    def forward(self, images: torch.Tensor, image_sizes: torch.Tensor) -> Dict[str, torch.Tensor]:
+        return eval_outputs(self.model, images, image_sizes, self.class_embeddings)
+
+
 def load_cfg(config_file: str, opts: Sequence = ()):
     """The defaults, ``config_file`` (none when empty) and ``opts``,
     frozen."""
@@ -124,22 +155,22 @@ class Predictor:
         kw = {}
         if gt_eval is not None:
             kw["gt_eval"] = {k: torch.as_tensor(np.asarray(v)).to(dev) for k, v in gt_eval.items()}
-        out = self.model(
+        out = eval_outputs(
+            self.model,
             torch.as_tensor(images).to(dev),
             torch.as_tensor(image_sizes).to(dev),
             table,
             **kw,
         )
-        d = out.detections
+        host = {k: v.cpu().numpy() for k, v in out.items()}
         dets = NumpyDetections(
-            boxes=d.boxes.cpu().numpy(),
-            scores=d.scores.cpu().numpy(),
-            labels=d.labels.cpu().numpy(),
-            valid=d.valid.cpu().numpy(),
-            keypoints=None if getattr(out, "keypoints", None) is None else out.keypoints.cpu().numpy(),
+            boxes=host["boxes"],
+            scores=host["scores"],
+            labels=host["labels"],
+            valid=host["valid"],
+            keypoints=host.get("keypoints"),
         )
-        masks = None if out.mask_probs is None else out.mask_probs.cpu().numpy()
-        return dets, masks
+        return dets, host.get("mask_probs")
 
 
 def _convert_batch(dataset, dets, mask_probs, indices, image_sizes) -> List[dict]:

@@ -182,7 +182,8 @@ def num_cell_anchors(s: RCNNStatics) -> int:
 
 class AnchorCache:
     """Each level's anchors and their concatenation, built once per
-    shape of every level and device."""
+    shape of every level and device.  While ``torch.export`` traces, they
+    are built anew and not kept: the trace's tensors are fake."""
 
     def __init__(self, s: RCNNStatics):
         self.statics = s
@@ -192,11 +193,13 @@ class AnchorCache:
         """``(anchor_list, anchors)``: ``[H_l*W_l*A, 4]`` a level, in the
         order of ``flatten_rpn_outputs``, and all of them concatenated."""
         key = (tuple(tuple(f.shape[1:3]) for f in feats), feats[0].device)
-        if key not in self._anchors:
+        if key not in self._anchors or torch.compiler.is_compiling():
             s = self.statics
             anchor_list = build_anchors_for_levels(
                 list(key[0]), s.anchor_stride, s.anchor_sizes, s.aspect_ratios, key[1]
             )
+            if torch.compiler.is_compiling():
+                return anchor_list, torch.cat(anchor_list, dim=0)
             self._anchors[key] = (anchor_list, torch.cat(anchor_list, dim=0))
         return self._anchors[key]
 

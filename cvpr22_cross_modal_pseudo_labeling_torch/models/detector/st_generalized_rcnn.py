@@ -5,7 +5,7 @@ st_generalized_rcnn.py`` (``STStatics`` :62, ``st_statics_from_cfg``
 :74, ``normalize_rows`` :87, ``init_exemplar_table`` :111,
 ``update_exemplar_table`` :119, ``extract_word_embeddings`` :213,
 ``combine_embs`` :226, ``_teacher_region_scores`` :292,
-``_pseudo_loss_extras`` :241, ``_teacher_masks`` :322,
+``_pseudo_loss_extras`` :241, ``_override_pseudo`` :246, ``_teacher_masks`` :322,
 ``generate_pseudo_labels`` :336, ``_student_branch_losses`` :387,
 ``__call__`` :501, ``forward_eval`` :678).  The paper's comparison
 baselines (``baselines.py``) subclass it: they override
@@ -321,6 +321,13 @@ class STGeneralizedRCNN(nn.Module):
             embs=torch.gather(emb, 1, aligned_idx[..., None].expand(-1, -1, emb.shape[-1])),
         )
 
+    def _override_pseudo(self, pseudo: PseudoLabels, batch: Dict[str, torch.Tensor]) -> PseudoLabels:
+        """Experiment hook, the identity in the production model: a
+        subclass may replace the teacher's pseudo-labels with ones it
+        controls (``tools/ablate_st_e2e.py`` puts in the gt boxes with
+        masks corrupted at a known rate)."""
+        return pseudo
+
     def _pseudo_loss_extras(self, pseudo: PseudoLabels) -> Dict:
         """Keyword arguments of the caption branch's
         :meth:`_student_branch_losses`; the baselines override it."""
@@ -412,6 +419,7 @@ class STGeneralizedRCNN(nn.Module):
             feats, eval_proposals, image_sizes, batch["cap_tok_ids"],
             batch["cap_tok_mask"], batch["cap_word_valid"], batch["cap_labels"],
         )
+        pseudo = self._override_pseudo(pseudo, batch)
         masks = pseudo.masks
         if masks is None:
             masks = torch.zeros((feats[0].shape[0], 1, 1, 1), device=feats[0].device)

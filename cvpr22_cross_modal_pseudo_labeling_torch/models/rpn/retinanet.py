@@ -245,12 +245,16 @@ class RetinaNet(nn.Module):
 
     def anchors(self, feats) -> List[torch.Tensor]:
         """Each level's ``[H_l * W_l * A, 4]`` anchors, built once per
-        shape and device."""
+        shape and device (anew, and not kept, while ``torch.export``
+        traces: the trace's tensors are fake)."""
         key = (tuple(tuple(f.shape[1:3]) for f in feats), feats[0].device)
-        if key not in self._anchors:
+        if key not in self._anchors or torch.compiler.is_compiling():
             s = self.statics
-            self._anchors[key] = build_anchors_for_levels(
+            anchors = build_anchors_for_levels(
                 list(key[0]), s.anchor_strides, retinanet_anchor_sizes(s), s.aspect_ratios, key[1])
+            if torch.compiler.is_compiling():
+                return anchors
+            self._anchors[key] = anchors
         return self._anchors[key]
 
     def forward(self, images, image_sizes, targets: Optional[Dict[str, torch.Tensor]] = None,

@@ -24,6 +24,12 @@ fixpoint formulation) and the final gather.
 
 Every function takes an optional leading batch axis: ``boxes [B, N, 4]``
 runs B independent NMS problems (one kernel launch for all of them).
+
+:func:`nms` calls the ``torch.library`` custom op ``cmpl::nms``: its
+default implementation is :func:`nms_plain`, its CUDA implementation the
+kernel (which counts the launch and calls ``kernels.NMS.on_launch``), and
+its fake implementation gives the outputs' shapes, so that
+``torch.export`` traces a model through it without launching anything.
 """
 
 import threading
@@ -169,6 +175,44 @@ def nms_plain(
     return idx, out_valid
 
 
+@torch.library.custom_op("cmpl::nms", mutates_args=())
+def nms_op(
+    boxes: torch.Tensor,
+    scores: torch.Tensor,
+    valid: torch.Tensor,
+    iou_threshold: float,
+    max_outputs: int,
+    labels: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``cmpl::nms`` on ``[B, N, 4]`` float32 boxes, ``[B, N]`` float32
+    scores, bool valid and int32 or int64 labels (or None): indices
+    ``[B, max_outputs]`` int32 and their valid mask.  This default
+    implementation is the plain version."""
+    return nms_plain(boxes, scores, valid, iou_threshold, max_outputs, labels)
+
+
+@nms_op.register_kernel("cuda")
+def _nms_op_cuda(boxes, scores, valid, iou_threshold, max_outputs, labels=None):
+    inputs = (boxes, scores, valid, iou_threshold, max_outputs, labels)
+    boxes = boxes.contiguous()
+    if boxes.data_ptr() % 16 != 0:  # the kernels read a box as one float4
+        boxes = boxes.clone()
+    out = _nms_cuda(
+        boxes, scores.contiguous(), valid.contiguous(), iou_threshold, max_outputs,
+        None if labels is None else labels.contiguous(),
+    )
+    hook = kernels.NMS.on_launch
+    if hook is not None:
+        hook(inputs, out)
+    return out
+
+
+@nms_op.register_fake
+def _nms_op_fake(boxes, scores, valid, iou_threshold, max_outputs, labels=None):
+    shape = (boxes.shape[0], max_outputs)
+    return boxes.new_empty(shape, dtype=torch.int32), boxes.new_empty(shape, dtype=torch.bool)
+
+
 def nms(
     boxes: torch.Tensor,
     scores: torch.Tensor,
@@ -182,34 +226,23 @@ def nms(
     ``labels`` ``[(B,) N]``: when given, only boxes of the same label
     suppress each other.  Returns ``(indices [(B,) max_outputs] int32,
     valid [(B,) max_outputs] bool)``.  CPU tensors run the plain version;
-    CUDA tensors launch ``csrc/nms.cu``.
+    CUDA tensors launch ``csrc/nms.cu``; both through ``cmpl::nms``.
     """
-    if boxes.device.type == "cpu":
-        return nms_plain(boxes, scores, valid, iou_threshold, max_outputs, labels)
-    if boxes.device.type != "cuda":
+    if boxes.device.type not in ("cpu", "cuda"):
         raise ValueError(f"nms runs on cpu or cuda tensors, not {boxes.device}")
-    inputs = (boxes, scores, valid, iou_threshold, max_outputs, labels)
     single = boxes.dim() == 2
     if single:
         boxes, scores, valid = boxes[None], scores[None], valid[None]
         labels = None if labels is None else labels[None]
     if labels is not None and labels.dtype not in (torch.int32, torch.int64):
         labels = labels.to(torch.int32)
-    boxes = boxes.to(torch.float32).contiguous()
-    if boxes.data_ptr() % 16 != 0:  # the kernels read a box as one float4
-        boxes = boxes.clone()
-    out = _nms_cuda(
-        boxes,
-        scores.to(torch.float32).contiguous(),
-        valid.to(torch.bool).contiguous(),
-        iou_threshold, max_outputs,
-        None if labels is None else labels.contiguous(),
+    # the indices carry no gradient: the op sees plain data
+    out = nms_op(
+        boxes.detach().to(torch.float32), scores.detach().to(torch.float32), valid.to(torch.bool),
+        float(iou_threshold), int(max_outputs), None if labels is None else labels.detach(),
     )
     if single:
         out = (out[0][0], out[1][0])
-    hook = kernels.NMS.on_launch
-    if hook is not None:
-        hook(inputs, out)
     return out
 
 

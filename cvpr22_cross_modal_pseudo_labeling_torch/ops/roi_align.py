@@ -31,11 +31,10 @@ result with ``.astype(bfloat16)``.
 The gradient with respect to the features is the transposed contraction
 ``dF[h, w, c] = sum_p,q A_y[p, h] A_x[q, w] g[p, q, c]`` summed over the
 rois, which XLA derives for the JAX package.  On the CPU autograd
-differentiates the plain version; on CUDA a ``torch.autograd.Function``
-runs the kernel's backward entry (a plan of each roi's tap lists, then
-one CTA per tile of dF summing every roi's taps in shared memory and
-writing the tile once in the features' dtype), counted in
-``kernels.ROI_ALIGN_BACKWARD``.
+differentiates the plain version; on CUDA the gradient is the kernel's
+backward entry (a plan of each roi's tap lists, then one CTA per tile of
+dF summing every roi's taps in shared memory and writing the tile once in
+the features' dtype), counted in ``kernels.ROI_ALIGN_BACKWARD``.
 
 :func:`roi_align_levels` pools each roi from its own level of a feature
 pyramid (the FPN pooler, ``models/roi_heads/pooler.py``).  JAX pools every
@@ -47,12 +46,23 @@ S]`` int32 level per roi, and the level to run): the forward is launched
 once a level into one output, each launch writing its own rows; the
 backward once a level, each giving that level's dF from its rois only.
 The plain versions take the same filter (rows of other levels are zero).
+
+The three entries are ``torch.library`` custom ops: ``cmpl::roi_align``,
+``cmpl::roi_align_levels`` and ``cmpl::roi_align_backward``.  Each one's
+default implementation is its plain version and its CUDA implementation
+the kernel (which counts the launch and calls the kernel's ``on_launch``);
+its fake implementation gives the result's shape and dtype, so that
+``torch.export`` traces a model through it without launching anything.
+The two forwards take their gradient from the backward op
+(``register_autograd``).  The wrappers call the ops on CUDA tensors, and
+on CPU tensors when no gradient is needed; on the CPU with a gradient
+they run the plain version under autograd, as the CPU tests hold it
+against ``jax.grad``.
 """
 
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
-from torch.autograd.function import once_differentiable
 
 from . import kernels
 
@@ -202,19 +212,29 @@ def roi_align_backward_plain(
     """The plain version of the backward: the gradient of
     ``sum(roi_align_plain(F, rois, ...) * grad)`` with respect to ``F``
     of ``feature_shape`` and ``feature_dtype`` (it does not depend on F's
-    values), by autograd of the plain version: the transposed float32
-    contraction, cast to the features' dtype.  With ``levels``, the rois
-    of ``level`` only."""
-    with torch.enable_grad():
-        f = torch.zeros(feature_shape, dtype=feature_dtype, device=grad.device, requires_grad=True)
-        out = roi_align_plain(
-            f, rois_per_image, output_size, spatial_scale, sampling_ratio, max_samples, bin_stride,
-            levels, level,
-        )
-        if not out.requires_grad:  # no roi on the level
-            return torch.zeros(feature_shape, dtype=feature_dtype, device=grad.device)
-        (dfeat,) = torch.autograd.grad(out, f, grad)
-    return dfeat
+    values): the transposed float32 contraction ``dF[h, w, c] = sum_s,p,q
+    A_y[s, p, h] A_x[s, q, w] g[s, p, q, c]`` with the forward's A
+    matrices, cast to the features' dtype.  With ``levels``, the rois of
+    ``level`` only.  It calls no autograd, so that it runs inside the
+    custom op too, where autograd is off."""
+    P, Q = output_size
+    B, H, W, C = feature_shape
+    (sh, bh, gh, cap_h), (sw, bw, gw, cap_w) = _roi_geometry(
+        rois_per_image, spatial_scale, P, Q, H, W, sampling_ratio, max_samples
+    )
+    g32 = grad.to(torch.float32)
+    out = torch.zeros((B, H, W, C), dtype=torch.float32, device=grad.device)
+    for b in range(B):
+        rows = None if levels is None else torch.nonzero(levels[b] == level).flatten()
+        n = rois_per_image.shape[1] if rows is None else rows.numel()
+        for s0 in range(0, n, _PLAIN_ROI_CHUNK):
+            s1 = min(s0 + _PLAIN_ROI_CHUNK, n)
+            r = slice(s0, s1) if rows is None else rows[s0:s1]
+            a_y = _axis_interp_matrix(sh[b, r], bh[b, r], gh[b, r], H, P, cap_h, bin_stride)
+            a_x = _axis_interp_matrix(sw[b, r], bw[b, r], gw[b, r], W, Q, cap_w, bin_stride)
+            tmp = torch.einsum("spqc,sqw->spwc", g32[b, r], a_x)
+            out[b] += torch.einsum("sph,spwc->hwc", a_y, tmp)
+    return out.to(feature_dtype)
 
 
 def _check_kernel_inputs(shape, dtype, device, rois_per_image, sampling_ratio, max_samples, bin_stride):
@@ -396,6 +416,39 @@ def _backward_cuda(grad, rois_per_image, feature_shape, feature_dtype, output_si
     return out
 
 
+@torch.library.custom_op("cmpl::roi_align_backward", mutates_args=())
+def roi_align_backward_op(
+    grad: torch.Tensor,
+    rois_per_image: torch.Tensor,
+    feature_shape: Sequence[int],
+    feature_dtype: torch.dtype,
+    output_size: Sequence[int],
+    spatial_scale: float,
+    sampling_ratio: int,
+    max_samples: int,
+    bin_stride: int,
+    levels: Optional[torch.Tensor],
+    level: int,
+) -> torch.Tensor:
+    """``cmpl::roi_align_backward``: dF of ``feature_shape`` and
+    ``feature_dtype`` (the arguments of :func:`roi_align_backward`, every
+    one given).  This default implementation is the plain version."""
+    return roi_align_backward_plain(grad, rois_per_image, tuple(feature_shape), feature_dtype, tuple(output_size),
+                                    spatial_scale, sampling_ratio, max_samples, bin_stride, levels, level)
+
+
+@roi_align_backward_op.register_kernel("cuda")
+def _roi_align_backward_op_cuda(grad, rois_per_image, feature_shape, feature_dtype, output_size, spatial_scale,
+                                sampling_ratio, max_samples, bin_stride, levels, level):
+    return _backward_cuda(grad, rois_per_image, tuple(feature_shape), feature_dtype, tuple(output_size),
+                          spatial_scale, sampling_ratio, max_samples, bin_stride, levels, level)
+
+
+@roi_align_backward_op.register_fake
+def _roi_align_backward_op_fake(grad, rois_per_image, feature_shape, feature_dtype, *args):
+    return grad.new_empty(tuple(feature_shape), dtype=feature_dtype)
+
+
 def roi_align_backward(
     grad: torch.Tensor,
     rois_per_image: torch.Tensor,
@@ -413,37 +466,76 @@ def roi_align_backward(
     ``feature_shape`` and ``feature_dtype``, for the cotangent ``grad``
     (``[B, S, P', Q', C]``); with ``levels``, the gradient of the rois
     of ``level`` only.  CPU tensors run :func:`roi_align_backward_plain`;
-    CUDA tensors launch the kernel's ``roi_align_backward`` entry.
-    ``roi_align`` and ``roi_align_levels`` call it from their
-    ``autograd.Function`` on CUDA."""
-    args = (grad, rois_per_image, tuple(feature_shape), feature_dtype, output_size,
-            spatial_scale, sampling_ratio, max_samples, bin_stride, levels, level)
-    if grad.device.type == "cpu":
-        return roi_align_backward_plain(*args)
-    if grad.device.type != "cuda":
+    CUDA tensors launch the kernel's ``roi_align_backward`` entry; both
+    through ``cmpl::roi_align_backward``, which is also the two forward
+    ops' gradient."""
+    if grad.device.type not in ("cpu", "cuda"):
         raise ValueError(f"roi_align_backward runs on cpu or cuda tensors, not {grad.device}")
-    return _backward_cuda(*args)
+    return roi_align_backward_op(
+        grad, rois_per_image, [int(x) for x in feature_shape], feature_dtype, [int(x) for x in output_size],
+        float(spatial_scale), int(sampling_ratio), int(max_samples), int(bin_stride), levels, int(level),
+    )
 
 
-class _RoIAlignCUDA(torch.autograd.Function):
-    """The CUDA route with its gradient: ``roi_align_forward`` forward,
-    ``roi_align_backward`` backward (with respect to the features only)."""
+def _out_shape(feature_shape, rois_per_image, output_size, bin_stride):
+    P, Q = output_size
+    return (feature_shape[0], rois_per_image.shape[1], -(-P // bin_stride), -(-Q // bin_stride),
+            feature_shape[-1])
 
-    @staticmethod
-    def forward(ctx, features, rois_per_image, output_size, spatial_scale,
-                sampling_ratio, max_samples, bin_stride):
-        ctx.save_for_backward(rois_per_image)
-        ctx.args = (tuple(features.shape), features.dtype, output_size, spatial_scale,
-                    sampling_ratio, max_samples, bin_stride)
-        return _forward_cuda(features, rois_per_image, output_size, spatial_scale,
-                             sampling_ratio, max_samples, bin_stride)
 
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, grad):
-        (rois_per_image,) = ctx.saved_tensors
-        dfeat = _backward_cuda(grad, rois_per_image, *ctx.args)
-        return (dfeat,) + (None,) * 6
+@torch.library.custom_op("cmpl::roi_align", mutates_args=())
+def roi_align_op(
+    features: torch.Tensor,
+    rois_per_image: torch.Tensor,
+    output_size: Sequence[int],
+    spatial_scale: float,
+    sampling_ratio: int,
+    max_samples: int,
+    bin_stride: int,
+) -> torch.Tensor:
+    """``cmpl::roi_align`` (the arguments of :func:`roi_align`, every one
+    given).  This default implementation is the plain version."""
+    return roi_align_plain(features, rois_per_image, tuple(output_size), spatial_scale, sampling_ratio,
+                           max_samples, bin_stride)
+
+
+@roi_align_op.register_kernel("cuda")
+def _roi_align_op_cuda(features, rois_per_image, output_size, spatial_scale, sampling_ratio, max_samples,
+                       bin_stride):
+    return _forward_cuda(features, rois_per_image, tuple(output_size), spatial_scale, sampling_ratio,
+                         max_samples, bin_stride)
+
+
+@roi_align_op.register_fake
+def _roi_align_op_fake(features, rois_per_image, output_size, spatial_scale, sampling_ratio, max_samples,
+                       bin_stride):
+    return features.new_empty(_out_shape(features.shape, rois_per_image, output_size, bin_stride))
+
+
+def _roi_align_setup(ctx, inputs, output):
+    features, rois_per_image, output_size, spatial_scale, sampling_ratio, max_samples, bin_stride = inputs
+    ctx.save_for_backward(rois_per_image)
+    ctx.args = ([int(x) for x in features.shape], features.dtype, output_size, spatial_scale, sampling_ratio,
+                max_samples, bin_stride)
+
+
+def _roi_align_grad(ctx, grad):
+    (rois_per_image,) = ctx.saved_tensors
+    shape, dtype, output_size, scale, sr, ms, bin_stride = ctx.args
+    dfeat = roi_align_backward_op(grad, rois_per_image, shape, dtype, output_size, scale, sr, ms, bin_stride,
+                                  None, 0)
+    return (dfeat,) + (None,) * 6
+
+
+roi_align_op.register_autograd(_roi_align_grad, setup_context=_roi_align_setup)
+
+
+def _check_rois_grad(name, features, rois_per_image):
+    if features.device.type == "cuda" and torch.is_grad_enabled() and rois_per_image.requires_grad:
+        raise RuntimeError(
+            f"{name}: csrc/roi_align.cu differentiates with respect to the "
+            "features only, so rois must not require grad (detach them)"
+        )
 
 
 def roi_align(
@@ -461,29 +553,27 @@ def roi_align(
     ``[B, S, 4]`` xyxy in image pixels, roi s of image b pooling from
     ``features[b]``.  Returns ``[B, S, ceil(P / bin_stride), ceil(Q /
     bin_stride), C]`` in the features' dtype.  CPU tensors run the plain
-    version (autograd differentiates it); CUDA tensors launch
-    ``csrc/roi_align.cu``, which reads 16 bytes of channels at a time: C a
-    multiple of 4 for float32 features, of 8 for bfloat16.  On CUDA the
-    result carries a gradient for features that require one, computed by
-    the backward kernel; rois that require grad raise, as the kernels
-    differentiate with respect to the features only (the JAX model stops
-    the gradient of the proposals, and gt boxes are data).
+    version (autograd differentiates it when the features need a
+    gradient); CUDA tensors launch ``csrc/roi_align.cu``, which reads 16
+    bytes of channels at a time: C a multiple of 4 for float32 features,
+    of 8 for bfloat16.  On CUDA the result carries a gradient for
+    features that require one, computed by the backward kernel; rois that
+    require grad raise, as the kernels differentiate with respect to the
+    features only (the JAX model stops the gradient of the proposals, and
+    gt boxes are data).
     """
-    if features.device.type == "cpu":
+    if features.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"roi_align runs on cpu or cuda tensors, not {features.device}")
+    if features.device.type == "cpu" and torch.is_grad_enabled() and (
+            features.requires_grad or rois_per_image.requires_grad):
         return roi_align_plain(
             features, rois_per_image, output_size, spatial_scale,
             sampling_ratio, max_samples, bin_stride,
         )
-    if features.device.type != "cuda":
-        raise ValueError(f"roi_align runs on cpu or cuda tensors, not {features.device}")
-    if torch.is_grad_enabled() and rois_per_image.requires_grad:
-        raise RuntimeError(
-            "roi_align: csrc/roi_align.cu differentiates with respect to the "
-            "features only, so rois must not require grad (detach them)"
-        )
-    return _RoIAlignCUDA.apply(
-        features, rois_per_image, output_size, spatial_scale,
-        sampling_ratio, max_samples, bin_stride,
+    _check_rois_grad("roi_align", features, rois_per_image)
+    return roi_align_op(
+        features, rois_per_image, [int(x) for x in output_size], float(spatial_scale),
+        int(sampling_ratio), int(max_samples), int(bin_stride),
     )
 
 
@@ -498,32 +588,64 @@ def _forward_levels_cuda(features, rois_per_image, levels, output_size, scales,
     return out
 
 
-class _RoIAlignLevelsCUDA(torch.autograd.Function):
-    """The multi-level CUDA route with its gradient: the forward's level
-    launches into one output, and one backward launch for each level
-    whose features need a gradient."""
+def _roi_align_levels_plain(features, rois_per_image, levels, output_size, scales, sampling_ratio, max_samples):
+    """The sum of the plain version's levels, each zero outside its rows."""
+    out = None
+    for level, (feat, scale) in enumerate(zip(features, scales)):
+        part = roi_align_plain(feat, rois_per_image, output_size, scale, sampling_ratio,
+                               max_samples, 1, levels, level)
+        out = part if out is None else out + part
+    return out
 
-    @staticmethod
-    def forward(ctx, rois_per_image, levels, output_size, scales, sampling_ratio,
-                max_samples, *features):
-        ctx.save_for_backward(rois_per_image, levels)
-        ctx.args = ([(tuple(f.shape), f.dtype) for f in features], output_size, scales,
-                    sampling_ratio, max_samples)
-        return _forward_levels_cuda(features, rois_per_image, levels, output_size, scales,
-                                    sampling_ratio, max_samples)
 
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, grad):
-        rois_per_image, levels = ctx.saved_tensors
-        shapes, output_size, scales, sampling_ratio, max_samples = ctx.args
-        dfeats = tuple(
-            _backward_cuda(grad, rois_per_image, shape, dtype, output_size, scale,
-                           sampling_ratio, max_samples, 1, levels, level)
-            if ctx.needs_input_grad[6 + level] else None
-            for level, ((shape, dtype), scale) in enumerate(zip(shapes, scales))
-        )
-        return (None,) * 6 + dfeats
+@torch.library.custom_op("cmpl::roi_align_levels", mutates_args=())
+def roi_align_levels_op(
+    features: List[torch.Tensor],
+    rois_per_image: torch.Tensor,
+    levels: torch.Tensor,
+    output_size: Sequence[int],
+    scales: Sequence[float],
+    sampling_ratio: int,
+    max_samples: int,
+) -> torch.Tensor:
+    """``cmpl::roi_align_levels`` (the arguments of
+    :func:`roi_align_levels`, every one given).  This default
+    implementation is the plain version."""
+    return _roi_align_levels_plain(features, rois_per_image, levels, tuple(output_size), scales, sampling_ratio,
+                                   max_samples)
+
+
+@roi_align_levels_op.register_kernel("cuda")
+def _roi_align_levels_op_cuda(features, rois_per_image, levels, output_size, scales, sampling_ratio, max_samples):
+    return _forward_levels_cuda(features, rois_per_image, levels, tuple(output_size), scales, sampling_ratio,
+                                max_samples)
+
+
+@roi_align_levels_op.register_fake
+def _roi_align_levels_op_fake(features, rois_per_image, levels, output_size, scales, sampling_ratio, max_samples):
+    return features[0].new_empty(_out_shape(features[0].shape, rois_per_image, output_size, 1))
+
+
+def _roi_align_levels_setup(ctx, inputs, output):
+    features, rois_per_image, levels, output_size, scales, sampling_ratio, max_samples = inputs
+    ctx.save_for_backward(rois_per_image, levels)
+    ctx.args = ([([int(x) for x in f.shape], f.dtype) for f in features], output_size, scales, sampling_ratio,
+                max_samples)
+
+
+def _roi_align_levels_grad(ctx, grad):
+    rois_per_image, levels = ctx.saved_tensors
+    shapes, output_size, scales, sampling_ratio, max_samples = ctx.args
+    needs = ctx.needs_input_grad[0]
+    dfeats = [
+        roi_align_backward_op(grad, rois_per_image, shape, dtype, output_size, scale, sampling_ratio,
+                              max_samples, 1, levels, level) if needs[level] else None
+        for level, ((shape, dtype), scale) in enumerate(zip(shapes, scales))
+    ]
+    return dfeats, None, None, None, None, None, None
+
+
+roi_align_levels_op.register_autograd(_roi_align_levels_grad, setup_context=_roi_align_levels_setup)
 
 
 def roi_align_levels(
@@ -543,29 +665,23 @@ def roi_align_levels(
     rois_per_image ``[B, S, 4]``; levels ``[B, S]`` integers in
     ``range(len(features))``.  Returns ``[B, S, P, Q, C]`` in the features'
     dtype.  CPU tensors sum the plain version's levels (each zero outside
-    its rows; autograd differentiates it); CUDA tensors launch the forward
-    kernel once a level into one output and, for the gradient, the
-    backward kernel once a level.  Rois that require grad raise on CUDA, as for
-    :func:`roi_align`."""
+    its rows; autograd differentiates it when a level needs a gradient);
+    CUDA tensors launch the forward kernel once a level into one output
+    and, for the gradient, the backward kernel once a level.  Rois that
+    require grad raise on CUDA, as for :func:`roi_align`."""
     if len(features) != len(scales) or not features:
         raise ValueError(f"{len(features)} feature levels but {len(scales)} scales")
     if len({f.dtype for f in features}) != 1:
         raise ValueError("roi_align_levels: every level must have one dtype")
     device = features[0].device
-    if device.type == "cpu":
-        out = None
-        for level, (feat, scale) in enumerate(zip(features, scales)):
-            part = roi_align_plain(feat, rois_per_image, output_size, scale, sampling_ratio,
-                                   max_samples, 1, levels, level)
-            out = part if out is None else out + part
-        return out
-    if device.type != "cuda":
+    if device.type not in ("cpu", "cuda"):
         raise ValueError(f"roi_align_levels runs on cpu or cuda tensors, not {device}")
-    if torch.is_grad_enabled() and rois_per_image.requires_grad:
-        raise RuntimeError(
-            "roi_align_levels: csrc/roi_align.cu differentiates with respect to the "
-            "features only, so rois must not require grad (detach them)"
-        )
-    return _RoIAlignLevelsCUDA.apply(
-        rois_per_image, levels, output_size, tuple(scales), sampling_ratio, max_samples, *features,
+    if device.type == "cpu" and torch.is_grad_enabled() and (
+            any(f.requires_grad for f in features) or rois_per_image.requires_grad):
+        return _roi_align_levels_plain(features, rois_per_image, levels, output_size, scales, sampling_ratio,
+                                       max_samples)
+    _check_rois_grad("roi_align_levels", features[0], rois_per_image)
+    return roi_align_levels_op(
+        list(features), rois_per_image, levels, [int(x) for x in output_size], [float(x) for x in scales],
+        int(sampling_ratio), int(max_samples),
     )

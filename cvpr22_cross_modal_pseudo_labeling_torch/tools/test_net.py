@@ -22,13 +22,15 @@ With ``TEST.BBOX_AUG.ENABLED`` the detections come from the test-time
 augmentation (``engine/inference.py::compute_on_dataset_bbox_aug``),
 box-only, as in ``tools/test_net.py``.
 
-The weights, as in ``tools/test_net.py``: a port checkpoint (``--ckpt``,
-or the save ``OUTPUT_DIR/last_checkpoint`` names) gives the model's
-weights and buffers; otherwise ``MODEL.WEIGHT``, resolved only then, is
-imported into weights drawn from ``--seed`` (``bridge.seeded_flax_params``;
-``engine/checkpoint.py::import_external_weights``: a port checkpoint, the
-``.npz`` dump of a JAX-trained one, a ``.pth`` or a ``.pkl``); otherwise
-the drawn weights serve.  An orbax checkpoint of the JAX package raises
+The weights (``engine/checkpoint.py::load_eval_weights``, which
+``tools/export_serving.py`` shares): a port checkpoint (``--ckpt``, or
+the save ``OUTPUT_DIR/last_checkpoint`` names) gives the model's weights
+and buffers, and one of another meta-architecture raises; other weights
+``--ckpt`` names, or ``MODEL.WEIGHT`` without it, are imported into
+weights drawn from ``--seed`` (``import_external_weights``: the ``.npz``
+dump of a JAX-trained checkpoint, a ``.pth``, a ``.pkl``, and through
+``MODEL.WEIGHT`` a port checkpoint of another stage); otherwise the
+drawn weights serve.  An orbax checkpoint of the JAX package raises
 with the two commands that make it a port checkpoint
 (``tools/orbax_to_npz.py`` where jax runs, then this package's
 ``tools/import_jax_checkpoint.py``).
@@ -52,24 +54,18 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Dict[str, float]]:
     p.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
     p.add_argument("--seed", type=int, default=0, help="seed of the random weights")
     p.add_argument("--ckpt", default=None,
-                   help="checkpoint to evaluate (default: OUTPUT_DIR/last_checkpoint)")
+                   help="checkpoint to evaluate (default: OUTPUT_DIR/last_checkpoint), or weights "
+                   "MODEL.WEIGHT would import")
     p.add_argument("--dist-backend", default="nccl", choices=BACKENDS,
                    help="the process group's backend under torchrun (WORLD_SIZE > 1)")
     p.add_argument("opts", nargs=argparse.REMAINDER, default=None)
     args = p.parse_args(argv)
 
-    from .. import bridge
     from ..data import make_data_loader
-    from ..engine.checkpoint import (
-        import_external_weights,
-        is_port_checkpoint,
-        latest_checkpoint,
-        load_checkpoint,
-    )
+    from ..engine.checkpoint import load_eval_weights
     from ..engine.inference import Predictor, bbox_aug_options, check_eval_options, inference, iou_types, load_cfg
     from ..parallel.dist import barrier, is_primary, rank, world_size
     from ..utils.logger import get_logger, setup_logger
-    from ..utils.model_zoo import resolve_weight_path
 
     # torchrun's rank, before the group is up
     setup_logger(rank=int(os.environ.get("RANK", "0")))
@@ -84,22 +80,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Dict[str, float]]:
     setup_logger(save_dir=cfg.OUTPUT_DIR, rank=rank())
     check_eval_options(cfg)
     barrier()  # a training run's rank 0 has published the tag
-    ckpt = args.ckpt or latest_checkpoint(cfg.OUTPUT_DIR)
-    blob = load_checkpoint(ckpt) if ckpt else None
-    if blob is not None and not is_port_checkpoint(blob):
-        raise ValueError(f"{ckpt} is no checkpoint of the port; import other weights through MODEL.WEIGHT")
-    if blob is not None and blob["meta_arch"] != cfg.MODEL.META_ARCHITECTURE:
-        raise RuntimeError(f"{ckpt} holds a {blob['meta_arch']} model, not {cfg.MODEL.META_ARCHITECTURE}")
-
     predictor = Predictor(args.config_file, opts, device=device)
-    if blob is not None:
-        predictor.model.load_state_dict(blob["trainer"]["model"], strict=True)
-        logger.info("loaded checkpoint %s (iteration %d) on %s", ckpt, blob["iteration"], predictor.device)
-    else:
-        tree = bridge.seeded_flax_params(predictor.model, args.seed)
-        tree, msg = import_external_weights(tree, resolve_weight_path(cfg.MODEL.WEIGHT), cfg)
-        predictor.load_flax_params(tree)
-        logger.info("%s", msg or f"random weights from seed {args.seed} on {predictor.device}")
+    logger.info("%s", load_eval_weights(predictor, cfg, args.ckpt, args.seed))
     loaders, datasets = make_data_loader(cfg, is_train=False, is_distributed=world_size() > 1, rank=rank(),
                                          num_replicas=world_size())
     out = {}

@@ -63,3 +63,26 @@ def test_each_kernel_has_its_source_and_a_launch_counter():
         assert k.launches >= 0 and k.library_path().name.startswith(f"lib{k.source.stem}-")
         assert k.name.startswith(k.source.stem)
     assert "-gencode" in kernels.NVCC_FLAGS and "arch=compute_90a,code=sm_90a" in kernels.NVCC_FLAGS
+
+
+def test_the_serving_and_ablation_tools_and_the_custom_ops_import_with_jax_blocked():
+    """The serving export and the ablation tool, and ``ops`` alone, which
+    registers the kernels' custom ops (what a serving process imports)."""
+    mods = ["cvpr22_cross_modal_pseudo_labeling_torch.tools.export_serving",
+            "cvpr22_cross_modal_pseudo_labeling_torch.tools.ablate_st_e2e"]
+    assert set(mods) <= {m for _, m in _modules()}
+    code = (
+        "import sys, importlib\n"
+        f"for name in {FORBIDDEN!r}:\n"
+        "    sys.modules[name] = None\n"
+        "import torch\n"
+        "from cvpr22_cross_modal_pseudo_labeling_torch.ops import nms, roi_align\n"
+        "ops = [torch.ops.cmpl.nms, torch.ops.cmpl.roi_align, torch.ops.cmpl.roi_align_levels,\n"
+        "       torch.ops.cmpl.roi_align_backward]\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print('ok', len(ops))\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT.parent, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.startswith("ok 4")
