@@ -362,9 +362,10 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                 (``tools/ablate_st_e2e.py``: the gt boxes with masks
                 complemented at 0.5 put in through ``_override_pseudo``,
                 full-width R-50-C4 on 8 x 96 x 96 images, JAX's optax chain)
-                at the JAX record's protocol, 400 steps, seed 0: the six
+                at the JAX record's protocol cut to 100 of its 400 steps
+                (``--steps 400`` is the full study), seed 0: the six
                 conditions in float32, whose held-out table is printed
-                beside JAX's record with the ordering
+                beside JAX's 400-step record with the ordering
                 ``tests/test_ablate_st_e2e.py`` pins for JAX's tool checked
                 and recorded.  The ordering is not a gate: one run's
                 outcome is one draw of a wide spread (repeats of one
@@ -389,6 +390,26 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                 against the plain versions.  Export and load seconds, the
                 artifact's bytes, one served call against one ``Predictor``
                 call, and the batch-1 launch shapes timed.
+27. grain    -- the grain stream (``DATALOADER.USE_GRAIN``, the port's
+                ``data/grain_loader.py``) of the student-teacher model at full
+                width in bfloat16 through ``train_net`` on a tree of 20 train
+                JPEGs (an epoch is 2.5 batches of 8), flips off: 4 steps; 2
+                steps, stopped mid-epoch, and a resume to 4 whose batches
+                (indices and every array's bytes) equal the uninterrupted
+                run's, its losses within ``GRAIN["loss_rtol"]``; a JAX run's
+                ``{"next_index": 2}`` file through ``import_jax_checkpoint
+                --loader-state`` resuming the stream at the third batch; the
+                threaded loader's 4 steps (grouped by bucket, which the grain
+                stream is not) beside the grain runs (s/it, data-wait share,
+                padding per batch); one epoch's shuffle of 118287 and of 1.2M
+                records timed on the host; ``test_net`` under the
+                grain loader against the threaded one (predictions equal);
+                ``tools/visualize.py`` on those predictions; and
+                ``utils/profiler.py``: a ``profile_steps`` trace of three ST
+                steps, ``step_flops``, ``mfu_metrics`` and
+                ``device_memory_stats`` beside the card's name and power
+                limit.  Every kernel launch of the phase is held against the
+                plain version.
 One line gives the seconds each phase from 7 on took.  The per-kernel line
 gives, beside each kernel's launches on the earlier paths, its launches on
 the MMSS paths (phase 14 and the MMSS stage of phase 16): 0, on the
@@ -397,7 +418,7 @@ FPN, RetinaNet and RPN-only paths of phases 19 and 20, on the options'
 paths of phase 21, on the student-teacher options' paths of phase 22, on
 each rank of phase 23 (a), (a') and (d'), on phase 24's resume and
 test_net runs, on each ablation run of phase 25 and each served export
-call of phase 26.
+call of phase 26, and on each run of phase 27.
 
 Then the card's name and power limit, the per-kernel JSON line, and the last
 line ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when
@@ -405,6 +426,7 @@ no CUDA device is present or when run outside a checkout of the repository.
 """
 
 import functools
+import hashlib
 import json
 import os
 import re
@@ -5444,11 +5466,12 @@ def phase_jax_checkpoint(dev, results):
 
 
 # phase 25: the end-to-end noisy pseudo-label ablation (the port's
-# tools/ablate_st_e2e.py) at the JAX record's protocol, float32, then the
-# two unpinned bf16 runs; JAX's record (BENCH_NOTES.json
+# tools/ablate_st_e2e.py) at the JAX record's protocol cut to 100 of its 400
+# steps (the tool's --steps 400 is the full study), float32, then the two
+# unpinned bf16 runs; JAX's record at 400 steps (BENCH_NOTES.json
 # round5_st_e2e_ablation: tools/ablate_st_e2e.py --steps 400 --corrupt 0.5
 # on its own init) as (AP50, mean mask IoU, class accuracy)
-ABLATION = dict(steps=400, corrupt=0.5, seed=0, bf16=("fixed", "sampled_bce"), timing_iters=20,
+ABLATION = dict(steps=100, corrupt=0.5, seed=0, bf16=("fixed", "sampled_bce"), timing_iters=20,
                 out="build/ablation_out")
 ABLATION_JAX = {"fixed": (0.406, 0.414, 1.0), "sampled_bce": (0.5, 0.503, 1.0), "logmeanexp": (0.5, 0.446, 1.0),
                 "logmeanexp_unbounded": (0.0, 0.0, 1.0), "sampled_bce_adaptive": (0.094, 0.513, 0.094),
@@ -5566,7 +5589,7 @@ def ablation_run(name, dtype, out_path, steps=None, captured=None, device="cuda"
 
 def phase_ablation(dev, results):
     """Phase 25: the port's ``tools/ablate_st_e2e.py`` at the JAX record's
-    protocol (400 steps, masks complemented at 0.5, seed 0, weights drawn
+    protocol cut to ``ABLATION["steps"]`` (100 of 400; masks complemented at 0.5, seed 0, weights drawn
     from JAX's init distributions): the six conditions in float32 and
     ``fixed`` and ``sampled_bce`` in bf16, each run a process of its own
     (``--ablation-run``), all on the card at once (one run's step is
@@ -5794,6 +5817,273 @@ def count_syncs(run):
     return sum("synchronizing CUDA operation" in str(w.message) for w in caught)
 
 
+# phase 27: the grain stream (DATALOADER.USE_GRAIN) of the student-teacher
+# model on a tree of 20 train JPEGs, so that an epoch is 2.5 batches of 8: a
+# stop after 2 steps is mid-epoch and the third batch spans two epochs; the
+# tree and the outputs (checkpoints of hundreds of MB) are deleted at the end
+GRAIN = dict(tree="build/synth_grain", out="build/grain_out", train=20, val=12, seed=5, grain_seed=3, steps=4,
+             cut=2, loss_rtol=DDP["loss_rtol"][0], viz_limit=4, profile_steps=3, epochs=(118287, 1_200_000))
+
+
+class RecordingLoader:
+    """A train loader that records what it hands out: each batch's
+    indices, a digest of its arrays, its padded shape and its padding
+    share; the last batch is kept."""
+
+    def __init__(self, loader, log):
+        self.loader, self.log, self.last = loader, log, None
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __getattr__(self, name):  # get_state / set_state of a grain stream
+        return getattr(self.loader, name)
+
+    def __iter__(self):
+        for batch, idx in self.loader:
+            digest = hashlib.sha1()
+            for k in sorted(batch):
+                digest.update(k.encode())
+                digest.update(np.ascontiguousarray(batch[k]).tobytes())
+            b, h, w = batch["images"].shape[:3]
+            real = float((batch["image_sizes"][:, 0].astype(np.int64) * batch["image_sizes"][:, 1]).sum())
+            self.log.append(dict(indices=[int(i) for i in idx], digest=digest.hexdigest(), shape=[b, h, w],
+                                 padding=1.0 - real / (b * h * w)))
+            self.last = batch
+            yield batch, idx
+
+
+def stashing(checks_hooks, stash):
+    """Hooks that keep a copy of each launch's inputs and output, to be
+    held against the plain versions after a timed window."""
+
+    def copy(x):
+        return tuple(copy(v) for v in x) if isinstance(x, tuple) else (x.clone() if torch.is_tensor(x) else x)
+
+    return [lambda inputs, out_, h=h: stash.append((h, copy(inputs), copy(out_))) for h in checks_hooks]
+
+
+def phase_grain(dev, results):
+    """Phase 27: the grain stream through ``train_net`` (see the module's
+    docstring), ``import_jax_checkpoint --loader-state``, ``test_net``
+    under it, ``tools/visualize.py`` and ``utils/profiler.py``."""
+    import shutil
+
+    from cvpr22_cross_modal_pseudo_labeling_torch import data as port_data
+    from cvpr22_cross_modal_pseudo_labeling_torch.data.index_shuffle import epoch_permutation, shuffle_seed
+    from cvpr22_cross_modal_pseudo_labeling_torch.ops import kernels
+    from cvpr22_cross_modal_pseudo_labeling_torch.tools import import_jax_checkpoint, test_net, visualize
+    from cvpr22_cross_modal_pseudo_labeling_torch.utils import profiler
+
+    t_phase = time.perf_counter()
+    # one epoch's shuffle on the host: COCO's train2017 and an index space
+    # as large as a repeat-factor expansion of LVIS or OpenImages gives
+    permutation_s = {}
+    for n in GRAIN["epochs"]:
+        t = time.perf_counter()
+        perm = epoch_permutation(n, shuffle_seed(GRAIN["grain_seed"]))
+        permutation_s[n] = time.perf_counter() - t
+        check(np.array_equal(np.sort(perm), np.arange(n)), f"grain: the epoch of {n} is no permutation")
+    del perm
+    tree, out, name, bs = GRAIN["tree"], GRAIN["out"], TRAIN_NET["dataset"], 8
+    for d in (tree, out):
+        shutil.rmtree(d, ignore_errors=True)
+    subprocess.run([sys.executable, "tools/synth_coco.py", "--out", tree, "--train", str(GRAIN["train"]),
+                    "--val", str(GRAIN["val"]), "--seed", str(GRAIN["seed"])], check=True, timeout=600)
+    os.environ["CMPL_TPU_DATA_DIR"] = tree
+    opts = [*map(str, TRAIN_NET["opts"]), "MODEL.WEIGHT", "", "INPUT.HORIZONTAL_FLIP_PROB_TRAIN", "0.0",
+            "DATALOADER.GRAIN_SEED", str(GRAIN["grain_seed"]), "SOLVER.TEST_PERIOD", "0",
+            "SOLVER.CHECKPOINT_PERIOD", "0", "MODEL.LOAD_TRAINER_STATE", "True"]
+    grain = ["DATALOADER.USE_GRAIN", "True"]
+    common = ["--config-file", CONFIG, "--skip-test", "--device", dev.type, "--seed", str(SEED)]
+    checks, *hooks = launch_checks()
+    make = port_data.make_data_loader
+    log, records, runs, batches, launches = [], {}, {}, {}, {}
+
+    def recording(cfg, is_train=True, **kw):
+        loader, ds = make(cfg, is_train=is_train, **kw)
+        if not is_train:
+            return loader, ds
+        records["n"] = len(ds)
+        records["loader"] = RecordingLoader(loader, log)
+        return records["loader"], ds
+
+    def set_hooks(h):
+        kernels.NMS.on_launch, kernels.ROI_ALIGN.on_launch, kernels.ROI_ALIGN_BACKWARD.on_launch = h
+
+    def checked(fn):
+        """``fn()`` with every launch's inputs and output copied, each then
+        held against the plain version (out of the timed run)."""
+        stash = []
+        set_hooks(stashing(hooks, stash))
+        try:
+            return fn()
+        finally:
+            set_hooks((None, None, None))
+            for hook, inputs, out_ in stash:
+                hook(inputs, out_)
+
+    def train(label, argv, run_dir):
+        log[:] = []
+        kernels.reset_launches()
+        rec, summary, text, logged = checked(lambda: train_net_run(common + opts + argv, run_dir))
+        launches[label] = {k.name: k.launches for k in kernels.ALL}
+        batches[label] = list(log)
+        summary["losses"] = {r["step"]: r["total_loss"] for r in logged}
+        summary["padding_per_batch"] = [b["padding"] for b in log]
+        summary["indices"] = [b["indices"] for b in log]
+        runs[label] = summary
+        check(all(np.isfinite(v) for v in summary["losses"].values()), f"grain {label}: losses {summary['losses']}")
+        return rec, text
+
+    port_data.make_data_loader = recording
+    try:
+        steps, cut = GRAIN["steps"], GRAIN["cut"]
+        # the threaded loader groups by bucket (the grain stream cannot)
+        rec, _ = train("threaded", ["DATALOADER.ASPECT_RATIO_GROUPING", "True", "SOLVER.MAX_ITER", str(steps)],
+                       os.path.join(out, "threaded"))
+        del rec
+        whole_dir, cut_dir = os.path.join(out, "whole"), os.path.join(out, "cut")
+        rec, _ = train("grain", grain + ["SOLVER.MAX_ITER", str(steps)], whole_dir)
+        del rec
+        check(cut * bs % records["n"] != 0, f"grain: {records['n']} records, the stop after {cut} is no mid-epoch")
+        rec, _ = train("cut", grain + ["SOLVER.MAX_ITER", str(cut)], cut_dir)
+        with open(os.path.join(cut_dir, "loader_state.json")) as f:
+            state = json.load(f)
+        check(state == {"next_index": cut}, f"grain: the stream's state after {cut} steps is {state}")
+        # a JAX run's stream state at the same point, as JAX writes it
+        # (json.dumps of grain's dict), and a JAX train state at iteration
+        # ``cut`` made without jax
+        jax_dir = os.path.join(out, "jax_run")
+        os.makedirs(jax_dir)
+        with open(os.path.join(jax_dir, "loader_state.json"), "w") as f:
+            f.write(json.dumps({"next_index": cut}))
+        dump = os.path.join(out, "st.npz")
+        with open(dump, "wb") as f:
+            np.savez(f, **jax_train_state_dump(rec["trainer"], SEED, cut, os.path.abspath(dump)))
+        del rec
+        torch.cuda.empty_cache()
+        rec, text = train("resume", grain + ["SOLVER.MAX_ITER", str(steps)], cut_dir)
+        check(rec["start_iter"] == cut and "data stream resumed from loader_state.json" in text,
+              f"grain resume: start {rec['start_iter']}, no stream resume in the log")
+        resumed = batches["cut"] + batches["resume"]
+        bit_equal = [(a["indices"], a["digest"]) == (b["indices"], b["digest"])
+                     for a, b in zip(resumed, batches["grain"])]
+        check(len(resumed) == len(batches["grain"]) == steps and all(bit_equal),
+              f"grain resume: batches differ from the uninterrupted run's: {bit_equal}")
+        whole, cut_losses = runs["grain"]["losses"], {**runs["cut"]["losses"], **runs["resume"]["losses"]}
+        loss_rel = {k: abs(cut_losses[k] - whole[k]) / max(abs(whole[k]), 1e-12) for k in whole}
+        check(sorted(cut_losses) == sorted(whole) and max(loss_rel.values()) <= GRAIN["loss_rtol"],
+              f"grain resume: losses {cut_losses} against {whole}")
+        trainer = rec["trainer"]
+        del rec
+
+        # the JAX-format state through the import tool: the stream resumes
+        # at the third batch
+        imp_dir = os.path.join(out, "imported")
+        t = time.perf_counter()
+        got = import_jax_checkpoint.main(["--config-file", CONFIG, "--dump", dump, "--out", imp_dir,
+                                          "--loader-state", jax_dir, "--device", dev.type, "--seed", str(SEED),
+                                          *opts, *grain])
+        import_s = time.perf_counter() - t
+        os.remove(dump)
+        check(got["iteration"] == cut and got["loader_states"] == [os.path.join(imp_dir, "loader_state.json")],
+              f"grain import: {got}")
+        rec, text = train("imported", grain + ["SOLVER.MAX_ITER", str(cut + 1)], imp_dir)
+        check(rec["start_iter"] == cut and "data stream resumed from loader_state.json" in text
+              and [(b["indices"], b["digest"]) for b in batches["imported"]]
+              == [(b["indices"], b["digest"]) for b in batches["grain"][cut:cut + 1]],
+              f"grain import: start {rec['start_iter']}, batches {batches['imported']}")
+        del rec
+        torch.cuda.empty_cache()
+
+        # test_net under the grain loader and under the threaded one, on the
+        # uninterrupted run's checkpoint
+        tests = {}
+        for label, extra in (("grain", grain), ("threaded", ["DATALOADER.USE_GRAIN", "False"])):
+            e_dir = os.path.join(out, f"test_{label}")
+            kernels.reset_launches()
+            t = time.perf_counter()
+            metrics = checked(lambda: test_net.main(
+                ["--config-file", CONFIG, "--device", dev.type, "--ckpt", os.path.join(whole_dir, f"model_{steps:07d}.pth"),
+                 *map(str, TRAIN_NET["opts"]), *extra, "DATASETS.TEST", f"('{name}',)", "OUTPUT_DIR", e_dir]))[name]
+            launches[f"test_net_{label}"] = {k.name: k.launches for k in kernels.ALL}
+            tests[label] = dict(seconds=time.perf_counter() - t, images=int(metrics["time/images"]),
+                                predictions=predictions_of(os.path.join(e_dir, f"predictions_{name}.json")))
+        check(tests["grain"]["predictions"] == tests["threaded"]["predictions"]
+              and len({p[0] for p in tests["grain"]["predictions"]}) == GRAIN["val"] == tests["grain"]["images"],
+              f"grain test_net: {len(tests['grain']['predictions'])} predictions against "
+              f"{len(tests['threaded']['predictions'])}, images {tests['grain']['images']}")
+
+        # visualize.py on the grain run's predictions
+        t = time.perf_counter()
+        panels = visualize.main(["--config-file", CONFIG, "--predictions",
+                                 os.path.join(out, "test_grain", f"predictions_{name}.json"), "--out",
+                                 os.path.join(out, "viz"), "--limit", str(GRAIN["viz_limit"]), "--score-thresh", "0.0",
+                                 "DATASETS.TEST", f"('{name}',)"])
+        viz_s = time.perf_counter() - t
+        from PIL import Image
+
+        panel_shapes = [list(np.asarray(Image.open(p)).shape) for p in panels]
+        check(len(panels) == GRAIN["viz_limit"] and all(s[2] == 3 and s[1] % 2 == 0 for s in panel_shapes),
+              f"grain visualize: panels {panel_shapes}")
+
+        # utils/profiler.py over three ST steps on the last batch
+        b = trainer.device_batch(records["loader"].last)
+        marks = []
+
+        def timed_step(batch):
+            metrics = trainer.train_step(batch)
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            return metrics
+
+        def profiled():
+            torch.cuda.reset_peak_memory_stats()
+            _, trace_dir, prof = profiler.profile_steps(timed_step, b, n_steps=GRAIN["profile_steps"],
+                                                        logdir=os.path.join(out, "profile"))
+            return trace_dir, prof, profiler.step_flops(trainer.train_step, b), profiler.device_memory_stats()
+
+        kernels.reset_launches()
+        trace_dir, prof, flops, memory = checked(profiled)
+        launches["profile"] = {k.name: k.launches for k in kernels.ALL}
+        s_per_step = float(np.median(np.diff(marks[:GRAIN["profile_steps"] + 1])))
+        # device-side events only (an aten op would count its kernels' time again)
+        device_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                        if "CUDA" in str(e.device_type) and not e.key.startswith("Activity Buffer"))
+        device_ms /= 1e3 * GRAIN["profile_steps"]
+        profile = dict(trace_bytes=os.path.getsize(os.path.join(trace_dir, "trace.json")),
+                       traced_s_per_step=s_per_step, device_ms_per_step=device_ms,
+                       device_busy_share=device_ms / 1e3 / s_per_step, flops_per_step=flops,
+                       **profiler.mfu_metrics(flops, s_per_step), memory=memory)
+        check(flops > 0 and profile["trace_bytes"] > 0 and memory and device_ms > 0, f"grain profile: {profile}")
+        del trainer, b, prof
+    finally:
+        port_data.make_data_loader = make
+        set_hooks((None, None, None))
+        for d in (out, tree):
+            shutil.rmtree(d, ignore_errors=True)
+    total = {k.name: sum(n[k.name] for n in launches.values()) for k in kernels.ALL}
+    check(len(checks["nms"]) == total["nms"] > 0 and all(m == 0 for m, _ in checks["nms"]),
+          f"grain: {total['nms']} NMS launches, {len(checks['nms'])} checked, mismatches {checks['nms']}")
+    check(len(checks["roi_align"]) == total["roi_align"] > 0
+          and all(x <= 0 for _, x, _, _ in checks["roi_align"]),
+          f"grain: {total['roi_align']} RoIAlign launches, {len(checks['roi_align'])} checked")
+    check(total["roi_align_backward"] == len(checks["roi_align_backward"]) == 0,
+          f"grain: the student-teacher path launched the backward {total['roi_align_backward']} times")
+    for r in runs.values():
+        del r["indices"]
+    rec = dict(phase="grain", device=nvidia_smi(), records=records["n"], batch=bs, runs=runs,
+               epoch_permutation_s=permutation_s,
+               resumed_bit_equal=bit_equal, resume_loss_rel=loss_rel, import_s=import_s,
+               test_net={k: {f: v[f] for f in ("seconds", "images")} for k, v in tests.items()},
+               predictions=len(tests["grain"]["predictions"]), visualize_s=viz_s, panels=panel_shapes,
+               profile=profile, launches=launches, checks=check_lists(checks),
+               seconds=time.perf_counter() - t_phase)
+    emit(rec)
+    results["grain"] = rec
+
+
 def kernels_line(results):
     """The per-kernel JSON line from the phases' records."""
     serving, train = results["serving"], results["train"]
@@ -5813,16 +6103,22 @@ def kernels_line(results):
     dp = results["ddp"]
     jx = results["jax_checkpoint"]
     ab, ex = results["ablation"], results["export"]
+    gr = results["grain"]
+
+    def grain_launches(kernel):
+        # each train_net run, each test_net run and the profiled steps of
+        # phase 27
+        return {f"grain_{run}_launches": n[kernel] for run, n in gr["launches"].items()}
 
     def new_phase_launches(kernel):
-        # each ablation run (400 steps, phase 25) and each served export
+        # each ablation run (100 steps, phase 25) and each served export
         # call (phase 26)
         return {**{f"ablation_{run}_launches": n[kernel] for run, n in ab["launches"].items()},
                 **{f"export_{run}_launches": n[kernel] for run, n in ex["launches"].items()}}
 
     def new_phase_errs(field):
         return [x for rec, key in ((ab, "first_step_checks"), (ex, "launch_checks"))
-                for c in rec[key].values() for x in c[field]]
+                for c in rec[key].values() for x in c[field]] + gr["checks"][field]
 
     def new_phase_shapes(prefix):
         return {f"{phase} {k[len(prefix) + 1:]}": shape_rec(v) for phase, rec in (("ablation", ab), ("export", ex))
@@ -5921,6 +6217,7 @@ def kernels_line(results):
              **ddp_launches("nms"),
              **jax_checkpoint_launches("nms"),
              **new_phase_launches("nms"),
+             **grain_launches("nms"),
              launch_unit="one nms_forward call: a memset, then a mask and a scan "
                          "kernel per column band",
              max_abs_err=float(max(serving["first_batch_checks"]["nms_mismatches"]
@@ -5975,6 +6272,7 @@ def kernels_line(results):
              **ddp_launches("roi_align"),
              **jax_checkpoint_launches("roi_align"),
              **new_phase_launches("roi_align"),
+             **grain_launches("roi_align"),
              fpn_launch_unit="the FPN pooler launches the kernel once a level (P2..P5) into one output; "
                              "each launch counts one",
              max_abs_err=max(serving["first_batch_checks"]["roi_align_max_abs_err"]
@@ -6027,6 +6325,7 @@ def kernels_line(results):
              **ddp_launches("roi_align_backward"),
              **jax_checkpoint_launches("roi_align_backward"),
              **new_phase_launches("roi_align_backward"),
+             **grain_launches("roi_align_backward"),
              launch_unit="one roi_align_backward call: the plan kernel (each roi's tap "
                          "lists), then the tile kernel (each tile of dF summed in shared "
                          "memory, written once in bfloat16)",
@@ -6150,6 +6449,8 @@ def main():
     timed("ablation", phase_ablation, dev, results)
     torch.cuda.empty_cache()
     timed("export", phase_export, dev, results)
+    torch.cuda.empty_cache()
+    timed("grain", phase_grain, dev, results)
     emit(dict(phase="timing", **seconds))
 
     print(nvidia_smi(), flush=True)

@@ -6,7 +6,8 @@ that ``engine/inference.py::Predictor`` and ``engine/train_step.py::
 device_batch`` take; its producer thread and decode pool touch numpy
 only, so every CUDA call stays on the caller's thread.  Every factory
 of the JAX package is built, the VOC and Cityscapes ones included;
-``DATALOADER.USE_GRAIN`` raises (ROADMAP.md queue A item 11).
+``DATALOADER.USE_GRAIN`` builds the grain stream of ``data/grain_loader.py``
+instead of the threaded loader, for training and for test.
 
 Re-design of reference data/build.py:18-192 (make_data_loader): catalog
 lookup -> dataset factory -> transforms -> sampler stack (distributed
@@ -236,11 +237,6 @@ def make_data_loader(
 ):
     """data/build.py:115-192. Returns one loader for training, a list
     for test."""
-    if cfg.DATALOADER.USE_GRAIN:
-        raise NotImplementedError(
-            "DATALOADER.USE_GRAIN: the grain loader is not ported yet "
-            "(ROADMAP.md queue A item 11); the port runs the threaded loader"
-        )
     num_hosts = num_replicas if is_distributed else 1
     if is_train:
         global_batch = cfg.SOLVER.IMS_PER_BATCH
@@ -260,6 +256,14 @@ def make_data_loader(
 
     loaders = []
     for ds in datasets:
+        if cfg.DATALOADER.USE_GRAIN:
+            from .grain_loader import make_grain_loader
+
+            loaders.append(
+                make_grain_loader(cfg, ds, collator, is_train, start_iter=start_iter, shard_index=rank,
+                                  shard_count=num_hosts)
+            )
+            continue
         repeat = getattr(ds, "repeat_factors", None)
         sampler = DistributedSampler(
             len(ds),

@@ -32,14 +32,19 @@ numpy and torch alone:
   running mean, and ``state/extra`` becomes the exemplar table
   (``Trainer.exemplars``).
 
-Two things do not carry.  JAX's ``rng`` key: the port draws from a
+JAX's ``rng`` key does not carry: the port draws from a
 ``torch.Generator`` seeded by ``--seed``, another generator.  The grain
-loader's stream state (``loader_state.json`` beside the checkpoint): the
-port has no grain loader and resumes its stream at the start iteration.
+loader's stream state (``loader_state.json`` beside the checkpoint, and
+``loader_state_{rank}.json`` for the other processes) is grain's dict
+``{"next_index": k}``, which the port's grain loader reads as it is:
+``import_loader_states`` copies it beside the port checkpoint, where
+``train_net`` under ``DATALOADER.USE_GRAIN`` resumes the stream from it.
 """
 
+import json
 import os
-from typing import Any, Callable, Dict, Optional, Tuple
+import re
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -256,6 +261,37 @@ def load_into_trainer(trainer, flat: Dict[str, np.ndarray], log: Callable[[str],
         + f", iteration {iteration}")
     rng = flat.get(_root(flat) + "rng")
     log("not carried: JAX's rng key " + ("" if rng is None else f"{np.asarray(rng).tolist()} ")
-        + "(the port draws from a torch.Generator seeded by --seed) and the grain loader's stream state "
-        "(loader_state.json; the port's loader resumes at the start iteration)")
+        + "(the port draws from a torch.Generator seeded by --seed)")
     return iteration
+
+
+LOADER_STATE = re.compile(r"loader_state(_\d+)?\.json")
+
+
+def import_loader_states(src: str, out: str, log: Callable[[str], None] = print) -> List[str]:
+    """Copies a JAX run's grain stream states into ``out``: ``src`` is a
+    ``loader_state*.json`` file (written under its own name, or as rank
+    0's ``loader_state.json`` if it has another) or the run's
+    ``OUTPUT_DIR``, whose every ``loader_state*.json`` is copied.  Each
+    must be grain's ``{"next_index": k}``.  Returns the paths written."""
+    if os.path.isdir(src):
+        names = sorted(n for n in os.listdir(src) if LOADER_STATE.fullmatch(n))
+        if not names:
+            raise FileNotFoundError(f"{src}: no loader_state*.json (was the JAX run's DATALOADER.USE_GRAIN on?)")
+        pairs = [(os.path.join(src, n), n) for n in names]
+    else:
+        name = os.path.basename(src)
+        pairs = [(src, name if LOADER_STATE.fullmatch(name) else "loader_state.json")]
+    os.makedirs(out, exist_ok=True)
+    written = []
+    for path, name in pairs:
+        with open(path) as f:
+            state = json.load(f)
+        if not isinstance(state, dict) or not isinstance(state.get("next_index"), int):
+            raise ValueError(f"{path}: not a grain stream state ({{'next_index': k}}): {state!r}")
+        dst = os.path.join(out, name)
+        with open(dst, "w") as f:
+            json.dump(state, f)
+        log(f"grain stream state {state} from {path} -> {dst}")
+        written.append(dst)
+    return written

@@ -23,7 +23,10 @@ are found under ``CMPL_TPU_DATA_DIR``.  In JAX's order:
 
 * an ``OUTPUT_DIR/last_checkpoint`` with ``MODEL.LOAD_TRAINER_STATE``
   resumes: the loader starts at its iteration, and the checkpoint
-  restores the model, the optimizer and the generator;
+  restores the model, the optimizer and the generator; under
+  ``DATALOADER.USE_GRAIN`` with a saved ``loader_state.json``
+  (``loader_state_{rank}.json`` on the other ranks) the grain stream is
+  built from its start and positioned by that state instead, mid-epoch;
 * otherwise the weights are drawn from ``--seed``
   (``bridge.seeded_flax_params``), then ``MODEL.WEIGHT`` (a port
   checkpoint or its ``OUTPUT_DIR``, the ``.npz`` dump of a JAX-trained
@@ -155,7 +158,13 @@ def train(cfg, logger, device: str = "cuda", seed: int = 0) -> Dict:
     )
     from ..engine.inference import Predictor, check_eval_options, inference, iou_types
     from ..engine.train_step import Trainer
-    from ..engine.trainer import compute_class_name_embeddings, do_train, tokenize_class_names
+    from ..engine.trainer import (
+        compute_class_name_embeddings,
+        do_train,
+        loader_state_path,
+        restore_loader_state,
+        tokenize_class_names,
+    )
     from ..models.detector import ST_FAMILY
     from ..parallel.dist import barrier, gather_objects, is_primary, rank, world_size
     from ..utils.env_info import save_labels
@@ -173,7 +182,13 @@ def train(cfg, logger, device: str = "cuda", seed: int = 0) -> Dict:
     last = latest_checkpoint(cfg.OUTPUT_DIR)
     resuming = bool(last and cfg.MODEL.LOAD_TRAINER_STATE)
     start_iter = checkpoint_step(last) if resuming else 0
-    loader, dataset = make_data_loader(cfg, is_train=True, start_iter=start_iter, **shard)
+    # a resumed grain stream is positioned by its saved state, so it is
+    # not also sliced at the iteration (that would skip twice)
+    use_stream_state = bool(
+        cfg.DATALOADER.USE_GRAIN and start_iter > 0 and os.path.exists(loader_state_path(cfg.OUTPUT_DIR))
+    )
+    loader, dataset = make_data_loader(cfg, is_train=True, start_iter=0 if use_stream_state else start_iter,
+                                       **shard)
     trainer = Trainer(cfg, device=device, seed=seed)
     if trainer.exemplars is not None:
         logger.info("exemplar table initialized: %d slots x %d dims", *trainer.exemplars["embs"].shape)
@@ -213,6 +228,8 @@ def train(cfg, logger, device: str = "cuda", seed: int = 0) -> Dict:
             )
             start_iter = restored_iter
         logger.info("resumed from %s at iteration %d", last, start_iter)
+        if use_stream_state and restore_loader_state(cfg.OUTPUT_DIR, loader):
+            logger.info("data stream resumed from %s", os.path.basename(loader_state_path(cfg.OUTPUT_DIR)))
 
     # MMSS reads no class table, nor does a class-specific detector, whose
     # datasets (VOC, Cityscapes) may have none

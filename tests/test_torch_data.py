@@ -153,11 +153,26 @@ def test_class_specific_datasets_build_as_in_jax(tmp_path, monkeypatch, name, fa
     assert tb["gt_valid"].any()
 
 
-def test_grain_loader_raises(tree, monkeypatch):
-    monkeypatch.setenv("CMPL_TPU_DATA_DIR", str(tree))
-    _, tc = cfgs(EVAL_OPTS + ["DATALOADER.USE_GRAIN", True])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        torch_build.make_data_loader(tc, is_train=False)
+def test_grain_loader_raises(both_catalogs, monkeypatch):
+    """``DATALOADER.USE_GRAIN`` raised before the grain stream was ported;
+    now it builds the grain loader (``data/grain_loader.py``, without
+    grain), for test and for training, and both give JAX's grain
+    loader's batches on the tree."""
+    for mod in (jax_coco, torch_coco):
+        monkeypatch.setattr(mod, "visit_rng", lambda index: random.Random(1000 + index))
+    from cvpr22_cross_modal_pseudo_labeling_torch.data.grain_loader import GrainLoader
+
+    jc, tc = cfgs(EVAL_OPTS + ["DATALOADER.USE_GRAIN", True])
+    (jl,), _ = jax_build.make_data_loader(jc, is_train=False)
+    (tl,), _ = torch_build.make_data_loader(tc, is_train=False)
+    assert isinstance(tl, GrainLoader) and len(tl) == len(jl) == 3
+    assert_batches_equal(list(jl), list(tl))
+    jc, tc = cfgs(TRAIN_OPTS + ["DATALOADER.USE_GRAIN", True, "DATALOADER.ASPECT_RATIO_GROUPING", False])
+    jl, _ = jax_build.make_data_loader(jc, is_train=True)
+    tl, _ = torch_build.make_data_loader(tc, is_train=True)
+    assert isinstance(tl, GrainLoader)
+    assert_batches_equal(list(jl), list(tl))
+    assert tl.get_state() == jl.get_state() == {"next_index": 3}
 
 
 @pytest.mark.parametrize("hw", [(480, 640), (640, 427), (612, 612), (1100, 900), (30, 2000)])

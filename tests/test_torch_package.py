@@ -1,5 +1,5 @@
-"""The port stands alone: it imports neither jax/flax nor the JAX
-package, and its kernel wrappers know how they were built."""
+"""The port stands alone: it imports neither jax/flax, nor grain, nor the
+JAX package, and its kernel wrappers know how they were built."""
 
 import ast
 import pathlib
@@ -10,7 +10,7 @@ import cvpr22_cross_modal_pseudo_labeling_torch as port
 from cvpr22_cross_modal_pseudo_labeling_torch.ops import kernels
 
 ROOT = pathlib.Path(port.__file__).resolve().parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "cvpr22_cross_modal_pseudo_labeling_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "grain", "cvpr22_cross_modal_pseudo_labeling_tpu")
 
 
 def _modules():

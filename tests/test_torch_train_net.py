@@ -223,8 +223,14 @@ def test_train_net_needs_a_card_unless_cpu_is_asked_for(tmp_path):
     (["DATALOADER.USE_GRAIN", True], "USE_GRAIN"),
 ])
 def test_unported_training_options_raise(tmp_path, opts, match):
-    with pytest.raises(NotImplementedError, match=match):
-        run(STUDENT, tmp_path, "SOLVER.MAX_ITER", 1, *opts)
+    """The training options the port refused until they were ported; each
+    now trains.  ``DATALOADER.USE_GRAIN`` trains on
+    the grain stream, whose state after the step is saved beside the
+    checkpoint and named in the logged config."""
+    rec = run(STUDENT, tmp_path, "SOLVER.MAX_ITER", 1, *opts)
+    assert rec["trainer"].optimizer.updates == 1 and [r["step"] for r in logged(tmp_path)] == [1]
+    assert json.loads((tmp_path / "loader_state.json").read_text()) == {"next_index": 1}
+    assert match in log_text(tmp_path)
 
 
 def test_a_sampler_that_never_fills_a_batch_raises():
