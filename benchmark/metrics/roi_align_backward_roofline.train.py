@@ -1,0 +1,8 @@
+"""The share of its bound that the ``cmpl::roi_align_backward`` launches
+reached."""
+
+from harness import readers
+
+
+def read(run, config):
+    return readers.roofline(run, "roi_align_backward")
